@@ -1,0 +1,66 @@
+"""Bucketize: stable sort of every tile's (key, index) pairs by the digit.
+
+The PyTorch counterpart of ``gpuradixsort_tpu/kernels/bucketize.py``.  After
+it runs, every tile is digit-major, so the global scatter of
+``kernels/scatter.py`` copies whole runs.  On a CUDA tensor it launches
+``csrc/bucketize.cu``, a counting split in shared memory; on a CPU tensor it
+runs the plain version, a per-tile stable argsort by digit.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from gpuradixsort_tpu_torch.config import LANES, EngineConfig, resolve_impl
+from gpuradixsort_tpu_torch.core.table import int32_bits
+from gpuradixsort_tpu_torch.kernels._build import launch
+from gpuradixsort_tpu_torch.kernels.radix import check_keys, digits_of
+
+
+def _bucketize_ref(keys: torch.Tensor, idx: torch.Tensor, shift: int, cfg: EngineConfig):
+    """Plain version: per-tile argsort(digit, stable) applied to key and index."""
+    num_tiles = keys.numel() // cfg.tile
+    digits = digits_of(keys, shift, cfg.radix).view(num_tiles, cfg.tile)
+    order = torch.argsort(digits, dim=1, stable=True)
+
+    def take(t):
+        rows = int32_bits(t).view(num_tiles, cfg.tile)
+        return torch.take_along_dim(rows, order, dim=1).view(-1).view(t.dtype)
+
+    return take(keys), take(idx)
+
+
+def bucketize_tiles(
+    keys: torch.Tensor,
+    idx: torch.Tensor,
+    shift: int,
+    cfg: EngineConfig,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable-sort every tile by digit.  keys, idx: (num_tiles * tile,) uint32."""
+    if cfg.radix > 16:
+        raise ValueError("bucketize supports radix <= 16")
+    num_tiles = check_keys("keys", keys, cfg)
+    check_keys("idx", idx, cfg)
+    if idx.numel() != keys.numel() or idx.device != keys.device:
+        raise ValueError("keys and idx must have one length and one device")
+    if resolve_impl(keys, impl) == "reference":
+        return _bucketize_ref(keys, idx, shift, cfg)
+    out_keys = torch.empty_like(keys)
+    out_idx = torch.empty_like(idx)
+    # One thread per element of a chunk; the chunk must divide the tile.
+    # 512 threads (two chunks of the default tile) measured faster on the
+    # H100 than 1024 or 128.
+    threads = LANES * math.gcd(cfg.tile_rows, 4)
+    launch(
+        "grs_bucketize", keys, keys.data_ptr(), idx.data_ptr(),
+        out_keys.data_ptr(), out_idx.data_ptr(), num_tiles, cfg.tile, threads,
+        shift, cfg.radix,
+    )
+    bucketize_tiles.launches += 1
+    return out_keys, out_idx
+
+
+bucketize_tiles.launches = 0

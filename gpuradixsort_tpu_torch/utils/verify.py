@@ -1,0 +1,48 @@
+"""Result verification: the reference's is-sorted check, vectorized.
+
+The PyTorch counterpart of ``gpuradixsort_tpu/utils/verify.py``: a host-side
+sortedness check, the shuffled 0..N-1 permutation oracle, and a device-side
+sortedness predicate.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gpuradixsort_tpu_torch.core.table import int32_bits
+
+
+def _host(keys) -> np.ndarray:
+    return keys.cpu().numpy() if isinstance(keys, torch.Tensor) else np.asarray(keys)
+
+
+def is_sorted(keys, length: int | None = None) -> bool:
+    """True iff keys[:length] is non-decreasing."""
+    arr = _host(keys)
+    if length is not None:
+        arr = arr[:length]
+    if arr.size <= 1:
+        return True
+    return bool(np.all(arr[1:] >= arr[:-1]))
+
+
+def is_permutation_sorted(keys, n: int | None = None) -> bool:
+    """The reference's demo oracle: sorted shuffled 0..N-1 == arange."""
+    arr = _host(keys)
+    if n is not None:
+        arr = arr[:n]
+    return bool(np.array_equal(arr, np.arange(arr.shape[0], dtype=arr.dtype)))
+
+
+def device_is_sorted(keys: torch.Tensor) -> torch.Tensor:
+    """Sortedness as a 0-d bool tensor on the keys' device (no readback).
+
+    uint32 has no comparison in PyTorch, so its bits are widened to int64.
+    """
+    if keys.shape[0] <= 1:
+        return torch.ones((), dtype=torch.bool, device=keys.device)
+    wide = int32_bits(keys).to(torch.int64)
+    if keys.dtype == torch.uint32:
+        wide = wide & 0xFFFFFFFF
+    return torch.all(wide[1:] >= wide[:-1])

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and skips where there is none.  The file
+imports no JAX, so it also runs on a machine with PyTorch and a card only:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``tests/conftest.py`` imports JAX for the JAX package's tests.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpuradixsort_tpu_torch.config import EngineConfig
+from gpuradixsort_tpu_torch.core.table import int32_bits
+from gpuradixsort_tpu_torch.kernels import _build
+from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
+from gpuradixsort_tpu_torch.kernels import radix as tradix
+from gpuradixsort_tpu_torch.kernels import scatter as tscatter
+from gpuradixsort_tpu_torch.ops import sort as tsort
+
+pytestmark = pytest.mark.cuda
+
+CFG = EngineConfig()
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def gen():
+    return np.random.default_rng(20170101)
+
+
+def _keysets(gen, n):
+    return {
+        "uniform": gen.integers(0, 2**32, n, dtype=np.uint32),
+        "lowbits": gen.integers(0, 16, n, dtype=np.uint32),
+        "all_equal": np.full(n, 0xDEADBEEF, dtype=np.uint32),
+        "max_keys": np.where(
+            gen.integers(0, 2, n).astype(bool), np.uint32(0xFFFFFFFF),
+            gen.integers(0, 100, n, dtype=np.uint32),
+        ),
+    }
+
+
+def _same(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return torch.equal(int32_bits(got), int32_bits(want))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_kernels_match_plain(bits, card, gen):
+    cfg = EngineConfig(radix_bits=bits)
+    for keys_np in _keysets(gen, 4 * cfg.block).values():
+        keys = torch.from_numpy(keys_np).to(card)
+        idx = torch.arange(keys.numel(), dtype=torch.int32, device=card).view(torch.uint32)
+        for shift in (0, 4, 28):
+            hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
+            assert _same(tradix.tile_histograms(keys, shift, cfg), hist)
+            if cfg.radix > 16:
+                continue
+            ref = tbucketize.bucketize_tiles(keys, idx, shift, cfg, impl="reference")
+            got = tbucketize.bucketize_tiles(keys, idx, shift, cfg)
+            assert all(_same(g, r) for g, r in zip(got, ref))
+            off = tradix.global_offsets(hist)
+            ref = tscatter.scatter_runs(*ref, hist, off, cfg, impl="reference")[:2]
+            got = tscatter.scatter_runs(*got, hist, off, cfg)[:2]
+            assert all(_same(g, r) for g, r in zip(got, ref))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 16])
+def test_kernels_at_other_tile_sizes(tile_rows, card, gen):
+    # Tiles of 128, 384 and 2048 keys: bucketize runs 1, 3 and 4 chunks.
+    cfg = EngineConfig(tile_rows=tile_rows)
+    keys = torch.from_numpy(gen.integers(0, 2**32, 2 * cfg.block, dtype=np.uint32)).to(card)
+    idx = torch.arange(keys.numel(), dtype=torch.int32, device=card).view(torch.uint32)
+    hist = tradix.tile_histograms(keys, 4, cfg, impl="reference")
+    assert _same(tradix.tile_histograms(keys, 4, cfg), hist)
+    ref = tbucketize.bucketize_tiles(keys, idx, 4, cfg, impl="reference")
+    got = tbucketize.bucketize_tiles(keys, idx, 4, cfg)
+    assert all(_same(g, r) for g, r in zip(got, ref))
+    off = tradix.global_offsets(hist)
+    ref = tscatter.scatter_runs(*ref, hist, off, cfg, impl="reference")[:2]
+    got = tscatter.scatter_runs(*got, hist, off, cfg)[:2]
+    assert all(_same(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("n", [1000, 3 * CFG.block + 17])
+def test_fused_sort_on_card_matches_cpu(n, card, gen):
+    for keys in _keysets(gen, n).values():
+        before = tradix.tile_histograms.launches
+        s, p = tsort.sort_pairs(keys, CFG, method="fused", device=card)
+        assert tradix.tile_histograms.launches > before
+        cs, cp = tsort.sort_pairs(keys, CFG, method="fused")
+        np.testing.assert_array_equal(s.data.cpu().numpy(), cs.data.numpy())
+        np.testing.assert_array_equal(p.data.cpu().numpy(), cp.data.numpy())
+        order = np.argsort(keys, kind="stable")
+        np.testing.assert_array_equal(p.to_numpy(), order.astype(np.uint32))
+
+
+def test_torch_method_on_card(card, gen):
+    keys = gen.integers(0, 50, size=CFG.block + 3, dtype=np.uint32)
+    s, p = tsort.sort_pairs(keys, CFG, method="fused", device=card)
+    s2, p2 = tsort.sort_pairs(keys, CFG, method="torch", device=card)
+    assert _same(s.data, s2.data) and _same(p.data, p2.data)
+
+
+def test_rejected_launch_raises(card):
+    # A block of 2048 threads exceeds the limit of 1024: the entry point
+    # returns an error code without launching, and the wrapper raises.
+    keys = torch.zeros(CFG.block, dtype=torch.int32, device=card).view(torch.uint32)
+    out = torch.empty_like(keys)
+    with pytest.raises(RuntimeError, match="grs_bucketize"):
+        _build.launch(
+            "grs_bucketize", keys, keys.data_ptr(), keys.data_ptr(), out.data_ptr(),
+            out.data_ptr(), CFG.block // CFG.tile, CFG.tile, 2048, 0, CFG.radix,
+        )

@@ -1,0 +1,184 @@
+"""The port's kernel modules against the JAX package's kernels, element for element.
+
+On the CPU each wrapper runs its plain PyTorch version, which is held here
+against the JAX package's jnp reference (``impl="reference"``) and, at one
+small shape each, against the Pallas kernel body itself
+(``impl="interpret"``), as ``tests/test_kernel_parity.py`` runs it.  The
+port's tables are (tiles, radix); the JAX package's are padded to 128 lanes,
+so the comparisons take its first ``radix`` columns.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpuradixsort_tpu.config import EngineConfig as JaxConfig
+from gpuradixsort_tpu.kernels import bucketize as jbucketize
+from gpuradixsort_tpu.kernels import radix as jradix
+from gpuradixsort_tpu.kernels import scatter as jscatter
+from gpuradixsort_tpu_torch.config import LANES, EngineConfig
+from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
+from gpuradixsort_tpu_torch.kernels import radix as tradix
+from gpuradixsort_tpu_torch.kernels import scatter as tscatter
+
+torch.set_num_threads(1)
+
+SHIFTS = [0, 4, 28]
+
+
+def _keysets(rng, n):
+    return {
+        "uniform": rng.integers(0, 2**32, n, dtype=np.uint32),
+        "lowbits": rng.integers(0, 16, n, dtype=np.uint32),
+        "all_equal": np.full(n, 0xDEADBEEF, dtype=np.uint32),
+        "max_keys": np.where(
+            rng.integers(0, 2, n).astype(bool), np.uint32(0xFFFFFFFF),
+            rng.integers(0, 100, n, dtype=np.uint32),
+        ),
+    }
+
+
+def _both(keys_np, idx_np=None):
+    """The same keys as a JAX (rows, 128) view and a port 1-D tensor."""
+    if idx_np is None:
+        idx_np = np.arange(keys_np.size, dtype=np.uint32)
+    return (
+        jnp.asarray(keys_np).reshape(-1, LANES),
+        jnp.asarray(idx_np).reshape(-1, LANES),
+        torch.from_numpy(keys_np.copy()),
+        torch.from_numpy(idx_np.copy()),
+    )
+
+
+def _eq(got: torch.Tensor, want):
+    want = np.asarray(want)
+    got = got.numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want.reshape(got.shape))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("shift", SHIFTS)
+def test_histograms_and_offsets_match_jax(bits, shift, rng):
+    cfg, jcfg = EngineConfig(radix_bits=bits), JaxConfig(radix_bits=bits)
+    for name, keys in _keysets(rng, 2 * cfg.block).items():
+        jk, _, tk, _ = _both(keys)
+        jhist = jradix.tile_histograms(jk, shift, jcfg, impl="reference")
+        thist = tradix.tile_histograms(tk, shift, cfg)
+        assert thist.shape == (2 * cfg.block // cfg.tile, cfg.radix)
+        _eq(thist, np.asarray(jhist)[:, : cfg.radix])
+        _eq(tradix.global_offsets(thist),
+            np.asarray(jradix.global_offsets(jhist))[:, : cfg.radix])
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("shift", SHIFTS)
+def test_bucketize_matches_jax(bits, shift, rng):
+    cfg, jcfg = EngineConfig(radix_bits=bits), JaxConfig(radix_bits=bits)
+    for name, keys in _keysets(rng, 2 * cfg.block).items():
+        idx = rng.permutation(keys.size).astype(np.uint32)
+        jk, ji, tk, ti = _both(keys, idx)
+        jbk, jbi = jbucketize.bucketize_tiles(jk, ji, shift, jcfg, impl="reference")
+        tbk, tbi = tbucketize.bucketize_tiles(tk, ti, shift, cfg)
+        _eq(tbk, jbk)
+        _eq(tbi, jbi)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("shift", SHIFTS)
+def test_scatter_runs_matches_jax(bits, shift, rng):
+    cfg, jcfg = EngineConfig(radix_bits=bits), JaxConfig(radix_bits=bits)
+    for name, keys in _keysets(rng, 4 * cfg.block).items():
+        jk, ji, _, _ = _both(keys)
+        jhist = jradix.tile_histograms(jk, shift, jcfg, impl="reference")
+        joff = jradix.global_offsets(jhist)
+        jbk, jbi = jbucketize.bucketize_tiles(jk, ji, shift, jcfg, impl="reference")
+        jok, joi, joverflow = jscatter.scatter_runs(
+            jbk, jbi, jhist, joff, jcfg, window_rows=cfg.tile_rows, impl="reference")
+        assert not bool(joverflow)
+        tok, toi, overflow = tscatter.scatter_runs(
+            torch.from_numpy(np.array(jbk).reshape(-1)),
+            torch.from_numpy(np.array(jbi).reshape(-1)),
+            torch.from_numpy(np.asarray(jhist)[:, : cfg.radix].copy()),
+            torch.from_numpy(np.asarray(joff)[:, : cfg.radix].copy()),
+            cfg,
+        )
+        assert overflow is False
+        _eq(tok, jok)
+        _eq(toi, joi)
+        # One pass sorts stably by the digit.
+        digit = (keys >> np.uint32(shift)) & np.uint32(cfg.radix - 1)
+        order = np.argsort(digit, kind="stable")
+        np.testing.assert_array_equal(tok.numpy(), keys[order])
+        np.testing.assert_array_equal(toi.numpy(), order.astype(np.uint32))
+
+
+def test_plain_versions_match_pallas_interpret(rng):
+    # The Pallas kernel bodies themselves, at one small shape each.
+    cfg, jcfg = EngineConfig(), JaxConfig()
+    keys = rng.integers(0, 2**32, cfg.block, dtype=np.uint32)
+    jk, _, tk, _ = _both(keys)
+    jhist = jradix.tile_histograms(jk, 8, jcfg, impl="interpret")
+    _eq(tradix.tile_histograms(tk, 8, cfg), np.asarray(jhist)[:, : cfg.radix])
+
+    cfg2, jcfg2 = EngineConfig(radix_bits=2), JaxConfig(radix_bits=2)
+    jk, ji, tk, ti = _both(keys)
+    jhist = jradix.tile_histograms(jk, 0, jcfg2, impl="reference")
+    joff = jradix.global_offsets(jhist)
+    jbk, jbi = jbucketize.bucketize_tiles(jk, ji, 0, jcfg2, impl="reference")
+    jok, joi, _ = jscatter.scatter_runs(
+        jbk, jbi, jhist, joff, jcfg2, window_rows=cfg2.tile_rows, impl="interpret")
+    thist = tradix.tile_histograms(tk, 0, cfg2)
+    tbk, tbi = tbucketize.bucketize_tiles(tk, ti, 0, cfg2)
+    tok, toi, _ = tscatter.scatter_runs(tbk, tbi, thist, tradix.global_offsets(thist), cfg2)
+    _eq(tok, jok)
+    _eq(toi, joi)
+
+
+def test_digits_of_matches_jax():
+    keys = np.array([0, 1, 0xF0, 0xFFFFFFFF, 0x80000000, 0x12345678], dtype=np.uint32)
+    for shift, radix in ((0, 16), (4, 16), (28, 16), (31, 2), (24, 256)):
+        want = np.asarray(jradix._digits_of(jnp.asarray(keys), shift, radix))
+        got = tradix.digits_of(torch.from_numpy(keys), shift, radix)
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_wrappers_reject_bad_input():
+    cfg = EngineConfig()
+    good = torch.zeros(cfg.block, dtype=torch.int32).view(torch.uint32)
+    with pytest.raises(ValueError, match="uint32"):
+        tradix.tile_histograms(torch.zeros(cfg.block, dtype=torch.int64), 0, cfg)
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        tradix.tile_histograms(good[: cfg.tile - 1], 0, cfg)
+    with pytest.raises(ValueError, match="1-D"):
+        tradix.tile_histograms(good.view(-1, LANES), 0, cfg)
+    with pytest.raises(ValueError, match="radix <= 16"):
+        tbucketize.bucketize_tiles(good, good, 0, EngineConfig(radix_bits=8))
+    with pytest.raises(ValueError, match="one length"):
+        tbucketize.bucketize_tiles(good, good[: cfg.tile], 0, cfg)
+    hist = tradix.tile_histograms(good, 0, cfg)
+    with pytest.raises(ValueError, match="offsets"):
+        tscatter.scatter_runs(good, good, hist, hist[:, :4].contiguous(), cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        tscatter.scatter_runs(good, good, hist, hist.t().contiguous().t(), cfg)
+    for call in (
+        lambda: tradix.tile_histograms(good, 0, cfg, impl="cuda"),
+        lambda: tbucketize.bucketize_tiles(good, good, 0, cfg, impl="cuda"),
+        lambda: tscatter.scatter_runs(good, good, hist, hist, cfg, impl="cuda"),
+    ):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+
+
+def test_plain_path_launches_no_kernel(rng):
+    cfg = EngineConfig()
+    before = (tradix.tile_histograms.launches, tbucketize.bucketize_tiles.launches,
+              tscatter.scatter_runs.launches)
+    keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
+    hist = tradix.tile_histograms(keys, 0, cfg)
+    bk, bi = tbucketize.bucketize_tiles(keys, keys, 0, cfg)
+    tscatter.scatter_runs(bk, bi, hist, tradix.global_offsets(hist), cfg)
+    after = (tradix.tile_histograms.launches, tbucketize.bucketize_tiles.launches,
+             tscatter.scatter_runs.launches)
+    assert after == before

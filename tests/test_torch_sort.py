@@ -1,0 +1,175 @@
+"""The port's fused sort against the JAX package's fused sort and numpy.
+
+Every case runs the same numpy keys through ``gpuradixsort_tpu``'s
+``method="fused"`` (jnp references on the CPU) and through the port's, and
+requires the padded output buffers to be equal element for element, pad
+rows included, and the live prefix to equal ``np.sort`` /
+``np.argsort(kind="stable")``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpuradixsort_tpu import config as jconfig
+from gpuradixsort_tpu.core import table as jtable
+from gpuradixsort_tpu.ops import sort as jsort
+from gpuradixsort_tpu_torch import config as tconfig
+from gpuradixsort_tpu_torch.core import table as ttable
+from gpuradixsort_tpu_torch.ops import sort as tsort
+from gpuradixsort_tpu_torch.ops.permute import gather_rows
+from gpuradixsort_tpu_torch.utils import timing, verify
+
+torch.set_num_threads(1)
+
+CFG = tconfig.EngineConfig()
+JCFG = jconfig.EngineConfig()
+BLOCK = CFG.block
+
+
+def _keysets(rng, n):
+    return {
+        "random": rng.integers(0, 2**32, size=n, dtype=np.uint32),
+        "presorted": np.arange(n, dtype=np.uint32),
+        "all_equal": np.full(n, 0xDEADBEEF, dtype=np.uint32),
+        "few_values": rng.integers(0, 4, size=n, dtype=np.uint32),
+        # Live keys equal to PAD_KEY must stay before the pad rows.
+        "max_keys": np.where(
+            rng.integers(0, 2, size=n).astype(bool), np.uint32(0xFFFFFFFF),
+            rng.integers(0, 100, size=n, dtype=np.uint32),
+        ),
+    }
+
+
+def _check_pairs(keys, cfg, jcfg):
+    s, p = tsort.sort_pairs(keys, cfg, method="fused")
+    js, jp = jsort.sort_pairs(jtable.make_key_column(keys, jcfg), jcfg, method="fused")
+    np.testing.assert_array_equal(s.data.numpy(), np.asarray(js.data))
+    np.testing.assert_array_equal(p.data.numpy(), np.asarray(jp.data))
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(s.to_numpy(), keys[order])
+    np.testing.assert_array_equal(p.to_numpy(), order.astype(np.uint32))
+    return s
+
+
+@pytest.mark.parametrize("n", [1000, 3 * BLOCK + 17])
+def test_sort_pairs_matches_jax_fused(n, rng):
+    for name, keys in _keysets(rng, n).items():
+        _check_pairs(keys, CFG, JCFG)
+
+
+@pytest.mark.parametrize("n", [1, 127, 1024, BLOCK - 1, BLOCK + 1])
+def test_sort_keys_ragged_matches_jax_fused(n, rng):
+    keys = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    keys[: min(n, 3)] = 0xFFFFFFFF
+    out = tsort.sort_keys(keys, CFG, method="fused")
+    jout = jsort.sort_keys(jtable.make_key_column(keys, JCFG), JCFG, method="fused")
+    np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data))
+    np.testing.assert_array_equal(out.to_numpy(), np.sort(keys))
+    assert out.length == n
+
+
+def test_reference_parity_config_one_bit(rng):
+    cfg, jcfg = tconfig.REFERENCE_PARITY_CONFIG, jconfig.REFERENCE_PARITY_CONFIG
+    keys = rng.integers(0, 2**32, size=3000, dtype=np.uint32)
+    _check_pairs(keys, cfg, jcfg)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_radix_widths_match_jax(bits, rng):
+    cfg, jcfg = tconfig.EngineConfig(radix_bits=bits), jconfig.EngineConfig(radix_bits=bits)
+    keys = rng.integers(0, 2**32, size=2 * BLOCK, dtype=np.uint32)
+    _check_pairs(keys, cfg, jcfg)
+
+
+def test_sort_table_matches_jax(rng):
+    n = 2 * BLOCK - 5
+    keys = rng.integers(0, 1000, size=n, dtype=np.uint32)
+    payload = rng.integers(0, 2**31, size=(n, 16)).astype(np.int32)  # 64-byte rows
+    other = rng.standard_normal(n).astype(np.float32)
+    jt = jtable.table_from_arrays(JCFG, payload=payload, other=other)
+    jt = jt.with_column("key", jtable.make_key_column(keys, JCFG))
+    jout = jsort.sort_table(jt, "key", JCFG, method="fused")
+    out = tsort.sort_table(ttable.table_from_jax(jt), "key", CFG, method="fused")
+    assert out.names() == jout.names()
+    # Full padded buffers: the port reads the index as int32 as the JAX
+    # package does, so pad rows (index PAD_INDEX -> -1 -> clipped to 0)
+    # gather row 0 in both.
+    for name in jout.names():
+        np.testing.assert_array_equal(out[name].data.numpy(), np.asarray(jout[name].data))
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(out["payload"].to_numpy(), payload[order])
+    np.testing.assert_array_equal(out["other"].to_numpy(), other[order])
+    np.testing.assert_array_equal(out["payload"].data.numpy()[n:], np.repeat(payload[:1], 5, 0))
+
+
+def test_torch_method_and_auto_agree_with_fused(rng):
+    keys = rng.integers(0, 50, size=BLOCK + 3, dtype=np.uint32)
+    s, p = tsort.sort_pairs(keys, CFG, method="fused")
+    for method in ("torch", "auto"):
+        s2, p2 = tsort.sort_pairs(keys, CFG, method=method)
+        np.testing.assert_array_equal(s2.data.numpy(), s.data.numpy())
+        np.testing.assert_array_equal(p2.data.numpy(), p.data.numpy())
+
+
+def test_unported_and_unknown_methods_raise():
+    keys = np.arange(10, dtype=np.uint32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsort.sort_keys(keys, CFG, method="radix")
+    with pytest.raises(ValueError, match="unknown sort method"):
+        tsort.sort_pairs(keys, CFG, method="xla")
+
+
+def test_constant_digit_passes_are_skipped():
+    before = tsort._fused_sort_padded.skipped_passes
+    keys = np.full(BLOCK, 7, dtype=np.uint32)  # no pads: every digit constant
+    s, p = tsort.sort_pairs(keys, CFG, method="fused")
+    assert tsort._fused_sort_padded.skipped_passes - before == CFG.num_passes
+    np.testing.assert_array_equal(p.to_numpy(), np.arange(BLOCK, dtype=np.uint32))
+    before = tsort._fused_sort_padded.skipped_passes
+    perm = np.random.default_rng(3).permutation(1 << 14).astype(np.uint32)
+    s, _ = tsort.sort_pairs(perm, CFG, method="fused")
+    # Keys below 2^14 have constant digits in passes 4..7.
+    assert tsort._fused_sort_padded.skipped_passes - before == 4
+    assert verify.is_permutation_sorted(s.valid())
+
+
+def test_stale_rows_past_length_are_repadded(rng):
+    keys = rng.integers(0, 2**32, size=BLOCK, dtype=np.uint32)
+    # A column whose rows past `length` hold small garbage keys.
+    col = ttable.Column(torch.from_numpy(keys.copy()), 100)
+    jcol = jtable.Column(jtable.make_key_column(keys, JCFG).data, 100)
+    out = tsort.sort_keys(col, CFG, method="fused")
+    jout = jsort.sort_keys(jcol, JCFG, method="fused")
+    np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data))
+    np.testing.assert_array_equal(out.to_numpy(), np.sort(keys[:100]))
+
+
+def test_gather_rows_clips(rng):
+    values = torch.from_numpy(rng.integers(0, 2**32, size=(10, 3), dtype=np.uint32))
+    src = torch.tensor([-1, 0, 9, 12], dtype=torch.int32)
+    out = gather_rows(values, src)
+    np.testing.assert_array_equal(out.numpy(), values.numpy()[[0, 0, 9, 9]])
+
+
+def test_verify_helpers():
+    keys = torch.tensor([1, 5, 0xFFFFFFFF, 0xFFFFFFFF], dtype=torch.uint32)
+    assert verify.is_sorted(keys)
+    assert not verify.is_sorted(np.array([2, 1, 3]))
+    assert verify.is_sorted(np.array([2, 1, 3]), length=1)
+    assert verify.is_permutation_sorted(np.arange(5, dtype=np.uint32))
+    assert not verify.is_permutation_sorted(np.array([1, 0], dtype=np.uint32))
+    assert bool(verify.device_is_sorted(keys))
+    descending = torch.tensor([0xFFFFFFFF, 5, 1], dtype=torch.uint32)
+    assert not bool(verify.device_is_sorted(descending))
+    assert bool(verify.device_is_sorted(keys[:1]))
+
+
+def test_timing_needs_a_card():
+    st = timing.StageTimes()
+    st.add("hist", 12e-6)
+    assert st.report() == "hist: 12 us"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        timing.cuda_time_ms(lambda: None)
