@@ -4,24 +4,43 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``gpuradixsort_tpu_torch/csrc`` into
-``build/kernels/`` (nvcc, sm_90a), then in four phases:
+``build/kernels/`` (nvcc, sm_90a, one process per source, all at once), then
+in six phases:
 
 1. device: PyTorch version, the card's name and power limit, build time;
 2. each kernel against its plain PyTorch version on the card, exact
-   equality: radix_hist at radix_bits 1, 2, 4, 8; bucketize at 1, 2, 4;
-   scatter_runs on the plain-bucketized input; each at shifts 0, 4 and 28,
-   on 4 blocks of random keys and on 1,000,000 keys padded;
+   equality: radix_hist and radix_dest at radix_bits 1, 2, 4, 8; bucketize
+   at 1, 2, 4; scatter_runs on the plain-bucketized input; each at shifts 0,
+   4 and 28, on 4 blocks of random keys and on 1,000,000 keys padded;
+   exclusive_scan at lengths 1, 1023, 1,000,000 and 2^24, and on values
+   near the int32 limit, whose sums wrap (radix_dest is also held against
+   its plain version at the operator path's shapes, after phase 4: 2^24
+   keys at radix_bits 4 and 8, and the filter's 100,000,000-row 1-bit
+   compaction input);
 3. the main path through the public entry points on CUDA tensors, with every
    launch count set to 0 before and read after: ``sort_pairs`` of 1,000,000
    shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
    2^24 random keys with duplicates, and ``sort_table`` of 1,000,000 rows of a
    key and 16 int32 payload columns (64-byte rows), every column checked;
-4. times: fused sort against ``torch.sort(stable=True)`` at 1M and 16M keys
+4. the operator path, counts again set to 0 before and read after, every
+   result checked exactly against numpy (float means within rtol 1e-5 of a
+   float64 oracle): ``filter_table`` of 100,000,000 keys keeping about half,
+   then ``sort_keys`` of the survivors; ``group_by_aggregate`` of
+   100,000,000 rows over 1,000,000 keys (sum, count, min, max, mean);
+   ``join`` inner, semi and anti of a 100,000,000-row skewed probe against
+   10,000,000 unique build keys; ``join_expand`` of a 10,000,000-row probe
+   against about two copies of each build key; ``sort_pairs`` by the radix
+   method at 1M and 2^24 keys and ``sort_keys`` with 8-bit digits;
+5. times: fused sort against ``torch.sort(stable=True)`` at 1M and 16M keys
    (CUDA events, median of 7 runs after warm-up, and the device's busy time
-   from torch.profiler); each kernel of one pass at 1M and 16M beside its
+   from torch.profiler); the fused sort with ``global_offsets`` on
+   exclusive_scan against the same sort with the library-cumsum offsets,
+   in alternating rounds; each kernel of one pass at 1M and 16M beside its
    plain version (device time from the profiler, and CUDA-event time per
-   call); the 1M x 64 B table sort.
+   call); the 1M x 64 B table sort;
+6. times of the operator path: each operator and the radix sort beside the
+   fused sort, by CUDA events (median of 3) with the profiler's busy share.
 
 Exits non-zero at the first failure, including when no CUDA device is
 present or a kernel's launch count stayed 0.  The line before the last is
@@ -30,6 +49,7 @@ the card's name and power limit; the last line is the JSON result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -49,9 +69,13 @@ from gpuradixsort_tpu_torch.core.table import (
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
+from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
-from gpuradixsort_tpu_torch.ops.sort import sort_pairs, sort_table
+from gpuradixsort_tpu_torch.ops.aggregate import group_by_aggregate
+from gpuradixsort_tpu_torch.ops.filter import filter_table
+from gpuradixsort_tpu_torch.ops.join import join, join_expand
+from gpuradixsort_tpu_torch.ops.sort import sort_keys, sort_pairs, sort_table
 from gpuradixsort_tpu_torch.utils.timing import StageTimes, cuda_time_ms, profiled_device_ms
 from gpuradixsort_tpu_torch.utils.verify import device_is_sorted, is_permutation_sorted
 
@@ -60,14 +84,32 @@ N_HEADLINE = 1_000_000
 PAYLOAD_COLS = 16
 HBM_PEAK_TBS = 3.35  # H100 SXM data sheet
 
+# name: (wrapper, source, TPU kernel it replaces, its __global__ functions)
 KERNELS = {
     "radix_hist": (rk.tile_histograms, "gpuradixsort_tpu_torch/csrc/radix_hist.cu",
-                   "gpuradixsort_tpu/kernels/radix.py:57"),
+                   "gpuradixsort_tpu/kernels/radix.py:57", ("radix_hist_kernel",)),
     "bucketize": (bucketize_tiles, "gpuradixsort_tpu_torch/csrc/bucketize.cu",
-                  "gpuradixsort_tpu/kernels/bucketize.py:156"),
+                  "gpuradixsort_tpu/kernels/bucketize.py:156", ("bucketize_kernel",)),
     "scatter_runs": (scatter_runs, "gpuradixsort_tpu_torch/csrc/scatter_runs.cu",
-                     "gpuradixsort_tpu/kernels/scatter.py:107"),
+                     "gpuradixsort_tpu/kernels/scatter.py:107", ("scatter_runs_kernel",)),
+    "radix_dest": (rk.tile_destinations, "gpuradixsort_tpu_torch/csrc/radix_dest.cu",
+                   "gpuradixsort_tpu/kernels/radix.py:92", ("radix_dest_kernel",)),
+    "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
+                       "gpuradixsort_tpu/kernels/scan.py:31",
+                       ("scan_reduce_kernel", "scan_block_sums_kernel", "scan_chunks_kernel")),
 }
+# The kernels the fused sort runs; radix_dest runs on the operator path.
+FUSED_PATH = ("radix_hist", "bucketize", "scatter_runs", "exclusive_scan")
+
+
+def reset_launches() -> None:
+    for fn, *_ in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
 
 
 class SmokeFailure(Exception):
@@ -135,6 +177,12 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 err = max_abs_err(rk.tile_histograms(keys, shift, cfg, impl="cuda"), hist_ref)
                 errs["radix_hist"] = max(errs["radix_hist"], err)
                 check(err == 0, f"radix_hist == plain, {where}")
+                offsets = rk.global_offsets(hist_ref)
+                dest_ref = rk.tile_destinations(keys, offsets, shift, cfg, impl="reference")
+                err = max_abs_err(rk.tile_destinations(keys, offsets, shift, cfg, impl="cuda"),
+                                  dest_ref)
+                errs["radix_dest"] = max(errs["radix_dest"], err)
+                check(err == 0, f"radix_dest == plain, {where}")
                 if cfg.radix > 16:
                     continue
                 bk_ref, bi_ref = _bucketize_ref(keys, idx, shift, cfg)
@@ -142,7 +190,6 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 err = max(max_abs_err(bk, bk_ref), max_abs_err(bi, bi_ref))
                 errs["bucketize"] = max(errs["bucketize"], err)
                 check(err == 0, f"bucketize == plain, {where}")
-                offsets = rk.global_offsets(hist_ref)
                 ok_ref, oi_ref, _ = scatter_runs(bk_ref, bi_ref, hist_ref, offsets, cfg,
                                                  impl="reference")
                 ok, oi, overflow = scatter_runs(bk_ref, bi_ref, hist_ref, offsets, cfg,
@@ -150,7 +197,49 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 err = max(max_abs_err(ok, ok_ref), max_abs_err(oi, oi_ref))
                 errs["scatter_runs"] = max(errs["scatter_runs"], err)
                 check(err == 0 and not overflow, f"scatter_runs == plain, {where}")
+    limit = np.iinfo(np.int32)
+    cases = [(n, rng.integers(limit.min, limit.max, n, dtype=np.int64).astype(np.int32))
+             for n in (1, 1023, N_HEADLINE, 1 << 24)]
+    cases.append((N_HEADLINE, np.full(N_HEADLINE, limit.max, dtype=np.int32)))
+    cases.append((N_HEADLINE, rng.integers(0, 100, N_HEADLINE, dtype=np.int32)))
+    for n, x_np in cases:
+        x = torch.from_numpy(x_np).to(dev)
+        scan, total = exclusive_scan(x, impl="cuda")
+        scan_ref, total_ref = exclusive_scan(x, impl="reference")
+        err = max(max_abs_err(scan, scan_ref), max_abs_err(total, total_ref))
+        errs["exclusive_scan"] = max(errs["exclusive_scan"], err)
+        wraps = int(x_np.astype(np.int64).sum()) != int(total_ref)
+        check(err == 0, f"exclusive_scan == plain, length {n}, values "
+              f"{int(x_np.min())}..{int(x_np.max())}{' (sums wrap)' if wraps else ''}")
     torch.cuda.synchronize()
+
+
+def check_dest_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
+    """radix_dest against its plain version at the shapes the operator path gives it.
+
+    The 2^24-key radix sorts at radix_bits 4 and 8, and the filter's 1-bit
+    compaction of 100,000,000 rows (digit 0 = kept), made as filter_table
+    makes it.
+    """
+    keys16m = tables["r16m"].data
+    flt = tables["filter"]
+    padded = flt["key"].padded_length
+    mask = keep_low_half(flt).to(torch.int32) * (torch.arange(padded, device=keys16m.device)
+                                                  < flt.length)
+    compaction = (1 - mask).view(torch.uint32)
+    bit_cfg = EngineConfig(radix_bits=1, tile_rows=cfg.tile_rows)
+    cases = [(f"2^24 keys radix_bits={bits} shift={shift}", keys16m,
+              EngineConfig(radix_bits=bits, tile_rows=cfg.tile_rows), shift)
+             for bits in (4, 8) for shift in (0, 28)]
+    cases.append((f"filter compaction input, {padded} rows, radix 2", compaction, bit_cfg, 0))
+    for where, keys, kcfg, shift in cases:
+        offsets = rk.global_offsets(rk.tile_histograms(keys, shift, kcfg, impl="reference"))
+        err = max_abs_err(rk.tile_destinations(keys, offsets, shift, kcfg, impl="cuda"),
+                          rk.tile_destinations(keys, offsets, shift, kcfg, impl="reference"))
+        errs["radix_dest"] = max(errs["radix_dest"], err)
+        check(err == 0, f"radix_dest == plain, {where}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def phase_main_path(dev, rng, cfg) -> dict:
@@ -168,8 +257,7 @@ def phase_main_path(dev, rng, cfg) -> dict:
     })
     torch.cuda.synchronize()
 
-    for fn, _, _ in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     sort_ops._fused_sort_padded.skipped_passes = 0
     results = {}
     for name, keys_np in (("1M shuffled", perm_1m), ("2^20 shuffled", perm_2e20),
@@ -182,8 +270,7 @@ def phase_main_path(dev, rng, cfg) -> dict:
     sorted_table = sort_table(table, "key", cfg, method="fused")
     table_out = {k: sorted_table[k].to_numpy() for k in sorted_table.names()}
     table_skipped = sort_ops._fused_sort_padded.skipped_passes - skipped
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    launches = read_launches()
 
     for name, keys_np in (("1M shuffled", perm_1m), ("2^20 shuffled", perm_2e20),
                           ("2^24 random with duplicates", dup_16m)):
@@ -202,18 +289,259 @@ def phase_main_path(dev, rng, cfg) -> dict:
     check(all(np.array_equal(table_out[f"p{j}"], payload[order, j])
               for j in range(PAYLOAD_COLS)),
           f"sort_table all {PAYLOAD_COLS} payload columns == payload[argsort]")
-    for name, count in launches.items():
-        check(count > 0, f"{name} launched {count} times on the main path")
+    for name in FUSED_PATH:
+        check(launches[name] > 0, f"{name} launched {launches[name]} times on the main path")
     return launches
 
 
 def _kernel_name(row: str) -> str:
-    """The port's kernel a profiler row names (``<name>_kernel`` in csrc/), or ''."""
-    return next((name for name in KERNELS if f"{name}_kernel(" in row), "")
+    """The port's kernel a profiler row names (one of its __global__ functions), or ''."""
+    return next((name for name, (*_, symbols) in KERNELS.items()
+                 if any(f"{sym}(" in row for sym in symbols)), "")
+
+
+def port_kernel_split(rows: dict) -> dict:
+    """Device ms of each of the port's kernels among a profile's rows."""
+    ours = {}
+    for row, ms in rows.items():
+        name = _kernel_name(row)
+        if name:
+            ours[name] = ours.get(name, 0.0) + ms
+    return ours
+
+
+AGGS = {"s": ("val", "sum"), "c": ("val", "count"), "lo": ("val", "min"),
+        "hi": ("val", "max"), "m": ("val", "mean")}
+N_OPS = 100_000_000  # rows of the filter, the group-by and the join's probe
+N_GROUPS = 1_000_000
+N_BUILD = 10_000_000  # the join's build side, and join_expand's probe and build
+N_LARGE = 1 << 24  # the radix method's larger sort
+HALF = 1 << 31
+
+
+def keep_low_half(t: Table) -> torch.Tensor:
+    """Predicate: key < 2^31, the keys whose int32 view is not negative."""
+    return int32_bits(t["key"].data) >= 0
+
+
+def operator_inputs(rng) -> dict:
+    """Host columns of the operator phase, made from the seed."""
+    d = {}
+    # Filter + sort: BASELINE config 3, one column of 100M uint32 keys.
+    d["fkeys"] = rng.integers(0, 2**32, N_OPS, dtype=np.uint32)
+    # Group-by: BASELINE config 4, cut from 1B to 100M rows; 1M distinct
+    # keys, values 0..99.  gid is each row's index into the sorted pool.
+    pool = np.unique(rng.integers(0, 2**32, N_GROUPS * 5 // 4, dtype=np.uint32))
+    d["pool"] = np.sort(rng.permutation(pool)[:N_GROUPS])
+    d["gid"] = rng.integers(0, N_GROUPS, N_OPS, dtype=np.int32)
+    d["gkeys"] = d["pool"][d["gid"]]
+    d["gvals"] = rng.integers(0, 100, N_OPS, dtype=np.int32)
+    # Join: BASELINE config 5, cut 10x on both sides.  10M unique build keys;
+    # probe rows hit build row floor(N_BUILD * u^4), a power law under which
+    # the first 1% of the build rows take about a third of the hits, and 10%
+    # of the probe rows carry a key the build side lacks.
+    distinct = rng.permutation(np.unique(rng.integers(0, 2**32, N_BUILD * 23 // 20,
+                                                      dtype=np.uint32)))
+    d["bkeys"], misses = distinct[:N_BUILD], distinct[N_BUILD:]
+    d["bpay"] = rng.integers(0, 2**31 - 1, N_BUILD, dtype=np.int32)
+    d["hit_row"] = np.minimum((N_BUILD * rng.random(N_OPS) ** 4).astype(np.int64), N_BUILD - 1)
+    d["miss"] = rng.random(N_OPS) < 0.1
+    d["pkeys"] = np.where(d["miss"], misses[rng.integers(0, misses.size, N_OPS)],
+                          d["bkeys"][d["hit_row"]])
+    d["pval"] = rng.integers(0, 2**31 - 1, N_OPS, dtype=np.int32)
+    # join_expand: a 10M-row probe against 10M build rows over 5M keys, so
+    # about two copies of each key (Poisson) and about 13% of probes miss.
+    d["epool"] = np.sort(distinct[: N_BUILD // 2])
+    d["eb_gid"] = rng.integers(0, d["epool"].size, N_BUILD)
+    d["ep_gid"] = rng.integers(0, d["epool"].size, N_BUILD)
+    d["ebv"] = rng.integers(0, 2**31 - 1, N_BUILD, dtype=np.int32)
+    d["epv"] = rng.integers(0, 2**31 - 1, N_BUILD, dtype=np.int32)
+    d["copies"] = np.bincount(d["eb_gid"], minlength=d["epool"].size)
+    d["e_total"] = int(d["copies"][d["ep_gid"]].sum())
+    # The radix method at 1M and 2^24 keys.
+    d["r1m"] = rng.integers(0, 2**32, N_HEADLINE, dtype=np.uint32)
+    d["r16m"] = rng.integers(0, 2**32, N_LARGE, dtype=np.uint32)
+    return d
+
+
+def operator_tables(d: dict, cfg, dev) -> dict:
+    def table(key, keys, **cols):
+        t = Table({name: make_column(v, cfg, device=dev) for name, v in cols.items()})
+        return t.with_column(key, make_key_column(keys, cfg, device=dev))
+
+    return {
+        "filter": table("key", d["fkeys"]),
+        "group": table("key", d["gkeys"], val=d["gvals"]),
+        "probe": table("key", d["pkeys"], pval=d["pval"]),
+        "build": table("key", d["bkeys"], payload=d["bpay"]),
+        "eprobe": table("k", d["epool"][d["ep_gid"]], pv=d["epv"]),
+        "ebuild": table("k", d["epool"][d["eb_gid"]], bv=d["ebv"]),
+        "r1m": make_key_column(d["r1m"], cfg, device=dev),
+        "r16m": make_key_column(d["r16m"], cfg, device=dev),
+        "e_total": d["e_total"],
+    }
+
+
+def host(table: Table) -> dict:
+    return {name: table[name].to_numpy() for name in table.names()}
+
+
+def phase_operators(dev, rng, cfg) -> tuple[dict, dict]:
+    """Phase 4: the operator path; returns (launch counts, device inputs for timing)."""
+    t0 = time.perf_counter()
+    d = operator_inputs(rng)
+    tables = operator_tables(d, cfg, dev)
+    torch.cuda.synchronize()
+    log(f"operator inputs made on the host and copied to the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    reset_launches()
+    kept = filter_table(tables["filter"], keep_low_half, cfg).to_table()
+    tables["kept"] = kept["key"]
+    out = {"kept": kept["key"].to_numpy(), "kept_sorted": sort_keys(kept["key"], cfg).to_numpy()}
+    out["agg"] = host(group_by_aggregate(tables["group"], "key", AGGS, cfg).to_table())
+    for how in ("inner", "semi", "anti"):
+        out[how] = host(join(tables["probe"], tables["build"], "key", how, cfg).to_table())
+    expanded = join_expand(tables["eprobe"], tables["ebuild"], "k", cfg, capacity=d["e_total"])
+    out["expand_overflow"] = bool(expanded.overflow)
+    out["expand_count"] = int(expanded.count)
+    if not out["expand_overflow"]:
+        out["expand"] = host(expanded.to_table())
+    del expanded
+    for name in ("r1m", "r16m"):
+        s, p = sort_pairs(tables[name], cfg, method="radix")
+        out[name] = (s.to_numpy(), p.to_numpy())
+    out["radix8"] = sort_keys(tables["r16m"], EngineConfig(radix_bits=8)).to_numpy()
+    launches = read_launches()
+    torch.cuda.empty_cache()
+    log(f"operator path ran on the card in {time.perf_counter() - t0:.1f} s, inputs included")
+    check_operators(d, out)
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched {count} times on the operator path")
+    return launches, tables
+
+
+def check_operators(d: dict, out: dict) -> None:
+    """The operator path's results against numpy, exactly (means to rtol 1e-5)."""
+    t0 = time.perf_counter()
+    want = d["fkeys"][d["fkeys"] < HALF]
+    check(np.array_equal(out["kept"], want),
+          f"filter_table: {want.size} of {N_OPS} keys < 2^31 kept, in input order")
+    check(np.array_equal(out["kept_sorted"], np.sort(want)),
+          "sort_keys of the survivors == np.sort")
+
+    # One bincount of (group, value) gives every aggregate: values are 0..99.
+    hist = np.bincount(d["gid"].astype(np.int64) * 100 + d["gvals"],
+                       minlength=N_GROUPS * 100).reshape(N_GROUPS, 100)
+    counts = hist.sum(axis=1)
+    present = counts > 0
+    hist, counts = hist[present], counts[present]
+    sums = hist @ np.arange(100, dtype=np.int64)
+    agg = out["agg"]
+    check(np.array_equal(agg["key"], d["pool"][present]),
+          f"group_by_aggregate: {int(present.sum())} groups, keys == the sorted distinct keys")
+    check(np.array_equal(agg["c"], counts), "group_by_aggregate count")
+    check(np.array_equal(agg["s"], sums), "group_by_aggregate sum (int32)")
+    check(np.array_equal(agg["lo"], np.argmax(hist > 0, axis=1)), "group_by_aggregate min")
+    check(np.array_equal(agg["hi"], 99 - np.argmax(hist[:, ::-1] > 0, axis=1)),
+          "group_by_aggregate max")
+    mean_err = np.max(np.abs(agg["m"] / (sums / counts) - 1))
+    check(agg["m"].dtype == np.float32 and mean_err <= 1e-5,
+          f"group_by_aggregate mean within rtol 1e-5 of float64 (max rel err {mean_err:.2e})")
+
+    hit = ~d["miss"]
+    expect = {"inner": hit, "semi": hit, "anti": d["miss"]}
+    for how, rows in expect.items():
+        got = out[how]
+        ok = (np.array_equal(got["key"], d["pkeys"][rows])
+              and np.array_equal(got["pval"], d["pval"][rows]))
+        if how == "inner":
+            ok = ok and np.array_equal(got["build_payload"], d["bpay"][d["hit_row"][rows]])
+        check(ok, f"join {how}: {int(rows.sum())} of {N_OPS} probe rows, every column")
+
+    # join_expand: probe rows in order, each followed through its key's build
+    # rows in build order (the stable sort of the build side).
+    copies = d["copies"]
+    per_probe = copies[d["ep_gid"]]
+    total = d["e_total"]
+    check(not out["expand_overflow"] and out["expand_count"] == total,
+          f"join_expand: {total} matches, no overflow")
+    prow = np.repeat(np.arange(N_BUILD), per_probe)
+    first = np.repeat(np.cumsum(per_probe) - per_probe, per_probe)
+    run_start = np.cumsum(copies) - copies
+    brow = run_start[d["ep_gid"][prow]] + np.arange(total) - first
+    build_sorted = d["ebv"][np.argsort(d["eb_gid"], kind="stable")]
+    got = out["expand"]
+    check(np.array_equal(got["k"], d["epool"][d["ep_gid"][prow]])
+          and np.array_equal(got["pv"], d["epv"][prow])
+          and np.array_equal(got["build_bv"], build_sorted[brow]),
+          "join_expand: every (probe, build) pair in order")
+
+    for name in ("r1m", "r16m"):
+        keys = d[name]
+        order = np.argsort(keys, kind="stable")
+        s, p = out[name]
+        check(np.array_equal(s, keys[order]) and np.array_equal(p, order.astype(np.uint32)),
+              f"sort_pairs radix, {keys.size} keys: keys and permutation == numpy stable")
+    check(np.array_equal(out["radix8"], np.sort(d["r16m"])),
+          f"sort_keys radix_bits=8 auto (radix method), {d['r16m'].size} keys == np.sort")
+    log(f"host checks took {time.perf_counter() - t0:.1f} s")
+
+
+def global_offsets_cumsum(hist: torch.Tensor) -> torch.Tensor:
+    """global_offsets by a library scan: the timing baseline of the exclusive_scan one.
+
+    The (digit, tile)-order int64 ``torch.cumsum``, less its input, narrowed
+    to int32.
+    """
+    num_tiles, radix = hist.shape
+    by_digit = hist.t().contiguous().view(-1)
+    incl = torch.cumsum(by_digit, dim=0, dtype=torch.int64)
+    excl = (incl - by_digit).to(torch.int32)
+    return excl.view(radix, num_tiles).t().contiguous()
+
+
+@contextlib.contextmanager
+def offsets_by(fn):
+    """The sorts take ``fn`` as their global_offsets inside the block (timing only)."""
+    saved = rk.global_offsets
+    rk.global_offsets = fn
+    try:
+        yield
+    finally:
+        rk.global_offsets = saved
+
+
+def ab_per_call_ms(fns: dict, calls: int = 1, rounds: int = 4, reps: int = 4) -> dict:
+    """Median per-call ms of each function, sampled in alternating rounds (a b b a ...)."""
+    names = list(fns)
+    samples = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            samples[name] += per_call_ms(fns[name], calls=calls, reps=reps)
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def offsets_ab(col, cfg, label: str, card: str) -> None:
+    """The fused sort with exclusive_scan offsets against the cumsum ones, one run."""
+    def fused_with(offsets_fn):
+        def run():
+            with offsets_by(offsets_fn):
+                return sort_pairs(col, cfg, method="fused")
+        return run
+
+    fns = {"exclusive_scan": fused_with(rk.global_offsets),
+           "torch.cumsum": fused_with(global_offsets_cumsum)}
+    ms = ab_per_call_ms(fns)
+    busy = {name: profiled_device_ms(fn, calls=3)[0] for name, fn in fns.items()}
+    log(f"time {label} sort_pairs fused, global_offsets by exclusive_scan against "
+        f"torch.cumsum ({card}), CUDA events, median of 16 in alternating rounds: "
+        + "; ".join(f"{name} {ms[name]:.4f} ms (device busy {busy[name]:.4f} ms)"
+                    for name in fns))
 
 
 def phase_times(dev, rng, cfg, card: str) -> dict:
-    """Phase 4: times; returns per-kernel (device ms, plain device ms) at 1M."""
+    """Phase 5: times; returns per-kernel (device ms, plain device ms) at 1M."""
     for n, label in ((N_HEADLINE, "1M"), (1 << 24, "16M")):
         col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
                               device=dev)
@@ -226,11 +554,12 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             f"median of 7: sort_pairs fused {t_fused:.4f} ms ({n / t_fused / 1e3:.1f} M "
             f"keys/s); sort_pairs torch (torch.sort of int64-widened keys + gathers) "
             f"{t_torch:.4f} ms; bare torch.sort of sign-flipped int32 keys {t_raw:.4f} ms")
+        offsets_ab(col, cfg, label, card)
         busy, rows = profiled_device_ms(fused, calls=3)
         if not busy:
             log(f"  profiler, fused {label}: device time not measured")
             continue
-        ours = {_kernel_name(k): v for k, v in rows.items() if _kernel_name(k)}
+        ours = port_kernel_split(rows)
         split = ", ".join(f"{k} {v:.4f}" for k, v in ours.items())
         log(f"  profiler, fused {label}: device busy {busy:.4f} ms per sort ({split}, "
             f"other torch kernels {busy - sum(ours.values()):.4f}); busy share of the "
@@ -245,6 +574,7 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         offsets = rk.global_offsets(hist)
         bk, bi = bucketize_tiles(keys, idx, 0, cfg)
         padded = keys.numel()
+        counts = torch.randint(0, 100, (padded,), dtype=torch.int32, device=dev)
         stage = {  # name: (kernel, plain, HBM bytes the kernel must move)
             "radix_hist": (lambda: rk.tile_histograms(keys, 0, cfg, impl="cuda"),
                            lambda: rk.tile_histograms(keys, 0, cfg, impl="reference"),
@@ -256,10 +586,18 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                              lambda: scatter_runs(bk, bi, hist, offsets, cfg,
                                                   impl="reference"),
                              16 * padded),
+            "radix_dest": (lambda: rk.tile_destinations(keys, offsets, 0, cfg, impl="cuda"),
+                           lambda: rk.tile_destinations(keys, offsets, 0, cfg,
+                                                        impl="reference"),
+                           8 * padded),
+            "exclusive_scan": (lambda: exclusive_scan(counts, impl="cuda"),
+                               lambda: exclusive_scan(counts, impl="reference"),
+                               8 * padded),
         }
         st = StageTimes()
         log(f"one pass at {label} keys, shift 0, radix 16 ({card}): device time "
-            f"(profiler) and per-call time of 20 back-to-back calls (CUDA events)")
+            f"(profiler) and per-call time of 20 back-to-back calls (CUDA events); "
+            f"exclusive_scan of {padded} int32 values")
         for name, (kernel, plain, nbytes) in stage.items():
             # Alternating turns, so both sides see the same card state; the
             # median over turns in which the profiler recorded device time.
@@ -281,10 +619,14 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                 log(f"  {name}: {nbytes / 1e6:.1f} MB at {rate:.3f} TB/s, "
                     f"{rate / HBM_PEAK_TBS:.3f} of the 3.35 TB/s peak")
             if name == "radix_hist":
-                st.add("global_offsets device", profiled_device_ms(
-                    lambda: rk.global_offsets(hist), calls=20)[0] / 1e3)
-                st.add("global_offsets per call",
-                       median_per_call_ms(lambda: rk.global_offsets(hist)) / 1e3)
+                for tag, fn in (("", rk.global_offsets), (" by cumsum", global_offsets_cumsum)):
+                    st.add(f"global_offsets{tag} device", profiled_device_ms(
+                        lambda fn=fn: fn(hist), calls=20)[0] / 1e3)
+                per_call = ab_per_call_ms({"k5": lambda: rk.global_offsets(hist),
+                                           "cumsum": lambda: global_offsets_cumsum(hist)},
+                                          calls=20, rounds=2, reps=7)
+                st.add("global_offsets per call", per_call["k5"] / 1e3)
+                st.add("global_offsets by cumsum per call", per_call["cumsum"] / 1e3)
         for line in st.report().splitlines():
             log("  " + line)
 
@@ -300,6 +642,40 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
     log(f"time sort_table 1M rows x 64 B (key + 16 int32 columns, {card}), CUDA events, "
         f"median of 7: {t_table:.4f} ms ({N_HEADLINE / t_table / 1e3:.1f} M rows/s)")
     return times
+
+
+def phase_operator_times(tables: dict, cfg, card: str) -> None:
+    """Phase 6: each operator by CUDA events (median of 3), with the busy share."""
+    t = tables
+    cfg8 = EngineConfig(radix_bits=8)
+    ops = {
+        "filter_table + to_table, 100M keys": lambda: filter_table(
+            t["filter"], keep_low_half, cfg).to_table(),
+        "sort_keys of the ~50M survivors (100M padded buffer)": lambda: sort_keys(t["kept"], cfg),
+        "group_by_aggregate + to_table, 100M rows, 1M keys, 5 aggregates": lambda: (
+            group_by_aggregate(t["group"], "key", AGGS, cfg).to_table()),
+        **{f"join {how} + to_table, 100M probe x 10M build": (
+            lambda how=how: join(t["probe"], t["build"], "key", how, cfg).to_table())
+           for how in ("inner", "semi", "anti")},
+        "join_expand + to_table, 10M probe x 10M build (~2 copies per key)": lambda: join_expand(
+            t["eprobe"], t["ebuild"], "k", cfg, capacity=t["e_total"]).to_table(),
+        "sort_pairs radix 1M": lambda: sort_pairs(t["r1m"], cfg, method="radix"),
+        "sort_pairs fused 1M": lambda: sort_pairs(t["r1m"], cfg, method="fused"),
+        "sort_pairs radix 2^24": lambda: sort_pairs(t["r16m"], cfg, method="radix"),
+        "sort_pairs fused 2^24": lambda: sort_pairs(t["r16m"], cfg, method="fused"),
+        "sort_keys radix_bits=8 auto 2^24": lambda: sort_keys(t["r16m"], cfg8),
+        "sort_keys radix_bits=4 auto (fused) 2^24": lambda: sort_keys(t["r16m"], cfg),
+    }
+    log(f"operator times ({card}): CUDA events, median of 3 after one warm-up; device busy "
+        f"time of one call from the profiler, and its share of the event time")
+    for label, fn in ops.items():
+        ms = float(np.median(per_call_ms(fn, calls=1, reps=3)))
+        busy, rows = profiled_device_ms(fn, calls=1)
+        ours = port_kernel_split(rows)
+        split = ", ".join(f"{k} {v:.3f}" for k, v in ours.items())
+        share = f"{busy / ms:.3f}" if busy else "not measured"
+        log(f"  {label}: {ms:.3f} ms; device busy {busy:.3f} ms, busy share {share} "
+            f"({split or 'no kernel of the port'})")
 
 
 def main() -> int:
@@ -318,14 +694,18 @@ def main() -> int:
 
     errs = {name: 0 for name in KERNELS}
     phase_kernels(dev, rng, errs)
-    launches = phase_main_path(dev, rng, cfg)
+    main_launches = phase_main_path(dev, rng, cfg)
+    op_launches, tables = phase_operators(dev, rng, cfg)
+    check_dest_at_path_shapes(tables, cfg, errs)
     times = phase_times(dev, rng, cfg, card)
+    phase_operator_times(tables, cfg, card)
 
+    # launches: the main path's count plus the operator path's.
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
+         "launches": main_launches[name] + op_launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (_, src, replaces) in KERNELS.items()
+        for name, (_, src, replaces, _) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -45,6 +45,11 @@ def uint32_as_int32(value: int) -> int:
     return value - (1 << 32) if value >= (1 << 31) else value
 
 
+def wrap_int32(wide: torch.Tensor) -> torch.Tensor:
+    """The int32 with the low 32 bits of each int64 (two's complement wrap)."""
+    return (((wide + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
 def _full(shape, fill, dtype: torch.dtype, device) -> torch.Tensor:
     if dtype == torch.uint32:
         bits = uint32_as_int32(int(fill))

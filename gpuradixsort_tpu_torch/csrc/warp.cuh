@@ -18,12 +18,13 @@ __device__ inline unsigned lanes_with_digit(uint32_t d, int bits) {
 }
 
 // Exclusive prefix sum of x over the 32 lanes of a warp; total gets the sum.
-// All 32 lanes must call it.
-__device__ inline int warp_exclusive_scan(int x, int lane, int& total) {
-  int incl = x;
+// All 32 lanes must call it.  With T = uint32_t the sums wrap modulo 2^32.
+template <typename T>
+__device__ inline T warp_exclusive_scan(T x, int lane, T& total) {
+  T incl = x;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    const T y = __shfl_up_sync(0xffffffffu, incl, o);
     if (lane >= o) incl += y;
   }
   total = __shfl_sync(0xffffffffu, incl, 31);

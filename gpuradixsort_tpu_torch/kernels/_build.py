@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``gpuradixsort_tpu_torch/csrc``.
 
-The sources have a plain C interface, so ``nvcc`` compiles them in seconds
-into one shared library under ``build/kernels/`` at the repository root,
-which is loaded with ``ctypes``.  The library's name carries a hash of the
+The sources have a plain C interface, so ``nvcc`` compiles them in seconds,
+one process per source, all at once, and links them into one shared library
+under ``build/kernels/`` at the repository root, which is loaded with
+``ctypes``.  The library's name carries a hash of the
 sources, so an edited source is never served by a stale build.  The build
 runs at first use, never at import.  When it or the load fails, this module
 raises: there is no fall-back to the plain versions.
@@ -21,16 +22,15 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 
 import torch
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +41,8 @@ _SIGNATURES = {
     "grs_radix_hist": [_P, _P, _I64, _I, _I, _I, _P],
     "grs_bucketize": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
     "grs_scatter_runs": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
+    "grs_radix_dest": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
+    "grs_exclusive_scan": [_P, _P, _I64, _I64, _P],
 }
 
 
@@ -68,20 +70,33 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libgrs_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; wait for all, then raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def build() -> pathlib.Path:
     """Compile the sources for sm_90a unless this exact build exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [pathlib.Path(tmpdir) / f"{src.stem}.o" for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources(), objs)])
+        tmp = pathlib.Path(tmpdir) / out.name
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
     return out
 
 

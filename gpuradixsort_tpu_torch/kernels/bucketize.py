@@ -9,14 +9,12 @@ runs the plain version, a per-tile stable argsort by digit.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from gpuradixsort_tpu_torch.config import LANES, EngineConfig, resolve_impl
+from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
-from gpuradixsort_tpu_torch.kernels.radix import check_keys, digits_of
+from gpuradixsort_tpu_torch.kernels.radix import check_keys, chunk_threads, digits_of
 
 
 def _bucketize_ref(keys: torch.Tensor, idx: torch.Tensor, shift: int, cfg: EngineConfig):
@@ -50,14 +48,10 @@ def bucketize_tiles(
         return _bucketize_ref(keys, idx, shift, cfg)
     out_keys = torch.empty_like(keys)
     out_idx = torch.empty_like(idx)
-    # One thread per element of a chunk; the chunk must divide the tile.
-    # 512 threads (two chunks of the default tile) measured faster on the
-    # H100 than 1024 or 128.
-    threads = LANES * math.gcd(cfg.tile_rows, 4)
     launch(
         "grs_bucketize", keys, keys.data_ptr(), idx.data_ptr(),
-        out_keys.data_ptr(), out_idx.data_ptr(), num_tiles, cfg.tile, threads,
-        shift, cfg.radix,
+        out_keys.data_ptr(), out_idx.data_ptr(), num_tiles, cfg.tile,
+        chunk_threads(cfg), shift, cfg.radix,
     )
     bucketize_tiles.launches += 1
     return out_keys, out_idx

@@ -1,9 +1,11 @@
-"""Per-pass radix-sort kernels, histogram half: digit histograms and offsets.
+"""Per-pass radix-sort kernels: digit histograms, offsets and destinations.
 
 The PyTorch counterpart of ``gpuradixsort_tpu/kernels/radix.py``.
-``tile_histograms`` launches the CUDA kernel ``csrc/radix_hist.cu`` on a CUDA
-tensor and runs its plain version on a CPU tensor.  ``global_offsets`` is
-plain tensor code, as it is plain jnp in the JAX package.
+``tile_histograms`` launches ``csrc/radix_hist.cu`` and ``tile_destinations``
+launches ``csrc/radix_dest.cu`` on a CUDA tensor; on a CPU tensor each runs
+its plain version.  ``global_offsets`` is one exclusive scan
+(``kernels/scan.py``, a CUDA kernel on a CUDA tensor) between two
+transposes, where the JAX package has plain jnp cumsums.
 
 Buffers are 1-D: a tile is a contiguous stretch of ``cfg.tile`` keys, which
 is what the JAX package's row-major ``(rows, 128)`` view makes of it.  Tables
@@ -13,11 +15,14 @@ they equal its tables' first ``radix`` columns.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
+from gpuradixsort_tpu_torch.config import LANES, EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
+from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 
 
 def digits_of(keys: torch.Tensor, shift: int, radix: int) -> torch.Tensor:
@@ -42,6 +47,16 @@ def check_keys(name: str, t: torch.Tensor, cfg: EngineConfig) -> int:
             f"{cfg.tile}; pad with core.table.pad_to_tile first"
         )
     return t.numel() // cfg.tile
+
+
+def chunk_threads(cfg: EngineConfig) -> int:
+    """Threads per block of the kernels that walk a tile one chunk at a time.
+
+    One thread per key of a chunk, so the chunk must divide the tile.  512
+    threads (two chunks of the default tile) measured faster on the H100
+    than 1024 or 128 for bucketize_tiles.
+    """
+    return LANES * math.gcd(cfg.tile_rows, 4)
 
 
 def _tile_histograms_ref(keys: torch.Tensor, shift: int, cfg: EngineConfig):
@@ -76,18 +91,72 @@ def tile_histograms(
 tile_histograms.launches = 0
 
 
+def _tile_destinations_ref(keys: torch.Tensor, offsets: torch.Tensor, shift: int,
+                           cfg: EngineConfig) -> torch.Tensor:
+    """Plain version: a per-tile stable argsort of the digits.
+
+    In a tile's digit-sorted order, an element's rank within its digit is
+    its position less the position of its digit's first element.  This
+    avoids the JAX reference's one-hot (tiles, tile, radix) expansion.
+    """
+    num_tiles = keys.numel() // cfg.tile
+    digits = digits_of(keys, shift, cfg.radix).view(num_tiles, cfg.tile)
+    order = torch.argsort(digits, dim=1, stable=True)
+    sorted_digits = torch.take_along_dim(digits, order, dim=1)
+    first = torch.searchsorted(sorted_digits, sorted_digits, side="left")
+    pos = torch.arange(cfg.tile, device=keys.device)
+    dest_sorted = offsets.to(torch.int64).gather(1, sorted_digits) + pos - first
+    dest = torch.empty_like(dest_sorted).scatter_(1, order, dest_sorted)
+    return dest.view(-1).to(torch.int32)
+
+
+def tile_destinations(
+    keys: torch.Tensor,
+    offsets: torch.Tensor,
+    shift: int,
+    cfg: EngineConfig,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """Stable global destination of every key for one radix pass.
+
+    keys: (num_tiles * tile,) uint32; offsets: (num_tiles, radix) int32
+    global base offsets (``global_offsets``).  Returns (num_tiles * tile,)
+    int32 with dest[i] = offsets[t, digit_i] + the number of earlier keys of
+    tile t with the same digit: a permutation of 0..N-1.
+    """
+    num_tiles = check_keys("keys", keys, cfg)
+    shape = (num_tiles, cfg.radix)
+    if (offsets.dtype != torch.int32 or tuple(offsets.shape) != shape
+            or not offsets.is_contiguous()):
+        raise ValueError(
+            f"offsets must be contiguous int32 of shape {shape}, got "
+            f"{offsets.dtype} of shape {tuple(offsets.shape)}"
+        )
+    if offsets.device != keys.device:
+        raise ValueError("keys and offsets must be on one device")
+    if resolve_impl(keys, impl) == "reference":
+        return _tile_destinations_ref(keys, offsets, shift, cfg)
+    dest = torch.empty(keys.numel(), dtype=torch.int32, device=keys.device)
+    launch(
+        "grs_radix_dest", keys, keys.data_ptr(), offsets.data_ptr(), dest.data_ptr(),
+        num_tiles, cfg.tile, chunk_threads(cfg), shift, cfg.radix,
+    )
+    tile_destinations.launches += 1
+    return dest
+
+
+tile_destinations.launches = 0
+
+
 def global_offsets(hist: torch.Tensor) -> torch.Tensor:
     """(num_tiles, radix) histograms -> (num_tiles, radix) global offsets.
 
     Stable LSD order is digit-major, then tile-major: bucket r of tile t
     starts after every key of buckets < r (all tiles) and of bucket r in
     earlier tiles.  That is the exclusive scan of the table read in (digit,
-    tile) order, taken here as one 1-D cumsum: PyTorch scans a column of a
-    2-D tensor one element after another, which at 16K tiles costs
-    milliseconds on a GPU.
+    tile) order: one 1-D ``exclusive_scan``, never PyTorch's column scan of
+    a 2-D tensor, which runs one element after another on a GPU.
     """
     num_tiles, radix = hist.shape
-    by_digit = hist.t().contiguous().view(-1)
-    incl = torch.cumsum(by_digit, dim=0, dtype=torch.int64)
-    excl = (incl - by_digit).to(torch.int32)
+    excl, _ = exclusive_scan(hist.t().contiguous().view(-1))
     return excl.view(radix, num_tiles).t().contiguous()

@@ -1,0 +1,167 @@
+"""Equi-join of columnar tables on uint32 keys: sort the build side, probe by search.
+
+The PyTorch counterpart of ``gpuradixsort_tpu/ops/join.py``.  The build side
+is sorted by key once (the engine's stable radix sort); every probe row
+finds its match with a binary search (``torch.searchsorted``), and the
+result is compacted by ``ops/filter.py``.  ``torch.searchsorted`` takes no
+uint32, so both sides are widened to int64.
+
+- ``join``: inner / semi / anti, build keys unique.
+- ``join_expand``: inner join with duplicate build keys.  Each probe row
+  matches a run of the sorted build keys; the exclusive scan of the run
+  lengths (K5 on a CUDA tensor) gives each probe row its first output slot,
+  and the rows land in a buffer of fixed ``capacity`` with a live count.
+
+Only ``validate_unique`` and ``to_table`` read a value back to the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gpuradixsort_tpu_torch.config import EngineConfig
+from gpuradixsort_tpu_torch.core.table import Column, Table, int32_bits, round_up
+from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
+from gpuradixsort_tpu_torch.ops.filter import Selection, filter_table
+from gpuradixsort_tpu_torch.ops.permute import gather_rows
+from gpuradixsort_tpu_torch.ops.sort import sort_table
+
+JOIN_TYPES = ("inner", "semi", "anti")
+
+
+def _wide(keys: torch.Tensor) -> torch.Tensor:
+    """uint32 keys as int64 values, for searchsorted and compares."""
+    return int32_bits(keys).to(torch.int64) & 0xFFFFFFFF
+
+
+def _zero_invalid(g: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Rows of ``g`` where ``valid`` is False set to zero."""
+    mask = valid.reshape((-1,) + (1,) * (g.dim() - 1))
+    return torch.where(mask, int32_bits(g), 0).view(g.dtype)
+
+
+def join(
+    probe: Table,
+    build: Table,
+    key: str,
+    how: str = "inner",
+    cfg: EngineConfig | None = None,
+    validate_unique: bool = False,
+    build_prefix: str = "build_",
+) -> Selection:
+    """Join ``probe`` rows against ``build`` rows on uint32 column ``key``.
+
+    - ``inner``: probe rows with a build match, plus the build payload
+      columns (named ``build_<name>``).
+    - ``semi``: probe rows with a build match, probe columns only.
+    - ``anti``: probe rows without a build match.
+
+    Build keys must be unique for ``inner``; ``validate_unique=True`` checks
+    (a host sync).
+    """
+    cfg = cfg or EngineConfig()
+    if how not in JOIN_TYPES:
+        raise ValueError(f"unknown join type: {how}")
+
+    build_sorted = sort_table(build, key, cfg)
+    nb = build.length
+    bkeys = _wide(build_sorted[key].data)  # padded; the live prefix is sorted
+    if validate_unique and nb > 1 and bool((bkeys[1:nb] == bkeys[: nb - 1]).any()):
+        raise ValueError(
+            "build side has duplicate keys; use join_expand for one-to-many joins"
+        )
+
+    pkeys = _wide(probe[key].data)  # padded; pad rows are dropped by the filter
+    pos = torch.searchsorted(bkeys[:nb], pkeys, side="left")
+    safe_pos = pos.clamp(0, max(nb - 1, 0))
+    matched = (pos < nb) & (bkeys[safe_pos] == pkeys)
+
+    if how == "inner":
+        cols = dict(probe.columns)
+        for name in build_sorted.names():
+            if name != key:
+                gathered = gather_rows(build_sorted[name].data, safe_pos)
+                cols[build_prefix + name] = Column(gathered, probe.length)
+        joined = Table(cols)
+        keep = matched
+    else:
+        joined = probe
+        keep = matched if how == "semi" else ~matched
+    return filter_table(joined, lambda _t: keep, cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpandedJoin:
+    """One-to-many join result: padded rows, live count, overflow flag.
+
+    ``table`` holds ``capacity`` rows; rows >= ``count`` are zero.  If
+    ``overflow`` is True the matches outnumber the capacity and the output
+    was cut: retry with a larger ``capacity``.
+    """
+
+    table: Table
+    count: torch.Tensor  # 0-d int32: number of matches
+    overflow: torch.Tensor  # 0-d bool
+
+    def to_table(self) -> Table:
+        if bool(self.overflow):
+            raise RuntimeError(
+                "join_expand output exceeded capacity; retry with a larger capacity"
+            )
+        n = int(self.count)
+        return Table({name: Column(col.data, n) for name, col in self.table.columns.items()})
+
+
+def join_expand(
+    probe: Table,
+    build: Table,
+    key: str,
+    cfg: EngineConfig | None = None,
+    capacity: int | None = None,
+    build_prefix: str = "build_",
+) -> ExpandedJoin:
+    """Inner join that allows duplicate build keys.
+
+    Output rows are (probe row, build row) pairs ordered by probe row, then
+    by build order within the key's run.  ``capacity`` (rounded up to a
+    block) defaults to the probe's padded length, enough when each probe
+    row matches at most once; ``overflow`` reports a cut.
+    """
+    cfg = cfg or EngineConfig()
+    build_sorted = sort_table(build, key, cfg)
+    nb = build.length
+    bkeys = _wide(build_sorted[key].valid())
+
+    pkeys = _wide(probe[key].data)
+    padded = probe[key].padded_length
+    dev = pkeys.device
+    live = torch.arange(padded, device=dev) < probe.length
+
+    lo = torch.searchsorted(bkeys, pkeys, side="left").to(torch.int32)
+    hi = torch.searchsorted(bkeys, pkeys, side="right").to(torch.int32)
+    cnt = torch.where(live, hi - lo, 0)
+    offsets, total = exclusive_scan(cnt)  # first output slot of each probe row
+
+    capacity = round_up(padded if capacity is None else capacity, cfg.block)
+    overflow = total > capacity
+
+    # Slot j belongs to the probe row whose slot range holds j; its ordinal
+    # in that range picks the build row from the run.
+    slots = torch.arange(capacity, device=dev)
+    ends = (offsets + cnt).to(torch.int64)
+    prow = torch.searchsorted(ends, slots, side="right").clamp(0, padded - 1)
+    brow = lo.to(torch.int64)[prow] + slots - offsets.to(torch.int64)[prow]
+    valid = slots < total.clamp(max=capacity)
+    safe_brow = brow.clamp(0, max(nb - 1, 0))
+
+    cols: dict[str, Column] = {}
+    for name in probe.names():
+        g = gather_rows(probe[name].data, prow)
+        cols[name] = Column(_zero_invalid(g, valid), capacity)
+    for name in build_sorted.names():
+        if name != key:
+            g = gather_rows(build_sorted[name].data, safe_brow)
+            cols[build_prefix + name] = Column(_zero_invalid(g, valid), capacity)
+    return ExpandedJoin(Table(cols), total, overflow)

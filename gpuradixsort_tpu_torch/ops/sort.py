@@ -1,15 +1,22 @@
-"""Stable LSD radix sort over columnar buffers: the fused kernel pipeline.
+"""Stable LSD radix sort over columnar buffers.
 
 The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
 
-- ``"fused"`` (and ``"auto"``): ``cfg.num_passes`` passes, each one
-  histogram kernel, the offsets table in plain tensor code, one bucketize
-  kernel and one scatter kernel.  On CUDA tensors every pass runs the CUDA
-  kernels; on CPU tensors their plain versions.  Nothing on this path calls
-  ``torch.sort``.
+- ``"fused"``: ``cfg.num_passes`` passes, each one histogram kernel, the
+  offsets scan, one bucketize kernel and one scatter kernel.  Takes 1-, 2-
+  and 4-bit digits.
+- ``"radix"``: ``cfg.num_passes`` passes, each one histogram kernel, the
+  offsets scan, one destination kernel and one indexed store per column
+  (``permute.scatter_by_destination``).  Takes digits up to 8 bits, and has
+  no constant-digit skip, as in the JAX package.
+- ``"auto"``: ``"radix"`` for 8-bit digits, which the fused bucketize does
+  not take, else ``"fused"``.  A stable sort has one answer, so this gives
+  the JAX package's result wherever its ``"auto"`` sorts.
 - ``"torch"``: the library baseline, ``torch.sort(stable=True)``, standing
   where the JAX package's ``lax.sort`` method stands.  Never the main path.
-- ``"radix"``: not ported yet (ROADMAP.md, Queue 1, item 9).
+
+On CUDA tensors every pass runs the CUDA kernels; on CPU tensors their plain
+versions.  Nothing but ``"torch"`` calls ``torch.sort``.
 
 The JAX package falls back to a whole ``lax.sort`` when a run overflows the
 TPU scatter window.  The CUDA scatter has no window, so there is no
@@ -31,7 +38,7 @@ from gpuradixsort_tpu_torch.core.table import (
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
-from gpuradixsort_tpu_torch.ops.permute import gather_rows
+from gpuradixsort_tpu_torch.ops.permute import gather_rows, scatter_by_destination
 
 METHODS = ("auto", "fused", "torch", "radix")
 
@@ -68,6 +75,33 @@ def _fused_sort_padded(keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig)
 _fused_sort_padded.skipped_passes = 0
 
 
+def _radix_pass(keys: torch.Tensor, carried: tuple, shift: int,
+                cfg: EngineConfig) -> tuple[torch.Tensor, tuple]:
+    """One stable counting pass on digit (keys >> shift) & (radix - 1).
+
+    keys: (padded,) uint32; carried: tensors of the same rows, permuted
+    alongside.  Returns (keys, carried) reordered by the digit, stably.
+    """
+    hist = radix_kernels.tile_histograms(keys, shift, cfg)
+    offsets = radix_kernels.global_offsets(hist)
+    dest = radix_kernels.tile_destinations(keys, offsets, shift, cfg)
+    out = scatter_by_destination(dest, [keys, *carried])
+    return out[0], tuple(out[1:])
+
+
+def _sort_padded(keys: torch.Tensor, carried: tuple,
+                 cfg: EngineConfig) -> tuple[torch.Tensor, tuple]:
+    """The radix method: stable sort of padded keys, carrying other columns.
+
+    The JAX package's ``strategy`` picks how a TPU applies the permutation
+    and its ``num_carried`` keys its jit cache; neither means anything on
+    the GPU, so the port takes neither.
+    """
+    for p in range(cfg.num_passes):
+        keys, carried = _radix_pass(keys, carried, p * cfg.radix_bits, cfg)
+    return keys, carried
+
+
 def _torch_sort_padded(keys: torch.Tensor, idx: torch.Tensor):
     """Library baseline: one stable ``torch.sort`` of the padded keys.
 
@@ -79,15 +113,12 @@ def _torch_sort_padded(keys: torch.Tensor, idx: torch.Tensor):
     return gather_rows(keys, order), gather_rows(idx, order)
 
 
-def _resolve_method(method: str) -> str:
+def _resolve_method(method: str, cfg: EngineConfig) -> str:
     if method not in METHODS:
         raise ValueError(f"unknown sort method: {method}")
-    if method == "radix":
-        raise NotImplementedError(
-            "method='radix' needs the tile_destinations kernel, which is not "
-            "ported yet (ROADMAP.md, Queue 1, item 9)"
-        )
-    return "fused" if method == "auto" else method
+    if method == "auto":
+        return "radix" if cfg.radix > 16 else "fused"
+    return method
 
 
 def _index_column(col: Column) -> torch.Tensor:
@@ -96,16 +127,20 @@ def _index_column(col: Column) -> torch.Tensor:
     return torch.where(pos < col.length, pos, uint32_as_int32(PAD_INDEX)).view(torch.uint32)
 
 
-def _sort_padded(col: Column, cfg: EngineConfig, method: str):
+def _sort_column(col: Column, cfg: EngineConfig, method: str):
+    """(sorted keys, permutation) of a padded key column by one method."""
     idx = _index_column(col)
     if method == "fused":
         keys, perm, _ = _fused_sort_padded(col.data, idx, cfg)
+        return keys, perm
+    if method == "radix":
+        keys, (perm,) = _sort_padded(col.data, (idx,), cfg)
         return keys, perm
     return _torch_sort_padded(col.data, idx)
 
 
 def sort_keys(
-    keys, cfg: EngineConfig | None = None, method: str = "auto", device=None
+    keys, cfg: EngineConfig | None = None, method: str = "auto", device=None,
 ) -> Column:
     """Sort a uint32 key column ascending, stably.  Returns a new Column.
 
@@ -113,14 +148,17 @@ def sort_keys(
     host values.
     """
     cfg = cfg or EngineConfig()
-    method = _resolve_method(method)
+    method = _resolve_method(method, cfg)
     col = _as_key_column(keys, cfg, device)
-    sorted_keys, _ = _sort_padded(col, cfg, method)
+    if method == "radix":  # no index column to carry
+        sorted_keys, _ = _sort_padded(col.data, (), cfg)
+    else:
+        sorted_keys, _ = _sort_column(col, cfg, method)
     return Column(sorted_keys, col.length)
 
 
 def sort_pairs(
-    keys, cfg: EngineConfig | None = None, method: str = "auto", device=None
+    keys, cfg: EngineConfig | None = None, method: str = "auto", device=None,
 ) -> tuple[Column, Column]:
     """Sort (key, original-row-index) pairs.
 
@@ -130,14 +168,14 @@ def sort_pairs(
     equals PAD_KEY.
     """
     cfg = cfg or EngineConfig()
-    method = _resolve_method(method)
+    method = _resolve_method(method, cfg)
     col = _as_key_column(keys, cfg, device)
-    sorted_keys, perm = _sort_padded(col, cfg, method)
+    sorted_keys, perm = _sort_column(col, cfg, method)
     return Column(sorted_keys, col.length), Column(perm, col.length)
 
 
 def sort_table(
-    table: Table, key: str, cfg: EngineConfig | None = None, method: str = "auto"
+    table: Table, key: str, cfg: EngineConfig | None = None, method: str = "auto",
 ) -> Table:
     """Sort a whole table by one uint32 key column, stably.
 

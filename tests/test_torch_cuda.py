@@ -13,11 +13,15 @@ import pytest
 import torch
 
 from gpuradixsort_tpu_torch.config import EngineConfig
-from gpuradixsort_tpu_torch.core.table import int32_bits
+from gpuradixsort_tpu_torch.core.table import Table, int32_bits, make_column, make_key_column
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
 from gpuradixsort_tpu_torch.kernels import radix as tradix
+from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.kernels import scatter as tscatter
+from gpuradixsort_tpu_torch.ops import aggregate as tagg
+from gpuradixsort_tpu_torch.ops import filter as tfilter
+from gpuradixsort_tpu_torch.ops import join as tjoin
 from gpuradixsort_tpu_torch.ops import sort as tsort
 
 pytestmark = pytest.mark.cuda
@@ -104,6 +108,92 @@ def test_fused_sort_on_card_matches_cpu(n, card, gen):
         np.testing.assert_array_equal(p.to_numpy(), order.astype(np.uint32))
 
 
+@pytest.mark.parametrize("tile_rows", [1, 3, 16])
+def test_destinations_and_scan_match_plain(tile_rows, card, gen):
+    for bits in (1, 2, 4, 8):
+        cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+        for keys_np in _keysets(gen, 2 * cfg.block).values():
+            keys = torch.from_numpy(keys_np).to(card)
+            for shift in (0, 4, 28):
+                hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
+                off = tradix.global_offsets(hist)
+                ref = tradix.tile_destinations(keys, off, shift, cfg, impl="reference")
+                before = tradix.tile_destinations.launches
+                assert _same(tradix.tile_destinations(keys, off, shift, cfg), ref)
+                assert tradix.tile_destinations.launches == before + 1
+    for n in (1, 127, 1023, 4097, (1 << 20) + 3):
+        for x_np in (gen.integers(0, 100, n).astype(np.int32),
+                     gen.integers(-(2**31), 2**31, n).astype(np.int32)):  # wraps
+            x = torch.from_numpy(x_np).to(card)
+            scan, total = tscan.exclusive_scan(x)
+            ref_scan, ref_total = tscan.exclusive_scan(x, impl="reference")
+            assert _same(scan, ref_scan) and int(total) == int(ref_total)
+    torch.cuda.synchronize()
+
+
+def _table_pair(card, key, keys, **cols):
+    """One table on the CPU and the same table on the card."""
+    def build(device):
+        tbl = Table({name: make_column(v, device=device) for name, v in cols.items()})
+        return tbl.with_column(key, make_key_column(keys, device=device))
+    return build(None), build(card)
+
+
+def _same_tables(cpu, on_card, floats=()):
+    assert cpu.names() == on_card.names()
+    for name in cpu.names():
+        a, b = cpu[name], on_card[name]
+        assert a.length == b.length, name
+        if name in floats:
+            np.testing.assert_allclose(b.data.cpu().numpy(), a.data.numpy(), rtol=1e-6)
+        else:
+            assert _same(b.data.cpu(), a.data), name
+
+
+def test_operators_on_card_match_cpu(card, gen):
+    n = 3 * CFG.block + 11
+    keys = gen.integers(0, 2000, n, dtype=np.uint32)
+    vals = gen.integers(-(2**31), 2**31, n).astype(np.int32)
+    uvals = gen.integers(0, 2**32, n, dtype=np.uint32)
+    fvals = gen.standard_normal(n).astype(np.float32)
+    cpu, dev = _table_pair(card, "k", keys, v=vals, u=uvals, f=fvals)
+    before = (tradix.tile_destinations.launches, tscan.exclusive_scan.launches)
+
+    pred = lambda t: (int32_bits(t["k"].data) & 3) != 1  # noqa: E731
+    a, b = tfilter.filter_table(cpu, pred, CFG), tfilter.filter_table(dev, pred, CFG)
+    assert int(a.count) == int(b.count)
+    _same_tables(a.table, b.table)
+
+    aggs = {"s": ("v", "sum"), "c": ("v", "count"), "lo": ("u", "min"), "hi": ("u", "max"),
+            "fl": ("f", "min"), "m": ("v", "mean"), "fs": ("f", "sum")}
+    a, b = tagg.group_by_aggregate(cpu, "k", aggs, CFG), tagg.group_by_aggregate(dev, "k", aggs, CFG)
+    assert int(a.count) == int(b.count)
+    _same_tables(a.table, b.table, floats=("m", "fs"))
+
+    bkeys = gen.permutation(4000)[:1500].astype(np.uint32)
+    bcpu, bdev = _table_pair(card, "k", bkeys, bv=gen.integers(0, 99, 1500).astype(np.int32))
+    for how in ("inner", "semi", "anti"):
+        a = tjoin.join(cpu, bcpu, "k", how, CFG, validate_unique=True)
+        b = tjoin.join(dev, bdev, "k", how, CFG, validate_unique=True)
+        assert int(a.count) == int(b.count)
+        _same_tables(a.table, b.table)
+
+    dkeys = gen.integers(0, 3000, 2500, dtype=np.uint32)  # duplicates and misses
+    dcpu, ddev = _table_pair(card, "k", dkeys, bv=np.arange(2500, dtype=np.int32))
+    a = tjoin.join_expand(cpu, dcpu, "k", CFG, capacity=4 * n)
+    b = tjoin.join_expand(dev, ddev, "k", CFG, capacity=4 * n)
+    assert int(a.count) == int(b.count) and not bool(b.overflow)
+    _same_tables(a.table, b.table)
+
+    for bits in (2, 8):
+        cfg = EngineConfig(radix_bits=bits)
+        a = tsort.sort_pairs(keys, cfg, method="radix")
+        b = tsort.sort_pairs(keys, cfg, method="radix", device=card)
+        assert all(_same(y.data.cpu(), x.data) for x, y in zip(a, b))
+    after = (tradix.tile_destinations.launches, tscan.exclusive_scan.launches)
+    assert all(x > y for x, y in zip(after, before))
+
+
 def test_torch_method_on_card(card, gen):
     keys = gen.integers(0, 50, size=CFG.block + 3, dtype=np.uint32)
     s, p = tsort.sort_pairs(keys, CFG, method="fused", device=card)
@@ -121,3 +211,7 @@ def test_rejected_launch_raises(card):
             "grs_bucketize", keys, keys.data_ptr(), keys.data_ptr(), out.data_ptr(),
             out.data_ptr(), CFG.block // CFG.tile, CFG.tile, 2048, 0, CFG.radix,
         )
+    # A scan buffer sized for another chunk than the kernel's is refused.
+    x = torch.zeros(5000, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="grs_exclusive_scan"):
+        _build.launch("grs_exclusive_scan", x, x.data_ptr(), x.data_ptr(), 5000, 1)

@@ -16,10 +16,12 @@ import torch
 from gpuradixsort_tpu.config import EngineConfig as JaxConfig
 from gpuradixsort_tpu.kernels import bucketize as jbucketize
 from gpuradixsort_tpu.kernels import radix as jradix
+from gpuradixsort_tpu.kernels import scan as jscan
 from gpuradixsort_tpu.kernels import scatter as jscatter
 from gpuradixsort_tpu_torch.config import LANES, EngineConfig
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
 from gpuradixsort_tpu_torch.kernels import radix as tradix
+from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.kernels import scatter as tscatter
 
 torch.set_num_threads(1)
@@ -136,6 +138,72 @@ def test_plain_versions_match_pallas_interpret(rng):
     _eq(toi, joi)
 
 
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("shift", SHIFTS)
+def test_tile_destinations_match_jax(bits, shift, rng):
+    cfg, jcfg = EngineConfig(radix_bits=bits), JaxConfig(radix_bits=bits)
+    for name, keys in _keysets(rng, 2 * cfg.block).items():
+        jk, _, tk, _ = _both(keys)
+        joff = jradix.global_offsets(jradix.tile_histograms(jk, shift, jcfg, impl="reference"))
+        jdest = jradix.tile_destinations(jk, joff, shift, jcfg, impl="reference")
+        toff = tradix.global_offsets(tradix.tile_histograms(tk, shift, cfg))
+        tdest = tradix.tile_destinations(tk, toff, shift, cfg)
+        _eq(tdest, jdest)
+        # A permutation that sorts the keys stably by the digit.
+        digit = (keys >> np.uint32(shift)) & np.uint32(cfg.radix - 1)
+        order = np.argsort(digit, kind="stable")
+        np.testing.assert_array_equal(tdest.numpy()[order], np.arange(keys.size))
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 16])
+def test_tile_destinations_other_tile_sizes(tile_rows, rng):
+    cfg = EngineConfig(radix_bits=8, tile_rows=tile_rows)
+    jcfg = JaxConfig(radix_bits=8, tile_rows=tile_rows)
+    keys = rng.integers(0, 2**32, 2 * cfg.block, dtype=np.uint32)
+    jk, _, tk, _ = _both(keys)
+    joff = jradix.global_offsets(jradix.tile_histograms(jk, 4, jcfg, impl="reference"))
+    toff = tradix.global_offsets(tradix.tile_histograms(tk, 4, cfg))
+    _eq(tradix.tile_destinations(tk, toff, 4, cfg),
+        jradix.tile_destinations(jk, joff, 4, jcfg, impl="reference"))
+
+
+@pytest.mark.parametrize("n", [1, 7, 128, 1023, 1025, 4096, 100_000])
+def test_exclusive_scan_matches_jax(n, rng):
+    for x in (rng.integers(0, 5, n).astype(np.int32),
+              rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)):  # wraps
+        scan, total = jscan.exclusive_scan(jnp.asarray(x), impl="reference")
+        tscan_, ttotal = tscan.exclusive_scan(torch.from_numpy(x))
+        _eq(tscan_, scan)
+        assert ttotal.dtype == torch.int32 and ttotal.dim() == 0
+        assert int(ttotal) == int(total)
+
+
+def test_exclusive_scan_near_the_int32_limit():
+    x = torch.tensor([2**31 - 1, 1, 2**31 - 1, 5], dtype=torch.int32)
+    scan, total = tscan.exclusive_scan(x)
+    np.testing.assert_array_equal(scan.numpy(), [0, 2**31 - 1, -(2**31), -1])
+    assert int(total) == 4
+    empty, zero = tscan.exclusive_scan(torch.zeros(0, dtype=torch.int32))
+    assert empty.numel() == 0 and int(zero) == 0
+
+
+def test_destinations_and_scan_match_pallas_interpret(rng):
+    # The Pallas bodies of K4 and K5 at one small shape each.
+    cfg, jcfg = EngineConfig(), JaxConfig()
+    keys = rng.integers(0, 2**32, cfg.block, dtype=np.uint32)
+    jk, _, tk, _ = _both(keys)
+    joff = jradix.global_offsets(jradix.tile_histograms(jk, 0, jcfg, impl="reference"))
+    jdest = jradix.tile_destinations(jk, joff, 0, jcfg, impl="interpret")
+    toff = tradix.global_offsets(tradix.tile_histograms(tk, 0, cfg))
+    _eq(tradix.tile_destinations(tk, toff, 0, cfg), jdest)
+
+    x = rng.integers(0, 7, 3 * cfg.tile).astype(np.int32)
+    scan, total = jscan.exclusive_scan(jnp.asarray(x), jcfg, impl="interpret")
+    tscan_, ttotal = tscan.exclusive_scan(torch.from_numpy(x))
+    _eq(tscan_, scan)
+    assert int(ttotal) == int(total)
+
+
 def test_digits_of_matches_jax():
     keys = np.array([0, 1, 0xF0, 0xFFFFFFFF, 0x80000000, 0x12345678], dtype=np.uint32)
     for shift, radix in ((0, 16), (4, 16), (28, 16), (31, 2), (24, 256)):
@@ -160,12 +228,18 @@ def test_wrappers_reject_bad_input():
     hist = tradix.tile_histograms(good, 0, cfg)
     with pytest.raises(ValueError, match="offsets"):
         tscatter.scatter_runs(good, good, hist, hist[:, :4].contiguous(), cfg)
+    with pytest.raises(ValueError, match="offsets"):
+        tradix.tile_destinations(good, hist[:, :4].contiguous(), 0, cfg)
+    with pytest.raises(ValueError, match="1-D integer"):
+        tscan.exclusive_scan(torch.zeros(4, dtype=torch.float32))
     with pytest.raises(ValueError, match="contiguous"):
         tscatter.scatter_runs(good, good, hist, hist.t().contiguous().t(), cfg)
     for call in (
         lambda: tradix.tile_histograms(good, 0, cfg, impl="cuda"),
         lambda: tbucketize.bucketize_tiles(good, good, 0, cfg, impl="cuda"),
         lambda: tscatter.scatter_runs(good, good, hist, hist, cfg, impl="cuda"),
+        lambda: tradix.tile_destinations(good, hist, 0, cfg, impl="cuda"),
+        lambda: tscan.exclusive_scan(hist.view(-1), impl="cuda"),
     ):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
@@ -173,12 +247,13 @@ def test_wrappers_reject_bad_input():
 
 def test_plain_path_launches_no_kernel(rng):
     cfg = EngineConfig()
-    before = (tradix.tile_histograms.launches, tbucketize.bucketize_tiles.launches,
-              tscatter.scatter_runs.launches)
+    wrappers = (tradix.tile_histograms, tbucketize.bucketize_tiles, tscatter.scatter_runs,
+                tradix.tile_destinations, tscan.exclusive_scan)
+    before = [w.launches for w in wrappers]
     keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
     hist = tradix.tile_histograms(keys, 0, cfg)
+    offsets = tradix.global_offsets(hist)
     bk, bi = tbucketize.bucketize_tiles(keys, keys, 0, cfg)
-    tscatter.scatter_runs(bk, bi, hist, tradix.global_offsets(hist), cfg)
-    after = (tradix.tile_histograms.launches, tbucketize.bucketize_tiles.launches,
-             tscatter.scatter_runs.launches)
-    assert after == before
+    tscatter.scatter_runs(bk, bi, hist, offsets, cfg)
+    tradix.tile_destinations(keys, offsets, 0, cfg)
+    assert [w.launches for w in wrappers] == before

@@ -1,12 +1,13 @@
-"""The port's fused sort against the JAX package's fused sort and numpy.
+"""The port's sort methods against the JAX package's and numpy.
 
 Every case runs the same numpy keys through ``gpuradixsort_tpu``'s
-``method="fused"`` (jnp references on the CPU) and through the port's, and
-requires the padded output buffers to be equal element for element, pad
-rows included, and the live prefix to equal ``np.sort`` /
+``method="fused"`` or ``"radix"`` (jnp references on the CPU) and through
+the port's, and requires the padded output buffers to be equal element for
+element, pad rows included, and the live prefix to equal ``np.sort`` /
 ``np.argsort(kind="stable")``.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -41,9 +42,9 @@ def _keysets(rng, n):
     }
 
 
-def _check_pairs(keys, cfg, jcfg):
-    s, p = tsort.sort_pairs(keys, cfg, method="fused")
-    js, jp = jsort.sort_pairs(jtable.make_key_column(keys, jcfg), jcfg, method="fused")
+def _check_pairs(keys, cfg, jcfg, method="fused"):
+    s, p = tsort.sort_pairs(keys, cfg, method=method)
+    js, jp = jsort.sort_pairs(jtable.make_key_column(keys, jcfg), jcfg, method=method)
     np.testing.assert_array_equal(s.data.numpy(), np.asarray(js.data))
     np.testing.assert_array_equal(p.data.numpy(), np.asarray(jp.data))
     order = np.argsort(keys, kind="stable")
@@ -113,11 +114,55 @@ def test_torch_method_and_auto_agree_with_fused(rng):
 
 
 def test_unported_and_unknown_methods_raise():
-    keys = np.arange(10, dtype=np.uint32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsort.sort_keys(keys, CFG, method="radix")
+    # Every method of the port sorts; the JAX package's "xla" is not one.
+    keys = np.arange(10, dtype=np.uint32)[::-1].copy()
+    for method in tsort.METHODS:
+        np.testing.assert_array_equal(tsort.sort_keys(keys, CFG, method=method).to_numpy(),
+                                      np.sort(keys))
     with pytest.raises(ValueError, match="unknown sort method"):
         tsort.sort_pairs(keys, CFG, method="xla")
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_radix_method_matches_jax(bits, rng):
+    cfg, jcfg = tconfig.EngineConfig(radix_bits=bits), jconfig.EngineConfig(radix_bits=bits)
+    n = 2 * BLOCK + 17 if bits > 1 else 1500  # 32 one-bit passes: keep it small
+    for name, keys in _keysets(rng, n).items():
+        _check_pairs(keys, cfg, jcfg, method="radix")
+        out = tsort.sort_keys(keys, cfg, method="radix")
+        jout = jsort.sort_keys(jtable.make_key_column(keys, jcfg), jcfg, method="radix")
+        np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_radix_sort_padded_carries_columns(bits, rng):
+    cfg, jcfg = tconfig.EngineConfig(radix_bits=bits), jconfig.EngineConfig(radix_bits=bits)
+    keys = rng.integers(0, 1000, BLOCK, dtype=np.uint32)
+    idx = np.arange(BLOCK, dtype=np.uint32)
+    extra = rng.integers(-(2**31), 2**31, (BLOCK, 2)).astype(np.int32)  # 2-D rows
+    jkeys, (jidx, jextra) = jsort._sort_padded(
+        jnp.asarray(keys), (jnp.asarray(idx), jnp.asarray(extra)), jcfg, None, 2)
+    tkeys, (tidx, textra) = tsort._sort_padded(
+        torch.from_numpy(keys), (torch.from_numpy(idx), torch.from_numpy(extra)), cfg)
+    for got, want in ((tkeys, jkeys), (tidx, jidx), (textra, jextra)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(textra.numpy(), extra[np.argsort(keys, kind="stable")])
+
+
+def test_radix8_auto_matches_jax(rng):
+    # The JAX package's "auto" is "radix" off the TPU; the port's must sort
+    # 8-bit digits too, where the fused bucketize takes at most 16 buckets.
+    cfg, jcfg = tconfig.EngineConfig(radix_bits=8), jconfig.EngineConfig(radix_bits=8)
+    for name, keys in _keysets(rng, 5000).items():
+        out = tsort.sort_keys(keys, cfg)
+        jout = jsort.sort_keys(jtable.make_key_column(keys, jcfg), jcfg)
+        np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data))
+        s, p = tsort.sort_pairs(keys, cfg)
+        js, jp = jsort.sort_pairs(jtable.make_key_column(keys, jcfg), jcfg)
+        np.testing.assert_array_equal(s.data.numpy(), np.asarray(js.data))
+        np.testing.assert_array_equal(p.data.numpy(), np.asarray(jp.data))
+    assert tsort._resolve_method("auto", cfg) == "radix"
+    assert tsort._resolve_method("auto", CFG) == "fused"
 
 
 def test_constant_digit_passes_are_skipped():
