@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels of ``gpuradixsort_tpu_torch/csrc`` into
 ``build/kernels/`` (nvcc, sm_90a, one process per source, all at once), then
-in six phases:
+in seven phases:
 
 1. device: PyTorch version, the card's name and power limit, build time;
 2. each kernel against its plain PyTorch version on the card, exact
@@ -40,7 +40,18 @@ in six phases:
    plain version (device time from the profiler, and CUDA-event time per
    call); the 1M x 64 B table sort;
 6. times of the operator path: each operator and the radix sort beside the
-   fused sort, by CUDA events (median of 3) with the profiler's busy share.
+   fused sort, by CUDA events (median of 3) with the profiler's busy share;
+7. the distributed path, counts set to 0 before each timed op in every
+   rank and read after it: 4 gloo ranks on this one card (NCCL refuses two
+   ranks on one GPU), every collective staged through pinned host memory,
+   run ``dist_sort_pairs`` of phase 4's 100,000,000 keys by the all_to_all
+   schedule and by the ring, ``dist_group_by_aggregate`` of the 100M-row x
+   1M-key table and ``dist_join_inner`` of the 100M probe against the 10M
+   build; then one NCCL rank runs ``dist_sort_pairs`` at 2^24 keys and
+   ``dist_join_inner`` of the join_expand inputs.  Each op runs once
+   untimed, then timed (wall after synchronize and a barrier, split by
+   stage on every rank); every result is checked exactly against numpy,
+   and K1, K4 and K5 must have launched on every rank.
 
 Exits non-zero at the first failure, including when no CUDA device is
 present or a kernel's launch count stayed 0.  The line before the last is
@@ -51,20 +62,24 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from gpuradixsort_tpu_torch.config import PAD_INDEX, EngineConfig
+from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import (
     Table,
     int32_bits,
     make_column,
     make_key_column,
     pad_to_tile,
+    round_up,
 )
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
@@ -76,8 +91,13 @@ from gpuradixsort_tpu_torch.ops.aggregate import group_by_aggregate
 from gpuradixsort_tpu_torch.ops.filter import filter_table
 from gpuradixsort_tpu_torch.ops.join import join, join_expand
 from gpuradixsort_tpu_torch.ops.sort import sort_keys, sort_pairs, sort_table
+from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
 from gpuradixsort_tpu_torch.utils.timing import StageTimes, cuda_time_ms, profiled_device_ms
-from gpuradixsort_tpu_torch.utils.verify import device_is_sorted, is_permutation_sorted
+from gpuradixsort_tpu_torch.utils.verify import (
+    device_is_sorted,
+    is_permutation_sorted,
+    join_oracle,
+)
 
 SEED = 20170101
 N_HEADLINE = 1_000_000
@@ -386,8 +406,8 @@ def host(table: Table) -> dict:
     return {name: table[name].to_numpy() for name in table.names()}
 
 
-def phase_operators(dev, rng, cfg) -> tuple[dict, dict]:
-    """Phase 4: the operator path; returns (launch counts, device inputs for timing)."""
+def phase_operators(dev, rng, cfg) -> tuple[dict, dict, dict]:
+    """Phase 4: the operator path; returns (launch counts, device inputs for timing, host inputs)."""
     t0 = time.perf_counter()
     d = operator_inputs(rng)
     tables = operator_tables(d, cfg, dev)
@@ -418,7 +438,31 @@ def phase_operators(dev, rng, cfg) -> tuple[dict, dict]:
     check_operators(d, out)
     for name, count in launches.items():
         check(count > 0, f"{name} launched {count} times on the operator path")
-    return launches, tables
+    return launches, tables, d
+
+
+def group_oracle(d: dict) -> dict:
+    """The group-by's expected columns, from one bincount of (group, value): values are 0..99."""
+    hist = np.bincount(d["gid"].astype(np.int64) * 100 + d["gvals"],
+                       minlength=N_GROUPS * 100).reshape(N_GROUPS, 100)
+    counts = hist.sum(axis=1)
+    present = counts > 0
+    hist, counts = hist[present], counts[present]
+    sums = hist @ np.arange(100, dtype=np.int64)
+    return {"key": d["pool"][present], "c": counts, "s": sums,
+            "lo": np.argmax(hist > 0, axis=1), "hi": 99 - np.argmax(hist[:, ::-1] > 0, axis=1),
+            "m": sums / counts}
+
+
+def check_groups(agg: dict, want: dict, label: str) -> None:
+    """Group keys and aggregates against ``group_oracle``: exact, means to rtol 1e-5."""
+    check(np.array_equal(agg["key"], want["key"]),
+          f"{label}: {want['key'].size} groups, keys == the sorted distinct keys")
+    for name, what in (("c", "count"), ("s", "sum (int32)"), ("lo", "min"), ("hi", "max")):
+        check(np.array_equal(agg[name], want[name]), f"{label} {what}")
+    mean_err = np.max(np.abs(agg["m"] / want["m"] - 1))
+    check(agg["m"].dtype == np.float32 and mean_err <= 1e-5,
+          f"{label} mean within rtol 1e-5 of float64 (max rel err {mean_err:.2e})")
 
 
 def check_operators(d: dict, out: dict) -> None:
@@ -430,24 +474,7 @@ def check_operators(d: dict, out: dict) -> None:
     check(np.array_equal(out["kept_sorted"], np.sort(want)),
           "sort_keys of the survivors == np.sort")
 
-    # One bincount of (group, value) gives every aggregate: values are 0..99.
-    hist = np.bincount(d["gid"].astype(np.int64) * 100 + d["gvals"],
-                       minlength=N_GROUPS * 100).reshape(N_GROUPS, 100)
-    counts = hist.sum(axis=1)
-    present = counts > 0
-    hist, counts = hist[present], counts[present]
-    sums = hist @ np.arange(100, dtype=np.int64)
-    agg = out["agg"]
-    check(np.array_equal(agg["key"], d["pool"][present]),
-          f"group_by_aggregate: {int(present.sum())} groups, keys == the sorted distinct keys")
-    check(np.array_equal(agg["c"], counts), "group_by_aggregate count")
-    check(np.array_equal(agg["s"], sums), "group_by_aggregate sum (int32)")
-    check(np.array_equal(agg["lo"], np.argmax(hist > 0, axis=1)), "group_by_aggregate min")
-    check(np.array_equal(agg["hi"], 99 - np.argmax(hist[:, ::-1] > 0, axis=1)),
-          "group_by_aggregate max")
-    mean_err = np.max(np.abs(agg["m"] / (sums / counts) - 1))
-    check(agg["m"].dtype == np.float32 and mean_err <= 1e-5,
-          f"group_by_aggregate mean within rtol 1e-5 of float64 (max rel err {mean_err:.2e})")
+    check_groups(out["agg"], group_oracle(d), "group_by_aggregate")
 
     hit = ~d["miss"]
     expect = {"inner": hit, "semi": hit, "anti": d["miss"]}
@@ -678,6 +705,150 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
             f"({split or 'no kernel of the port'})")
 
 
+DIST_RANKS = 4
+DIST_TIMEOUT = 600.0
+DIST_KERNELS = ("radix_hist", "radix_dest", "exclusive_scan")  # every rank must launch these
+
+
+def _save_padded(tmp: str, name: str, arr: np.ndarray, fill, multiple: int) -> str:
+    """Write ``arr`` padded with ``fill`` to a multiple of ``multiple`` rows; return the path."""
+    out = np.full(round_up(arr.size, multiple), fill, dtype=arr.dtype)
+    out[: arr.size] = arr
+    path = os.path.join(tmp, f"{name}.npy")
+    np.save(path, out)
+    return path
+
+
+def _by_shard(ranks: list, i: int) -> list:
+    """Call i's result of every rank, in shard order."""
+    return sorted((r[i] for r in ranks), key=lambda x: x["shard"])
+
+
+def report_dist(label: str, shards: list, live_total: int, card: str, launches: dict) -> None:
+    """Per-rank checks and times of one distributed op; adds its launches to ``launches``."""
+    for x in shards:
+        check(not x["overflow"], f"{label}: shard {x['shard']} no overflow")
+        for name in DIST_KERNELS:
+            check(x["launches"][name] > 0,
+                  f"{label}: {name} launched {x['launches'][name]} times on shard {x['shard']}")
+        for name, count in x["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    counts = shards[0]["counts"]
+    check(all(np.array_equal(x["counts"], counts) for x in shards)
+          and int(counts.sum()) == live_total,
+          f"{label}: counts {counts.tolist()} agree on every shard and sum to {live_total}")
+    transport = shards[0]["transport"]
+    where = ("gloo, host-staged, one card: says nothing about NVLink"
+             if transport == "gloo via host" else transport)
+    log(f"time dist {label} ({card}; exchange {where}): wall {shards[0]['wall_s']:.3f} s "
+        f"after synchronize and barrier; per rank: " + "; ".join(
+            f"shard {x['shard']} " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                               for k, v in x["split_s"].items())
+            for x in shards))
+
+
+def check_sorted(gathered, keys: np.ndarray, order: np.ndarray, label: str) -> None:
+    out_k, out_i = gathered
+    check(np.array_equal(out_k, keys[order]), f"{label}: keys == np.sort")
+    check(np.array_equal(out_i, order.astype(np.uint32)),
+          f"{label}: index == np.argsort(kind='stable')")
+
+
+def phase_distributed(d: dict, cfg, card: str) -> dict:
+    """Phase 7: the distributed layer on the card; returns the ranks' launch counts, summed.
+
+    Four gloo ranks on cuda:0 run ``dist_sort_pairs`` (all_to_all, then the
+    ring), ``dist_group_by_aggregate`` and ``dist_join_inner`` on phase 4's
+    inputs; one NCCL rank runs ``dist_sort_pairs`` at 2^24 and
+    ``dist_join_inner`` on the join_expand inputs.  The numpy oracles run on
+    host threads while the ranks work.
+    """
+    launches: dict = {}
+    hit = ~d["miss"]
+    m = DIST_RANKS * cfg.block
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        t0 = time.perf_counter()
+        f = {name: _save_padded(tmp, name, d[name], fill, m) for name, fill in (
+            ("fkeys", np.uint32(PAD_KEY)), ("gkeys", np.uint32(PAD_KEY)), ("gvals", np.int32(0)),
+            ("pkeys", np.uint32(PAD_KEY)), ("pval", np.int32(0)), ("bkeys", np.uint32(PAD_KEY)),
+            ("bpay", np.int32(0)))}
+        log(f"distributed inputs written as .npy in {time.perf_counter() - t0:.1f} s; "
+            f"{DIST_RANKS} gloo ranks on cuda:0 map their shards")
+        sort_order = pool.submit(np.argsort, d["fkeys"], kind="stable")
+        join_order = pool.submit(np.argsort, d["pkeys"][hit], kind="stable")
+        sort_kw = {"cfg": cfg, "n_live": N_OPS}
+        calls = [
+            {"op": "sort", "inputs": {"keys": f["fkeys"]}, "kwargs": sort_kw,
+             "warmup": True, "shards": False, "gather": True},
+            {"op": "sort", "inputs": {"keys": f["fkeys"]}, "kwargs": {**sort_kw, "overlap": True},
+             "warmup": True, "shards": False, "gather": True},
+            {"op": "aggregate", "inputs": {"keys": f["gkeys"], "values": {"val": f["gvals"]}},
+             "kwargs": {"aggs": AGGS, "cfg": cfg, "n_live": N_OPS},
+             "warmup": True, "shards": False, "gather": True},
+            {"op": "join", "inputs": {"probe_keys": f["pkeys"], "probe_values": f["pval"],
+                                      "build_keys": f["bkeys"], "build_values": f["bpay"]},
+             "kwargs": {"cfg": cfg, "n_probe": N_OPS, "n_build": N_BUILD},
+             "warmup": True, "shards": False, "gather": True},
+        ]
+        t0 = time.perf_counter()
+        ranks = run_ranks(DIST_RANKS, run_ops, (calls,), "gloo", "cuda:0", DIST_TIMEOUT)
+        log(f"{DIST_RANKS} gloo ranks ran 4 distributed ops in {time.perf_counter() - t0:.1f} s, "
+            f"spawn and results included; transport: {ranks[0][0]['transport']}")
+        groups = group_oracle(d)
+        for i, label in enumerate(("dist_sort_pairs all_to_all, 100M keys",
+                                   "dist_sort_pairs ring (overlap=True), 100M keys")):
+            shards = _by_shard(ranks, i)
+            report_dist(label, shards, N_OPS, card, launches)
+            check_sorted(shards[0]["gathered"], d["fkeys"], sort_order.result(), label)
+        shards = _by_shard(ranks, 2)
+        label = "dist_group_by_aggregate, 100M rows, 1M keys"
+        report_dist(label, shards, groups["key"].size, card, launches)
+        gkeys, gvals = shards[0]["gathered"]
+        check_groups({"key": gkeys, **gvals}, groups, label)
+        shards = _by_shard(ranks, 3)
+        label = "dist_join_inner, 100M probe x 10M build"
+        report_dist(label, shards, int(hit.sum()), card, launches)
+        order = join_order.result()
+        k, pv, bv = shards[0]["gathered"]
+        check(np.array_equal(k, d["pkeys"][hit][order])
+              and np.array_equal(pv, d["pval"][hit][order])
+              and np.array_equal(bv, d["bpay"][d["hit_row"][hit]][order]),
+              f"{label}: every hit probe row in key order, probe order within a key, "
+              f"with its build payload")
+        del ranks, shards, k, pv, bv
+
+        # One NCCL rank: every collective of the layer on CUDA tensors.
+        ek, eb = d["epool"][d["ep_gid"]], d["epool"][d["eb_gid"]]
+        e = {name: _save_padded(tmp, name, arr, fill, cfg.block) for name, arr, fill in (
+            ("r16m", d["r16m"], np.uint32(PAD_KEY)), ("ek", ek, np.uint32(PAD_KEY)),
+            ("epv", d["epv"], np.int32(0)), ("eb", eb, np.uint32(PAD_KEY)),
+            ("ebv", d["ebv"], np.int32(0)))}
+        r16m_order = pool.submit(np.argsort, d["r16m"], kind="stable")
+        want_join = pool.submit(join_oracle, ek, d["epv"], eb, d["ebv"])
+        calls = [
+            {"op": "sort", "inputs": {"keys": e["r16m"]}, "kwargs": {"cfg": cfg},
+             "warmup": True, "shards": False, "gather": True},
+            {"op": "join", "inputs": {"probe_keys": e["ek"], "probe_values": e["epv"],
+                                      "build_keys": e["eb"], "build_values": e["ebv"]},
+             "kwargs": {"cfg": cfg, "n_probe": N_BUILD, "n_build": N_BUILD},
+             "warmup": True, "shards": False, "gather": True},
+        ]
+        t0 = time.perf_counter()
+        ranks = run_ranks(1, run_ops, (calls,), "nccl", "cuda:0", DIST_TIMEOUT)
+        log(f"1 NCCL rank ran 2 distributed ops in {time.perf_counter() - t0:.1f} s, spawn "
+            f"included; transport: {ranks[0][0]['transport']}")
+        label = "dist_sort_pairs, 1 NCCL rank, 2^24 keys"
+        report_dist(label, _by_shard(ranks, 0), N_LARGE, card, launches)
+        check_sorted(ranks[0][0]["gathered"], d["r16m"], r16m_order.result(), label)
+        label = "dist_join_inner, 1 NCCL rank, join_expand's 10M x 10M (duplicate build keys)"
+        report_dist(label, _by_shard(ranks, 1), d["e_total"], card, launches)
+        check(all(np.array_equal(g, w) for g, w in zip(ranks[0][1]["gathered"],
+                                                       want_join.result())),
+              f"{label}: every (probe, build) pair, key order, probe order within a key, "
+              f"build order within a probe row")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL no CUDA device: torch.cuda.is_available() is False")
@@ -695,15 +866,21 @@ def main() -> int:
     errs = {name: 0 for name in KERNELS}
     phase_kernels(dev, rng, errs)
     main_launches = phase_main_path(dev, rng, cfg)
-    op_launches, tables = phase_operators(dev, rng, cfg)
+    op_launches, tables, host_inputs = phase_operators(dev, rng, cfg)
     check_dest_at_path_shapes(tables, cfg, errs)
     times = phase_times(dev, rng, cfg, card)
     phase_operator_times(tables, cfg, card)
+    del tables
+    torch.cuda.empty_cache()
+    dist_launches = phase_distributed(host_inputs, cfg, card)
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s, the build included")
 
-    # launches: the main path's count plus the operator path's.
+    # launches: the main path's count, the operator path's, and every rank's
+    # of the distributed path.
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": main_launches[name] + op_launches[name], "max_abs_err": errs[name],
+         "launches": main_launches[name] + op_launches[name] + dist_launches.get(name, 0),
+         "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
         for name, (_, src, replaces, _) in KERNELS.items()
     ]

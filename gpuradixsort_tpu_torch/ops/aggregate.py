@@ -103,7 +103,10 @@ def aggregate_sorted_flat(
     edge = torch.ones(1, dtype=torch.bool, device=dev)
     is_first = torch.cat([edge, changed])
     is_last = torch.cat([changed, edge]) & live
-    seg = torch.cumsum(is_first, dim=0) - 1
+    # Rows past the live prefix take their own slot (>= count, zeroed
+    # below), not their run's: a shard's merged buffer is about half pad
+    # rows, and one slot would take every pad row's atomic update.
+    seg = torch.where(live, torch.cumsum(is_first, dim=0) - 1, pos)
     # The live rows are a prefix, so the runs that end on a live row are
     # segments 0..count-1, in key order.
     count = is_last.sum(dtype=torch.int32)

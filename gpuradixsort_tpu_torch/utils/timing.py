@@ -10,6 +10,7 @@ the device's own time.
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
@@ -54,6 +55,39 @@ def profiled_device_ms(fn: Callable[[], object], calls: int = 20) -> tuple[float
     rows = {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
             if e.self_cpu_time_total == 0 and e.self_device_time_total > 0}
     return sum(rows.values()), rows
+
+
+class StageClock:
+    """Wall seconds of the named stages of a distributed op, summed over its calls.
+
+    ``start()`` and ``mark(name)`` wait for the device and then for every
+    rank (``barrier``), so a stage's time is that of its slowest rank;
+    ``mark`` charges the time since the last mark to ``name``.  The waits
+    cost a synchronisation per stage, so ops take a clock only when timed.
+    """
+
+    def __init__(self, barrier: Callable[[], None]):
+        self._barrier = barrier
+        self._last = 0.0
+        self.seconds: dict[str, float] = {}
+
+    def _now(self) -> float:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self._barrier()
+        return time.perf_counter()
+
+    def start(self) -> float:
+        """Start timing the next stage; returns the time."""
+        self._last = self._now()
+        return self._last
+
+    def mark(self, name: str) -> float:
+        """Charge the time since the last start or mark to ``name``; returns the time."""
+        now = self._now()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._last
+        self._last = now
+        return now
 
 
 class StageTimes:

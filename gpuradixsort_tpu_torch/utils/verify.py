@@ -46,3 +46,21 @@ def device_is_sorted(keys: torch.Tensor) -> torch.Tensor:
     if keys.dtype == torch.uint32:
         wide = wide & 0xFFFFFFFF
     return torch.all(wide[1:] >= wide[:-1])
+
+
+def join_oracle(pk: np.ndarray, pv: np.ndarray, bk: np.ndarray, bv: np.ndarray):
+    """The inner join in the distributed join's order, by numpy.
+
+    Probe rows in key order, the probe order kept within a key; each followed
+    by its key's build rows in build order.  Returns (keys, probe values,
+    build values).
+    """
+    order_p = np.argsort(pk, kind="stable")
+    order_b = np.argsort(bk, kind="stable")
+    bks = bk[order_b]
+    lo = np.searchsorted(bks, pk[order_p], side="left")
+    cnt = np.searchsorted(bks, pk[order_p], side="right") - lo
+    prow = np.repeat(order_p, cnt)
+    first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+    brow = order_b[np.repeat(lo, cnt) + np.arange(prow.size) - first]
+    return pk[prow], pv[prow], bv[brow]

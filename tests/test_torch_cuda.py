@@ -23,6 +23,8 @@ from gpuradixsort_tpu_torch.ops import aggregate as tagg
 from gpuradixsort_tpu_torch.ops import filter as tfilter
 from gpuradixsort_tpu_torch.ops import join as tjoin
 from gpuradixsort_tpu_torch.ops import sort as tsort
+from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
+from gpuradixsort_tpu_torch.utils.verify import join_oracle
 
 pytestmark = pytest.mark.cuda
 
@@ -215,3 +217,41 @@ def test_rejected_launch_raises(card):
     x = torch.zeros(5000, dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="grs_exclusive_scan"):
         _build.launch("grs_exclusive_scan", x, x.data_ptr(), x.data_ptr(), 5000, 1)
+
+
+def _dist_sort_calls(gen, n):
+    keys = gen.integers(0, 2**32, n, dtype=np.uint32)
+    return keys, [{"op": "sort", "inputs": {"keys": keys}, "kwargs": {"cfg": CFG, **kw},
+                   "shards": False, "gather": True} for kw in ({}, {"overlap": True})]
+
+
+def test_dist_sort_two_gloo_ranks_on_card(card, gen):
+    _build.library()  # the ranks load this build; they do not rebuild
+    keys, calls = _dist_sort_calls(gen, 2 * 4 * CFG.block)
+    ranks = run_ranks(2, run_ops, (calls,), "gloo", "cuda:0", timeout=300.0)
+    for schedule in range(2):
+        by_shard = sorted((r[schedule] for r in ranks), key=lambda x: x["shard"])
+        out_k, out_i = by_shard[0]["gathered"]
+        np.testing.assert_array_equal(out_k, np.sort(keys))
+        np.testing.assert_array_equal(out_i, np.argsort(keys, kind="stable").astype(np.uint32))
+        for x in by_shard:
+            assert x["transport"] == "gloo via host" and not x["overflow"]
+            assert all(x["launches"][k] > 0
+                       for k in ("radix_hist", "radix_dest", "exclusive_scan"))
+
+
+def test_dist_join_one_nccl_rank(card, gen):
+    _build.library()
+    n = 3 * CFG.block
+    pk = gen.integers(0, 5000, n, dtype=np.uint32)
+    bk = gen.integers(0, 5000, n, dtype=np.uint32)  # duplicates on both sides
+    pv = gen.integers(0, 2**31 - 1, n, dtype=np.int32)
+    bv = gen.integers(0, 2**31 - 1, n, dtype=np.int32)
+    calls = [{"op": "join", "inputs": {"probe_keys": pk, "probe_values": pv,
+                                       "build_keys": bk, "build_values": bv},
+              "kwargs": {"cfg": CFG}, "gather": True}]
+    (result,), = run_ranks(1, run_ops, (calls,), "nccl", "cuda:0", timeout=300.0)
+    assert result["transport"] == "nccl" and not result["overflow"]
+    assert result["launches"]["radix_dest"] > 0
+    for got, want in zip(result["gathered"], join_oracle(pk, pv, bk, bv)):
+        np.testing.assert_array_equal(got, want)
