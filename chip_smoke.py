@@ -12,10 +12,14 @@ in seven phases:
    equality: radix_hist and radix_dest at radix_bits 1, 2, 4, 8; bucketize
    at 1, 2, 4; scatter_runs on the plain-bucketized input; each at shifts 0,
    4 and 28, on 4 blocks of random keys and on 1,000,000 keys padded;
-   exclusive_scan at lengths 1, 1023, 1,000,000 and 2^24, and on values
-   near the int32 limit, whose sums wrap (radix_dest is also held against
-   its plain version at the operator path's shapes, after phase 4: 2^24
-   keys at radix_bits 4 and 8, and the filter's 100,000,000-row 1-bit
+   radix_hist and bucketize also at tile_rows 1, 3, 8 and 16, on tile
+   counts that leave the last block part-filled and on keys 4 bytes off a
+   16-byte boundary, and radix_hist on 64-row tiles of equal keys;
+   exclusive_scan at lengths 1, 1023, 1,000,000 and 2^24,
+   and on values near the int32 limit, whose sums wrap (radix_hist,
+   bucketize and radix_dest are also held against their plain versions at
+   the operator path's shapes, after phase 4: 2^24 keys at radix_bits 4 and
+   8, the filter's 100,000,000 keys at radix_bits 4, and its 1-bit
    compaction input);
 3. the main path through the public entry points on CUDA tensors, with every
    launch count set to 0 before and read after: ``sort_pairs`` of 1,000,000
@@ -38,7 +42,9 @@ in seven phases:
    exclusive_scan against the same sort with the library-cumsum offsets,
    in alternating rounds; each kernel of one pass at 1M and 16M beside its
    plain version (device time from the profiler, and CUDA-event time per
-   call); the 1M x 64 B table sort;
+   call), its bound (the bytes it must move at 3.35 TB/s) and its share of
+   that bound, and exclusive_scan beside ``torch.cumsum`` of the same int32
+   vector; the 1M x 64 B table sort;
 6. times of the operator path: each operator and the radix sort beside the
    fused sort, by CUDA events (median of 3) with the profiler's busy share;
 7. the distributed path, counts set to 0 before each timed op in every
@@ -54,7 +60,8 @@ in seven phases:
    and K1, K4 and K5 must have launched on every rank.
 
 Exits non-zero at the first failure, including when no CUDA device is
-present or a kernel's launch count stayed 0.  The line before the last is
+present or a kernel's launch count stayed 0.  Before it exits, pass or
+fail, it stops every process it started.  The line before the last is
 the card's name and power limit; the last line is the JSON result.
 """
 
@@ -62,12 +69,15 @@ from __future__ import annotations
 
 import contextlib
 import json
+import multiprocessing
 import os
+import signal
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from multiprocessing import resource_tracker
 
 import numpy as np
 import torch
@@ -103,13 +113,15 @@ SEED = 20170101
 N_HEADLINE = 1_000_000
 PAYLOAD_COLS = 16
 HBM_PEAK_TBS = 3.35  # H100 SXM data sheet
+SCALAR_PEAK_OPS = 67e12  # H100 SXM, float32 outside the tensor cores: the scalar rate
 
 # name: (wrapper, source, TPU kernel it replaces, its __global__ functions)
 KERNELS = {
     "radix_hist": (rk.tile_histograms, "gpuradixsort_tpu_torch/csrc/radix_hist.cu",
                    "gpuradixsort_tpu/kernels/radix.py:57", ("radix_hist_kernel",)),
     "bucketize": (bucketize_tiles, "gpuradixsort_tpu_torch/csrc/bucketize.cu",
-                  "gpuradixsort_tpu/kernels/bucketize.py:156", ("bucketize_kernel",)),
+                  "gpuradixsort_tpu/kernels/bucketize.py:156",
+                  ("bucketize_1k_kernel", "bucketize_any_kernel")),
     "scatter_runs": (scatter_runs, "gpuradixsort_tpu_torch/csrc/scatter_runs.cu",
                      "gpuradixsort_tpu/kernels/scatter.py:107", ("scatter_runs_kernel",)),
     "radix_dest": (rk.tile_destinations, "gpuradixsort_tpu_torch/csrc/radix_dest.cu",
@@ -217,6 +229,7 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 err = max(max_abs_err(ok, ok_ref), max_abs_err(oi, oi_ref))
                 errs["scatter_runs"] = max(errs["scatter_runs"], err)
                 check(err == 0 and not overflow, f"scatter_runs == plain, {where}")
+    check_hist_bucketize_geometry(dev, rng, errs)
     limit = np.iinfo(np.int32)
     cases = [(n, rng.integers(limit.min, limit.max, n, dtype=np.int64).astype(np.int32))
              for n in (1, 1023, N_HEADLINE, 1 << 24)]
@@ -234,12 +247,52 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     torch.cuda.synchronize()
 
 
-def check_dest_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
-    """radix_dest against its plain version at the shapes the operator path gives it.
+def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
+    """radix_hist and bucketize against their plain versions at every launch geometry.
 
-    The 2^24-key radix sorts at radix_bits 4 and 8, and the filter's 1-bit
-    compaction of 100,000,000 rows (digit 0 = kept), made as filter_table
-    makes it.
+    tile_rows 1, 3, 8 and 16 at every radix; 1, 8 and 29 tiles, so that the
+    last block of 4 or 8 tiles is part-filled; and the same keys 4 bytes off
+    a 16-byte boundary, where radix_hist loads 4 bytes at a time.  Then
+    radix_hist on 64-row tiles of equal keys: 256 keys a lane fill one of
+    its 8-bit fields as fast as keys can.
+    """
+    for bits in (4, 8):
+        cfg = EngineConfig(radix_bits=bits, tile_rows=64)
+        keys = torch.from_numpy(np.full(3 * cfg.tile, 0xA5A5A5A5, dtype=np.uint32)).to(dev)
+        for shift in (0, 28):
+            errs["radix_hist"] = max(errs["radix_hist"], max_abs_err(
+                rk.tile_histograms(keys, shift, cfg, impl="cuda"),
+                rk.tile_histograms(keys, shift, cfg, impl="reference")))
+    for tile_rows in (1, 3, 8, 16):
+        for bits in (1, 2, 4, 8):
+            cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+            for num_tiles in (1, 8, 29):
+                n = num_tiles * cfg.tile
+                buf = torch.from_numpy(rng.integers(0, 2**32, n + 1, dtype=np.uint32)).to(dev)
+                idx = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+                for keys in (buf[:n], buf[1:]):
+                    for shift in (0, 28):
+                        hist = rk.tile_histograms(keys, shift, cfg, impl="cuda")
+                        errs["radix_hist"] = max(errs["radix_hist"], max_abs_err(
+                            hist, rk.tile_histograms(keys, shift, cfg, impl="reference")))
+                        if cfg.radix > 16:
+                            continue
+                        got = bucketize_tiles(keys, idx, shift, cfg, impl="cuda")
+                        ref = _bucketize_ref(keys, idx, shift, cfg)
+                        errs["bucketize"] = max(errs["bucketize"], *map(max_abs_err, got, ref))
+    check(errs["radix_hist"] == 0 and errs["bucketize"] == 0,
+          "radix_hist (radix 2-256) and bucketize (radix 2-16) == plain at tile_rows 1, 3, 8, "
+          "16, 1/8/29 tiles, aligned and unaligned keys; radix_hist on 64-row tiles of "
+          "equal keys")
+
+
+def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
+    """radix_hist, bucketize and radix_dest against their plain versions at the path's shapes.
+
+    The 2^24 keys of the sorts at radix_bits 4 and 8 (bucketize at 4), the
+    filter's 100,000,000 keys at radix_bits 4, as the sort of its survivors
+    sees a 100M buffer, and the filter's 1-bit compaction of them (digit 0
+    = kept), made as filter_table makes it.
     """
     keys16m = tables["r16m"].data
     flt = tables["filter"]
@@ -251,13 +304,28 @@ def check_dest_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     cases = [(f"2^24 keys radix_bits={bits} shift={shift}", keys16m,
               EngineConfig(radix_bits=bits, tile_rows=cfg.tile_rows), shift)
              for bits in (4, 8) for shift in (0, 28)]
+    cases += [(f"filter keys, {padded} rows, radix_bits=4 shift={shift}", flt["key"].data,
+               cfg, shift) for shift in (0, 28)]
     cases.append((f"filter compaction input, {padded} rows, radix 2", compaction, bit_cfg, 0))
     for where, keys, kcfg, shift in cases:
-        offsets = rk.global_offsets(rk.tile_histograms(keys, shift, kcfg, impl="reference"))
+        hist = rk.tile_histograms(keys, shift, kcfg, impl="reference")
+        err = max_abs_err(rk.tile_histograms(keys, shift, kcfg, impl="cuda"), hist)
+        errs["radix_hist"] = max(errs["radix_hist"], err)
+        check(err == 0, f"radix_hist == plain, {where}")
+        offsets = rk.global_offsets(hist)
+        del hist
         err = max_abs_err(rk.tile_destinations(keys, offsets, shift, kcfg, impl="cuda"),
                           rk.tile_destinations(keys, offsets, shift, kcfg, impl="reference"))
         errs["radix_dest"] = max(errs["radix_dest"], err)
         check(err == 0, f"radix_dest == plain, {where}")
+        if kcfg.radix == 16:
+            idx = iota_index(keys.numel(), kcfg, keys.device)
+            got = bucketize_tiles(keys, idx, shift, kcfg, impl="cuda")
+            err = max(map(max_abs_err, got, _bucketize_ref(keys, idx, shift, kcfg)))
+            errs["bucketize"] = max(errs["bucketize"], err)
+            check(err == 0, f"bucketize == plain, {where}")
+            del idx, got
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -317,7 +385,7 @@ def phase_main_path(dev, rng, cfg) -> dict:
 def _kernel_name(row: str) -> str:
     """The port's kernel a profiler row names (one of its __global__ functions), or ''."""
     return next((name for name, (*_, symbols) in KERNELS.items()
-                 if any(f"{sym}(" in row for sym in symbols)), "")
+                 if any(f"{sym}{c}" in row for sym in symbols for c in "(<")), "")
 
 
 def port_kernel_split(rows: dict) -> dict:
@@ -568,7 +636,7 @@ def offsets_ab(col, cfg, label: str, card: str) -> None:
 
 
 def phase_times(dev, rng, cfg, card: str) -> dict:
-    """Phase 5: times; returns per-kernel (device ms, plain device ms) at 1M."""
+    """Phase 5: times; returns each kernel's ms, plain_ms, library_ms, bound_ms, bound_by at 1M."""
     for n, label in ((N_HEADLINE, "1M"), (1 << 24, "16M")):
         col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
                               device=dev)
@@ -582,6 +650,10 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             f"keys/s); sort_pairs torch (torch.sort of int64-widened keys + gathers) "
             f"{t_torch:.4f} ms; bare torch.sort of sign-flipped int32 keys {t_raw:.4f} ms")
         offsets_ab(col, cfg, label, card)
+        reset_launches()
+        fused()
+        log(f"  launches in one fused sort at {label}: " + ", ".join(
+            f"{name} {count}" for name, count in read_launches().items()))
         busy, rows = profiled_device_ms(fused, calls=3)
         if not busy:
             log(f"  profiler, fused {label}: device time not measured")
@@ -601,31 +673,35 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         offsets = rk.global_offsets(hist)
         bk, bi = bucketize_tiles(keys, idx, 0, cfg)
         padded = keys.numel()
+        table_bytes = 4 * cfg.radix * (padded // cfg.tile)  # one (tiles, radix) int32 table
         counts = torch.randint(0, 100, (padded,), dtype=torch.int32, device=dev)
-        stage = {  # name: (kernel, plain, HBM bytes the kernel must move)
+        # name: (kernel, plain, one library call of the same function or None,
+        #        bytes it must move, integer operations it must do)
+        stage = {
             "radix_hist": (lambda: rk.tile_histograms(keys, 0, cfg, impl="cuda"),
-                           lambda: rk.tile_histograms(keys, 0, cfg, impl="reference"),
-                           4 * padded),
+                           lambda: rk.tile_histograms(keys, 0, cfg, impl="reference"), None,
+                           4 * padded + table_bytes, 3 * padded),
             "bucketize": (lambda: bucketize_tiles(keys, idx, 0, cfg, impl="cuda"),
-                          lambda: bucketize_tiles(keys, idx, 0, cfg, impl="reference"),
-                          16 * padded),
+                          lambda: bucketize_tiles(keys, idx, 0, cfg, impl="reference"), None,
+                          16 * padded, 4 * padded),
             "scatter_runs": (lambda: scatter_runs(bk, bi, hist, offsets, cfg, impl="cuda"),
                              lambda: scatter_runs(bk, bi, hist, offsets, cfg,
-                                                  impl="reference"),
-                             16 * padded),
+                                                  impl="reference"), None,
+                             16 * padded + 2 * table_bytes, 2 * padded),
             "radix_dest": (lambda: rk.tile_destinations(keys, offsets, 0, cfg, impl="cuda"),
                            lambda: rk.tile_destinations(keys, offsets, 0, cfg,
-                                                        impl="reference"),
-                           8 * padded),
+                                                        impl="reference"), None,
+                           8 * padded + table_bytes, 4 * padded),
             "exclusive_scan": (lambda: exclusive_scan(counts, impl="cuda"),
                                lambda: exclusive_scan(counts, impl="reference"),
-                               8 * padded),
+                               lambda: torch.cumsum(counts, 0, dtype=torch.int32),
+                               8 * padded + 4, padded),
         }
         st = StageTimes()
         log(f"one pass at {label} keys, shift 0, radix 16 ({card}): device time "
             f"(profiler) and per-call time of 20 back-to-back calls (CUDA events); "
-            f"exclusive_scan of {padded} int32 values")
-        for name, (kernel, plain, nbytes) in stage.items():
+            f"exclusive_scan of {padded} int32 values, beside torch.cumsum of them")
+        for name, (kernel, plain, library, nbytes, ops) in stage.items():
             # Alternating turns, so both sides see the same card state; the
             # median over turns in which the profiler recorded device time.
             turns = {"k": [], "p": []}
@@ -635,8 +711,16 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             dev_k, dev_p = (float(np.median([t for t in turns[side] if t] or [0.0]))
                             for side in "kp")
             wall_k, wall_p = median_per_call_ms(kernel), median_per_call_ms(plain)
+            lib_ms = None
+            if library is not None:
+                lib_ms = profiled_device_ms(library, calls=20)[0] or median_per_call_ms(library)
+                st.add(f"{name} library call device", lib_ms / 1e3)
+            bytes_ms = nbytes / (HBM_PEAK_TBS * 1e12) * 1e3
+            ops_ms = ops / SCALAR_PEAK_OPS * 1e3
+            bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
             if label == "1M":  # CUDA-event time where the profiler saw nothing
-                times[name] = (dev_k or wall_k, dev_p or wall_p)
+                times[name] = {"ms": dev_k or wall_k, "plain_ms": dev_p or wall_p,
+                               "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
             st.add(f"{name} kernel device", dev_k / 1e3)
             st.add(f"{name} kernel per call", wall_k / 1e3)
             st.add(f"{name} plain device", dev_p / 1e3)
@@ -644,7 +728,8 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             if dev_k:
                 rate = nbytes / (dev_k * 1e-3) / 1e12
                 log(f"  {name}: {nbytes / 1e6:.1f} MB at {rate:.3f} TB/s, "
-                    f"{rate / HBM_PEAK_TBS:.3f} of the 3.35 TB/s peak")
+                    f"{rate / HBM_PEAK_TBS:.3f} of the 3.35 TB/s peak; bound {bound_ms * 1e3:.2f} "
+                    f"us ({bound_by}), share of bound {bound_ms / dev_k:.3f}")
             if name == "radix_hist":
                 for tag, fn in (("", rk.global_offsets), (" by cumsum", global_offsets_cumsum)):
                     st.add(f"global_offsets{tag} device", profiled_device_ms(
@@ -867,7 +952,7 @@ def main() -> int:
     phase_kernels(dev, rng, errs)
     main_launches = phase_main_path(dev, rng, cfg)
     op_launches, tables, host_inputs = phase_operators(dev, rng, cfg)
-    check_dest_at_path_shapes(tables, cfg, errs)
+    check_kernels_at_path_shapes(tables, cfg, errs)
     times = phase_times(dev, rng, cfg, card)
     phase_operator_times(tables, cfg, card)
     del tables
@@ -880,8 +965,7 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": main_launches[name] + op_launches[name] + dist_launches.get(name, 0),
-         "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "max_abs_err": errs[name], **times[name]}
         for name, (_, src, replaces, _) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -892,5 +976,45 @@ def main() -> int:
     return 0
 
 
+def _child_pids() -> list[int]:
+    """Pids of this process's children, live or not yet reaped (Linux /proc)."""
+    me, pids = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat[stat.rindex(")") + 2:].split()[1]) == me:  # state, then ppid
+            pids.append(int(entry))
+    return pids
+
+
+def stop_children() -> None:
+    """Stop every process this script started that is still there.
+
+    ``run_ranks`` joins its ranks, but its spawn context also starts
+    multiprocessing's resource tracker, which ignores SIGTERM and would
+    outlive this script until it reads the end of its pipe.  It is stopped
+    here as CPython's own finalizer stops it; any other child is killed and
+    reaped.
+    """
+    for p in multiprocessing.active_children():
+        p.kill()
+        p.join(10)
+    resource_tracker._resource_tracker._stop()
+    for pid in _child_pids():
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

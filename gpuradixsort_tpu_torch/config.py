@@ -11,6 +11,10 @@ kernel wrapper also takes ``impl="cuda"`` or ``impl="reference"`` so that
 tests and ``chip_smoke.py`` can hold a kernel against its plain version on
 the same card.  No environment switch can route a CUDA tensor to the plain
 version.
+
+Host values (numpy arrays, lists) and the entry points go to the CUDA card
+unless the caller passes ``device="cpu"`` (``default_device``); without a
+card they raise rather than run on the CPU.
 """
 
 from __future__ import annotations
@@ -90,6 +94,21 @@ def config_from_jax(cfg) -> EngineConfig:
     return EngineConfig(
         radix_bits=cfg.radix_bits, tile_rows=cfg.tile_rows, key_bits=cfg.key_bits
     )
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` if the caller gave one, else the current CUDA card.
+
+    Raises when no device is given and there is no card: the port runs on
+    the CPU only when asked (``device="cpu"``), never as a quiet fall-back.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def resolve_impl(t: torch.Tensor, impl: str | None) -> str:

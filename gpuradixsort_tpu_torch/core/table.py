@@ -19,7 +19,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from gpuradixsort_tpu_torch.config import PAD_KEY, EngineConfig
+from gpuradixsort_tpu_torch.config import PAD_KEY, EngineConfig, default_device
 
 # JAX runs with 64-bit types disabled, so it narrows 64-bit host data.
 _NARROW = {
@@ -117,7 +117,9 @@ def make_column(
     """Build a padded Column from host values or a tensor.
 
     Host values are converted to ``dtype`` (a numpy dtype) if given, and take
-    JAX's dtypes (64-bit types narrow to 32 bits).  A tensor keeps its dtype.
+    JAX's dtypes (64-bit types narrow to 32 bits); they go to ``device``, by
+    default the CUDA card (``config.default_device``).  A tensor keeps its
+    dtype, and its device unless ``device`` is given.
     """
     cfg = cfg or EngineConfig()
     if isinstance(values, torch.Tensor):
@@ -127,7 +129,7 @@ def make_column(
         return Column(pad_to_tile(arr, cfg, fill), arr.shape[0])
     arr = np.asarray(values, dtype=dtype)
     arr = arr.astype(_NARROW.get(arr.dtype, arr.dtype), copy=False)
-    data = torch.from_numpy(_pad_numpy(arr, cfg, fill)).to(device)
+    data = torch.from_numpy(_pad_numpy(arr, cfg, fill)).to(default_device(device))
     return Column(data, arr.shape[0])
 
 
@@ -175,8 +177,12 @@ def table_from_arrays(cfg: EngineConfig | None = None, device=None, **arrays) ->
 
 
 def column_from_jax(col, device=None) -> Column:
-    """Carry a ``gpuradixsort_tpu`` Column across: padded buffer bit for bit."""
-    return Column(torch.from_numpy(np.array(col.data)).to(device), col.length)
+    """Carry a ``gpuradixsort_tpu`` Column across: padded buffer bit for bit.
+
+    The buffer goes to ``device``, by default the CUDA card.
+    """
+    data = torch.from_numpy(np.array(col.data)).to(default_device(device))
+    return Column(data, col.length)
 
 
 def table_from_jax(tbl, device=None) -> Table:

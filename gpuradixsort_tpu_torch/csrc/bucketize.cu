@@ -6,24 +6,32 @@
 // The output equals a per-tile argsort(digit, stable) applied to key and
 // index.
 //
-// Bound on the H100: HBM bytes.  Each key is read twice (once for the tile
-// histogram, once to place it; the second read mostly hits L1/L2) and each
-// index once, and key and index are each written once.
+// Bound on the H100: HBM bytes, 16 a key: key and index each read once and
+// written once.
 //
-// Design: one block per tile, a stable counting split in shared memory.  The
-// TPU kernel runs a 28-stage bitonic network per row and a gather loop per
-// source row because the TPU has no per-element gather or scatter; here every
-// element goes straight to its slot:
-//   1. the tile histogram, with warp-aggregated shared atomics, and its
-//      exclusive scan over digits (digit_start), by one warp's shuffles;
-//   2. the tile is walked in chunks of blockDim elements, thread i owning
-//      element c0 + i.  A warp ranks its lanes within a digit with one
-//      ballot per digit bit and popc(peers & lanes below); per-warp counts
-//      are scanned over (chunk, warp) into warp_base, one warp per digit,
-//      lane w holding warp w's count;
-//   3. dst = digit_start[d] + warp_base[warp][d] + lane rank, staged in
-//      shared memory, so the tile leaves with coalesced stores.
-// Flat order is (chunk, warp, lane), so equal digits keep their order.
+// Design: one warp per tile and no block barrier, so that a tile's keys are
+// read from device memory once and many loads are in flight.  The TPU kernel
+// runs a 28-stage bitonic network per row because Mosaic has no per-element
+// scatter; here every pair goes straight to its slot.  For the default
+// 1,024-key tile (bucketize_1k_kernel) a warp:
+//   1. copies its next tile's keys and indices into shared memory with
+//      cp.async (16-byte copies where the inputs allow) while it ranks the
+//      current one: the warps are persistent, one grid-stride loop over the
+//      tiles, so a tile's loads overlap the previous tile's work;
+//   2. reads the tile warp-striped (lane l's item j is element 32 j + l) into
+//      registers: 32 keys and 32 indices a lane;
+//   3. ranks the items in element order with one ballot per digit bit: an
+//      item's slot within its digit is the count of that digit in earlier
+//      items (lane r keeps the running count of digit r; a shuffle reads it)
+//      plus its peers in lower lanes.  After the last item lane r holds the
+//      tile's count of digit r: the histogram falls out, and one warp scan of
+//      it gives the digit starts;
+//   4. places each pair at start[digit] + slot in shared staging and writes
+//      the staged tile with 16-byte stores.
+// Flat order is (item, lane), which is element order, so equal digits keep
+// their order.  Every other tile (bucketize_any_kernel) takes a slower route:
+// one tile a warp, counting the whole tile from device memory, then reading
+// it again to rank and place it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,106 +41,235 @@
 namespace {
 
 constexpr int kMaxRadix = 16;
-constexpr int kMaxWarps = 32;
+constexpr int kMaxBits = 4;
+constexpr int kFastTile = 1024;      // the default tile: 32 keys a lane
+constexpr int kItems = kFastTile / 32;
+constexpr int kMaxWarps = 8;         // tiles a block
+constexpr int kMaxShared = 232448;   // shared memory a block may use (H100)
 
-__global__ void bucketize_kernel(const uint32_t* __restrict__ keys,
-                                 const uint32_t* __restrict__ idx,
-                                 uint32_t* __restrict__ out_keys,
-                                 uint32_t* __restrict__ out_idx, int tile,
-                                 int shift, int radix, int bits) {
-  extern __shared__ uint32_t staged[];  // [0, tile) keys, [tile, 2 tile) idx
-  __shared__ int digit_start[kMaxRadix];
-  __shared__ int running[kMaxRadix];
-  __shared__ int warp_base[kMaxWarps][kMaxRadix];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  const uint32_t mask = static_cast<uint32_t>(radix - 1);
-  const unsigned lanes_below = (1u << lane) - 1u;
-
-  if (tid < radix) {
-    digit_start[tid] = 0;
-    running[tid] = 0;
+__device__ __forceinline__ void cp_async(uint32_t* smem, const uint32_t* gmem, bool vec) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst + 4 * i),
+                   "l"(gmem + i) : "memory");
   }
-  __syncthreads();
+}
 
-  // 1. Tile histogram, then its exclusive scan over digits.
-  for (int i = tid; i < tile; i += blockDim.x) {
-    const uint32_t d = (keys[base + i] >> shift) & mask;
-    const unsigned peers = grs::lanes_with_digit(d, bits);
-    if (lane == __ffs(peers) - 1) atomicAdd(&digit_start[d], __popc(peers));
+// One tile's keys and indices into a warp's input buffer, in element order.
+__device__ __forceinline__ void load_tile(uint32_t* in, const uint32_t* keys,
+                                          const uint32_t* idx, int64_t t, int lane,
+                                          bool vec) {
+  const int64_t base = t * kFastTile;
+#pragma unroll
+  for (int i = 0; i < kFastTile / 128; ++i) {
+    const int e = 4 * (lane + 32 * i);
+    cp_async(in + e, keys + base + e, vec);
+    cp_async(in + kFastTile + e, idx + base + e, vec);
   }
-  __syncthreads();
-  if (warp == 0) {
-    int total;
-    const int count = lane < radix ? digit_start[lane] : 0;
-    const int excl = grs::warp_exclusive_scan(count, lane, total);
-    if (lane < radix) digit_start[lane] = excl;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The staged tile out with 16-byte stores (the outputs are 16-byte aligned).
+__device__ __forceinline__ void store_tile(uint32_t* out_keys, uint32_t* out_idx,
+                                           const uint32_t* sk, const uint32_t* sv,
+                                           int64_t base, int tile, int lane) {
+  uint4* ok = reinterpret_cast<uint4*>(out_keys + base);
+  uint4* ov = reinterpret_cast<uint4*>(out_idx + base);
+  const uint4* sk4 = reinterpret_cast<const uint4*>(sk);
+  const uint4* sv4 = reinterpret_cast<const uint4*>(sv);
+  for (int i = lane; i < tile / 4; i += 32) {
+    ok[i] = sk4[i];
+    ov[i] = sv4[i];
   }
-  __syncthreads();
+}
 
-  // 2-3. Rank and place one chunk of blockDim elements at a time.
-  for (int c0 = 0; c0 < tile; c0 += blockDim.x) {
-    const uint32_t k = keys[base + c0 + tid];
-    const uint32_t v = idx[base + c0 + tid];
-    const uint32_t d = (k >> shift) & mask;
-    const unsigned peers = grs::lanes_with_digit(d, bits);
-    const int rank = __popc(peers & lanes_below);
+template <int kBits>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    bucketize_1k_kernel(const uint32_t* __restrict__ keys,
+                        const uint32_t* __restrict__ idx,
+                        uint32_t* __restrict__ out_keys,
+                        uint32_t* __restrict__ out_idx, int64_t num_tiles,
+                        int shift, bool vec) {
+  // Per warp: the input tile (keys, then indices), then the staged output.
+  extern __shared__ uint4 smem[];
+  constexpr uint32_t kMask = (1u << kBits) - 1u;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (t >= num_tiles) return;  // no block barrier follows
 
-    if (lane < radix) warp_base[warp][lane] = 0;
+  uint32_t* in = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * 4 * kFastTile;
+  uint32_t* sk = in + 2 * kFastTile;
+  uint32_t* sv = sk + kFastTile;
+  const unsigned below = (1u << lane) - 1u;
+  load_tile(in, keys, idx, t, lane, vec);
+
+  for (; t < num_tiles; t += stride) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncwarp();
-    if (rank == 0) warp_base[warp][d] = __popc(peers);
-    __syncthreads();
-    for (int r = warp; r < radix; r += nwarps) {
-      const int before = running[r];
-      int total;
-      const int count = lane < nwarps ? warp_base[lane][r] : 0;
-      const int excl = grs::warp_exclusive_scan(count, lane, total);
-      if (lane < nwarps) warp_base[lane][r] = before + excl;
-      __syncwarp();
-      if (lane == 0) running[r] = before + total;
+    uint32_t k[kItems], v[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      k[j] = in[32 * j + lane];
+      v[j] = in[kFastTile + 32 * j + lane];
     }
-    __syncthreads();
-    const int dst = digit_start[d] + warp_base[warp][d] + rank;
-    staged[dst] = k;
-    staged[tile + dst] = v;
-    __syncthreads();  // warp_base is rewritten by the next chunk
-  }
+    __syncwarp();  // every lane has read the tile: refill the buffer
+    if (t + stride < num_tiles) load_tile(in, keys, idx, t + stride, lane, vec);
 
-  for (int i = tid; i < tile; i += blockDim.x) {
-    out_keys[base + i] = staged[i];
-    out_idx[base + i] = staged[tile + i];
+    int slot[kItems];
+    int count = 0;  // lane r: keys of digit r in the items so far
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t d = (k[j] >> shift) & kMask;
+      const grs::DigitBallots<kBits> ballots(d, kBits);
+      slot[j] = __shfl_sync(grs::kFullWarp, count, d) +
+                __popc(ballots.lanes_with(d, kBits) & below);
+      count += __popc(ballots.lanes_with(lane, kBits));
+    }
+    int total;
+    const int start =
+        grs::warp_exclusive_scan(lane < (1 << kBits) ? count : 0, lane, total);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t d = (k[j] >> shift) & kMask;
+      const int pos = __shfl_sync(grs::kFullWarp, start, d) + slot[j];
+      sk[pos] = k[j];
+      sv[pos] = v[j];
+    }
+    __syncwarp();
+    store_tile(out_keys, out_idx, sk, sv, t * kFastTile, kFastTile, lane);
+    __syncwarp();  // the staging is rewritten by the next tile
   }
+}
+
+__global__ void __launch_bounds__(32 * kMaxWarps)
+    bucketize_any_kernel(const uint32_t* __restrict__ keys,
+                         const uint32_t* __restrict__ idx,
+                         uint32_t* __restrict__ out_keys,
+                         uint32_t* __restrict__ out_idx, int64_t num_tiles,
+                         int tile, int shift, int radix, int bits) {
+  extern __shared__ uint4 smem[];  // per warp: the staged output
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (t >= num_tiles) return;  // no block barrier follows
+
+  uint32_t* sk = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * 2 * tile;
+  uint32_t* sv = sk + tile;
+  const int64_t base = t * tile;
+  const uint32_t* kin = keys + base + lane;
+  const uint32_t* vin = idx + base + lane;
+  const uint32_t mask = static_cast<uint32_t>(radix - 1);
+  const unsigned below = (1u << lane) - 1u;
+  const int items = tile >> 5;
+
+  int count = 0;  // lane r: keys of digit r in the tile
+  for (int j = 0; j < items; ++j) {
+    const grs::DigitBallots<kMaxBits> ballots((kin[32 * j] >> shift) & mask, bits);
+    count += __popc(ballots.lanes_with(lane, bits));
+  }
+  int total;
+  // lane r: the next slot of digit r in the staged tile.
+  int next = grs::warp_exclusive_scan(lane < radix ? count : 0, lane, total);
+  for (int j = 0; j < items; ++j) {
+    const uint32_t k = kin[32 * j];
+    const uint32_t d = (k >> shift) & mask;
+    const grs::DigitBallots<kMaxBits> ballots(d, bits);
+    const int pos = __shfl_sync(grs::kFullWarp, next, d) +
+                    __popc(ballots.lanes_with(d, bits) & below);
+    next += __popc(ballots.lanes_with(lane, bits));
+    sk[pos] = k;
+    sv[pos] = vin[32 * j];
+  }
+  __syncwarp();
+  store_tile(out_keys, out_idx, sk, sv, base, tile, lane);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Persistent launch: as many blocks as fit on the card at once, at most one
+// per `per_block` tiles.
+template <int kBits>
+cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, uint32_t* out_keys,
+                      uint32_t* out_idx, int64_t num_tiles, int threads, size_t smem,
+                      int shift, cudaStream_t stream) {
+  const auto kernel = bucketize_1k_kernel<kBits>;
+  cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0, resident = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, smem)) !=
+          cudaSuccess) {
+    return err;
+  }
+  const int64_t per_block = threads / 32;
+  int64_t blocks = (num_tiles + per_block - 1) / per_block;
+  if (resident > 0 && blocks > static_cast<int64_t>(resident) * sms)
+    blocks = static_cast<int64_t>(resident) * sms;
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      keys, idx, out_keys, out_idx, num_tiles, shift,
+      aligned16(keys) && aligned16(idx));
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// keys, idx, out_keys, out_idx: num_tiles * tile uint32.  threads must be a
-// multiple of 32, at most 1024, and divide tile; radix <= 16.
-// Returns cudaGetLastError() after the launch.
+// keys, idx, out_keys, out_idx: num_tiles * tile uint32, the outputs 16-byte
+// aligned.  One warp per tile: threads is 32 x the tiles of a block, at most
+// 32 x 8.  A block keeps 16 x tile bytes a warp in shared memory for the
+// 1,024-key tile (input and staged output) and 8 x tile bytes a warp for any
+// other (staged output), at most 232,448 bytes.  tile is a multiple of 128;
+// radix a power of two <= 16.  Returns cudaGetLastError() after the launch.
 extern "C" int grs_bucketize(const void* keys, const void* idx, void* out_keys,
                              void* out_idx, int64_t num_tiles, int tile,
                              int threads, int shift, int radix, void* stream) {
-  if (radix > kMaxRadix || threads % 32 != 0 || threads > 32 * kMaxWarps ||
-      tile % threads != 0) {
+  const bool fast = tile == kFastTile;
+  const size_t smem = static_cast<size_t>(threads / 32) * (fast ? 4 : 2) *
+                      static_cast<size_t>(tile) * sizeof(uint32_t);
+  if (radix < 2 || radix > kMaxRadix || (radix & (radix - 1)) != 0 ||
+      threads < 32 || threads % 32 != 0 || threads > 32 * kMaxWarps ||
+      tile <= 0 || tile % 128 != 0 || smem > kMaxShared ||
+      !aligned16(out_keys) || !aligned16(out_idx)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = 2 * static_cast<size_t>(tile) * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bucketize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  const auto* k = static_cast<const uint32_t*>(keys);
+  const auto* v = static_cast<const uint32_t*>(idx);
+  auto* ok = static_cast<uint32_t*>(out_keys);
+  auto* ov = static_cast<uint32_t*>(out_idx);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int bits = __builtin_ctz(static_cast<unsigned>(radix));
+  cudaError_t err = cudaSuccess;
+  if (fast) {
+    switch (bits) {
+      case 1: err = launch_1k<1>(k, v, ok, ov, num_tiles, threads, smem, shift, s); break;
+      case 2: err = launch_1k<2>(k, v, ok, ov, num_tiles, threads, smem, shift, s); break;
+      case 3: err = launch_1k<3>(k, v, ok, ov, num_tiles, threads, smem, shift, s); break;
+      default: err = launch_1k<4>(k, v, ok, ov, num_tiles, threads, smem, shift, s); break;
+    }
+  } else {
+    err = allow_shared(bucketize_any_kernel, smem);
+    if (err == cudaSuccess) {
+      const int64_t per_block = threads / 32;
+      bucketize_any_kernel<<<static_cast<unsigned>((num_tiles + per_block - 1) / per_block),
+                             threads, smem, s>>>(k, v, ok, ov, num_tiles, tile, shift,
+                                                 radix, bits);
+    }
   }
-  if (num_tiles > 0) {
-    bucketize_kernel<<<static_cast<unsigned>(num_tiles), threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(idx),
-        static_cast<uint32_t*>(out_keys), static_cast<uint32_t*>(out_idx),
-        tile, shift, radix, __builtin_ctz(static_cast<unsigned>(radix)));
-  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,17 +5,43 @@
 
 namespace grs {
 
+constexpr unsigned kFullWarp = 0xffffffffu;
+
 // The lanes of the calling warp whose digit equals d, with one ballot per
 // digit bit.  All 32 lanes must call it.  On the H100 this measured faster
 // than __match_any_sync, which bounded K1 and K2 (PERF.md, Findings).
 __device__ inline unsigned lanes_with_digit(uint32_t d, int bits) {
-  unsigned peers = 0xffffffffu;
+  unsigned peers = kFullWarp;
   for (int b = 0; b < bits; ++b) {
-    const unsigned ones = __ballot_sync(0xffffffffu, (d >> b) & 1u);
+    const unsigned ones = __ballot_sync(kFullWarp, (d >> b) & 1u);
     peers &= ((d >> b) & 1u) ? ones : ~ones;
   }
   return peers;
 }
+
+// The ballots of one digit per lane, one per digit bit (bits <= MaxBits), from
+// which any lane can find the lanes holding any digit: its own (the peers it
+// ranks among) and, in K2, the digit equal to its lane number (whose count
+// that lane keeps).  All 32 lanes must construct it.
+template <int MaxBits>
+struct DigitBallots {
+  unsigned ones[MaxBits];
+
+  __device__ __forceinline__ DigitBallots(uint32_t d, int bits) {
+#pragma unroll
+    for (int b = 0; b < MaxBits; ++b)
+      ones[b] = b < bits ? __ballot_sync(kFullWarp, (d >> b) & 1u) : 0u;
+  }
+
+  // The lanes whose digit equals x.
+  __device__ __forceinline__ unsigned lanes_with(uint32_t x, int bits) const {
+    unsigned m = kFullWarp;
+#pragma unroll
+    for (int b = 0; b < MaxBits; ++b)
+      if (b < bits) m &= ((x >> b) & 1u) ? ones[b] : ~ones[b];
+    return m;
+  }
+};
 
 // Exclusive prefix sum of x over the 32 lanes of a warp; total gets the sum.
 // All 32 lanes must call it.  With T = uint32_t the sums wrap modulo 2^32.
@@ -24,10 +50,10 @@ __device__ inline T warp_exclusive_scan(T x, int lane, T& total) {
   T incl = x;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const T y = __shfl_up_sync(0xffffffffu, incl, o);
+    const T y = __shfl_up_sync(kFullWarp, incl, o);
     if (lane >= o) incl += y;
   }
-  total = __shfl_sync(0xffffffffu, incl, 31);
+  total = __shfl_sync(kFullWarp, incl, 31);
   return incl - x;
 }
 

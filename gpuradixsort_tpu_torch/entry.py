@@ -2,20 +2,23 @@
 
 The PyTorch counterpart of ``__graft_entry__.py``.
 
-    python -m gpuradixsort_tpu_torch.entry
+    python -m gpuradixsort_tpu_torch.entry [--device cpu]
 
 runs ``entry()``'s sort once and checks it, then ``dryrun_multichip(4)``:
-four NCCL ranks on a machine with four cards, four gloo ranks on the CPU
-otherwise.  Unlike the JAX dryrun, which covers the sort and the
-aggregate, this one also runs ``dist_join_inner``.
+four NCCL ranks on a machine with four cards, four gloo ranks on card 0
+otherwise.  Both run on the CUDA card unless ``--device cpu`` is given, and
+raise where there is no card.  Unlike the JAX dryrun, which covers the sort
+and the aggregate, this one also runs ``dist_join_inner``.
 """
 
 from __future__ import annotations
 
+import argparse
+
 import numpy as np
 import torch
 
-from gpuradixsort_tpu_torch.config import PAD_INDEX, EngineConfig
+from gpuradixsort_tpu_torch.config import PAD_INDEX, EngineConfig, default_device
 from gpuradixsort_tpu_torch.core.table import make_key_column, pad_to_tile
 from gpuradixsort_tpu_torch.ops.sort import _fused_sort_padded
 from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
@@ -27,11 +30,10 @@ def entry(device=None):
 
     Every pass runs the histogram, offsets-scan, bucketize and scatter
     kernels on a CUDA device (their plain versions on the CPU).  ``device``
-    defaults to the CUDA card where there is one, as the JAX entry takes
-    JAX's default backend.
+    defaults to the CUDA card, as the JAX entry takes JAX's default backend;
+    without a card it raises unless ``device="cpu"``.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = default_device(device)
     cfg = EngineConfig()
     n = 64 * cfg.block
     rng = np.random.default_rng(0)
@@ -52,18 +54,23 @@ def _require(ok: bool, what: str) -> None:
         raise RuntimeError(f"dryrun: {what}")
 
 
-def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> dict:
+def dryrun_multichip(n_devices: int, timeout: float = 300.0, device=None) -> dict:
     """One distributed sort, aggregate and join over ``n_devices`` ranks, checked by numpy.
 
     Runs the scale-out path: per-shard local radix sort, the all-reduced
     bucket histogram, the balanced repartition, the all_to_all exchange,
-    the merge and the pad repair, on small shapes.  With ``n_devices``
-    cards the ranks are NCCL ranks, one card each (the JAX dryrun likewise
-    takes the devices JAX has); otherwise gloo ranks on the CPU.  Returns
-    rank 0's result of each op.
+    the merge and the pad repair, on small shapes.  ``device`` defaults to
+    the CUDA card.  With ``n_devices`` cards the ranks are NCCL ranks, one
+    card each (the JAX dryrun likewise takes the devices JAX has); with
+    fewer, gloo ranks that share the card, every collective staged through
+    pinned host memory.  Without a card it raises unless ``device="cpu"``,
+    which runs gloo ranks on the CPU.  Returns rank 0's result of each op.
     """
-    on_cards = torch.cuda.is_available() and torch.cuda.device_count() >= n_devices
-    device, backend = ("cuda", "nccl") if on_cards else ("cpu", "gloo")
+    dev = default_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= n_devices:
+        where, backend = "cuda", "nccl"
+    else:
+        where, backend = str(dev), "gloo"
     cfg = EngineConfig()
     rng = np.random.default_rng(1)
     n = n_devices * cfg.block  # one block per rank: no padding
@@ -83,7 +90,7 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> dict:
                                   "build_keys": bk, "build_values": bv},
          "kwargs": {"cfg": cfg, "n_probe": n, "n_build": n}, "gather": True},
     ]
-    sort, agg, joined = run_ranks(n_devices, run_ops, (calls,), backend, device, timeout)[0]
+    sort, agg, joined = run_ranks(n_devices, run_ops, (calls,), backend, where, timeout)[0]
 
     out_k, out_i = sort["gathered"]
     _require(np.array_equal(out_k, np.sort(keys)), "sorted keys differ from np.sort")
@@ -102,7 +109,11 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> dict:
 
 
 if __name__ == "__main__":
-    fn, args = entry()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default=None,
+                        help="where to run (default: the CUDA card; 'cpu' runs on the CPU)")
+    device = parser.parse_args().device
+    fn, args = entry(device)
     sorted_keys, perm = fn(*args)
     keys = args[0].cpu().numpy()
     ok = (np.array_equal(sorted_keys.cpu().numpy(), np.sort(keys))
@@ -110,6 +121,6 @@ if __name__ == "__main__":
     if not ok:
         raise SystemExit("entry() sort differs from numpy")
     print(f"entry() sorted {keys.size} keys on {args[0].device}")
-    out = dryrun_multichip(4)
+    out = dryrun_multichip(4, device=device)
     print(f"dryrun_multichip(4) OK: sort, aggregate and join over 4 ranks, "
           f"transport {out['sort']['transport']}")

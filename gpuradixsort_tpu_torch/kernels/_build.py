@@ -38,7 +38,7 @@ _I64 = ctypes.c_int64
 
 # Entry point -> argument types.  Every pointer and the stream is c_void_p.
 _SIGNATURES = {
-    "grs_radix_hist": [_P, _P, _I64, _I, _I, _I, _P],
+    "grs_radix_hist": [_P, _P, _I64, _I, _I, _I, _I, _P],
     "grs_bucketize": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
     "grs_scatter_runs": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "grs_radix_dest": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
@@ -46,9 +46,9 @@ _SIGNATURES = {
 }
 
 
-def sources() -> list[pathlib.Path]:
+def sources(csrc: pathlib.Path = _CSRC) -> list[pathlib.Path]:
     """The translation units; each includes its headers from csrc/."""
-    return sorted(_CSRC.glob("*.cu"))
+    return sorted(csrc.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -62,12 +62,12 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> pathlib.Path:
+def library_path(csrc: pathlib.Path = _CSRC, build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
     digest = hashlib.sha256()
-    for src in sorted(_CSRC.glob("*.cu*")):  # sources and their headers
+    for src in sorted(csrc.glob("*.cu*")):  # sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libgrs_kernels_{digest.hexdigest()[:16]}.so"
+    return build_dir / f"libgrs_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def _run_all(cmds: list[list[str]]) -> None:
@@ -83,17 +83,21 @@ def _run_all(cmds: list[list[str]]) -> None:
         raise RuntimeError("\n".join(failures))
 
 
-def build() -> pathlib.Path:
-    """Compile the sources for sm_90a unless this exact build exists."""
-    out = library_path()
+def build(csrc: pathlib.Path = _CSRC, build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
+    """Compile the sources of ``csrc`` for sm_90a unless this exact build exists.
+
+    The defaults build the port's own sources; another directory (an older
+    copy of them, to time against) builds the same way into ``build_dir``.
+    """
+    out = library_path(csrc, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs = [pathlib.Path(tmpdir) / f"{src.stem}.o" for src in sources()]
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmpdir:
+        objs = [pathlib.Path(tmpdir) / f"{src.stem}.o" for src in sources(csrc)]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                  for src, obj in zip(sources(), objs)])
+                  for src, obj in zip(sources(csrc), objs)])
         tmp = pathlib.Path(tmpdir) / out.name
         _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)

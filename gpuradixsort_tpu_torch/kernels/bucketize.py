@@ -3,8 +3,9 @@
 The PyTorch counterpart of ``gpuradixsort_tpu/kernels/bucketize.py``.  After
 it runs, every tile is digit-major, so the global scatter of
 ``kernels/scatter.py`` copies whole runs.  On a CUDA tensor it launches
-``csrc/bucketize.cu``, a counting split in shared memory; on a CPU tensor it
-runs the plain version, a per-tile stable argsort by digit.
+``csrc/bucketize.cu``, one warp per tile ranking in registers and staging
+the tile in shared memory; on a CPU tensor it runs the plain version, a
+per-tile stable argsort by digit.
 """
 
 from __future__ import annotations
@@ -14,7 +15,16 @@ import torch
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
-from gpuradixsort_tpu_torch.kernels.radix import check_keys, chunk_threads, digits_of
+from gpuradixsort_tpu_torch.kernels.radix import (
+    MAX_SHARED_BYTES,
+    WARP,
+    check_keys,
+    digits_of,
+)
+
+BUCKETIZE_TILES_PER_BLOCK = 2
+# The tile of the kernel's fast route, whose warps also stage their input.
+FAST_TILE = 1024
 
 
 def _bucketize_ref(keys: torch.Tensor, idx: torch.Tensor, shift: int, cfg: EngineConfig):
@@ -28,6 +38,24 @@ def _bucketize_ref(keys: torch.Tensor, idx: torch.Tensor, shift: int, cfg: Engin
         return torch.take_along_dim(rows, order, dim=1).view(-1).view(t.dtype)
 
     return take(keys), take(idx)
+
+
+def bucketize_geometry(cfg: EngineConfig) -> tuple[int, int]:
+    """(threads, shared bytes) of a bucketize_tiles block.
+
+    One warp per tile, up to ``BUCKETIZE_TILES_PER_BLOCK`` tiles a block;
+    each stages its tile's sorted keys and indices (8 bytes a key) in shared
+    memory, and on the 1,024-key tile also the next tile's input (16 bytes
+    a key in all).
+    """
+    per_tile = (16 if cfg.tile == FAST_TILE else 8) * cfg.tile
+    tiles = min(BUCKETIZE_TILES_PER_BLOCK, MAX_SHARED_BYTES // per_tile)
+    if tiles == 0:
+        raise ValueError(
+            f"bucketize stages {per_tile} bytes a tile, more than a block's "
+            f"{MAX_SHARED_BYTES}; use tile_rows <= {MAX_SHARED_BYTES // (8 * 128)}"
+        )
+    return WARP * tiles, tiles * per_tile
 
 
 def bucketize_tiles(
@@ -46,12 +74,13 @@ def bucketize_tiles(
         raise ValueError("keys and idx must have one length and one device")
     if resolve_impl(keys, impl) == "reference":
         return _bucketize_ref(keys, idx, shift, cfg)
+    threads, _ = bucketize_geometry(cfg)
     out_keys = torch.empty_like(keys)
     out_idx = torch.empty_like(idx)
     launch(
         "grs_bucketize", keys, keys.data_ptr(), idx.data_ptr(),
         out_keys.data_ptr(), out_idx.data_ptr(), num_tiles, cfg.tile,
-        chunk_threads(cfg), shift, cfg.radix,
+        threads, shift, cfg.radix,
     )
     bucketize_tiles.launches += 1
     return out_keys, out_idx

@@ -49,14 +49,29 @@ def check_keys(name: str, t: torch.Tensor, cfg: EngineConfig) -> int:
     return t.numel() // cfg.tile
 
 
-def chunk_threads(cfg: EngineConfig) -> int:
-    """Threads per block of the kernels that walk a tile one chunk at a time.
+# Launch geometry of the kernels, checked again by their C entry points.
+WARP = 32
+MAX_SHARED_BYTES = 232_448  # shared memory one block may use on the H100
+HIST_TILES_PER_BLOCK = 8
 
-    One thread per key of a chunk, so the chunk must divide the tile.  512
-    threads (two chunks of the default tile) measured faster on the H100
-    than 1024 or 128 for bucketize_tiles.
+
+def chunk_threads(cfg: EngineConfig) -> int:
+    """Threads per block of tile_destinations, which walks a tile one chunk at a time.
+
+    One thread per key of a chunk, so the chunk must divide the tile.
     """
     return LANES * math.gcd(cfg.tile_rows, 4)
+
+
+def hist_geometry(cfg: EngineConfig) -> tuple[int, int]:
+    """(threads, shared bytes) of a tile_histograms block.
+
+    One warp per tile, ``HIST_TILES_PER_BLOCK`` tiles a block.  Radixes up
+    to 16 count in registers; larger ones keep a warp-private table in
+    shared memory, one 8-bit field per (digit, lane): ``32 * radix`` bytes.
+    """
+    shared = HIST_TILES_PER_BLOCK * WARP * cfg.radix if cfg.radix > 16 else 0
+    return WARP * HIST_TILES_PER_BLOCK, shared
 
 
 def _tile_histograms_ref(keys: torch.Tensor, shift: int, cfg: EngineConfig):
@@ -80,9 +95,10 @@ def tile_histograms(
     if resolve_impl(keys, impl) == "reference":
         return _tile_histograms_ref(keys, shift, cfg)
     hist = torch.empty((num_tiles, cfg.radix), dtype=torch.int32, device=keys.device)
+    threads, _ = hist_geometry(cfg)
     launch(
         "grs_radix_hist", keys, keys.data_ptr(), hist.data_ptr(), num_tiles,
-        cfg.tile, shift, cfg.radix,
+        cfg.tile, threads, shift, cfg.radix,
     )
     tile_histograms.launches += 1
     return hist

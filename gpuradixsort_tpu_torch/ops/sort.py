@@ -144,8 +144,9 @@ def sort_keys(
 ) -> Column:
     """Sort a uint32 key column ascending, stably.  Returns a new Column.
 
-    ``keys`` is a Column, a uint32 tensor or host values; ``device`` places
-    host values.
+    ``keys`` is a Column, a uint32 tensor or host values.  Host values go to
+    ``device``, by default the CUDA card; without a card they raise unless
+    ``device="cpu"``.
     """
     cfg = cfg or EngineConfig()
     method = _resolve_method(method, cfg)
@@ -165,7 +166,7 @@ def sort_pairs(
     The index column starts as 0..N-1 and ends as the permutation that sorts
     the keys; pad rows carry PAD_INDEX.  Stability keeps equal keys in their
     original order and live rows before pad rows, even where a live key
-    equals PAD_KEY.
+    equals PAD_KEY.  ``keys`` and ``device`` are as in ``sort_keys``.
     """
     cfg = cfg or EngineConfig()
     method = _resolve_method(method, cfg)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gpuradixsort_tpu_torch.config import default_device
 from gpuradixsort_tpu_torch.kernels import bucketize, radix, scan, scatter
 from gpuradixsort_tpu_torch.parallel import mesh as M
 from gpuradixsort_tpu_torch.parallel.dist_ops import (
@@ -55,7 +56,7 @@ def _rank_main(rank, world, store, backend, device, timeout, fn, args, env, out_
         dev = torch.device(device)
         if dev.type == "cuda":
             if dev.index is None:
-                dev = torch.device("cuda", int(env["LOCAL_RANK"]))
+                dev = torch.device("cuda", int(env["LOCAL_RANK"]) % torch.cuda.device_count())
             torch.cuda.set_device(dev)
         else:
             torch.set_num_threads(1)
@@ -85,16 +86,21 @@ def _stop(procs) -> None:
             p.join(10)
 
 
-def run_ranks(world: int, fn, args=(), backend: str = "gloo", device: str = "cpu",
+def run_ranks(world: int, fn, args=(), backend: str = "gloo", device: str | None = None,
               timeout: float = 300.0, nodes=None) -> list:
     """``fn(mesh, *args)`` on each of ``world`` spawned ranks; their results, by rank.
 
     ``fn`` must be importable by the spawned ranks (a module-level function
-    of a module that imports no test code).  ``device``: ``"cpu"``, one
-    card (``"cuda:0"``: every rank on it, which only gloo allows), or
-    ``"cuda"``: card LOCAL_RANK for each rank.  ``nodes[r]`` is rank r's
-    node number (default: all on node 0), set as torchrun would set it.
+    of a module that imports no test code).  ``device``: ``"cuda"`` (the
+    default), card LOCAL_RANK modulo the cards for each rank; one card
+    (``"cuda:0"``: every rank on it); or ``"cpu"``.  Ranks that share a card
+    need gloo: NCCL refuses two ranks on one GPU.  Without a card the default
+    raises; the ranks run on the CPU only when ``device="cpu"``.
+    ``nodes[r]`` is rank r's node number (default: all on node 0), set as
+    torchrun would set it.
     """
+    if device is None:
+        device = default_device().type
     nodes = list(nodes) if nodes is not None else [0] * world
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:

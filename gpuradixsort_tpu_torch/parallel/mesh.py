@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gpuradixsort_tpu_torch.config import default_device
 from gpuradixsort_tpu_torch.core.table import int32_bits
 
 
@@ -53,28 +54,26 @@ class RowMesh:
         return f"{self.backend} via host" if self.staged else self.backend
 
 
-def _default_device(backend: str) -> torch.device:
-    if backend == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
 def row_mesh_in_order(ranks, group=None, device=None) -> RowMesh:
-    """A RowMesh whose shard s is global rank ``ranks[s]`` of ``group``."""
+    """A RowMesh whose shard s is global rank ``ranks[s]`` of ``group``.
+
+    ``device`` holds this rank's shard; by default the rank's current CUDA
+    card, under any backend (``config.default_device``: without a card it
+    raises unless ``device="cpu"``).
+    """
     group = group or dist.group.WORLD
     backend = str(dist.get_backend(group))
     ranks = tuple(int(r) for r in ranks)
     if sorted(ranks) != sorted(dist.get_process_group_ranks(group)):
         raise ValueError(f"shard order {ranks} is not the ranks of the group")
-    device = torch.device(device) if device is not None else _default_device(backend)
-    return RowMesh(group, ranks, ranks.index(dist.get_rank()), device, backend)
+    return RowMesh(group, ranks, ranks.index(dist.get_rank()), default_device(device),
+                   backend)
 
 
 def make_row_mesh(group=None, device=None) -> RowMesh:
     """The row mesh over ``group`` (default: every rank), shards in rank order.
 
-    ``device`` holds this rank's shard; by default the current CUDA device
-    under NCCL and the CPU otherwise.
+    ``device`` is as in ``row_mesh_in_order``.
     """
     group = group or dist.group.WORLD
     return row_mesh_in_order(dist.get_process_group_ranks(group), group, device)

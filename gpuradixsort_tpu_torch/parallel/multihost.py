@@ -25,6 +25,7 @@ import socket
 import torch
 import torch.distributed as dist
 
+from gpuradixsort_tpu_torch.config import default_device
 from gpuradixsort_tpu_torch.parallel.mesh import RowMesh, row_mesh_in_order
 
 
@@ -63,15 +64,17 @@ class PodMesh:
 
     group: dist.ProcessGroup
     grid: tuple[tuple[int, ...], ...]
-    device: torch.device | None
+    device: torch.device
 
 
 def make_pod_mesh(group=None, device=None) -> PodMesh:
     """(host, local) grid of the group's ranks, grouped by the node each rank runs on.
 
     Every rank of ``group`` must call it (one all-gather of the node names).
-    Hosts must hold equal numbers of ranks.
+    Hosts must hold equal numbers of ranks.  ``device`` holds this rank's
+    shard; by default the rank's current CUDA card, under any backend.
     """
+    device = default_device(device)
     group = group or dist.group.WORLD
     ranks = dist.get_process_group_ranks(group)
     keys = [None] * len(ranks)

@@ -97,13 +97,66 @@ def test_kernels_at_other_tile_sizes(tile_rows, card, gen):
     assert all(_same(g, r) for g, r in zip(got, ref))
 
 
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_hist_and_bucketize_match_plain_at_every_geometry(tile_rows, bits, card, gen):
+    # Tile counts that fill no block, one block, and part of the last one;
+    # keys at an offset of 4 bytes take K1's route without 16-byte loads.
+    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+    for num_tiles in (1, 8, 8 * 3 + 5):
+        n = num_tiles * cfg.tile
+        for name, keys_np in _keysets(gen, n + 1).items():
+            buf = torch.from_numpy(keys_np).to(card)
+            for keys in (buf[:n], buf[1:]):
+                idx = torch.arange(n, dtype=torch.int32, device=card).view(torch.uint32)
+                for shift in (0, 4, 28):
+                    where = f"{name} tiles={num_tiles} shift={shift} offset={keys.data_ptr() % 16}"
+                    hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
+                    assert _same(tradix.tile_histograms(keys, shift, cfg), hist), where
+                    if cfg.radix > 16:
+                        continue
+                    ref = tbucketize.bucketize_tiles(keys, idx, shift, cfg, impl="reference")
+                    got = tbucketize.bucketize_tiles(keys, idx, shift, cfg)
+                    assert all(_same(g, r) for g, r in zip(got, ref)), where
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tile_rows", [56, 57, 64, 200])
+def test_hist_fields_hold_large_tiles(tile_rows, card, gen):
+    # More than 224 keys a lane: K1 drains its 8-bit fields between batches,
+    # and equal keys fill one field as fast as keys can.
+    for bits in (4, 8):
+        cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+        for name, keys_np in _keysets(gen, 3 * cfg.tile).items():
+            keys = torch.from_numpy(keys_np).to(card)
+            for shift in (0, 28):
+                hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
+                assert _same(tradix.tile_histograms(keys, shift, cfg), hist), (name, bits, shift)
+    torch.cuda.synchronize()
+
+
+def test_every_tile_size_launches(card, gen):
+    # The C entry points accept the wrappers' geometry at tile_rows 1-16.
+    for tile_rows in range(1, 17):
+        for bits in (1, 2, 4, 8):
+            cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+            keys = torch.from_numpy(gen.integers(0, 2**32, 3 * cfg.tile, dtype=np.uint32)).to(card)
+            hist = tradix.tile_histograms(keys, 0, cfg, impl="reference")
+            assert _same(tradix.tile_histograms(keys, 0, cfg), hist)
+            if cfg.radix <= 16:
+                ref = tbucketize.bucketize_tiles(keys, keys, 0, cfg, impl="reference")
+                got = tbucketize.bucketize_tiles(keys, keys, 0, cfg)
+                assert all(_same(g, r) for g, r in zip(got, ref))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("n", [1000, 3 * CFG.block + 17])
 def test_fused_sort_on_card_matches_cpu(n, card, gen):
     for keys in _keysets(gen, n).values():
         before = tradix.tile_histograms.launches
         s, p = tsort.sort_pairs(keys, CFG, method="fused", device=card)
         assert tradix.tile_histograms.launches > before
-        cs, cp = tsort.sort_pairs(keys, CFG, method="fused")
+        cs, cp = tsort.sort_pairs(keys, CFG, method="fused", device="cpu")
         np.testing.assert_array_equal(s.data.cpu().numpy(), cs.data.numpy())
         np.testing.assert_array_equal(p.data.cpu().numpy(), cp.data.numpy())
         order = np.argsort(keys, kind="stable")
@@ -138,7 +191,7 @@ def _table_pair(card, key, keys, **cols):
     def build(device):
         tbl = Table({name: make_column(v, device=device) for name, v in cols.items()})
         return tbl.with_column(key, make_key_column(keys, device=device))
-    return build(None), build(card)
+    return build("cpu"), build(card)
 
 
 def _same_tables(cpu, on_card, floats=()):
@@ -189,7 +242,7 @@ def test_operators_on_card_match_cpu(card, gen):
 
     for bits in (2, 8):
         cfg = EngineConfig(radix_bits=bits)
-        a = tsort.sort_pairs(keys, cfg, method="radix")
+        a = tsort.sort_pairs(keys, cfg, method="radix", device="cpu")
         b = tsort.sort_pairs(keys, cfg, method="radix", device=card)
         assert all(_same(y.data.cpu(), x.data) for x, y in zip(a, b))
     after = (tradix.tile_destinations.launches, tscan.exclusive_scan.launches)

@@ -88,7 +88,7 @@ def _world(size, inputs):
     calls = [{"op": "sort", "inputs": {"keys": _padded(inputs[name], size)},
               "kwargs": {"cfg": CFG, "n_live": inputs[name].size, **CASES[name][2]},
               "gather": True} for name in names]
-    ranks = run_ranks(size, run_ops, (calls,), timeout=TIMEOUT)
+    ranks = run_ranks(size, run_ops, (calls,), device="cpu", timeout=TIMEOUT)
     # by case: each shard's result, in shard order
     return {name: sorted((r[i] for r in ranks), key=lambda x: x["shard"])
             for i, name in enumerate(names)}

@@ -8,6 +8,8 @@ port's tables are (tiles, radix); the JAX package's are padded to 128 lanes,
 so the comparisons take its first ``radix`` columns.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -243,6 +245,42 @@ def test_wrappers_reject_bad_input():
     ):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
+
+
+def _geometry_cfg(radix: int, tile_rows: int):
+    # Any power-of-two radix, including the 8- to 128-bucket ones EngineConfig cannot name.
+    return types.SimpleNamespace(radix=radix, tile=tile_rows * LANES, tile_rows=tile_rows)
+
+
+@pytest.mark.parametrize("tile_rows", range(1, 17))
+def test_launch_geometry_fits_the_card(tile_rows):
+    # What grs_radix_hist and grs_bucketize accept: one warp per tile, at most
+    # 8 tiles (256 threads) a block, shared memory within a block's 227 KB.
+    for bits in range(1, 9):
+        cfg = _geometry_cfg(1 << bits, tile_rows)
+        threads, shared = tradix.hist_geometry(cfg)
+        assert threads % 32 == 0 and 32 <= threads <= 256 <= 1024
+        # radix > 16: an 8-bit field per (digit, lane) in each warp's table
+        assert shared == (threads // 32 * 32 * cfg.radix if cfg.radix > 16 else 0)
+        assert shared <= tradix.MAX_SHARED_BYTES == 232_448
+        if cfg.radix > 16:
+            continue
+        threads, shared = tbucketize.bucketize_geometry(cfg)
+        assert threads % 32 == 0 and 32 <= threads <= 256
+        per_key = 16 if cfg.tile == tbucketize.FAST_TILE else 8  # input staged too
+        assert shared == threads // 32 * per_key * cfg.tile <= tradix.MAX_SHARED_BYTES
+        assert cfg.tile % 128 == 0
+
+
+def test_bucketize_geometry_limits():
+    # The largest tile whose two staged halves fit one block, then one past it.
+    threads, shared = tbucketize.bucketize_geometry(_geometry_cfg(16, 227))
+    assert (threads, shared) == (32, 227 * 128 * 8)
+    tiles = tbucketize.BUCKETIZE_TILES_PER_BLOCK
+    assert tbucketize.bucketize_geometry(_geometry_cfg(16, 8)) == (32 * tiles, tiles * 16384)
+    assert tbucketize.bucketize_geometry(_geometry_cfg(16, 7)) == (32 * tiles, tiles * 7168)
+    with pytest.raises(ValueError, match="tile_rows <= 227"):
+        tbucketize.bucketize_geometry(_geometry_cfg(16, 228))
 
 
 def test_plain_path_launches_no_kernel(rng):

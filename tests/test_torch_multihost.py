@@ -1,12 +1,15 @@
-"""The port's multi-host pieces, entry points and import hygiene.
+"""The port's multi-host pieces, entry points, native bridge and import hygiene.
 
 A real multi-node world cannot run here; what can is the single-process
 no-op of ``initialize``, the node grouping of ``make_pod_mesh`` with four
 gloo ranks told (as torchrun would tell them) that they sit on two nodes,
 interleaved, and a sort over the flattened pod mesh.  The entry points run
-as a caller would run them.
+as a caller would run them, with ``device="cpu"``; without it they need a
+card, and raise where there is none.
 """
 
+import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -21,6 +24,7 @@ from gpuradixsort_tpu.parallel.mesh import make_row_mesh
 from gpuradixsort_tpu.utils import native as jax_native
 from gpuradixsort_tpu_torch import entry
 from gpuradixsort_tpu_torch.config import EngineConfig
+from gpuradixsort_tpu_torch.parallel import mesh as mesh_mod
 from gpuradixsort_tpu_torch.parallel import multihost
 from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
 from gpuradixsort_tpu_torch.utils import native
@@ -28,42 +32,22 @@ from gpuradixsort_tpu_torch.utils import native
 CFG = EngineConfig()
 SEED = 20170101
 
-PORT_MODULES = [
-    "gpuradixsort_tpu_torch.config",
-    "gpuradixsort_tpu_torch.core.table",
-    "gpuradixsort_tpu_torch.kernels._build",
-    "gpuradixsort_tpu_torch.kernels.radix",
-    "gpuradixsort_tpu_torch.kernels.scan",
-    "gpuradixsort_tpu_torch.kernels.bucketize",
-    "gpuradixsort_tpu_torch.kernels.scatter",
-    "gpuradixsort_tpu_torch.ops.sort",
-    "gpuradixsort_tpu_torch.ops.permute",
-    "gpuradixsort_tpu_torch.ops.filter",
-    "gpuradixsort_tpu_torch.ops.aggregate",
-    "gpuradixsort_tpu_torch.ops.join",
-    "gpuradixsort_tpu_torch.parallel.mesh",
-    "gpuradixsort_tpu_torch.parallel.dist_sort",
-    "gpuradixsort_tpu_torch.parallel.dist_ops",
-    "gpuradixsort_tpu_torch.parallel.multihost",
-    "gpuradixsort_tpu_torch.parallel.launch",
-    "gpuradixsort_tpu_torch.utils.native",
-    "gpuradixsort_tpu_torch.utils.timing",
-    "gpuradixsort_tpu_torch.utils.verify",
-    "gpuradixsort_tpu_torch.entry",
-]
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    # Of the JAX package, only the numpy/ctypes native bridge may load.
-    code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}:\n"
+    # Every module of the port, and chip_smoke.py: no JAX, nothing of the JAX package.
+    code = ("import importlib, pkgutil, sys\n"
+            "import gpuradixsort_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+            "assert len(names) > 20, names\n"
+            "for m in names + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
-            "assert 'jax' not in sys.modules\n"
-            "ref = {m for m in sys.modules if m.split('.')[0] == 'gpuradixsort_tpu'}\n"
-            "assert ref <= {'gpuradixsort_tpu', 'gpuradixsort_tpu.utils',\n"
-            "               'gpuradixsort_tpu.utils.native'}, ref\n")
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'gpuradixsort_tpu'))\n"
+            "assert not bad, bad\n")
     done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=120)
+                          timeout=120, cwd=REPO)
     assert done.returncode == 0, done.stderr
 
 
@@ -82,7 +66,8 @@ def pod_world():
     keys = gen.integers(0, 2**32, size=n, dtype=np.uint32)
     calls = [{"op": "sort", "inputs": {"keys": keys}, "kwargs": {"cfg": CFG, **kw},
               "gather": True} for kw in ({}, {"overlap": True})]
-    ranks = run_ranks(4, run_ops, (calls, True), nodes=[0, 1, 0, 1], timeout=240.0)
+    ranks = run_ranks(4, run_ops, (calls, True), device="cpu", nodes=[0, 1, 0, 1],
+                      timeout=240.0)
     return keys, ranks
 
 
@@ -121,21 +106,73 @@ def test_entry_sorts_like_numpy():
 
 
 def test_entry_dryrun_multichip():
-    out = entry.dryrun_multichip(4)
+    out = entry.dryrun_multichip(4, device="cpu")
     assert out["join"]["gathered"][0].size > 0
     assert all(out[op]["transport"] == "gloo" for op in ("sort", "aggregate", "join"))
 
 
-def test_native_is_the_jax_packages():
-    assert native.radix_sort_pairs is jax_native.radix_sort_pairs
-    keys = native.random_keys(5000, seed=3)
-    sk, si = native.radix_sort_pairs(keys)
-    np.testing.assert_array_equal(sk, np.sort(keys))
-    np.testing.assert_array_equal(si, np.argsort(keys, kind="stable").astype(np.uint32))
+@pytest.fixture
+def no_card(monkeypatch):
+    """This process as it would be on a machine without a CUDA card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_a_card_unless_cpu(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.dryrun_multichip(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_ranks(2, run_ops, ([],))
+    fn, (keys, _) = entry.entry(device="cpu")
+    assert keys.device.type == "cpu"
+
+
+def test_meshes_need_a_card_unless_cpu(no_card, tmp_path):
+    dist = torch.distributed
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        for make in (mesh_mod.make_row_mesh, lambda **kw: mesh_mod.row_mesh_in_order([0], **kw),
+                     multihost.make_pod_mesh):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+            assert make(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_native_is_the_ports_own():
+    # Built from native/qehost.cpp into build/native/, never under native/.
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the bridge runs its numpy fall-backs")
+    assert native.available()
+    path = native.library_path()
+    assert path.exists() and path.parent == REPO / "build" / "native"
+
+
+@pytest.mark.parametrize("fn", ["random_keys", "shuffled_permutation", "radix_sort_pairs",
+                                "first_unsorted"])
+def test_native_matches_the_jax_packages(fn):
+    for seed in (0, 3, 20170101):
+        n = 5000 + seed % 7
+        keys = jax_native.random_keys(n, seed=seed)
+        if fn in ("random_keys", "shuffled_permutation"):
+            got, want = getattr(native, fn)(n, seed=seed), getattr(jax_native, fn)(n, seed=seed)
+            assert got.dtype == want.dtype == np.uint32
+            np.testing.assert_array_equal(got, want)
+        elif fn == "radix_sort_pairs":
+            idx = jax_native.shuffled_permutation(n, seed=seed + 1)
+            for args in ((keys,), (keys, idx)):
+                for g, w in zip(native.radix_sort_pairs(*args), jax_native.radix_sort_pairs(*args)):
+                    np.testing.assert_array_equal(g, w)
+        else:
+            for arr in (keys, np.sort(keys), np.arange(n, dtype=np.uint32)[::-1].copy()):
+                assert native.first_unsorted(arr) == jax_native.first_unsorted(arr)
 
 
 def test_run_ranks_raises_when_a_rank_fails():
     # Every rank raises inside the op; the parent gets each traceback, no hang.
     calls = [{"op": "no such op", "inputs": {"keys": np.zeros(2 * CFG.block, np.uint32)}}]
     with pytest.raises(RuntimeError, match="2 of 2 ranks failed(.|\n)*unknown op"):
-        run_ranks(2, run_ops, (calls,), timeout=120.0)
+        run_ranks(2, run_ops, (calls,), device="cpu", timeout=120.0)

@@ -49,7 +49,7 @@ def _tables(key_name, keys, **cols):
     """The same columns as a JAX table and as the port's table."""
     jt = jtable.table_from_arrays(JCFG, **cols)
     jt = jt.with_column(key_name, jtable.make_key_column(keys, JCFG))
-    return jt, ttable.table_from_jax(jt)
+    return jt, ttable.table_from_jax(jt, device="cpu")
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:

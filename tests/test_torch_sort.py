@@ -43,7 +43,7 @@ def _keysets(rng, n):
 
 
 def _check_pairs(keys, cfg, jcfg, method="fused"):
-    s, p = tsort.sort_pairs(keys, cfg, method=method)
+    s, p = tsort.sort_pairs(keys, cfg, method=method, device="cpu")
     js, jp = jsort.sort_pairs(jtable.make_key_column(keys, jcfg), jcfg, method=method)
     np.testing.assert_array_equal(s.data.numpy(), np.asarray(js.data))
     np.testing.assert_array_equal(p.data.numpy(), np.asarray(jp.data))
@@ -63,7 +63,7 @@ def test_sort_pairs_matches_jax_fused(n, rng):
 def test_sort_keys_ragged_matches_jax_fused(n, rng):
     keys = rng.integers(0, 2**32, size=n, dtype=np.uint32)
     keys[: min(n, 3)] = 0xFFFFFFFF
-    out = tsort.sort_keys(keys, CFG, method="fused")
+    out = tsort.sort_keys(keys, CFG, method="fused", device="cpu")
     jout = jsort.sort_keys(jtable.make_key_column(keys, JCFG), JCFG, method="fused")
     np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data))
     np.testing.assert_array_equal(out.to_numpy(), np.sort(keys))
@@ -91,7 +91,7 @@ def test_sort_table_matches_jax(rng):
     jt = jtable.table_from_arrays(JCFG, payload=payload, other=other)
     jt = jt.with_column("key", jtable.make_key_column(keys, JCFG))
     jout = jsort.sort_table(jt, "key", JCFG, method="fused")
-    out = tsort.sort_table(ttable.table_from_jax(jt), "key", CFG, method="fused")
+    out = tsort.sort_table(ttable.table_from_jax(jt, device="cpu"), "key", CFG, method="fused")
     assert out.names() == jout.names()
     # Full padded buffers: the port reads the index as int32 as the JAX
     # package does, so pad rows (index PAD_INDEX -> -1 -> clipped to 0)
@@ -106,9 +106,9 @@ def test_sort_table_matches_jax(rng):
 
 def test_torch_method_and_auto_agree_with_fused(rng):
     keys = rng.integers(0, 50, size=BLOCK + 3, dtype=np.uint32)
-    s, p = tsort.sort_pairs(keys, CFG, method="fused")
+    s, p = tsort.sort_pairs(keys, CFG, method="fused", device="cpu")
     for method in ("torch", "auto"):
-        s2, p2 = tsort.sort_pairs(keys, CFG, method=method)
+        s2, p2 = tsort.sort_pairs(keys, CFG, method=method, device="cpu")
         np.testing.assert_array_equal(s2.data.numpy(), s.data.numpy())
         np.testing.assert_array_equal(p2.data.numpy(), p.data.numpy())
 
@@ -117,10 +117,10 @@ def test_unported_and_unknown_methods_raise():
     # Every method of the port sorts; the JAX package's "xla" is not one.
     keys = np.arange(10, dtype=np.uint32)[::-1].copy()
     for method in tsort.METHODS:
-        np.testing.assert_array_equal(tsort.sort_keys(keys, CFG, method=method).to_numpy(),
+        np.testing.assert_array_equal(tsort.sort_keys(keys, CFG, method=method, device="cpu").to_numpy(),
                                       np.sort(keys))
     with pytest.raises(ValueError, match="unknown sort method"):
-        tsort.sort_pairs(keys, CFG, method="xla")
+        tsort.sort_pairs(keys, CFG, method="xla", device="cpu")
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
@@ -129,7 +129,7 @@ def test_radix_method_matches_jax(bits, rng):
     n = 2 * BLOCK + 17 if bits > 1 else 1500  # 32 one-bit passes: keep it small
     for name, keys in _keysets(rng, n).items():
         _check_pairs(keys, cfg, jcfg, method="radix")
-        out = tsort.sort_keys(keys, cfg, method="radix")
+        out = tsort.sort_keys(keys, cfg, method="radix", device="cpu")
         jout = jsort.sort_keys(jtable.make_key_column(keys, jcfg), jcfg, method="radix")
         np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data))
 
@@ -154,10 +154,10 @@ def test_radix8_auto_matches_jax(rng):
     # 8-bit digits too, where the fused bucketize takes at most 16 buckets.
     cfg, jcfg = tconfig.EngineConfig(radix_bits=8), jconfig.EngineConfig(radix_bits=8)
     for name, keys in _keysets(rng, 5000).items():
-        out = tsort.sort_keys(keys, cfg)
+        out = tsort.sort_keys(keys, cfg, device="cpu")
         jout = jsort.sort_keys(jtable.make_key_column(keys, jcfg), jcfg)
         np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data))
-        s, p = tsort.sort_pairs(keys, cfg)
+        s, p = tsort.sort_pairs(keys, cfg, device="cpu")
         js, jp = jsort.sort_pairs(jtable.make_key_column(keys, jcfg), jcfg)
         np.testing.assert_array_equal(s.data.numpy(), np.asarray(js.data))
         np.testing.assert_array_equal(p.data.numpy(), np.asarray(jp.data))
@@ -168,12 +168,12 @@ def test_radix8_auto_matches_jax(rng):
 def test_constant_digit_passes_are_skipped():
     before = tsort._fused_sort_padded.skipped_passes
     keys = np.full(BLOCK, 7, dtype=np.uint32)  # no pads: every digit constant
-    s, p = tsort.sort_pairs(keys, CFG, method="fused")
+    s, p = tsort.sort_pairs(keys, CFG, method="fused", device="cpu")
     assert tsort._fused_sort_padded.skipped_passes - before == CFG.num_passes
     np.testing.assert_array_equal(p.to_numpy(), np.arange(BLOCK, dtype=np.uint32))
     before = tsort._fused_sort_padded.skipped_passes
     perm = np.random.default_rng(3).permutation(1 << 14).astype(np.uint32)
-    s, _ = tsort.sort_pairs(perm, CFG, method="fused")
+    s, _ = tsort.sort_pairs(perm, CFG, method="fused", device="cpu")
     # Keys below 2^14 have constant digits in passes 4..7.
     assert tsort._fused_sort_padded.skipped_passes - before == 4
     assert verify.is_permutation_sorted(s.valid())

@@ -21,6 +21,7 @@ from gpuradixsort_tpu_torch import config as tconfig
 from gpuradixsort_tpu_torch.core import table as ttable
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels.radix import tile_histograms
+from gpuradixsort_tpu_torch.ops import sort as tsort
 
 torch.set_num_threads(1)
 
@@ -72,7 +73,7 @@ def test_round_up_matches_jax(n):
 @pytest.mark.parametrize("n", SIZES)
 def test_make_key_column_matches_jax(n, rng):
     keys = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-    _same_buffer(ttable.make_key_column(keys, CFG), jtable.make_key_column(keys, JCFG))
+    _same_buffer(ttable.make_key_column(keys, CFG, device="cpu"), jtable.make_key_column(keys, JCFG))
     # A uint32 tensor takes the tensor path, with the same result.
     _same_buffer(
         ttable.make_key_column(torch.from_numpy(keys), CFG),
@@ -87,7 +88,7 @@ def test_make_column_matches_jax(n, rng):
     rows = rng.integers(0, 2**31, size=(n, 16)).astype(np.int32)  # 64-byte rows
     for values, fill in ((ints, 0), (floats, 0), (rows, 0), (ints, 7)):
         _same_buffer(
-            ttable.make_column(values, CFG, fill=fill),
+            ttable.make_column(values, CFG, fill=fill, device="cpu"),
             jtable.make_column(values, JCFG, fill=fill),
         )
 
@@ -100,16 +101,16 @@ def test_table_from_arrays_and_from_jax(n, rng):
         "k": rng.integers(0, 2**32, size=n, dtype=np.uint32),
     }
     jt = jtable.table_from_arrays(JCFG, **arrays)
-    tt = ttable.table_from_arrays(CFG, **arrays)
-    carried = ttable.table_from_jax(jt)
+    tt = ttable.table_from_arrays(CFG, device="cpu", **arrays)
+    carried = ttable.table_from_jax(jt, device="cpu")
     assert tt.names() == jt.names() == carried.names()
     assert tt.length == jt.length == carried.length == n
     for name in jt.names():
         _same_buffer(tt[name], jt[name])
         _same_buffer(carried[name], jt[name])
     key = jtable.make_key_column(arrays["k"], JCFG)
-    _same_buffer(ttable.column_from_jax(key), key)
-    _same_buffer(carried.with_column("k", ttable.column_from_jax(key))["k"], key)
+    _same_buffer(ttable.column_from_jax(key, device="cpu"), key)
+    _same_buffer(carried.with_column("k", ttable.column_from_jax(key, device="cpu"))["k"], key)
 
 
 def test_pad_to_tile_tensor_path():
@@ -127,8 +128,8 @@ def test_pad_to_tile_tensor_path():
 def test_column_and_table_checks():
     with pytest.raises(ValueError):
         ttable.Column(torch.zeros(4, dtype=torch.int32), 5)
-    a = ttable.make_column(np.arange(3, dtype=np.int32), CFG)
-    b = ttable.make_column(np.arange(4, dtype=np.int32), CFG)
+    a = ttable.make_column(np.arange(3, dtype=np.int32), CFG, device="cpu")
+    b = ttable.make_column(np.arange(4, dtype=np.int32), CFG, device="cpu")
     with pytest.raises(ValueError):
         ttable.Table({"a": a, "b": b})
     with pytest.raises(TypeError):
@@ -159,7 +160,7 @@ def test_cuda_request_without_a_card_raises(rng):
     keys = rng.integers(0, 2**32, size=100, dtype=np.uint32)
     with pytest.raises((RuntimeError, AssertionError)):
         ttable.make_key_column(keys, CFG, device="cuda")
-    cpu_keys = ttable.make_key_column(keys, CFG).data
+    cpu_keys = ttable.make_key_column(keys, CFG, device="cpu").data
     # Asking for the kernel on a CPU tensor raises; it never runs the plain
     # version in its place.
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -167,6 +168,33 @@ def test_cuda_request_without_a_card_raises(rng):
     assert tconfig.resolve_impl(cpu_keys, None) == "reference"
     with pytest.raises(ValueError):
         tconfig.resolve_impl(cpu_keys, "mosaic")
+
+
+def test_host_values_need_a_card_unless_cpu(monkeypatch, rng):
+    # As on a machine without a card: host values go nowhere quietly.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = rng.integers(0, 2**32, size=100, dtype=np.uint32)
+    jt = jtable.table_from_arrays(JCFG, k=keys)
+    builders = {
+        "make_column": lambda **kw: ttable.make_column(keys, CFG, **kw),
+        "make_key_column": lambda **kw: ttable.make_key_column(keys, CFG, **kw),
+        "table_from_arrays": lambda **kw: ttable.table_from_arrays(CFG, k=keys, **kw)["k"],
+        "column_from_jax": lambda **kw: ttable.column_from_jax(jt["k"], **kw),
+        "table_from_jax": lambda **kw: ttable.table_from_jax(jt, **kw)["k"],
+        "sort_keys": lambda **kw: tsort.sort_keys(keys, CFG, **kw),
+        "sort_pairs": lambda **kw: tsort.sort_pairs(keys, CFG, **kw)[0],
+    }
+    for name, build in builders.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        assert build(device="cpu").device == torch.device("cpu"), name
+    # A tensor keeps its own device: no card is needed for a CPU tensor.
+    col = ttable.make_key_column(torch.from_numpy(keys), CFG)
+    assert col.device == torch.device("cpu")
+    assert tsort.sort_keys(col, CFG).device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tconfig.default_device()
+    assert tconfig.default_device("cpu") == torch.device("cpu")
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):
