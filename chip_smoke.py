@@ -15,11 +15,14 @@ in seven phases:
    radix_hist and bucketize also at tile_rows 1, 3, 8 and 16, on tile
    counts that leave the last block part-filled and on keys 4 bytes off a
    16-byte boundary, and radix_hist on 64-row tiles of equal keys;
-   exclusive_scan at lengths 1, 1023, 1,000,000 and 2^24,
-   and on values near the int32 limit, whose sums wrap (radix_hist,
-   bucketize and radix_dest are also held against their plain versions at
-   the operator path's shapes, after phase 4: 2^24 keys at radix_bits 4 and
-   8, the filter's 100,000,000 keys at radix_bits 4, and its 1-bit
+   radix_dest at radix 2-256 (also those EngineConfig cannot name), at
+   tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off;
+   exclusive_scan at lengths 1, 4,095-4,097, its chunk and one either side,
+   two chunks and one, 1,000,000, 2^24 and 100,000,000, each also one word
+   off a 16-byte boundary, on values whose sums wrap (radix_hist, bucketize
+   and radix_dest are also held against their plain versions at the
+   operator path's shapes, after phase 4: 2^24 keys at radix_bits 1, 4 and
+   8, the filter's 100,000,000 keys at radix_bits 1, 4 and 8, and its 1-bit
    compaction input);
 3. the main path through the public entry points on CUDA tensors, with every
    launch count set to 0 before and read after: ``sort_pairs`` of 1,000,000
@@ -44,7 +47,9 @@ in seven phases:
    plain version (device time from the profiler, and CUDA-event time per
    call), its bound (the bytes it must move at 3.35 TB/s) and its share of
    that bound, and exclusive_scan beside ``torch.cumsum`` of the same int32
-   vector; the 1M x 64 B table sort;
+   vector; the 1M x 64 B table sort; radix_dest at radix 2, 16 and 256 and
+   exclusive_scan beside ``torch.cumsum`` on a vector, at 1M, 2^24 and
+   100,000,000 keys, each with its bound and share of bound;
 6. times of the operator path: each operator and the radix sort beside the
    fused sort, by CUDA events (median of 3) with the profiler's busy share;
 7. the distributed path, counts set to 0 before each timed op in every
@@ -76,6 +81,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from multiprocessing import resource_tracker
 
@@ -94,6 +100,7 @@ from gpuradixsort_tpu_torch.core.table import (
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
+from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
@@ -127,8 +134,7 @@ KERNELS = {
     "radix_dest": (rk.tile_destinations, "gpuradixsort_tpu_torch/csrc/radix_dest.cu",
                    "gpuradixsort_tpu/kernels/radix.py:92", ("radix_dest_kernel",)),
     "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
-                       "gpuradixsort_tpu/kernels/scan.py:31",
-                       ("scan_reduce_kernel", "scan_block_sums_kernel", "scan_chunks_kernel")),
+                       "gpuradixsort_tpu/kernels/scan.py:31", ("scan_kernel",)),
 }
 # The kernels the fused sort runs; radix_dest runs on the operator path.
 FUSED_PATH = ("radix_hist", "bucketize", "scatter_runs", "exclusive_scan")
@@ -230,21 +236,76 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 errs["scatter_runs"] = max(errs["scatter_runs"], err)
                 check(err == 0 and not overflow, f"scatter_runs == plain, {where}")
     check_hist_bucketize_geometry(dev, rng, errs)
+    check_dest_geometry(dev, rng, errs)
+    check_scan_lengths(dev, rng, errs)
+    torch.cuda.synchronize()
+
+
+def check_scan_lengths(dev, rng, errs: dict) -> None:
+    """exclusive_scan against its plain version at the lengths where its routes change.
+
+    1, around 4,096 (the three-launch design's chunk), around one chunk
+    (where the kernel starts to take tickets and look back), two chunks and
+    one, then 1M, 2^24 and 100M; values over the whole int32 range, so that
+    the sums wrap; each length also as a view one word off a 16-byte
+    boundary, where the kernel loads 4 bytes at a time; and 1M values at the
+    int32 limit and 1M small ones.
+    """
     limit = np.iinfo(np.int32)
-    cases = [(n, rng.integers(limit.min, limit.max, n, dtype=np.int64).astype(np.int32))
-             for n in (1, 1023, N_HEADLINE, 1 << 24)]
-    cases.append((N_HEADLINE, np.full(N_HEADLINE, limit.max, dtype=np.int32)))
-    cases.append((N_HEADLINE, rng.integers(0, 100, N_HEADLINE, dtype=np.int32)))
-    for n, x_np in cases:
-        x = torch.from_numpy(x_np).to(dev)
+    chunk = scan_kernels.CHUNK
+    lengths = (1, 4095, 4096, 4097, chunk - 1, chunk, chunk + 1, 2 * chunk + 1,
+               N_HEADLINE, 1 << 24, N_OPS)
+    cases = [(n, off) for n in lengths for off in (0, 1)]
+    cases += [(N_HEADLINE, "max"), (N_HEADLINE, "small")]
+    for n, off in cases:
+        if off == "max":
+            buf = torch.full((n,), limit.max, dtype=torch.int32, device=dev)
+        elif off == "small":
+            buf = torch.from_numpy(rng.integers(0, 100, n, dtype=np.int32)).to(dev)
+        else:
+            buf = torch.randint(limit.min, limit.max, (n + off,), dtype=torch.int32,
+                                generator=torch.Generator(dev).manual_seed(n + off), device=dev)
+        x = buf[1:] if off == 1 else buf
         scan, total = exclusive_scan(x, impl="cuda")
         scan_ref, total_ref = exclusive_scan(x, impl="reference")
         err = max(max_abs_err(scan, scan_ref), max_abs_err(total, total_ref))
         errs["exclusive_scan"] = max(errs["exclusive_scan"], err)
-        wraps = int(x_np.astype(np.int64).sum()) != int(total_ref)
-        check(err == 0, f"exclusive_scan == plain, length {n}, values "
-              f"{int(x_np.min())}..{int(x_np.max())}{' (sums wrap)' if wraps else ''}")
-    torch.cuda.synchronize()
+        wraps = int(x.to(torch.int64).sum()) != int(total_ref)
+        check(err == 0, f"exclusive_scan == plain, length {n}, "
+              f"{x.data_ptr() % 16} bytes off a 16-byte boundary, values "
+              f"{int(x.min())}..{int(x.max())}{' (sums wrap)' if wraps else ''}")
+        del buf, x, scan, scan_ref
+    torch.cuda.empty_cache()
+
+
+def any_radix_cfg(radix: int, tile_rows: int) -> types.SimpleNamespace:
+    """A kernel geometry of any power-of-two radix, also those EngineConfig cannot name."""
+    return types.SimpleNamespace(radix=radix, tile=tile_rows * 128, tile_rows=tile_rows)
+
+
+def check_dest_geometry(dev, rng, errs: dict) -> None:
+    """radix_dest against its plain version at every launch geometry.
+
+    Radix 2-256 (registers up to 32, a warp's shared table above), tile_rows
+    1, 3, 8 and 16, 1, 8 and 29 tiles (the last block of 8 part-filled), and
+    keys 4 bytes off a 16-byte boundary.
+    """
+    for tile_rows in (1, 3, 8, 16):
+        for bits in range(1, 9):
+            cfg = any_radix_cfg(1 << bits, tile_rows)
+            for num_tiles in (1, 8, 29):
+                n = num_tiles * cfg.tile
+                buf = torch.from_numpy(rng.integers(0, 2**32, n + 1, dtype=np.uint32)).to(dev)
+                for keys in (buf[:n], buf[1:]):
+                    for shift in (0, 28):
+                        offsets = rk.global_offsets(
+                            rk.tile_histograms(keys, shift, cfg, impl="reference"))
+                        errs["radix_dest"] = max(errs["radix_dest"], max_abs_err(
+                            rk.tile_destinations(keys, offsets, shift, cfg, impl="cuda"),
+                            rk.tile_destinations(keys, offsets, shift, cfg, impl="reference")))
+    check(errs["radix_dest"] == 0,
+          "radix_dest (radix 2-256) == plain at tile_rows 1, 3, 8, 16, 1/8/29 tiles, "
+          "aligned and unaligned keys")
 
 
 def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
@@ -289,10 +350,10 @@ def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
 def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     """radix_hist, bucketize and radix_dest against their plain versions at the path's shapes.
 
-    The 2^24 keys of the sorts at radix_bits 4 and 8 (bucketize at 4), the
-    filter's 100,000,000 keys at radix_bits 4, as the sort of its survivors
-    sees a 100M buffer, and the filter's 1-bit compaction of them (digit 0
-    = kept), made as filter_table makes it.
+    The 2^24 keys of the sorts at radix_bits 1, 4 and 8 (bucketize at 4),
+    the filter's 100,000,000 keys at radix_bits 4, as the sort of its
+    survivors sees a 100M buffer, and at 1 and 8, and the filter's 1-bit
+    compaction of them (digit 0 = kept), made as filter_table makes it.
     """
     keys16m = tables["r16m"].data
     flt = tables["filter"]
@@ -303,9 +364,10 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     bit_cfg = EngineConfig(radix_bits=1, tile_rows=cfg.tile_rows)
     cases = [(f"2^24 keys radix_bits={bits} shift={shift}", keys16m,
               EngineConfig(radix_bits=bits, tile_rows=cfg.tile_rows), shift)
-             for bits in (4, 8) for shift in (0, 28)]
-    cases += [(f"filter keys, {padded} rows, radix_bits=4 shift={shift}", flt["key"].data,
-               cfg, shift) for shift in (0, 28)]
+             for bits in (1, 4, 8) for shift in (0, 28)]
+    cases += [(f"filter keys, {padded} rows, radix_bits={bits} shift={shift}", flt["key"].data,
+               EngineConfig(radix_bits=bits, tile_rows=cfg.tile_rows), shift)
+              for bits, shift in ((4, 0), (4, 28), (1, 0), (8, 0))]
     cases.append((f"filter compaction input, {padded} rows, radix 2", compaction, bit_cfg, 0))
     for where, keys, kcfg, shift in cases:
         hist = rk.tile_histograms(keys, shift, kcfg, impl="reference")
@@ -631,8 +693,17 @@ def offsets_ab(col, cfg, label: str, card: str) -> None:
     busy = {name: profiled_device_ms(fn, calls=3)[0] for name, fn in fns.items()}
     log(f"time {label} sort_pairs fused, global_offsets by exclusive_scan against "
         f"torch.cumsum ({card}), CUDA events, median of 16 in alternating rounds: "
-        + "; ".join(f"{name} {ms[name]:.4f} ms (device busy {busy[name]:.4f} ms)"
+        + "; ".join(f"{name} {ms[name]:.4f} ms (device busy "
+                    f"{f'{busy[name]:.4f} ms' if busy[name] else 'not measured'})"
                     for name in fns))
+
+
+def add_device(st: StageTimes, name: str, ms: float) -> None:
+    """Add a device time to ``st``, or log it as not measured (no whole profile)."""
+    if ms:
+        st.add(name, ms / 1e3)
+    else:
+        log(f"  {name}: not measured")
 
 
 def phase_times(dev, rng, cfg, card: str) -> dict:
@@ -721,9 +792,9 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             if label == "1M":  # CUDA-event time where the profiler saw nothing
                 times[name] = {"ms": dev_k or wall_k, "plain_ms": dev_p or wall_p,
                                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-            st.add(f"{name} kernel device", dev_k / 1e3)
+            add_device(st, f"{name} kernel device", dev_k)
             st.add(f"{name} kernel per call", wall_k / 1e3)
-            st.add(f"{name} plain device", dev_p / 1e3)
+            add_device(st, f"{name} plain device", dev_p)
             st.add(f"{name} plain per call", wall_p / 1e3)
             if dev_k:
                 rate = nbytes / (dev_k * 1e-3) / 1e12
@@ -732,8 +803,8 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                     f"us ({bound_by}), share of bound {bound_ms / dev_k:.3f}")
             if name == "radix_hist":
                 for tag, fn in (("", rk.global_offsets), (" by cumsum", global_offsets_cumsum)):
-                    st.add(f"global_offsets{tag} device", profiled_device_ms(
-                        lambda fn=fn: fn(hist), calls=20)[0] / 1e3)
+                    add_device(st, f"global_offsets{tag} device", profiled_device_ms(
+                        lambda fn=fn: fn(hist), calls=20)[0])
                 per_call = ab_per_call_ms({"k5": lambda: rk.global_offsets(hist),
                                            "cumsum": lambda: global_offsets_cumsum(hist)},
                                           calls=20, rounds=2, reps=7)
@@ -754,6 +825,60 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
     log(f"time sort_table 1M rows x 64 B (key + 16 int32 columns, {card}), CUDA events, "
         f"median of 7: {t_table:.4f} ms ({N_HEADLINE / t_table / 1e3:.1f} M rows/s)")
     return times
+
+
+def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes at the HBM rate and the ops at the scalar rate."""
+    return max((nbytes / (HBM_PEAK_TBS * 1e12) * 1e3, "bytes"),
+               (ops / SCALAR_PEAK_OPS * 1e3, "operations"))
+
+
+def median_measured(turns: list[float]) -> float:
+    """The median of the turns in which the profiler recorded device time, else 0."""
+    return float(np.median([t for t in turns if t] or [0.0]))
+
+
+def phase_dest_scan_times(dev, rng, card: str) -> None:
+    """Phase 5, continued: radix_dest at radix 2, 16 and 256 and exclusive_scan on a vector.
+
+    At 1M, 2^24 and 100M keys (padded as the sorts pad them): device time
+    per call from the profiler (20 back-to-back calls, median of 3 turns),
+    the bound and the share of it; exclusive_scan of a vector of int32 0..99
+    beside ``torch.cumsum`` of it, in alternating turns.
+    """
+    log(f"radix_dest and exclusive_scan at 1M, 2^24 and 100M ({card}): device us per call "
+        f"(profiler, 20 calls, median of 3 turns), bound, share of bound")
+    for label, n in (("1M", N_HEADLINE), ("2^24", N_LARGE), ("100M", N_OPS)):
+        keys = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), EngineConfig(),
+                               device=dev).data
+        padded = keys.numel()
+        for bits in (1, 4, 8):
+            kcfg = EngineConfig(radix_bits=bits)
+            offsets = rk.global_offsets(rk.tile_histograms(keys, 0, kcfg))
+            us = 1e3 * median_measured([profiled_device_ms(
+                lambda: rk.tile_destinations(keys, offsets, 0, kcfg), calls=20)[0]
+                for _ in range(3)])
+            bound_ms, by = bound_of(8 * padded + 4 * offsets.numel(), 4 * padded)
+            share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
+            log(f"  radix_dest radix {kcfg.radix} @ {label} ({padded} keys): {us:.2f} us; "
+                f"bound {bound_ms * 1e3:.2f} us ({by}); share of bound {share}")
+            del offsets
+        del keys
+        x = torch.from_numpy(rng.integers(0, 100, padded, dtype=np.int32)).to(dev)
+        turns = {"k": [], "l": []}
+        for side in "kllk":
+            fn = ((lambda: exclusive_scan(x)) if side == "k"
+                  else (lambda: torch.cumsum(x, 0, dtype=torch.int32)))
+            turns[side].append(1e3 * profiled_device_ms(fn, calls=20)[0])
+        k_us, l_us = (median_measured(turns[side]) for side in "kl")
+        bound_ms, by = bound_of(8 * padded + 4, padded)
+        share = f"{bound_ms * 1e3 / k_us:.3f}" if k_us else "not measured"
+        log(f"  exclusive_scan vector @ {label} ({padded} int32): {k_us:.2f} us (turns "
+            f"{', '.join(f'{t:.2f}' for t in turns['k'])}); torch.cumsum {l_us:.2f} us (turns "
+            f"{', '.join(f'{t:.2f}' for t in turns['l'])}); bound {bound_ms * 1e3:.2f} us ({by}); "
+            f"share of bound {share}")
+        del x
+        torch.cuda.empty_cache()
 
 
 def phase_operator_times(tables: dict, cfg, card: str) -> None:
@@ -779,14 +904,17 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
         "sort_keys radix_bits=4 auto (fused) 2^24": lambda: sort_keys(t["r16m"], cfg),
     }
     log(f"operator times ({card}): CUDA events, median of 3 after one warm-up; device busy "
-        f"time of one call from the profiler, and its share of the event time")
+        f"time per call from the profiler (two calls, so that a dropped launch shows), and "
+        f"its share of the event time")
     for label, fn in ops.items():
         ms = float(np.median(per_call_ms(fn, calls=1, reps=3)))
-        busy, rows = profiled_device_ms(fn, calls=1)
+        busy, rows = profiled_device_ms(fn, calls=2)
         ours = port_kernel_split(rows)
         split = ", ".join(f"{k} {v:.3f}" for k, v in ours.items())
-        share = f"{busy / ms:.3f}" if busy else "not measured"
-        log(f"  {label}: {ms:.3f} ms; device busy {busy:.3f} ms, busy share {share} "
+        if not busy:
+            log(f"  {label}: {ms:.3f} ms; device busy not measured")
+            continue
+        log(f"  {label}: {ms:.3f} ms; device busy {busy:.3f} ms, busy share {busy / ms:.3f} "
             f"({split or 'no kernel of the port'})")
 
 
@@ -954,6 +1082,7 @@ def main() -> int:
     op_launches, tables, host_inputs = phase_operators(dev, rng, cfg)
     check_kernels_at_path_shapes(tables, cfg, errs)
     times = phase_times(dev, rng, cfg, card)
+    phase_dest_scan_times(dev, rng, card)
     phase_operator_times(tables, cfg, card)
     del tables
     torch.cuda.empty_cache()

@@ -3,25 +3,39 @@
 // Replaces the Pallas kernel gpuradixsort_tpu/kernels/scan.py::_scan_kernel
 // (called by _exclusive_scan_2d and exclusive_scan).  out[i] = x[0] + ... +
 // x[i - 1] and total = x[0] + ... + x[n - 1], both modulo 2^32 as int32 sums
-// wrap in jnp.cumsum.  The kernels add in uint32_t, where wrapping is
+// wrap in jnp.cumsum.  The kernel adds in uint32_t, where wrapping is
 // defined.
 //
-// Bound on the H100: HBM bytes.  x is read twice (the second read mostly
-// from L2 at the sizes this engine scans) and out written once.
+// Bound on the H100: HBM bytes.  x is read once and out written once, 8
+// bytes an element.
 //
-// Design: reduce, then scan, in three launches.  The TPU kernel walks the
-// tiles in grid order and carries the running sum in SMEM; Hopper blocks run
-// in no order, so nothing can carry between them:
-//   1. scan_reduce: each block sums its chunk of kChunk elements;
-//   2. scan_block_sums: one block scans the per-block sums in place (walking
-//      them blockDim at a time with a carry) and writes the total after them;
-//   3. scan_chunks: each block scans its chunk again, from its block's
-//      exclusive offset.  The chunk is loaded into shared memory with
-//      coalesced loads, each thread scans kItems consecutive elements, the
-//      thread sums are scanned over the block, and the chunk leaves with
-//      coalesced stores.
-// The ragged edge (n not a multiple of kChunk) reads as zeros and is not
-// stored.  A single pass with decoupled look-back is the faster design.
+// Design: one pass with decoupled look-back (Merrill & Garland, "Single-pass
+// Parallel Prefix Scan with Decoupled Look-back", NVIDIA, 2016).  The TPU
+// kernel walks the tiles in grid order and carries the running sum in SMEM;
+// Hopper blocks run in no order, so each block takes the next chunk of
+// kThreads x kItems elements from a global counter (a block never waits on a
+// chunk that no resident block holds), and:
+//   1. loads the chunk warp by warp with 16-byte loads where x is 16-byte
+//      aligned (4-byte loads otherwise and at the ragged edge), a lane
+//      issuing all its loads before it uses any, into shared memory, from
+//      which each thread reads kItems consecutive elements into registers;
+//   2. sums its chunk over the block;
+//   3. publishes the chunk's sum in a 64-bit status word that holds the tag
+//      and the value together, so that one access moves both.  Nothing else
+//      is published through the word, so relaxed loads and stores at gpu
+//      scope suffice (kernel_ab.py --sweep times acquire and release
+//      against them; PERF.md, Findings);
+//   4. warp 0 looks back 32 predecessors at a time: one ballot over their
+//      tags finds the nearest one that holds an inclusive prefix, and one
+//      warp sum adds the chunk sums up to it.  The block then publishes its
+//      own inclusive prefix;
+//   5. scans its registers from that prefix and stores the chunk through
+//      shared memory with 16-byte stores.  The last chunk writes the total.
+// A tag is 1 (the chunk's sum) or 2 (its inclusive prefix); 0 reads as not
+// ready.  Each call clears the counter and the status words with one memset
+// before its launch, so no word of an earlier call is read and the call is
+// safe under CUDA graph capture.  An input of one chunk takes no ticket,
+// publishes nothing and needs no memset.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,121 +44,194 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 16;
-constexpr int kChunk = kThreads * kItems;
-constexpr int kChunkPadded = kChunk + kChunk / 32;
+// Warps a block: 8 (chunks of 8,192) unless a build sets GRS_SCAN_WARPS, as
+// kernel_ab.py --sweep does to time chunks of 4,096 and 16,384; it also
+// builds the status words' accesses as acquire and release
+// (GRS_SCAN_ACQUIRE_RELEASE).  The port builds neither.
+#ifndef GRS_SCAN_WARPS
+#define GRS_SCAN_WARPS 8
+#endif
+#ifdef GRS_SCAN_ACQUIRE_RELEASE
+#define GRS_STATUS_LOAD "ld.acquire.gpu.global.u64 %0, [%1];"
+#define GRS_STATUS_STORE "st.release.gpu.global.u64 [%0], %1;"
+#else
+#define GRS_STATUS_LOAD "ld.relaxed.gpu.global.u64 %0, [%1];"
+#define GRS_STATUS_STORE "st.relaxed.gpu.global.u64 [%0], %1;"
+#endif
+constexpr int kWarps = GRS_SCAN_WARPS;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kItems = 32;                 // elements a thread scans
+constexpr int kSpan = 32 * kItems;         // elements of a warp's span of the chunk
+constexpr int kChunk = kWarps * kSpan;     // elements a block
 
-// Shared index of chunk element i, padded by one word per 32 so that the
-// per-thread runs of kItems words fall on distinct banks.
-__device__ inline int padded(int i) { return i + (i >> 5); }
+// Shared index of element i of a warp's span, padded by one word per 32 so
+// that the per-thread runs of kItems words fall on distinct banks.
+__host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
 
-// Exclusive scan of x over the block (kThreads threads); total gets the
-// block's sum.  All threads must call it.  sums holds 33 words.
-__device__ inline uint32_t block_exclusive_scan(uint32_t x, uint32_t* sums,
-                                                uint32_t& total) {
+constexpr size_t kSharedBytes = kWarps * padded(kSpan) * sizeof(uint32_t);
+constexpr bool kOptIn = kSharedBytes > 48 * 1024;  // above the default dynamic limit
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile(GRS_STATUS_LOAD : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  asm volatile(GRS_STATUS_STORE ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long status_word(uint32_t tag, uint32_t value) {
+  return (static_cast<unsigned long long>(tag) << 32) | value;
+}
+
+constexpr uint32_t kSum = 1u;
+constexpr uint32_t kInclusive = 2u;
+
+// Warp 0 of chunk c (> 0): publishes the chunk's sum, waits for and adds the
+// sums of its predecessors back to the nearest inclusive prefix, publishes
+// its own inclusive prefix and returns its exclusive one (in every lane).
+__device__ uint32_t look_back(unsigned long long* status, int64_t c, uint32_t sum, int lane) {
+  if (lane == 0) store_status(status + c, status_word(kSum, sum));
+  uint32_t prefix = 0;
+  for (int64_t end = c;; end -= 32) {
+    const int64_t i = end - 1 - lane;  // lane 0 is the nearest predecessor
+    unsigned long long s;
+    do {
+      s = i >= 0 ? load_status(status + i) : status_word(kInclusive, 0u);
+    } while (__any_sync(grs::kFullWarp, static_cast<uint32_t>(s >> 32) < kSum));
+    const unsigned inclusive =
+        __ballot_sync(grs::kFullWarp, static_cast<uint32_t>(s >> 32) == kInclusive);
+    uint32_t v = static_cast<uint32_t>(s);
+    if (inclusive != 0u && lane > __ffs(inclusive) - 1) v = 0u;
+    prefix += __reduce_add_sync(grs::kFullWarp, v);
+    if (inclusive != 0u) break;
+  }
+  if (lane == 0) store_status(status + c, status_word(kInclusive, prefix + sum));
+  return prefix;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    scan_kernel(const uint32_t* __restrict__ x, int64_t n, uint32_t* __restrict__ out,
+                unsigned long long* status, unsigned int* counter, int64_t num_chunks,
+                bool vec) {
+  extern __shared__ uint32_t spans[];  // [kWarps][padded(kSpan)]
+  __shared__ uint32_t warp_base[kWarps];
+  __shared__ int64_t ticket;
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  constexpr int kWarps = kThreads / 32;
-  uint32_t warp_total;
-  const uint32_t excl = grs::warp_exclusive_scan(x, lane, warp_total);
-  if (lane == 0) sums[warp] = warp_total;
+  uint32_t* span = spans + warp * padded(kSpan);
+
+  int64_t c = 0;
+  if (num_chunks > 1) {
+    if (threadIdx.x == 0) ticket = atomicAdd(counter, 1u);
+    __syncthreads();
+    c = ticket;
+  }
+  const int64_t first = c * kChunk + warp * kSpan;
+  const bool whole = first + kSpan <= n;  // alike in every lane of the warp
+  uint4 q[kItems / 4];  // every load is issued before the first is used
+  if (vec && whole) {
+#pragma unroll
+    for (int j = 0; j < kItems / 4; ++j)
+      q[j] = __ldg(reinterpret_cast<const uint4*>(x + first + 4 * (32 * j + lane)));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems / 4; ++j) {
+      const int64_t g = first + 4 * (32 * j + lane);
+      q[j].x = g < n ? __ldg(x + g) : 0u;
+      q[j].y = g + 1 < n ? __ldg(x + g + 1) : 0u;
+      q[j].z = g + 2 < n ? __ldg(x + g + 2) : 0u;
+      q[j].w = g + 3 < n ? __ldg(x + g + 3) : 0u;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kItems / 4; ++j) {
+    const int e = 4 * (32 * j + lane);
+    span[padded(e)] = q[j].x;
+    span[padded(e + 1)] = q[j].y;
+    span[padded(e + 2)] = q[j].z;
+    span[padded(e + 3)] = q[j].w;
+  }
+  __syncwarp();
+  uint32_t v[kItems];
+  uint32_t local = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    v[i] = span[padded(lane * kItems + i)];
+    local += v[i];
+  }
+  uint32_t warp_sum;
+  const uint32_t excl = grs::warp_exclusive_scan(local, lane, warp_sum);
+  if (lane == 0) warp_base[warp] = warp_sum;
   __syncthreads();
   if (warp == 0) {
-    uint32_t all;
-    const uint32_t s = lane < kWarps ? sums[lane] : 0u;
-    const uint32_t e = grs::warp_exclusive_scan(s, lane, all);
-    if (lane < kWarps) sums[lane] = e;
-    if (lane == 0) sums[32] = all;
+    uint32_t sum;
+    const uint32_t w = grs::warp_exclusive_scan(lane < kWarps ? warp_base[lane] : 0u, lane, sum);
+    uint32_t prefix = 0;
+    if (c == 0) {
+      if (lane == 0 && num_chunks > 1) store_status(status, status_word(kInclusive, sum));
+    } else {
+      prefix = look_back(status, c, sum, lane);
+    }
+    if (lane < kWarps) warp_base[lane] = prefix + w;
+    if (lane == 0 && c == num_chunks - 1) out[n] = prefix + sum;
   }
   __syncthreads();
-  total = sums[32];
-  const uint32_t out = sums[warp] + excl;
-  __syncthreads();  // sums is rewritten by the next call
-  return out;
-}
-
-__global__ void scan_reduce_kernel(const uint32_t* __restrict__ x, int64_t n,
-                                   uint32_t* __restrict__ block_sums) {
-  __shared__ uint32_t sums[33];
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kChunk;
-  uint32_t local = 0;
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = start + k * kThreads + threadIdx.x;
-    if (i < n) local += x[i];
+  uint32_t run = warp_base[warp] + excl;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    span[padded(lane * kItems + i)] = run;
+    run += v[i];
   }
-  uint32_t total;
-  block_exclusive_scan(local, sums, total);
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = total;
-}
-
-// One block: block_sums[0..num_blocks) becomes its exclusive scan and
-// block_sums[num_blocks] the total.
-__global__ void scan_block_sums_kernel(uint32_t* __restrict__ block_sums,
-                                       int64_t num_blocks) {
-  __shared__ uint32_t sums[33];
-  uint32_t carry = 0;
-  for (int64_t c0 = 0; c0 < num_blocks; c0 += kThreads) {
-    const int64_t i = c0 + threadIdx.x;
-    const uint32_t v = i < num_blocks ? block_sums[i] : 0u;
-    uint32_t total;
-    const uint32_t excl = block_exclusive_scan(v, sums, total);
-    if (i < num_blocks) block_sums[i] = carry + excl;
-    carry += total;
-  }
-  if (threadIdx.x == 0) block_sums[num_blocks] = carry;
-}
-
-__global__ void scan_chunks_kernel(const uint32_t* __restrict__ x, int64_t n,
-                                   const uint32_t* __restrict__ block_sums,
-                                   uint32_t* __restrict__ out) {
-  __shared__ uint32_t chunk[kChunkPadded];
-  __shared__ uint32_t sums[33];
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kChunk;
-  for (int k = 0; k < kItems; ++k) {
-    const int j = k * kThreads + threadIdx.x;
-    chunk[padded(j)] = start + j < n ? x[start + j] : 0u;
-  }
-  __syncthreads();
-  const int first = threadIdx.x * kItems;
-  uint32_t local = 0;
-  for (int k = 0; k < kItems; ++k) local += chunk[padded(first + k)];
-  uint32_t total;
-  uint32_t run = block_sums[blockIdx.x] + block_exclusive_scan(local, sums, total);
-  for (int k = 0; k < kItems; ++k) {
-    const uint32_t v = chunk[padded(first + k)];
-    chunk[padded(first + k)] = run;
-    run += v;
-  }
-  __syncthreads();
-  for (int k = 0; k < kItems; ++k) {
-    const int j = k * kThreads + threadIdx.x;
-    if (start + j < n) out[start + j] = chunk[padded(j)];
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kItems / 4; ++j) {
+    const int e = 4 * (32 * j + lane);
+    const int64_t g = first + e;
+    const uint4 r = make_uint4(span[padded(e)], span[padded(e + 1)], span[padded(e + 2)],
+                               span[padded(e + 3)]);
+    if (whole || g + 3 < n) {
+      *reinterpret_cast<uint4*>(out + g) = r;
+    } else {
+      if (g < n) out[g] = r.x;
+      if (g + 1 < n) out[g + 1] = r.y;
+      if (g + 2 < n) out[g + 2] = r.z;
+    }
   }
 }
 
 }  // namespace
 
-// x: n int32 (n >= 1).  out: n + num_blocks + 1 int32, num_blocks =
-// ceil(n / 4096): the scan in its first n words, the per-block sums after
-// them as scratch, and the total in its last word.  The caller sizes out,
-// so num_blocks is passed and checked against this file's chunk.
-// Returns cudaGetLastError() after the launches.
-extern "C" int grs_exclusive_scan(const void* x, void* out, int64_t n,
-                                  int64_t num_blocks, void* stream) {
-  if (n < 1 || num_blocks != (n + kChunk - 1) / kChunk)
+// x: n int32 (n >= 1).  out: n + 1 int32, 16-byte aligned: the scan, then
+// the total.  chunk: elements a block scans, which must be the kernel's, as
+// the caller sizes the scratch by it.  scratch: 8-byte aligned, num_chunks +
+// 1 64-bit words (num_chunks = ceil(n / chunk)): the chunk counter, then the
+// status words, cleared here on the stream.  Returns cudaGetLastError()
+// after the launch.
+extern "C" int grs_exclusive_scan(const void* x, void* out, int64_t n, int chunk,
+                                  void* scratch, void* stream) {
+  if (n < 1 || chunk != kChunk || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(scratch) % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* in = static_cast<const uint32_t*>(x);
-  uint32_t* sums = static_cast<uint32_t*>(out) + n;
-  scan_reduce_kernel<<<static_cast<unsigned>(num_blocks), kThreads, 0, s>>>(
-      in, n, sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_block_sums_kernel<<<1, kThreads, 0, s>>>(sums, num_blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_chunks_kernel<<<static_cast<unsigned>(num_blocks), kThreads, 0, s>>>(
-      in, n, sums, static_cast<uint32_t*>(out));
+  }
+  const int64_t num_chunks = (n + kChunk - 1) / kChunk;
+  auto* words = static_cast<unsigned long long*>(scratch);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (num_chunks > 1) {
+    const cudaError_t err =
+        cudaMemsetAsync(words, 0, (num_chunks + 1) * sizeof(unsigned long long), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if constexpr (kOptIn) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSharedBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  scan_kernel<<<static_cast<unsigned>(num_chunks), kThreads, kSharedBytes, s>>>(
+      static_cast<const uint32_t*>(x), n, static_cast<uint32_t*>(out), words + 1,
+      reinterpret_cast<unsigned int*>(words), num_chunks,
+      reinterpret_cast<uintptr_t>(x) % 16 == 0);
   return static_cast<int>(cudaGetLastError());
 }

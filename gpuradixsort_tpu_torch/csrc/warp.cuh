@@ -7,22 +7,12 @@ namespace grs {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// The lanes of the calling warp whose digit equals d, with one ballot per
-// digit bit.  All 32 lanes must call it.  On the H100 this measured faster
-// than __match_any_sync, which bounded K1 and K2 (PERF.md, Findings).
-__device__ inline unsigned lanes_with_digit(uint32_t d, int bits) {
-  unsigned peers = kFullWarp;
-  for (int b = 0; b < bits; ++b) {
-    const unsigned ones = __ballot_sync(kFullWarp, (d >> b) & 1u);
-    peers &= ((d >> b) & 1u) ? ones : ~ones;
-  }
-  return peers;
-}
-
 // The ballots of one digit per lane, one per digit bit (bits <= MaxBits), from
 // which any lane can find the lanes holding any digit: its own (the peers it
-// ranks among) and, in K2, the digit equal to its lane number (whose count
-// that lane keeps).  All 32 lanes must construct it.
+// ranks among) and, in K2 and K4, the digit equal to its lane number (whose
+// count or destination that lane keeps).  All 32 lanes must construct it.  On
+// the H100 ballots per digit bit measured faster than __match_any_sync, which
+// bounded K1 and K2 (PERF.md, Findings).
 template <int MaxBits>
 struct DigitBallots {
   unsigned ones[MaxBits];

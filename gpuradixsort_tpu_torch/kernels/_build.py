@@ -42,7 +42,7 @@ _SIGNATURES = {
     "grs_bucketize": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
     "grs_scatter_runs": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "grs_radix_dest": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
-    "grs_exclusive_scan": [_P, _P, _I64, _I64, _P],
+    "grs_exclusive_scan": [_P, _P, _I64, _I, _P, _P],
 }
 
 

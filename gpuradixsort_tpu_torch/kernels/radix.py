@@ -15,11 +15,9 @@ they equal its tables' first ``radix`` columns.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from gpuradixsort_tpu_torch.config import LANES, EngineConfig, resolve_impl
+from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
@@ -53,14 +51,7 @@ def check_keys(name: str, t: torch.Tensor, cfg: EngineConfig) -> int:
 WARP = 32
 MAX_SHARED_BYTES = 232_448  # shared memory one block may use on the H100
 HIST_TILES_PER_BLOCK = 8
-
-
-def chunk_threads(cfg: EngineConfig) -> int:
-    """Threads per block of tile_destinations, which walks a tile one chunk at a time.
-
-    One thread per key of a chunk, so the chunk must divide the tile.
-    """
-    return LANES * math.gcd(cfg.tile_rows, 4)
+DEST_TILES_PER_BLOCK = 2
 
 
 def hist_geometry(cfg: EngineConfig) -> tuple[int, int]:
@@ -72,6 +63,17 @@ def hist_geometry(cfg: EngineConfig) -> tuple[int, int]:
     """
     shared = HIST_TILES_PER_BLOCK * WARP * cfg.radix if cfg.radix > 16 else 0
     return WARP * HIST_TILES_PER_BLOCK, shared
+
+
+def dest_geometry(cfg: EngineConfig) -> tuple[int, int]:
+    """(threads, shared bytes) of a tile_destinations block.
+
+    One warp per tile, ``DEST_TILES_PER_BLOCK`` tiles a block.  Radixes up
+    to 32 keep each digit's running destination in one lane's register;
+    larger ones in a warp-private shared table of ``radix`` int32.
+    """
+    shared = DEST_TILES_PER_BLOCK * 4 * cfg.radix if cfg.radix > WARP else 0
+    return WARP * DEST_TILES_PER_BLOCK, shared
 
 
 def _tile_histograms_ref(keys: torch.Tensor, shift: int, cfg: EngineConfig):
@@ -153,9 +155,10 @@ def tile_destinations(
     if resolve_impl(keys, impl) == "reference":
         return _tile_destinations_ref(keys, offsets, shift, cfg)
     dest = torch.empty(keys.numel(), dtype=torch.int32, device=keys.device)
+    threads, _ = dest_geometry(cfg)
     launch(
         "grs_radix_dest", keys, keys.data_ptr(), offsets.data_ptr(), dest.data_ptr(),
-        num_tiles, cfg.tile, chunk_threads(cfg), shift, cfg.radix,
+        num_tiles, cfg.tile, threads, shift, cfg.radix,
     )
     tile_destinations.launches += 1
     return dest

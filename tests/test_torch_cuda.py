@@ -8,11 +8,13 @@ imports no JAX, so it also runs on a machine with PyTorch and a card only:
 (``tests/conftest.py`` imports JAX for the JAX package's tests.)
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from gpuradixsort_tpu_torch.config import EngineConfig
+from gpuradixsort_tpu_torch.config import LANES, EngineConfig
 from gpuradixsort_tpu_torch.core.table import Table, int32_bits, make_column, make_key_column
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
@@ -186,6 +188,84 @@ def test_destinations_and_scan_match_plain(tile_rows, card, gen):
     torch.cuda.synchronize()
 
 
+def _any_radix_cfg(radix: int, tile_rows: int):
+    # Any power-of-two radix, including the 8- to 128-bucket ones EngineConfig cannot name.
+    return types.SimpleNamespace(radix=radix, tile=tile_rows * LANES, tile_rows=tile_rows)
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
+def test_destinations_match_plain_at_every_geometry(tile_rows, card, gen):
+    # Radix 2-256 (registers up to 32, the warp's shared table above); tile
+    # counts that fill no block, one block, and part of the last one; keys
+    # at an offset of 4 bytes.
+    for bits in range(1, 9):
+        cfg = _any_radix_cfg(1 << bits, tile_rows)
+        for num_tiles in (1, 8, 8 * 3 + 5):
+            n = num_tiles * cfg.tile
+            for name, keys_np in _keysets(gen, n + 1).items():
+                buf = torch.from_numpy(keys_np).to(card)
+                for keys in (buf[:n], buf[1:]):
+                    for shift in (0, 28):
+                        where = (f"{name} radix={cfg.radix} tiles={num_tiles} shift={shift} "
+                                 f"offset={keys.data_ptr() % 16}")
+                        hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
+                        off = tradix.global_offsets(hist)
+                        ref = tradix.tile_destinations(keys, off, shift, cfg, impl="reference")
+                        assert _same(tradix.tile_destinations(keys, off, shift, cfg), ref), where
+    torch.cuda.synchronize()
+
+
+def test_scan_unaligned_and_back_to_back(card, gen):
+    # Inputs one word off a 16-byte boundary take 4-byte loads; 50 calls of
+    # different lengths, back to back on one stream, each equal to the plain
+    # version: a status word left by an earlier call would break a later one.
+    chunk = tscan.CHUNK
+    lengths = [1, 4095, 4096, 4097, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, 33 * chunk,
+               (1 << 20) + 3]
+    lengths += gen.integers(1, 40 * chunk, 50 - len(lengths)).tolist()
+    outs = []
+    for n in lengths:
+        buf = torch.from_numpy(gen.integers(-(2**31), 2**31, n + 1).astype(np.int32)).to(card)
+        x = buf[1:] if n % 2 else buf[:n]
+        outs.append((x, *tscan.exclusive_scan(x)))
+    for x, scan, total in outs:
+        ref_scan, ref_total = tscan.exclusive_scan(x, impl="reference")
+        assert _same(scan, ref_scan) and int(total) == int(ref_total), x.numel()
+
+
+def test_scan_scratch_across_streams_and_graphs(card, gen):
+    # Each call clears its own scratch: calls on two streams at once, and a
+    # call captured in a CUDA graph (the memset in the graph) and replayed on
+    # new data, each equal to the plain version.
+    def check(x, got):
+        ref_scan, ref_total = tscan.exclusive_scan(x, impl="reference")
+        assert _same(got[0], ref_scan) and int(got[1]) == int(ref_total), x.numel()
+
+    xs = [torch.from_numpy(gen.integers(-(2**31), 2**31, n).astype(np.int32)).to(card)
+          for n in (3 * tscan.CHUNK + 5, 40 * tscan.CHUNK, 7 * tscan.CHUNK)]
+    for x in xs + xs:
+        check(x, tscan.exclusive_scan(x))
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    outs = []
+    for rep in range(3):
+        for stream, x in zip(streams, xs[1:]):
+            stream.wait_stream(torch.cuda.current_stream(card))
+            with torch.cuda.stream(stream):
+                outs.append((stream, x, tscan.exclusive_scan(x)))
+    for stream, x, got in outs:
+        torch.cuda.current_stream(card).wait_stream(stream)
+        check(x, got)
+    x = xs[1].clone()
+    tscan.exclusive_scan(x)  # built and loaded before the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tscan.exclusive_scan(x)
+    for rep in range(3):
+        x.copy_(torch.from_numpy(gen.integers(-(2**31), 2**31, x.numel()).astype(np.int32)))
+        graph.replay()
+        check(x, got)
+
+
 def _table_pair(card, key, keys, **cols):
     """One table on the CPU and the same table on the card."""
     def build(device):
@@ -266,10 +346,15 @@ def test_rejected_launch_raises(card):
             "grs_bucketize", keys, keys.data_ptr(), keys.data_ptr(), out.data_ptr(),
             out.data_ptr(), CFG.block // CFG.tile, CFG.tile, 2048, 0, CFG.radix,
         )
-    # A scan buffer sized for another chunk than the kernel's is refused.
+    # A chunk other than the scan kernel's is refused, as is an output off a
+    # 16-byte boundary.
     x = torch.zeros(5000, dtype=torch.int32, device=card)
-    with pytest.raises(RuntimeError, match="grs_exclusive_scan"):
-        _build.launch("grs_exclusive_scan", x, x.data_ptr(), x.data_ptr(), 5000, 1)
+    out = torch.empty(5002, dtype=torch.int32, device=card)
+    scratch = torch.zeros(tscan.scratch_words(5000), dtype=torch.int64, device=card)
+    for chunk, at in ((1000, 0), (tscan.CHUNK, 1)):
+        with pytest.raises(RuntimeError, match="grs_exclusive_scan"):
+            _build.launch("grs_exclusive_scan", x, x.data_ptr(), out[at:].data_ptr(), 5000,
+                          chunk, scratch.data_ptr())
 
 
 def _dist_sort_calls(gen, n):

@@ -169,7 +169,8 @@ def test_tile_destinations_other_tile_sizes(tile_rows, rng):
         jradix.tile_destinations(jk, joff, 4, jcfg, impl="reference"))
 
 
-@pytest.mark.parametrize("n", [1, 7, 128, 1023, 1025, 4096, 100_000])
+@pytest.mark.parametrize("n", [1, 7, 128, 1023, 1025, 4096, 100_000,
+                               tscan.CHUNK - 1, tscan.CHUNK, tscan.CHUNK + 1])
 def test_exclusive_scan_matches_jax(n, rng):
     for x in (rng.integers(0, 5, n).astype(np.int32),
               rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)):  # wraps
@@ -270,6 +271,27 @@ def test_launch_geometry_fits_the_card(tile_rows):
         per_key = 16 if cfg.tile == tbucketize.FAST_TILE else 8  # input staged too
         assert shared == threads // 32 * per_key * cfg.tile <= tradix.MAX_SHARED_BYTES
         assert cfg.tile % 128 == 0
+
+
+@pytest.mark.parametrize("tile_rows", range(1, 17))
+def test_dest_geometry_fits_the_card(tile_rows):
+    # What grs_radix_dest accepts: one warp per tile, at most 8 tiles (256
+    # threads) a block; above radix 32 a warp-private table of radix int32.
+    for bits in range(1, 9):
+        cfg = _geometry_cfg(1 << bits, tile_rows)
+        threads, shared = tradix.dest_geometry(cfg)
+        assert threads % 32 == 0 and 32 <= threads <= 256
+        assert shared == (threads // 32 * 4 * cfg.radix if cfg.radix > 32 else 0)
+        assert shared <= 8 * 4 * 256 <= tradix.MAX_SHARED_BYTES
+        assert cfg.tile % 128 == 0
+
+
+@pytest.mark.parametrize("n, chunks", [(1, 1), (tscan.CHUNK - 1, 1), (tscan.CHUNK, 1),
+                                       (tscan.CHUNK + 1, 2), (2 * tscan.CHUNK + 1, 3),
+                                       (100_000_000, 12_208)])
+def test_scan_scratch_words(n, chunks):
+    # The chunk counter, then one status word a chunk the kernel scans.
+    assert tscan.scratch_words(n) == chunks + 1
 
 
 def test_bucketize_geometry_limits():
