@@ -17,9 +17,13 @@ in seven phases:
    16-byte boundary, and radix_hist on 64-row tiles of equal keys;
    radix_dest at radix 2-256 (also those EngineConfig cannot name), at
    tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off;
-   exclusive_scan at lengths 1, 4,095-4,097, its chunk and one either side,
-   two chunks and one, 1,000,000, 2^24 and 100,000,000, each also one word
-   off a 16-byte boundary, on values whose sums wrap (radix_hist, bucketize
+   scatter_runs at radix 2, 4, 16, 32, 64 and 256, tile_rows 1, 3, 8 and
+   16, on 1 and 9 tiles and (radix 16) on more tiles than the card holds
+   warps at once, inputs also 4 bytes off, and with moved offsets whose
+   out-of-range destinations are dropped; exclusive_scan at lengths 1,
+   4,095-4,097, its chunk and one either side, two chunks and one,
+   1,000,000, 2^24 and 100,000,000, each also one word off a 16-byte
+   boundary, on values whose sums wrap (radix_hist, bucketize, scatter_runs
    and radix_dest are also held against their plain versions at the
    operator path's shapes, after phase 4: 2^24 keys at radix_bits 1, 4 and
    8, the filter's 100,000,000 keys at radix_bits 1, 4 and 8, and its 1-bit
@@ -47,9 +51,10 @@ in seven phases:
    plain version (device time from the profiler, and CUDA-event time per
    call), its bound (the bytes it must move at 3.35 TB/s) and its share of
    that bound, and exclusive_scan beside ``torch.cumsum`` of the same int32
-   vector; the 1M x 64 B table sort; radix_dest at radix 2, 16 and 256 and
-   exclusive_scan beside ``torch.cumsum`` on a vector, at 1M, 2^24 and
-   100,000,000 keys, each with its bound and share of bound;
+   vector; the 1M x 64 B table sort; radix_dest at radix 2, 16 and 256,
+   exclusive_scan beside ``torch.cumsum`` on a vector, and scatter_runs on
+   a radix-16 pass, at 1M, 2^24 and 100,000,000 keys, each with its bound
+   and share of bound;
 6. times of the operator path: each operator and the radix sort beside the
    fused sort, by CUDA events (median of 3) with the profiler's busy share;
 7. the distributed path, counts set to 0 before each timed op in every
@@ -130,7 +135,8 @@ KERNELS = {
                   "gpuradixsort_tpu/kernels/bucketize.py:156",
                   ("bucketize_1k_kernel", "bucketize_any_kernel")),
     "scatter_runs": (scatter_runs, "gpuradixsort_tpu_torch/csrc/scatter_runs.cu",
-                     "gpuradixsort_tpu/kernels/scatter.py:107", ("scatter_runs_kernel",)),
+                     "gpuradixsort_tpu/kernels/scatter.py:107",
+                     ("scatter_1k_kernel", "scatter_any_kernel")),
     "radix_dest": (rk.tile_destinations, "gpuradixsort_tpu_torch/csrc/radix_dest.cu",
                    "gpuradixsort_tpu/kernels/radix.py:92", ("radix_dest_kernel",)),
     "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
@@ -237,8 +243,77 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 check(err == 0 and not overflow, f"scatter_runs == plain, {where}")
     check_hist_bucketize_geometry(dev, rng, errs)
     check_dest_geometry(dev, rng, errs)
+    check_scatter_geometry(dev, rng, errs)
     check_scan_lengths(dev, rng, errs)
     torch.cuda.synchronize()
+
+
+# More tiles than 64 warps on each of the H100's 132 SMs hold at once, the
+# last block of 8 part-filled.
+MANY_TILES = 64 * 132 + 37
+
+
+def scatter_input(keys: torch.Tensor, shift: int, cfg):
+    """scatter_runs' input from ``keys``: each tile stably sorted by digit by
+    the plain bucketize (a per-tile argsort, which takes any radix), its
+    histograms and offsets."""
+    idx = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device).view(torch.uint32)
+    hist = rk.tile_histograms(keys, shift, cfg, impl="reference")
+    bk, bi = _bucketize_ref(keys, idx, shift, cfg)
+    return bk, bi, hist, rk.global_offsets(hist)
+
+
+def one_word_off(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+def check_scatter_geometry(dev, rng, errs: dict) -> None:
+    """scatter_runs against its plain version at every launch geometry.
+
+    Radix 2, 4 and 16 (registers on the 1,024-key tile) and 32, 64 and 256
+    (a warp's shared row), tile_rows 1, 3, 8 and 16, on 1 and 9 tiles (the
+    last block of 8 part-filled) and at radix 16 on MANY_TILES, with inputs
+    aligned and one word off a 16-byte boundary; then offsets moved by -5, 7
+    and -3,083 rows (an inconsistent pair), whose destinations outside the
+    buffer are dropped as the plain version drops them (the rows some slot
+    lands on compared: the kernel leaves the others unwritten, the plain
+    version zero).
+    """
+    def held(got, want, rows=slice(None)) -> None:
+        errs["scatter_runs"] = max(errs["scatter_runs"], int(got[2] is not False),
+                                   *(max_abs_err(g[rows], w[rows])
+                                     for g, w in zip(got[:2], want[:2])))
+
+    for tile_rows in (1, 3, 8, 16):
+        for bits in (1, 2, 4, 5, 6, 8):
+            cfg = any_radix_cfg(1 << bits, tile_rows)
+            for num_tiles in (1, 9) + ((MANY_TILES,) if bits == 4 else ()):
+                n = num_tiles * cfg.tile
+                keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
+                for shift in (0, 28):
+                    bk, bi, hist, off = scatter_input(keys, shift, cfg)
+                    want = scatter_runs(bk, bi, hist, off, cfg, impl="reference")
+                    held(scatter_runs(bk, bi, hist, off, cfg, impl="cuda"), want)
+                    held(scatter_runs(one_word_off(bk), one_word_off(bi), hist, off, cfg,
+                                      impl="cuda"), want)
+            if tile_rows in (1, 8):
+                n = 5 * cfg.tile
+                keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
+                bk, bi, hist, off = scatter_input(keys, 4, cfg)
+                for shift_by in (-5, 7, -(3 * 1024 + 11)):
+                    moved = off + shift_by
+                    k = min(abs(shift_by), n)
+                    held(scatter_runs(bk, bi, hist, moved, cfg, impl="cuda"),
+                         scatter_runs(bk, bi, hist, moved, cfg, impl="reference"),
+                         slice(k, n) if shift_by > 0 else slice(0, n - k))
+    check(errs["scatter_runs"] == 0,
+          "scatter_runs (radix 2, 4, 16, 32, 64, 256) == plain at tile_rows 1, 3, 8, 16, "
+          f"1/9/{MANY_TILES} tiles, aligned and unaligned inputs; out-of-range destinations "
+          "of moved offsets dropped")
+    torch.cuda.empty_cache()
 
 
 def check_scan_lengths(dev, rng, errs: dict) -> None:
@@ -348,9 +423,10 @@ def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
 
 
 def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
-    """radix_hist, bucketize and radix_dest against their plain versions at the path's shapes.
+    """radix_hist, bucketize, scatter_runs and radix_dest against their plain versions at the path's shapes.
 
-    The 2^24 keys of the sorts at radix_bits 1, 4 and 8 (bucketize at 4),
+    The 2^24 keys of the sorts at radix_bits 1, 4 and 8 (bucketize and
+    scatter_runs, on the kernel's bucketized tiles, at 4),
     the filter's 100,000,000 keys at radix_bits 4, as the sort of its
     survivors sees a 100M buffer, and at 1 and 8, and the filter's 1-bit
     compaction of them (digit 0 = kept), made as filter_table makes it.
@@ -375,7 +451,6 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
         errs["radix_hist"] = max(errs["radix_hist"], err)
         check(err == 0, f"radix_hist == plain, {where}")
         offsets = rk.global_offsets(hist)
-        del hist
         err = max_abs_err(rk.tile_destinations(keys, offsets, shift, kcfg, impl="cuda"),
                           rk.tile_destinations(keys, offsets, shift, kcfg, impl="reference"))
         errs["radix_dest"] = max(errs["radix_dest"], err)
@@ -386,7 +461,12 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
             err = max(map(max_abs_err, got, _bucketize_ref(keys, idx, shift, kcfg)))
             errs["bucketize"] = max(errs["bucketize"], err)
             check(err == 0, f"bucketize == plain, {where}")
+            err = max(map(max_abs_err, scatter_runs(*got, hist, offsets, kcfg, impl="cuda")[:2],
+                          scatter_runs(*got, hist, offsets, kcfg, impl="reference")[:2]))
+            errs["scatter_runs"] = max(errs["scatter_runs"], err)
+            check(err == 0, f"scatter_runs == plain, {where}")
             del idx, got
+        del hist, offsets
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -881,6 +961,37 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_scatter_times(dev, rng, card: str) -> None:
+    """Phase 5, continued: scatter_runs timed directly at 1M, 2^24 and 100M keys.
+
+    One radix-16 pass's input (the keys bucketized by the kernel, their
+    histograms and offsets); device time per call from the profiler (20
+    back-to-back calls, median of 3 turns), the bound (16 bytes a key and
+    the two tables at 3.35 TB/s) and the share of it.
+    """
+    cfg = EngineConfig()
+    log(f"scatter_runs at 1M, 2^24 and 100M, radix 16 ({card}): device us per call "
+        f"(profiler, 20 calls, median of 3 turns), bound, share of bound")
+    for label, n in (("1M", N_HEADLINE), ("2^24", N_LARGE), ("100M", N_OPS)):
+        keys = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
+                               device=dev).data
+        padded = keys.numel()
+        hist = rk.tile_histograms(keys, 0, cfg)
+        offsets = rk.global_offsets(hist)
+        bk, bi = bucketize_tiles(keys, iota_index(n, cfg, dev), 0, cfg)
+        del keys
+        turns = [1e3 * profiled_device_ms(lambda: scatter_runs(bk, bi, hist, offsets, cfg),
+                                          calls=20)[0] for _ in range(3)]
+        us = median_measured(turns)
+        bound_ms, by = bound_of(16 * padded + 8 * hist.numel(), 2 * padded)
+        share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
+        log(f"  scatter_runs @ {label} ({padded} keys): {us:.2f} us (turns "
+            f"{', '.join(f'{t:.2f}' for t in turns)}); bound {bound_ms * 1e3:.2f} us ({by}); "
+            f"share of bound {share}")
+        del bk, bi, hist, offsets
+        torch.cuda.empty_cache()
+
+
 def phase_operator_times(tables: dict, cfg, card: str) -> None:
     """Phase 6: each operator by CUDA events (median of 3), with the busy share."""
     t = tables
@@ -1083,6 +1194,7 @@ def main() -> int:
     check_kernels_at_path_shapes(tables, cfg, errs)
     times = phase_times(dev, rng, cfg, card)
     phase_dest_scan_times(dev, rng, card)
+    phase_scatter_times(dev, rng, card)
     phase_operator_times(tables, cfg, card)
     del tables
     torch.cuda.empty_cache()

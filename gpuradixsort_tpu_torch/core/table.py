@@ -35,6 +35,20 @@ def round_up(n: int, multiple: int) -> int:
     return max(((n + multiple - 1) // multiple) * multiple, multiple)
 
 
+# Padded rows a buffer may have: a sort's offsets, destinations and row
+# indices and a filter's count are int32, so 2^31 rows would wrap them.
+MAX_PADDED_ROWS = 2**31 - 1
+
+
+def check_padded_rows(padded: int) -> None:
+    """Raise ValueError for a buffer of 2^31 padded rows or more."""
+    if padded > MAX_PADDED_ROWS:
+        raise ValueError(
+            f"{padded} padded rows: the port takes fewer than 2^31, because its "
+            "offsets, destinations, row indices and counts are int32"
+        )
+
+
 def int32_bits(t: torch.Tensor) -> torch.Tensor:
     """A uint32 tensor viewed as int32 (same bits); other dtypes unchanged."""
     return t.view(torch.int32) if t.dtype == torch.uint32 else t
@@ -136,7 +150,12 @@ def make_column(
 def make_key_column(
     values, cfg: EngineConfig | None = None, device=None
 ) -> Column:
-    """A uint32 sort-key column, padded with PAD_KEY so pads sort last."""
+    """A uint32 sort-key column, padded with PAD_KEY so pads sort last.
+
+    Raises ValueError, before it pads or copies anything, when the padded
+    column would have 2^31 rows or more (``check_padded_rows``).
+    """
+    check_padded_rows(round_up(len(values), (cfg or EngineConfig()).block))
     if isinstance(values, torch.Tensor):
         if values.dtype != torch.uint32:
             raise TypeError(f"key tensor must be torch.uint32, got {values.dtype}")

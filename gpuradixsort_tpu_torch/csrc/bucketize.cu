@@ -47,33 +47,6 @@ constexpr int kItems = kFastTile / 32;
 constexpr int kMaxWarps = 8;         // tiles a block
 constexpr int kMaxShared = 232448;   // shared memory a block may use (H100)
 
-__device__ __forceinline__ void cp_async(uint32_t* smem, const uint32_t* gmem, bool vec) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if (vec) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
-                 : "memory");
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst + 4 * i),
-                   "l"(gmem + i) : "memory");
-  }
-}
-
-// One tile's keys and indices into a warp's input buffer, in element order.
-__device__ __forceinline__ void load_tile(uint32_t* in, const uint32_t* keys,
-                                          const uint32_t* idx, int64_t t, int lane,
-                                          bool vec) {
-  const int64_t base = t * kFastTile;
-#pragma unroll
-  for (int i = 0; i < kFastTile / 128; ++i) {
-    const int e = 4 * (lane + 32 * i);
-    cp_async(in + e, keys + base + e, vec);
-    cp_async(in + kFastTile + e, idx + base + e, vec);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // The staged tile out with 16-byte stores (the outputs are 16-byte aligned).
 __device__ __forceinline__ void store_tile(uint32_t* out_keys, uint32_t* out_idx,
                                            const uint32_t* sk, const uint32_t* sv,
@@ -108,7 +81,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   uint32_t* sk = in + 2 * kFastTile;
   uint32_t* sv = sk + kFastTile;
   const unsigned below = (1u << lane) - 1u;
-  load_tile(in, keys, idx, t, lane, vec);
+  grs::load_tile<kFastTile>(in, keys, idx, t, lane, vec);
 
   for (; t < num_tiles; t += stride) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -120,7 +93,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       v[j] = in[kFastTile + 32 * j + lane];
     }
     __syncwarp();  // every lane has read the tile: refill the buffer
-    if (t + stride < num_tiles) load_tile(in, keys, idx, t + stride, lane, vec);
+    if (t + stride < num_tiles) grs::load_tile<kFastTile>(in, keys, idx, t + stride, lane, vec);
 
     int slot[kItems];
     int count = 0;  // lane r: keys of digit r in the items so far

@@ -6,89 +6,332 @@
 //   out[offsets[t, r] + j] = bucketized[t * tile + local_off[t, r] + j]
 // for j < hist[t, r].
 //
-// Bound on the H100: HBM bytes.  Each key and index is read once and written
-// once; each tile also reads its hist and offsets rows (2 * radix int32).
+// Bound on the H100: HBM bytes, 16 a key: key and index each read once and
+// written once, plus each tile's hist and offsets rows (2 * radix int32).  At
+// radix 16 that is 4.85 / 80.76 / 481.38 us at 1M / 2^24 / 100M keys.
 //
-// Design: one block per tile.  The TPU kernel walks the (digit, tile) runs
-// as a sequential grid with a host-made window plan, an SMEM meta table and
-// a carried partial row, because the TPU has no random store.  The H100 has
-// one, so there is no plan, no window and no carry: the block loads the
-// tile's hist and offsets rows into shared memory, thread 0 turns them into
-// run ends and per-run deltas (offsets - local_off), and each thread finds
-// its slot's run by binary search over the ends and stores it directly.  Neighbouring slots of a run go to
-// neighbouring addresses, so stores are coalesced within runs.  Nothing can
-// overflow; a destination outside the buffer (possible only for an
-// inconsistent hist/offsets pair) is dropped.
+// The TPU kernel walks the (digit, tile) runs as a sequential grid with a
+// host-made window plan, an SMEM meta table and a carried partial row,
+// because the TPU has no random store.  The H100 has one, so there is no
+// plan, no window and no carry: every slot p of a tile goes straight to
+// delta[r] + p, where r is the run holding p and delta[r] = offsets[t, r] -
+// local_off[t, r].
+//
+// The first design (one 256-thread block a tile) lost time to a serial
+// prologue in every block (the row loads, a barrier, thread 0 alone turning
+// the rows into run ends and deltas, a second barrier) with no key load in
+// flight, and to a dependent chain per slot (a load, a binary search through
+// shared memory, a store), so a thread's loads were not in flight before its
+// first store.  This design, like K2 and K4 (bucketize.cu, radix_dest.cu):
+//   - one warp a tile, 8 tiles a block, no block barrier;
+//   - lane r loads the rows' entry r together with the tile's keys and
+//     indices; one warp scan gives local_off, so lane r holds run r's end and
+//     delta, and the row needs no serial work;
+//   - on the default 1,024-key tile (scatter_1k_kernel) a lane loads its 32
+//     keys and 32 indices warp-striped (lane l's item j is element 32 j + l)
+//     into registers before it stores any;
+//   - the run ends are broadcast to every lane once a tile (radix - 1
+//     shuffles); a slot's run is the count of ends at or below its position,
+//     by unrolled compares, and its delta one shuffle from the run's lane.
+//     A store instruction covers 32 neighbouring slots, one or two runs, so
+//     the stores stay coalesced.
+// Run r of tile t and run r of tile t + 1 are neighbours in the output, and
+// the 32-byte sector between them is written half by each.  When the two
+// tiles are placed close in time the halves meet in L2; when not, the card
+// writes a part sector.  So the warps are not persistent: one tile a warp,
+// and the block scheduler hands the tiles out in order.  Persistent warps
+// that walk the tiles grid-stride, or a contiguous chunk each
+// (GRS_SCATTER_ORDER 0 or 1), drift apart and measured slower, the chunks
+// slowest (PERF.md, PR 6).  Built with -DGRS_SCATTER_CP_ASYNC, the tile
+// instead arrives in a warp's shared buffer by cp.async (16-byte copies where
+// the inputs allow; with a persistent order, the next tile's copy in flight
+// while the lanes place the current one).  kernel_ab.py --sweep times both
+// routes, the three orders and GRS_SCATTER_WARPS tiles a block.  Any other
+// tile or a radix above 16 (scatter_any_kernel) takes a warp-private row in
+// shared memory, and each lane walks its runs forward, as its positions only
+// grow.
+//
+// Nothing can overflow; a destination outside [0, n) (possible only for an
+// inconsistent hist/offsets pair) is dropped, as JAX's mode="drop" drops it.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp.cuh"
+
+#ifndef GRS_SCATTER_WARPS
+#define GRS_SCATTER_WARPS 8
+#endif
+// The order of the 1,024-key route's tiles: 0 grid-stride over persistent
+// warps, 1 a contiguous chunk a persistent warp, 2 one tile a warp.
+#ifndef GRS_SCATTER_ORDER
+#define GRS_SCATTER_ORDER 2
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = GRS_SCATTER_WARPS;  // tiles a block
+constexpr int kFastTile = 1024;            // the default tile: 32 keys a lane
+constexpr int kItems = kFastTile / 32;
+constexpr int kFastMaxRadix = 16;
+constexpr int kMaxRadix = 256;
+constexpr int kBatch = 32;  // items a lane loads before it stores them (other tiles)
 
-__global__ void scatter_runs_kernel(const uint32_t* __restrict__ keys,
-                                    const uint32_t* __restrict__ idx,
-                                    const int32_t* __restrict__ hist,
-                                    const int32_t* __restrict__ offsets,
-                                    uint32_t* __restrict__ out_keys,
-                                    uint32_t* __restrict__ out_idx, int tile,
-                                    int radix, int64_t n) {
-  extern __shared__ int table[];
-  int* ends = table;            // inclusive scan of the tile's hist row
-  int* delta = table + radix;   // offsets[t, r] - local_off[t, r]
-  const int64_t t = blockIdx.x;
-  const int64_t base = t * tile;
+static_assert(kWarps >= 1 && kWarps <= 8, "GRS_SCATTER_WARPS must be 1-8");
 
-  // The row loads run in parallel; only the short scan is serial.
-  for (int r = threadIdx.x; r < radix; r += blockDim.x) {
-    ends[r] = hist[t * radix + r];
-    delta[r] = offsets[t * radix + r];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int r = 0; r < radix; ++r) {
-      delta[r] -= s;
-      s += ends[r];
-      ends[r] = s;
-    }
-  }
-  __syncthreads();
+// offsets - local_off, clamped so that delta + p never overflows for p < tile
+// and stays out of [0, n) exactly when the true value is (n <= INT_MAX - tile).
+__device__ __forceinline__ int run_delta(int offset, int local, int tile) {
+  const long long d = static_cast<long long>(offset) - local;
+  const long long lo = -(1LL << 30), hi = INT_MAX - tile;
+  return static_cast<int>(d < lo ? lo : (d > hi ? hi : d));
+}
 
-  for (int p = threadIdx.x; p < tile; p += blockDim.x) {
-    // First run whose end lies past p (searchsorted side="right").
-    int lo = 0, hi = radix;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (ends[mid] <= p) lo = mid + 1; else hi = mid;
-    }
-    const int r = lo < radix - 1 ? lo : radix - 1;
-    const int64_t dst = static_cast<int64_t>(delta[r]) + p;
-    if (dst >= 0 && dst < n) {
-      out_keys[dst] = keys[base + p];
-      out_idx[dst] = idx[base + p];
+__device__ __forceinline__ bool in_range(int dst, int n) {
+  return static_cast<unsigned>(dst) < static_cast<unsigned>(n);
+}
+
+// Places one 1,024-key tile from registers.  Lane r < kRadix brings entry r
+// of the tile's hist and offsets rows (h, o); k and v are the lane's items.
+template <int kRadix>
+__device__ __forceinline__ void place_1k(const uint32_t (&k)[kItems],
+                                         const uint32_t (&v)[kItems], int h, int o,
+                                         int lane, uint32_t* __restrict__ out_keys,
+                                         uint32_t* __restrict__ out_idx, int n) {
+  int total;
+  const int local = grs::warp_exclusive_scan(h, lane, total);
+  const int end = local + h;  // lane r: the end of run r
+  const int delta = run_delta(o, local, kFastTile);
+  // end[r] - lane: item j's slot 32 j + lane lies at or past end[r] when
+  // this is <= 32 j.  The last end needs no compare: a slot past it stays in
+  // the last run, as the plain version's clamp keeps it.
+  int ends[kRadix - 1];
+#pragma unroll
+  for (int r = 0; r < kRadix - 1; ++r) ends[r] = __shfl_sync(grs::kFullWarp, end, r) - lane;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    int run = 0;
+#pragma unroll
+    for (int r = 0; r < kRadix - 1; ++r) run += ends[r] <= 32 * j;
+    const int dst = __shfl_sync(grs::kFullWarp, delta, run) + 32 * j + lane;
+    if (in_range(dst, n)) {
+      out_keys[dst] = k[j];
+      out_idx[dst] = v[j];
     }
   }
 }
 
+// The tiles warp w of W (this launch's warps) places: [first, end) by step.
+struct TileRange {
+  int64_t first, end, step;
+};
+
+__device__ __forceinline__ TileRange tiles_of_warp(int64_t num_tiles, int warp) {
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+#if GRS_SCATTER_ORDER == 1
+  const int64_t per = (num_tiles + warps - 1) / warps;  // a contiguous chunk a warp
+  const int64_t first = w * per;
+  return {first, first + per < num_tiles ? first + per : num_tiles, 1};
+#else
+  return {w, num_tiles, warps};  // grid-stride (one tile a warp: the grid covers them)
+#endif
+}
+
+template <int kBits>
+__global__ void __launch_bounds__(32 * kWarps)
+    scatter_1k_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ idx,
+                      const int32_t* __restrict__ hist, const int32_t* __restrict__ offsets,
+                      uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_idx,
+                      int64_t num_tiles, int n, bool vec) {
+  constexpr int kRadix = 1 << kBits;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const TileRange tiles = tiles_of_warp(num_tiles, warp);
+  int64_t t = tiles.first;
+  if (t >= tiles.end) return;  // no block barrier follows
+  uint32_t k[kItems], v[kItems];
+#ifdef GRS_SCATTER_CP_ASYNC
+  extern __shared__ uint4 smem[];  // per warp: the input tile, keys then indices
+  uint32_t* in = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * 2 * kFastTile;
+  grs::load_tile<kFastTile>(in, keys, idx, t, lane, vec);
+  int h = lane < kRadix ? hist[t * kRadix + lane] : 0;
+  int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
+  for (; t < tiles.end; t += tiles.step) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      k[j] = in[32 * j + lane];
+      v[j] = in[kFastTile + 32 * j + lane];
+    }
+    __syncwarp();  // every lane has read the tile: refill the buffer
+    const int64_t next = t + tiles.step;
+    int h_next = 0, o_next = 0;
+    if (next < tiles.end) {
+      grs::load_tile<kFastTile>(in, keys, idx, next, lane, vec);
+      if (lane < kRadix) {
+        h_next = hist[next * kRadix + lane];
+        o_next = offsets[next * kRadix + lane];
+      }
+    }
+    place_1k<kRadix>(k, v, h, o, lane, out_keys, out_idx, n);
+    h = h_next;
+    o = o_next;
+  }
+#else
+  (void)vec;  // the register route loads 4 bytes a lane, at any alignment
+  for (; t < tiles.end; t += tiles.step) {
+    const int h = lane < kRadix ? hist[t * kRadix + lane] : 0;
+    const int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
+    const uint32_t* kin = keys + t * kFastTile + lane;
+    const uint32_t* vin = idx + t * kFastTile + lane;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      k[j] = kin[32 * j];
+      v[j] = vin[32 * j];
+    }
+    place_1k<kRadix>(k, v, h, o, lane, out_keys, out_idx, n);
+  }
+#endif
+}
+
+__global__ void __launch_bounds__(32 * kWarps)
+    scatter_any_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ idx,
+                       const int32_t* __restrict__ hist, const int32_t* __restrict__ offsets,
+                       uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_idx,
+                       int64_t num_tiles, int tile, int radix, int n) {
+  extern __shared__ int rows[];  // per warp: the run ends, then the deltas
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (t >= num_tiles) return;  // no block barrier follows
+
+  int* ends = rows + 2 * radix * warp;
+  int* delta = ends + radix;
+  const int32_t* hrow = hist + t * radix;
+  const int32_t* orow = offsets + t * radix;
+  int carry = 0;
+  for (int r0 = 0; r0 < radix; r0 += 32) {  // alike in every lane
+    const int r = r0 + lane;
+    const int h = r < radix ? hrow[r] : 0;
+    const int o = r < radix ? orow[r] : 0;
+    int total;
+    const int local = carry + grs::warp_exclusive_scan(h, lane, total);
+    if (r < radix) {
+      ends[r] = local + h;
+      delta[r] = run_delta(o, local, tile);
+    }
+    carry += total;
+  }
+  __syncwarp();
+
+  const uint32_t* kin = keys + t * tile + lane;
+  const uint32_t* vin = idx + t * tile + lane;
+  const int items = tile >> 5;
+  int run = 0;  // this lane's run; its positions only grow
+  for (int j0 = 0; j0 < items; j0 += kBatch) {
+    uint32_t k[kBatch], v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (j0 + j < items) {
+        k[j] = kin[32 * (j0 + j)];
+        v[j] = vin[32 * (j0 + j)];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (j0 + j < items) {
+        const int p = 32 * (j0 + j) + lane;
+        while (run < radix - 1 && ends[run] <= p) ++run;
+        const int dst = delta[run] + p;
+        if (in_range(dst, n)) {
+          out_keys[dst] = k[j];
+          out_idx[dst] = v[j];
+        }
+      }
+    }
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// One block per kWarps tiles; with a persistent order (GRS_SCATTER_ORDER 0
+// or 1), at most as many blocks as fit on the card at once.
+template <int kBits>
+cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, const int32_t* hist,
+                      const int32_t* offsets, uint32_t* out_keys, uint32_t* out_idx,
+                      int64_t num_tiles, int n, cudaStream_t stream) {
+  const auto kernel = scatter_1k_kernel<kBits>;
+#ifdef GRS_SCATTER_CP_ASYNC
+  const size_t smem = static_cast<size_t>(kWarps) * 2 * kFastTile * sizeof(uint32_t);
+#else
+  const size_t smem = 0;
+#endif
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem))) != cudaSuccess) {
+    return err;
+  }
+  int64_t blocks = (num_tiles + kWarps - 1) / kWarps;
+#if GRS_SCATTER_ORDER != 2
+  int device = 0, sms = 0, resident = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, 32 * kWarps,
+                                                           smem)) != cudaSuccess) {
+    return err;
+  }
+  if (resident > 0 && blocks > static_cast<int64_t>(resident) * sms)
+    blocks = static_cast<int64_t>(resident) * sms;
+#endif
+  kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, smem, stream>>>(
+      keys, idx, hist, offsets, out_keys, out_idx, num_tiles, n,
+      aligned16(keys) && aligned16(idx));
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// keys, idx, out_keys, out_idx: num_tiles * tile uint32; hist, offsets:
-// (num_tiles, radix) int32.  Returns cudaGetLastError() after the launch.
+// keys, idx, out_keys, out_idx: num_tiles * tile uint32 (4-byte aligned);
+// hist, offsets: (num_tiles, radix) int32.  tile is a positive multiple of
+// 32, radix 1-256, and num_tiles * tile at most INT_MAX - tile (int32
+// destinations).  The 1,024-key tile at a power-of-two radix up to 16 takes
+// the register route; any other geometry keeps 8 * radix bytes a warp in
+// shared memory.  Returns cudaGetLastError() after the launch.
 extern "C" int grs_scatter_runs(const void* keys, const void* idx,
                                 const void* hist, const void* offsets,
                                 void* out_keys, void* out_idx,
                                 int64_t num_tiles, int tile, int radix,
                                 void* stream) {
-  if (num_tiles > 0) {
-    scatter_runs_kernel<<<static_cast<unsigned>(num_tiles), kThreads,
-                          2 * radix * sizeof(int),
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(idx),
-        static_cast<const int32_t*>(hist),
-        static_cast<const int32_t*>(offsets), static_cast<uint32_t*>(out_keys),
-        static_cast<uint32_t*>(out_idx), tile, radix, num_tiles * tile);
+  if (radix < 1 || radix > kMaxRadix || tile <= 0 || tile % 32 != 0 || num_tiles < 0 ||
+      (num_tiles > 0 && num_tiles > (INT_MAX - tile) / tile)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
+  const auto* k = static_cast<const uint32_t*>(keys);
+  const auto* v = static_cast<const uint32_t*>(idx);
+  const auto* h = static_cast<const int32_t*>(hist);
+  const auto* o = static_cast<const int32_t*>(offsets);
+  auto* ok = static_cast<uint32_t*>(out_keys);
+  auto* ov = static_cast<uint32_t*>(out_idx);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(num_tiles * tile);
+  cudaError_t err = cudaSuccess;
+  if (tile == kFastTile && radix <= kFastMaxRadix && (radix & (radix - 1)) == 0 && radix >= 2) {
+    switch (__builtin_ctz(static_cast<unsigned>(radix))) {
+      case 1: err = launch_1k<1>(k, v, h, o, ok, ov, num_tiles, n, s); break;
+      case 2: err = launch_1k<2>(k, v, h, o, ok, ov, num_tiles, n, s); break;
+      case 3: err = launch_1k<3>(k, v, h, o, ok, ov, num_tiles, n, s); break;
+      default: err = launch_1k<4>(k, v, h, o, ok, ov, num_tiles, n, s); break;
+    }
+  } else {
+    const size_t smem = static_cast<size_t>(kWarps) * 2 * radix * sizeof(int);
+    scatter_any_kernel<<<static_cast<unsigned>((num_tiles + kWarps - 1) / kWarps),
+                         32 * kWarps, smem, s>>>(k, v, h, o, ok, ov, num_tiles, tile, radix, n);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,4 +47,36 @@ __device__ inline T warp_exclusive_scan(T x, int lane, T& total) {
   return incl - x;
 }
 
+// Four words from device memory to shared memory, asynchronously: one 16-byte
+// copy where both addresses allow it (vec), else four 4-byte copies.
+__device__ __forceinline__ void cp_async(uint32_t* smem, const uint32_t* gmem, bool vec) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst + 4 * i),
+                   "l"(gmem + i) : "memory");
+  }
+}
+
+// Tile t's keys and indices (kTile each) into a warp's input buffer, keys
+// first, in element order, as one cp.async group; K2 and K3 use it.  Wait
+// with cp.async.wait_group, then __syncwarp, before reading the buffer.
+template <int kTile>
+__device__ __forceinline__ void load_tile(uint32_t* in, const uint32_t* keys,
+                                          const uint32_t* idx, int64_t t, int lane,
+                                          bool vec) {
+  const int64_t base = t * kTile;
+#pragma unroll
+  for (int i = 0; i < kTile / 128; ++i) {
+    const int e = 4 * (lane + 32 * i);
+    cp_async(in + e, keys + base + e, vec);
+    cp_async(in + kTile + e, idx + base + e, vec);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 }  // namespace grs

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
-from gpuradixsort_tpu_torch.core.table import int32_bits
+from gpuradixsort_tpu_torch.core.table import check_padded_rows, int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 
@@ -33,12 +33,17 @@ def digits_of(keys: torch.Tensor, shift: int, radix: int) -> torch.Tensor:
 
 
 def check_keys(name: str, t: torch.Tensor, cfg: EngineConfig) -> int:
-    """Check a kernel's 1-D uint32 buffer; return its number of tiles."""
+    """Check a kernel's 1-D uint32 buffer; return its number of tiles.
+
+    A buffer of 2^31 elements or more is refused: the kernels' offsets and
+    destinations are int32.
+    """
     if t.dtype != torch.uint32 or t.dim() != 1 or not t.is_contiguous():
         raise ValueError(
             f"{name} must be a contiguous 1-D torch.uint32 tensor, got "
             f"{t.dtype} of shape {tuple(t.shape)}"
         )
+    check_padded_rows(t.numel())
     if t.numel() % cfg.tile:
         raise ValueError(
             f"{name} length {t.numel()} is not a multiple of the tile "

@@ -4,11 +4,14 @@ The PyTorch counterpart of ``gpuradixsort_tpu/kernels/scatter.py``.  After
 ``bucketize_tiles`` tile t holds its digit-r run at
 ``local_off[t, r] = sum(hist[t, :r])``, and the run belongs at
 ``offsets[t, r]`` of the output.  On a CUDA tensor ``scatter_runs`` launches
-``csrc/scatter_runs.cu``, which stores every element straight at its place;
-the TPU's window plan, meta tables and carried row have no counterpart,
-because the GPU has a random store.  There is no window, so nothing can
-overflow: the ``overflow`` result stays for the JAX package's API and is
-always False.
+``csrc/scatter_runs.cu``, one warp a tile, which stores every element
+straight at its place; the TPU's window plan, meta tables and carried row
+have no counterpart, because the GPU has a random store.  There is no
+window, so nothing can overflow: the ``overflow`` result stays for the JAX
+package's API and is always False.  A destination outside the buffer, which
+only an inconsistent hist/offsets pair gives, is dropped, as the JAX
+package drops it; the kernel then leaves that output row unwritten, where
+the plain version leaves a zero.
 """
 
 from __future__ import annotations

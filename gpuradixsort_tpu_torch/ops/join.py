@@ -30,6 +30,19 @@ from gpuradixsort_tpu_torch.ops.sort import sort_table
 
 JOIN_TYPES = ("inner", "semi", "anti")
 
+# The most output slots K5's int32 slot offsets can lay out.
+MAX_SLOTS = 2**31 - 1
+
+
+def matches_exceed(cnt: torch.Tensor, capacity: int) -> torch.Tensor:
+    """0-d bool: do the per-row match counts ``cnt`` add up to more than ``capacity``?
+
+    The sum is taken in int64, because the int32 total of their scan wraps
+    at 2^31.  A capacity above ``MAX_SLOTS`` counts as ``MAX_SLOTS``: more
+    matches than that cannot be laid out, and are reported as a cut.
+    """
+    return cnt.sum(dtype=torch.int64) > min(capacity, MAX_SLOTS)
+
 
 def _wide(keys: torch.Tensor) -> torch.Tensor:
     """uint32 keys as int64 values, for searchsorted and compares."""
@@ -127,7 +140,11 @@ def join_expand(
     Output rows are (probe row, build row) pairs ordered by probe row, then
     by build order within the key's run.  ``capacity`` (rounded up to a
     block) defaults to the probe's padded length, enough when each probe
-    row matches at most once; ``overflow`` reports a cut.
+    row matches at most once.  ``overflow`` is True whenever the matches
+    outnumber the capacity, however many there are; a capacity of 2^31 or
+    more is capped at ``MAX_SLOTS`` matches (``matches_exceed``).  ``count``
+    is the int32 total of the slot scan: the number of matches whenever
+    ``overflow`` is False.
     """
     cfg = cfg or EngineConfig()
     build_sorted = sort_table(build, key, cfg)
@@ -145,7 +162,7 @@ def join_expand(
     offsets, total = exclusive_scan(cnt)  # first output slot of each probe row
 
     capacity = round_up(padded if capacity is None else capacity, cfg.block)
-    overflow = total > capacity
+    overflow = matches_exceed(cnt, capacity)
 
     # Slot j belongs to the probe row whose slot range holds j; its ordinal
     # in that range picks the build row from the run.

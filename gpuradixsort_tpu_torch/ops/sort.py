@@ -31,6 +31,7 @@ from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import (
     Column,
     Table,
+    check_padded_rows,
     int32_bits,
     make_key_column,
     uint32_as_int32,
@@ -197,10 +198,12 @@ def sort_table(
 
 
 def _as_key_column(keys, cfg: EngineConfig, device=None) -> Column:
+    """The padded key column every sort starts from; 2^31 padded rows or more raise."""
     if not isinstance(keys, Column):
         return make_key_column(keys, cfg, device=device)
     if keys.dtype != torch.uint32 or keys.data.dim() != 1:
         raise ValueError(f"key column must be 1-D torch.uint32, got {keys.dtype}")
+    check_padded_rows(keys.padded_length)
     if keys.length == keys.padded_length:
         return keys
     # Rows past the live prefix may hold anything; re-assert the pad key so

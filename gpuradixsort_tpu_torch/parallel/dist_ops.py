@@ -23,6 +23,7 @@ from gpuradixsort_tpu_torch.core.table import int32_bits, round_up, uint32_as_in
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.ops.aggregate import SUPPORTED, aggregate_sorted_flat
 from gpuradixsort_tpu_torch.ops.filter import _compact_by_mask
+from gpuradixsort_tpu_torch.ops.join import matches_exceed
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.parallel import mesh as M
 from gpuradixsort_tpu_torch.parallel.dist_sort import (
@@ -155,7 +156,7 @@ def _join_shard_fn(keys, side, live, payload, cfg, mesh, capacity, join_cap, buc
     hi = torch.minimum(torch.searchsorted(wbk, wpk, side="right"), count_b)
     cnt = torch.where(pos < count_p, hi - lo, 0).to(torch.int32)
     offsets, total = exclusive_scan(cnt)  # K5 on a CUDA shard; int32, as the JAX package's
-    cut = (total > join_cap) | overflow
+    cut = matches_exceed(cnt, join_cap) | overflow  # the int64 sum: the int32 total wraps
     overflow = M.all_reduce(mesh, cut.to(torch.int32).reshape(1), "max")[0] > 0
 
     slots = torch.arange(join_cap, device=dev)

@@ -215,6 +215,74 @@ def test_destinations_match_plain_at_every_geometry(tile_rows, card, gen):
     torch.cuda.synchronize()
 
 
+def _scatter_input(keys, shift, cfg):
+    """K3's input from ``keys``: each tile stably sorted by digit (the plain
+    bucketize, a per-tile argsort, which takes any radix), its histograms and
+    offsets."""
+    idx = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device).view(torch.uint32)
+    hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
+    bk, bi = tbucketize._bucketize_ref(keys, idx, shift, cfg)
+    return bk, bi, hist, tradix.global_offsets(hist)
+
+
+def _one_word_off(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+# More tiles than 64 warps on each of the H100's 132 SMs hold at once, the
+# last block of 8 part-filled.
+MANY_TILES = 64 * 132 + 37
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
+def test_scatter_runs_matches_plain_at_every_geometry(tile_rows, card, gen):
+    # Radix 2, 4, 16 (registers at the 1,024-key tile) and 32, 64, 256 (a
+    # warp's shared row); 1 tile, 9 (a part-filled last block), and MANY_TILES
+    # at radix 16; inputs one word off a 16-byte boundary; exact equality.
+    for bits in (1, 2, 4, 5, 6, 8):
+        cfg = _any_radix_cfg(1 << bits, tile_rows)
+        for num_tiles in (1, 8 + 1) + ((MANY_TILES,) if bits == 4 else ()):
+            keys = torch.from_numpy(gen.integers(0, 2**32, num_tiles * cfg.tile,
+                                                 dtype=np.uint32)).to(card)
+            for shift in (0, 28):
+                bk, bi, hist, off = _scatter_input(keys, shift, cfg)
+                want = tscatter.scatter_runs(bk, bi, hist, off, cfg, impl="reference")[:2]
+                for aligned in (True, False):
+                    k, v = (bk, bi) if aligned else (_one_word_off(bk), _one_word_off(bi))
+                    where = f"radix={cfg.radix} tiles={num_tiles} shift={shift} aligned={aligned}"
+                    before = tscatter.scatter_runs.launches
+                    got = tscatter.scatter_runs(k, v, hist, off, cfg)
+                    assert tscatter.scatter_runs.launches == before + 1, where
+                    assert got[2] is False, where
+                    assert all(_same(g, w) for g, w in zip(got[:2], want)), where
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tile_rows", [1, 8])
+@pytest.mark.parametrize("shift_by", [-5, 7, -(3 * 1024 + 11)])
+def test_scatter_runs_drops_destinations_outside_the_buffer_on_card(tile_rows, shift_by, card,
+                                                                   gen):
+    # Offsets moved by shift_by: an inconsistent pair.  The destinations past
+    # either end are dropped, as the plain version drops them; the kernel
+    # leaves those rows unwritten where the plain version leaves zeros, so
+    # the rows some slot lands on are compared.
+    for bits in (1, 4, 8):
+        cfg = _any_radix_cfg(1 << bits, tile_rows)
+        n = 5 * cfg.tile
+        keys = torch.from_numpy(gen.integers(0, 2**32, n, dtype=np.uint32)).to(card)
+        bk, bi, hist, off = _scatter_input(keys, 4, cfg)
+        moved = off + shift_by
+        want = tscatter.scatter_runs(bk, bi, hist, moved, cfg, impl="reference")[:2]
+        got = tscatter.scatter_runs(bk, bi, hist, moved, cfg)[:2]
+        k = min(abs(shift_by), n)
+        written = slice(k, n) if shift_by > 0 else slice(0, n - k)
+        assert all(_same(g[written], w[written]) for g, w in zip(got, want)), (cfg.radix, shift_by)
+    torch.cuda.synchronize()
+
+
 def test_scan_unaligned_and_back_to_back(card, gen):
     # Inputs one word off a 16-byte boundary take 4-byte loads; 50 calls of
     # different lengths, back to back on one stream, each equal to the plain

@@ -317,3 +317,46 @@ def test_plain_path_launches_no_kernel(rng):
     tscatter.scatter_runs(bk, bi, hist, offsets, cfg)
     tradix.tile_destinations(keys, offsets, 0, cfg)
     assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("rows, refused", [(2**31, True), (2**31 + EngineConfig().block, True),
+                                           (2**31 - EngineConfig().block, False)])
+def test_check_keys_refuses_2_31_rows(rows, refused):
+    # A meta tensor allocates nothing.  From 2^31 elements the kernels' int32
+    # offsets and destinations would wrap, so every wrapper refuses the buffer.
+    cfg = EngineConfig()
+    keys = torch.empty(rows, dtype=torch.uint32, device="meta")
+    if not refused:
+        assert tradix.check_keys("keys", keys, cfg) == rows // cfg.tile
+        return
+    tables = torch.empty((rows // cfg.tile, cfg.radix), dtype=torch.int32, device="meta")
+    for call in (
+        lambda: tradix.check_keys("keys", keys, cfg),
+        lambda: tradix.tile_histograms(keys, 0, cfg),
+        lambda: tbucketize.bucketize_tiles(keys, keys, 0, cfg),
+        lambda: tscatter.scatter_runs(keys, keys, tables, tables, cfg),
+        lambda: tradix.tile_destinations(keys, tables, 0, cfg),
+    ):
+        with pytest.raises(ValueError, match=r"2\^31.*int32"):
+            call()
+
+
+@pytest.mark.parametrize("shift_by", [-5, 7])
+def test_scatter_runs_drops_destinations_outside_the_buffer(shift_by, rng):
+    # An inconsistent hist/offsets pair: every destination moved by shift_by.
+    # Those past either end are dropped, as the JAX package's mode="drop"
+    # drops them; the rest land where they would, moved.
+    cfg = EngineConfig()
+    keys = torch.from_numpy(rng.integers(0, 2**32, 2 * cfg.block, dtype=np.uint32))
+    idx = torch.from_numpy(np.arange(keys.numel(), dtype=np.uint32))
+    hist = tradix.tile_histograms(keys, 4, cfg)
+    offsets = tradix.global_offsets(hist)
+    bk, bi = tbucketize.bucketize_tiles(keys, idx, 4, cfg)
+    want = tscatter.scatter_runs(bk, bi, hist, offsets, cfg)[:2]
+    got = tscatter.scatter_runs(bk, bi, hist, offsets + shift_by, cfg)[:2]
+    n, k = keys.numel(), abs(shift_by)
+    for g, w in zip(got, want):
+        g, w = g.view(torch.int32), w.view(torch.int32)
+        kept, lost = (g[k:], g[:k]) if shift_by > 0 else (g[: n - k], g[n - k:])
+        assert torch.equal(kept, w[: n - k] if shift_by > 0 else w[k:])
+        assert not lost.any()  # never written: the plain version's zeros

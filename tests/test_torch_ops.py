@@ -25,11 +25,13 @@ from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch.config import EngineConfig
 from gpuradixsort_tpu_torch.core import table as ttable
 from gpuradixsort_tpu_torch.core.table import int32_bits
+from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.ops import aggregate as tagg
 from gpuradixsort_tpu_torch.ops import filter as tfilter
 from gpuradixsort_tpu_torch.ops import join as tjoin
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.ops.permute import scatter_by_destination
+from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
 
 torch.set_num_threads(1)
 
@@ -363,3 +365,55 @@ def test_join_expand_unique_build_matches_join(rng):
     out = got.to_table()
     np.testing.assert_array_equal(out["k"].to_numpy(), inner["k"].to_numpy())
     np.testing.assert_array_equal(out["build_bv"].to_numpy(), inner["build_bv"].to_numpy())
+
+
+def _wrapped(n: int) -> int:
+    """n as the int32 it wraps to."""
+    return (n + 2**31) % 2**32 - 2**31
+
+
+@pytest.mark.parametrize("rows", [65_536, 46_341])
+def test_join_expand_overflows_past_2_31_matches(rows):
+    # One key on both sides: rows * rows matches (2^32, and 2,147,488,281
+    # just past 2^31), whose int32 total wraps.  The JAX package compares the
+    # wrapped total and reports no overflow, so the port is held to the true
+    # count alone: overflow, and to_table() raises.
+    keys = np.full(rows, 7, dtype=np.uint32)
+    probe = ttable.Table({"k": ttable.make_key_column(keys, CFG, device="cpu")})
+    build = ttable.table_from_arrays(CFG, device="cpu", v=np.arange(rows, dtype=np.int32))
+    build = build.with_column("k", ttable.make_key_column(keys, CFG, device="cpu"))
+    got = tjoin.join_expand(probe, build, "k", CFG)
+    assert got.overflow.dtype == torch.bool and bool(got.overflow)
+    assert got.count.dtype == torch.int32 and got.count.dim() == 0
+    assert int(got.count) == _wrapped(rows * rows)  # the scan's total, wrapped
+    with pytest.raises(RuntimeError, match="capacity"):
+        got.to_table()
+
+
+def test_matches_exceed_sums_in_int64():
+    # The check join_expand and the distributed join share: 65,536 rows of
+    # 65,536 matches wrap K5's int32 total to 0, and still exceed any capacity.
+    cnt = torch.full((65_536,), 65_536, dtype=torch.int32)
+    assert int(tscan.exclusive_scan(cnt)[1]) == 0
+    for capacity in (2**20, 2**31, 2**40):  # capacities past 2^31 - 1 count as 2^31 - 1
+        assert bool(tjoin.matches_exceed(cnt, capacity))
+    most = torch.tensor([2**31 - 1], dtype=torch.int32)
+    assert not bool(tjoin.matches_exceed(most, 2**40))
+    assert bool(tjoin.matches_exceed(torch.cat([most, torch.ones(1, dtype=torch.int32)]), 2**40))
+    assert not bool(tjoin.matches_exceed(torch.tensor([3, 4], dtype=torch.int32), 7))
+    assert bool(tjoin.matches_exceed(torch.tensor([3, 5], dtype=torch.int32), 7))
+
+
+def test_dist_join_cut_counts_matches_past_2_31():
+    # One gloo rank: every row stays on its shard, so the exchange cannot
+    # overflow and only the join's own cut can see the 2^32 matches of one
+    # key (65,536 probe x 65,536 build rows), whose int32 total wraps to 0.
+    n = 65_536
+    keys = np.full(n, 7, dtype=np.uint32)
+    vals = np.arange(n, dtype=np.int32)
+    calls = [{"op": "join", "inputs": {"probe_keys": keys, "probe_values": vals,
+                                       "build_keys": keys, "build_values": vals},
+              "kwargs": {"cfg": CFG, "auto_retry": False}, "gather": True}]
+    (result,), = run_ranks(1, run_ops, (calls,), device="cpu", timeout=120.0)
+    assert result["overflow"]
+    assert "overflowed" in result["gather_error"]

@@ -218,3 +218,31 @@ def test_timing_needs_a_card():
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(RuntimeError, match="CUDA"):
         timing.cuda_time_ms(lambda: None)
+
+
+@pytest.mark.parametrize("entry", ["sort_keys", "sort_pairs", "sort_table"])
+@pytest.mark.parametrize("form", ["column", "ragged column", "tensor", "ragged tensor"])
+def test_sorts_refuse_2_31_padded_rows(entry, form):
+    # Meta tensors allocate nothing.  2^31 padded rows would wrap the int32
+    # offsets, destinations and index column, so every sort entry refuses
+    # them before any kernel runs, also where padding makes the 2^31.
+    rows = 2**31 - 1 if form.startswith("ragged") else 2**31
+    data = torch.empty(2**31 if form == "ragged column" else rows, dtype=torch.uint32,
+                       device="meta")
+    keys = ttable.Column(data, rows) if form.endswith("column") else data
+    if entry == "sort_table":
+        if not form.endswith("column"):
+            keys = ttable.make_column(data, CFG)  # a payload column takes any length
+        call = lambda: tsort.sort_table(ttable.Table({"k": keys}), "k", CFG)  # noqa: E731
+    else:
+        call = lambda: getattr(tsort, entry)(keys, CFG, method="fused")  # noqa: E731
+    with pytest.raises(ValueError, match=r"2\^31.*int32"):
+        call()
+
+
+def test_sorts_take_2_31_less_a_block():
+    # The largest padded length below 2^31 passes the check.
+    rows = 2**31 - CFG.block
+    col = ttable.make_key_column(torch.empty(rows, dtype=torch.uint32, device="meta"), CFG)
+    assert col.padded_length == rows
+    assert tsort._as_key_column(col, CFG) is col
