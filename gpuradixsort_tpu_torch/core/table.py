@@ -19,7 +19,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from gpuradixsort_tpu_torch.config import PAD_KEY, EngineConfig, default_device
+from gpuradixsort_tpu_torch.config import PAD_KEY, TILES_PER_STEP, EngineConfig, default_device
 
 # JAX runs with 64-bit types disabled, so it narrows 64-bit host data.
 _NARROW = {
@@ -35,17 +35,21 @@ def round_up(n: int, multiple: int) -> int:
     return max(((n + multiple - 1) // multiple) * multiple, multiple)
 
 
-# Padded rows a buffer may have: a sort's offsets, destinations and row
-# indices and a filter's count are int32, so 2^31 rows would wrap them.
-MAX_PADDED_ROWS = 2**31 - 1
+def check_padded_rows(padded: int, tile: int) -> None:
+    """Raise ValueError for a buffer of more than 2^31 - one block of rows.
 
-
-def check_padded_rows(padded: int) -> None:
-    """Raise ValueError for a buffer of 2^31 padded rows or more."""
-    if padded > MAX_PADDED_ROWS:
+    A block is ``TILES_PER_STEP`` tiles of ``tile`` rows (``EngineConfig.block``).
+    A sort's offsets, destinations and row indices and a filter's count are
+    int32, so 2^31 rows would wrap them; K3 also needs a tile of headroom
+    below 2^31 - 1.  Buffers padded to whole blocks pass up to 2^31 - block,
+    so for them the limit is fewer than 2^31 rows.
+    """
+    block = tile * TILES_PER_STEP
+    if padded > 2**31 - block:
         raise ValueError(
-            f"{padded} padded rows: the port takes fewer than 2^31, because its "
-            "offsets, destinations, row indices and counts are int32"
+            f"{padded} padded rows: the port takes at most 2^31 - {block} "
+            "(2^31 less one block), because its offsets, destinations, row "
+            "indices and counts are int32"
         )
 
 
@@ -155,7 +159,8 @@ def make_key_column(
     Raises ValueError, before it pads or copies anything, when the padded
     column would have 2^31 rows or more (``check_padded_rows``).
     """
-    check_padded_rows(round_up(len(values), (cfg or EngineConfig()).block))
+    cfg = cfg or EngineConfig()
+    check_padded_rows(round_up(len(values), cfg.block), cfg.tile)
     if isinstance(values, torch.Tensor):
         if values.dtype != torch.uint32:
             raise TypeError(f"key tensor must be torch.uint32, got {values.dtype}")

@@ -23,8 +23,8 @@
 //   3. publishes the chunk's sum in a 64-bit status word that holds the tag
 //      and the value together, so that one access moves both.  Nothing else
 //      is published through the word, so relaxed loads and stores at gpu
-//      scope suffice (kernel_ab.py --sweep times acquire and release
-//      against them; PERF.md, Findings);
+//      scope suffice (acquire and release were timed no faster; PERF.md,
+//      Findings);
 //   4. warp 0 looks back 32 predecessors at a time: one ballot over their
 //      tags finds the nearest one that holds an inclusive prefix, and one
 //      warp sum adds the chunk sums up to it.  The block then publishes its
@@ -44,21 +44,7 @@
 
 namespace {
 
-// Warps a block: 8 (chunks of 8,192) unless a build sets GRS_SCAN_WARPS, as
-// kernel_ab.py --sweep does to time chunks of 4,096 and 16,384; it also
-// builds the status words' accesses as acquire and release
-// (GRS_SCAN_ACQUIRE_RELEASE).  The port builds neither.
-#ifndef GRS_SCAN_WARPS
-#define GRS_SCAN_WARPS 8
-#endif
-#ifdef GRS_SCAN_ACQUIRE_RELEASE
-#define GRS_STATUS_LOAD "ld.acquire.gpu.global.u64 %0, [%1];"
-#define GRS_STATUS_STORE "st.release.gpu.global.u64 [%0], %1;"
-#else
-#define GRS_STATUS_LOAD "ld.relaxed.gpu.global.u64 %0, [%1];"
-#define GRS_STATUS_STORE "st.relaxed.gpu.global.u64 [%0], %1;"
-#endif
-constexpr int kWarps = GRS_SCAN_WARPS;
+constexpr int kWarps = 8;  // chunks of 8,192
 constexpr int kThreads = 32 * kWarps;
 constexpr int kItems = 32;                 // elements a thread scans
 constexpr int kSpan = 32 * kItems;         // elements of a warp's span of the chunk
@@ -69,16 +55,16 @@ constexpr int kChunk = kWarps * kSpan;     // elements a block
 __host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
 
 constexpr size_t kSharedBytes = kWarps * padded(kSpan) * sizeof(uint32_t);
-constexpr bool kOptIn = kSharedBytes > 48 * 1024;  // above the default dynamic limit
+static_assert(kSharedBytes <= 48 * 1024, "within the default dynamic shared memory");
 
 __device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
   unsigned long long v;
-  asm volatile(GRS_STATUS_LOAD : "=l"(v) : "l"(p) : "memory");
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
 __device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
-  asm volatile(GRS_STATUS_STORE ::"l"(p), "l"(v) : "memory");
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
 __device__ __forceinline__ unsigned long long status_word(uint32_t tag, uint32_t value) {
@@ -222,11 +208,6 @@ extern "C" int grs_exclusive_scan(const void* x, void* out, int64_t n, int chunk
   if (num_chunks > 1) {
     const cudaError_t err =
         cudaMemsetAsync(words, 0, (num_chunks + 1) * sizeof(unsigned long long), s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if constexpr (kOptIn) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSharedBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   scan_kernel<<<static_cast<unsigned>(num_chunks), kThreads, kSharedBytes, s>>>(

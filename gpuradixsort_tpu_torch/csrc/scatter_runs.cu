@@ -40,16 +40,13 @@
 // tiles are placed close in time the halves meet in L2; when not, the card
 // writes a part sector.  So the warps are not persistent: one tile a warp,
 // and the block scheduler hands the tiles out in order.  Persistent warps
-// that walk the tiles grid-stride, or a contiguous chunk each
-// (GRS_SCATTER_ORDER 0 or 1), drift apart and measured slower, the chunks
-// slowest (PERF.md, PR 6).  Built with -DGRS_SCATTER_CP_ASYNC, the tile
-// instead arrives in a warp's shared buffer by cp.async (16-byte copies where
-// the inputs allow; with a persistent order, the next tile's copy in flight
-// while the lanes place the current one).  kernel_ab.py --sweep times both
-// routes, the three orders and GRS_SCATTER_WARPS tiles a block.  Any other
-// tile or a radix above 16 (scatter_any_kernel) takes a warp-private row in
-// shared memory, and each lane walks its runs forward, as its positions only
-// grow.
+// that walked the tiles grid-stride, or a contiguous chunk each, drifted
+// apart and measured 7-61% slower (PERF.md, Findings).  Built with
+// -DGRS_SCATTER_CP_ASYNC, the tile instead arrives in a warp's shared buffer
+// by cp.async (16-byte copies where the inputs allow); kernel_ab.py --sweep
+// times both routes at GRS_SCATTER_WARPS tiles a block.  Any other tile or a
+// radix above 16 (scatter_any_kernel) takes a warp-private row in shared
+// memory, and each lane walks its runs forward, as its positions only grow.
 //
 // Nothing can overflow; a destination outside [0, n) (possible only for an
 // inconsistent hist/offsets pair) is dropped, as JAX's mode="drop" drops it.
@@ -62,11 +59,6 @@
 
 #ifndef GRS_SCATTER_WARPS
 #define GRS_SCATTER_WARPS 8
-#endif
-// The order of the 1,024-key route's tiles: 0 grid-stride over persistent
-// warps, 1 a contiguous chunk a persistent warp, 2 one tile a warp.
-#ifndef GRS_SCATTER_ORDER
-#define GRS_SCATTER_ORDER 2
 #endif
 
 namespace {
@@ -86,6 +78,24 @@ __device__ __forceinline__ int run_delta(int offset, int local, int tile) {
   const long long d = static_cast<long long>(offset) - local;
   const long long lo = -(1LL << 30), hi = INT_MAX - tile;
   return static_cast<int>(d < lo ? lo : (d > hi ? hi : d));
+}
+
+// Loads that stay ahead of the tile's stores.  ptxas sinks a load that it
+// knows no store can alias (ld.global.nc, or any load from shared memory)
+// down to its one use, the range-checked store, and then a lane's loads no
+// longer overlap: K3 took about 35% longer at 2^24 keys on an H100 80GB
+// HBM3 (PERF.md, Findings).  A coherent global load, or a generic load of
+// the shared buffer, may alias the stores, so ptxas leaves it in place.
+__device__ __forceinline__ uint32_t load_global(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t load_generic(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ bool in_range(int dst, int n) {
@@ -122,23 +132,6 @@ __device__ __forceinline__ void place_1k(const uint32_t (&k)[kItems],
   }
 }
 
-// The tiles warp w of W (this launch's warps) places: [first, end) by step.
-struct TileRange {
-  int64_t first, end, step;
-};
-
-__device__ __forceinline__ TileRange tiles_of_warp(int64_t num_tiles, int warp) {
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-#if GRS_SCATTER_ORDER == 1
-  const int64_t per = (num_tiles + warps - 1) / warps;  // a contiguous chunk a warp
-  const int64_t first = w * per;
-  return {first, first + per < num_tiles ? first + per : num_tiles, 1};
-#else
-  return {w, num_tiles, warps};  // grid-stride (one tile a warp: the grid covers them)
-#endif
-}
-
 template <int kBits>
 __global__ void __launch_bounds__(32 * kWarps)
     scatter_1k_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ idx,
@@ -148,53 +141,33 @@ __global__ void __launch_bounds__(32 * kWarps)
   constexpr int kRadix = 1 << kBits;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const TileRange tiles = tiles_of_warp(num_tiles, warp);
-  int64_t t = tiles.first;
-  if (t >= tiles.end) return;  // no block barrier follows
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (t >= num_tiles) return;  // no block barrier follows
+  const int h = lane < kRadix ? hist[t * kRadix + lane] : 0;
+  const int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
   uint32_t k[kItems], v[kItems];
 #ifdef GRS_SCATTER_CP_ASYNC
   extern __shared__ uint4 smem[];  // per warp: the input tile, keys then indices
   uint32_t* in = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * 2 * kFastTile;
   grs::load_tile<kFastTile>(in, keys, idx, t, lane, vec);
-  int h = lane < kRadix ? hist[t * kRadix + lane] : 0;
-  int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
-  for (; t < tiles.end; t += tiles.step) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncwarp();
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      k[j] = in[32 * j + lane];
-      v[j] = in[kFastTile + 32 * j + lane];
-    }
-    __syncwarp();  // every lane has read the tile: refill the buffer
-    const int64_t next = t + tiles.step;
-    int h_next = 0, o_next = 0;
-    if (next < tiles.end) {
-      grs::load_tile<kFastTile>(in, keys, idx, next, lane, vec);
-      if (lane < kRadix) {
-        h_next = hist[next * kRadix + lane];
-        o_next = offsets[next * kRadix + lane];
-      }
-    }
-    place_1k<kRadix>(k, v, h, o, lane, out_keys, out_idx, n);
-    h = h_next;
-    o = o_next;
+  for (int j = 0; j < kItems; ++j) {
+    k[j] = load_generic(in + 32 * j + lane);
+    v[j] = load_generic(in + kFastTile + 32 * j + lane);
   }
 #else
   (void)vec;  // the register route loads 4 bytes a lane, at any alignment
-  for (; t < tiles.end; t += tiles.step) {
-    const int h = lane < kRadix ? hist[t * kRadix + lane] : 0;
-    const int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
-    const uint32_t* kin = keys + t * kFastTile + lane;
-    const uint32_t* vin = idx + t * kFastTile + lane;
+  const uint32_t* kin = keys + t * kFastTile + lane;
+  const uint32_t* vin = idx + t * kFastTile + lane;
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      k[j] = kin[32 * j];
-      v[j] = vin[32 * j];
-    }
-    place_1k<kRadix>(k, v, h, o, lane, out_keys, out_idx, n);
+  for (int j = 0; j < kItems; ++j) {
+    k[j] = load_global(kin + 32 * j);
+    v[j] = load_global(vin + 32 * j);
   }
 #endif
+  place_1k<kRadix>(k, v, h, o, lane, out_keys, out_idx, n);
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
@@ -257,8 +230,7 @@ __global__ void __launch_bounds__(32 * kWarps)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// One block per kWarps tiles; with a persistent order (GRS_SCATTER_ORDER 0
-// or 1), at most as many blocks as fit on the card at once.
+// One block per kWarps tiles.
 template <int kBits>
 cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, const int32_t* hist,
                       const int32_t* offsets, uint32_t* out_keys, uint32_t* out_idx,
@@ -266,30 +238,17 @@ cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, const int32_t* 
   const auto kernel = scatter_1k_kernel<kBits>;
 #ifdef GRS_SCATTER_CP_ASYNC
   const size_t smem = static_cast<size_t>(kWarps) * 2 * kFastTile * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
 #else
   const size_t smem = 0;
 #endif
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024 &&
-      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(smem))) != cudaSuccess) {
-    return err;
-  }
-  int64_t blocks = (num_tiles + kWarps - 1) / kWarps;
-#if GRS_SCATTER_ORDER != 2
-  int device = 0, sms = 0, resident = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, 32 * kWarps,
-                                                           smem)) != cudaSuccess) {
-    return err;
-  }
-  if (resident > 0 && blocks > static_cast<int64_t>(resident) * sms)
-    blocks = static_cast<int64_t>(resident) * sms;
-#endif
-  kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, smem, stream>>>(
-      keys, idx, hist, offsets, out_keys, out_idx, num_tiles, n,
-      aligned16(keys) && aligned16(idx));
+  kernel<<<static_cast<unsigned>((num_tiles + kWarps - 1) / kWarps), 32 * kWarps, smem,
+           stream>>>(keys, idx, hist, offsets, out_keys, out_idx, num_tiles, n,
+                     aligned16(keys) && aligned16(idx));
   return cudaSuccess;
 }
 

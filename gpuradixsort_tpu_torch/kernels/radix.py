@@ -35,15 +35,15 @@ def digits_of(keys: torch.Tensor, shift: int, radix: int) -> torch.Tensor:
 def check_keys(name: str, t: torch.Tensor, cfg: EngineConfig) -> int:
     """Check a kernel's 1-D uint32 buffer; return its number of tiles.
 
-    A buffer of 2^31 elements or more is refused: the kernels' offsets and
-    destinations are int32.
+    A buffer of more than 2^31 less a block of elements is refused: the
+    kernels' offsets and destinations are int32.
     """
     if t.dtype != torch.uint32 or t.dim() != 1 or not t.is_contiguous():
         raise ValueError(
             f"{name} must be a contiguous 1-D torch.uint32 tensor, got "
             f"{t.dtype} of shape {tuple(t.shape)}"
         )
-    check_padded_rows(t.numel())
+    check_padded_rows(t.numel(), cfg.tile)
     if t.numel() % cfg.tile:
         raise ValueError(
             f"{name} length {t.numel()} is not a multiple of the tile "

@@ -203,7 +203,7 @@ def _as_key_column(keys, cfg: EngineConfig, device=None) -> Column:
         return make_key_column(keys, cfg, device=device)
     if keys.dtype != torch.uint32 or keys.data.dim() != 1:
         raise ValueError(f"key column must be 1-D torch.uint32, got {keys.dtype}")
-    check_padded_rows(keys.padded_length)
+    check_padded_rows(keys.padded_length, cfg.tile)
     if keys.length == keys.padded_length:
         return keys
     # Rows past the live prefix may hold anything; re-assert the pad key so

@@ -25,9 +25,8 @@ new, old) in:
 ``--ptxas`` prints nvcc's register and spill report of both builds' K3 and
 of the new one's cp.async route.  ``--sweep`` first times builds of
 ``csrc/scatter_runs.cu`` alone: the register route and the cp.async route
-(``GRS_SCATTER_CP_ASYNC``), each with its tiles taken grid-stride, a
-contiguous chunk a warp, or one a warp (``GRS_SCATTER_ORDER``), at 2, 4 and
-8 tiles a block (``GRS_SCATTER_WARPS``), beside the port's own build, in
+(``GRS_SCATTER_CP_ASYNC``), each at 2, 4 and 8 tiles a block
+(``GRS_SCATTER_WARPS``), beside the port's own build, in
 mirrored turns at the three sizes, every output checked equal to the plain
 version.  The card's name and power limit and one JSON line of every number
 end the output; ``--out`` also writes that JSON to a file.
@@ -63,14 +62,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 OLD_BUILD = ROOT / "build" / "kernels_old"
 SWEEP_BUILD = ROOT / "build" / "kernels_sweep"
 SOURCE = _build._CSRC / "scatter_runs.cu"
-# name: nvcc flags of a trial build of scatter_runs.cu: each route at each
-# tile order (GRS_SCATTER_ORDER) and 2, 4 and 8 tiles a block.
+# name: nvcc flags of a trial build of scatter_runs.cu: each route at 2, 4
+# and 8 tiles a block.
 ROUTES = {"register": [], "cp.async": ["-DGRS_SCATTER_CP_ASYNC"]}
-ORDERS = {"stride": 0, "chunk": 1, "one tile a warp": 2}
-SWEEP = {f"{route} {order} {warps}/block": [*flags, f"-DGRS_SCATTER_ORDER={code}",
-                                            f"-DGRS_SCATTER_WARPS={warps}"]
-         for route, flags in ROUTES.items() for order, code in ORDERS.items()
-         for warps in (2, 4, 8)}
+SWEEP = {f"{route} {warps}/block": [*flags, f"-DGRS_SCATTER_WARPS={warps}"]
+         for route, flags in ROUTES.items() for warps in (2, 4, 8)}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -187,7 +183,7 @@ def phase_kernel(old: ScatterBuild, rng, results: dict) -> None:
 
 
 def sweep(rng, results: dict) -> None:
-    """The port's K3 beside trial builds of its routes, tile orders and tiles a block."""
+    """The port's K3 beside trial builds of its routes and tiles a block."""
     SWEEP_BUILD.mkdir(parents=True, exist_ok=True)
     libs = {name: SWEEP_BUILD / f"scatter_{name.replace(' ', '_').replace('/', '_')}.so"
             for name in SWEEP}
@@ -258,7 +254,7 @@ def main() -> int:
                         help="directory of the older scatter_runs.cu")
     parser.add_argument("--ptxas", action="store_true", help="print nvcc's register report")
     parser.add_argument("--sweep", action="store_true",
-                        help="time K3's routes, tile orders and tiles a block first")
+                        help="time K3's routes and tiles a block first")
     parser.add_argument("--out", type=pathlib.Path, help="also write the JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():

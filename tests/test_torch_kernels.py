@@ -320,10 +320,12 @@ def test_plain_path_launches_no_kernel(rng):
 
 
 @pytest.mark.parametrize("rows, refused", [(2**31, True), (2**31 + EngineConfig().block, True),
+                                           (2**31 - EngineConfig().tile, True),
                                            (2**31 - EngineConfig().block, False)])
 def test_check_keys_refuses_2_31_rows(rows, refused):
     # A meta tensor allocates nothing.  From 2^31 elements the kernels' int32
-    # offsets and destinations would wrap, so every wrapper refuses the buffer.
+    # offsets and destinations would wrap, so every wrapper refuses the buffer;
+    # K3 also needs a tile of headroom, so the limit is 2^31 less a block.
     cfg = EngineConfig()
     keys = torch.empty(rows, dtype=torch.uint32, device="meta")
     if not refused:
