@@ -23,7 +23,9 @@ in seven phases:
    out-of-range destinations are dropped; exclusive_scan at lengths 1,
    4,095-4,097, its chunk and one either side, two chunks and one,
    1,000,000, 2^24 and 100,000,000, each also one word off a 16-byte
-   boundary, on values whose sums wrap (radix_hist, bucketize, scatter_runs
+   boundary, on values whose sums wrap; key_bits (the AND and OR of the
+   keys) at lengths 0 to 2^24, aligned and one word off, also against
+   numpy (radix_hist, bucketize, scatter_runs
    and radix_dest are also held against their plain versions at the
    operator path's shapes, after phase 4: 2^24 keys at radix_bits 1, 4 and
    8, the filter's 100,000,000 keys at radix_bits 1, 4 and 8, and its 1-bit
@@ -34,6 +36,9 @@ in seven phases:
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
    2^24 random keys with duplicates, and ``sort_table`` of 1,000,000 rows of a
    key and 16 int32 payload columns (64-byte rows), every column checked;
+   each sort twice, the first call capturing its CUDA graph and the second
+   replaying it, under torch's sync debug mode, which must count one host
+   sync in the replaying call;
 4. the operator path, counts again set to 0 before and read after, every
    result checked exactly against numpy (float means within rtol 1e-5 of a
    float64 oracle): ``filter_table`` of 100,000,000 keys keeping about half,
@@ -43,10 +48,14 @@ in seven phases:
    10,000,000 unique build keys; ``join_expand`` of a 10,000,000-row probe
    against about two copies of each build key; ``sort_pairs`` by the radix
    method at 1M and 2^24 keys and ``sort_keys`` with 8-bit digits;
-5. times: fused sort against ``torch.sort(stable=True)`` at 1M and 16M keys
+5. times: the fused sort's passes as the cached CUDA graph against the
+   eager loop at 1M, 2^22, 2^23 and 2^24 keys, in alternating rounds (CUDA
+   events and busy time, the first call's capture time, the bytes the graph
+   cache holds; the profile of a replay must name every kernel); fused sort
+   against ``torch.sort(stable=True)`` at 1M and 16M keys
    (CUDA events, median of 7 runs after warm-up, and the device's busy time
-   from torch.profiler); the fused sort with ``global_offsets`` on
-   exclusive_scan against the same sort with the library-cumsum offsets,
+   from torch.profiler); the fused sort's eager loop with ``global_offsets`` on
+   exclusive_scan against the same with the library-cumsum offsets,
    in alternating rounds; each kernel of one pass at 1M and 16M beside its
    plain version (device time from the profiler, and CUDA-event time per
    call), its bound (the bytes it must move at 3.35 TB/s) and its share of
@@ -87,8 +96,10 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from multiprocessing import resource_tracker
+from unittest import mock
 
 import numpy as np
 import torch
@@ -105,6 +116,7 @@ from gpuradixsort_tpu_torch.core.table import (
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
+from gpuradixsort_tpu_torch.kernels.key_bits import key_bits
 from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
@@ -141,9 +153,12 @@ KERNELS = {
                    "gpuradixsort_tpu/kernels/radix.py:92", ("radix_dest_kernel",)),
     "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
                        "gpuradixsort_tpu/kernels/scan.py:31", ("scan_kernel",)),
+    # Glue with no Pallas kernel: the JAX package's per-pass skip predicate.
+    "key_bits": (key_bits, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
+                 "gpuradixsort_tpu/ops/sort.py:83", ("key_bits_kernel",)),
 }
 # The kernels the fused sort runs; radix_dest runs on the operator path.
-FUSED_PATH = ("radix_hist", "bucketize", "scatter_runs", "exclusive_scan")
+FUSED_PATH = ("radix_hist", "bucketize", "scatter_runs", "exclusive_scan", "key_bits")
 
 
 def reset_launches() -> None:
@@ -245,7 +260,36 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     check_dest_geometry(dev, rng, errs)
     check_scatter_geometry(dev, rng, errs)
     check_scan_lengths(dev, rng, errs)
+    check_key_bits(dev, rng, errs)
     torch.cuda.synchronize()
+
+
+def check_key_bits(dev, rng, errs: dict) -> None:
+    """key_bits against its plain version and numpy's bitwise reductions.
+
+    Lengths 0, 1, 3, 127, 4,097, 1,000,000 and 2^24, each aligned and one
+    word off a 16-byte boundary (a head and a tail of single keys); random
+    keys, and at 1M keys that share all bits but one, and all PAD_KEY.
+    """
+    cases = [(n, off, "random") for n in (0, 1, 3, 127, 4097, N_HEADLINE, 1 << 24)
+             for off in (0, 1)]
+    cases += [(N_HEADLINE, 1, "one varying bit"), (N_HEADLINE, 0, "all PAD_KEY")]
+    for n, off, kind in cases:
+        if kind == "all PAD_KEY":
+            buf = np.full(n + off, PAD_KEY, dtype=np.uint32)
+        else:
+            buf = rng.integers(0, 2**32, n + off, dtype=np.uint32)
+            if kind == "one varying bit":
+                buf = np.uint32(0x5A5A0000) | (buf & np.uint32(1 << 7))
+        keys = torch.from_numpy(buf).to(dev)[off:]
+        got = key_bits(keys, impl="cuda")
+        err = max_abs_err(got, key_bits(keys, impl="reference"))
+        want = (np.bitwise_and.reduce(buf[off:]) if n else np.uint32(PAD_KEY),
+                np.bitwise_or.reduce(buf[off:]) if n else np.uint32(0))
+        err = max(err, max_abs_err(got.cpu(), torch.from_numpy(np.array(want, dtype=np.uint32))))
+        errs["key_bits"] = max(errs["key_bits"], err)
+        check(err == 0, f"key_bits == plain == numpy, length {n}, {kind}, "
+              f"{keys.data_ptr() % 16} bytes off a 16-byte boundary")
 
 
 # More tiles than 64 warps on each of the H100's 132 SMs hold at once, the
@@ -423,14 +467,31 @@ def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
 
 
 def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
-    """radix_hist, bucketize, scatter_runs and radix_dest against their plain versions at the path's shapes.
+    """The kernels against their plain versions at the path's shapes.
 
-    The 2^24 keys of the sorts at radix_bits 1, 4 and 8 (bucketize and
-    scatter_runs, on the kernel's bucketized tiles, at 4),
-    the filter's 100,000,000 keys at radix_bits 4, as the sort of its
-    survivors sees a 100M buffer, and at 1 and 8, and the filter's 1-bit
-    compaction of them (digit 0 = kept), made as filter_table makes it.
+    radix_hist, bucketize, scatter_runs and radix_dest: the 2^24 keys of the
+    sorts at radix_bits 1, 4 and 8 (bucketize and scatter_runs, on the
+    kernel's bucketized tiles, at 4), the filter's 100,000,000 keys at
+    radix_bits 4, as the sort of its survivors sees a 100M buffer, and at 1
+    and 8, and the filter's 1-bit compaction of them (digit 0 = kept), made
+    as filter_table makes it.  key_bits, also against numpy: the 100M padded
+    buffers the fused sorts of phase 6 reduce (the filter's keys, its
+    survivors' with the pads re-asserted, the group-by's keys) and the 2^24 keys.
     """
+    buffers = {"filter keys": tables["filter"]["key"].data,
+               "filter survivors": sort_ops._as_key_column(tables["kept"], cfg).data,
+               "group-by keys": tables["group"]["key"].data, "2^24 keys": tables["r16m"].data}
+    for where, keys in buffers.items():
+        host_keys = keys.cpu().numpy()
+        want = torch.from_numpy(np.array([np.bitwise_and.reduce(host_keys),
+                                          np.bitwise_or.reduce(host_keys)], dtype=np.uint32))
+        got = key_bits(keys, impl="cuda")
+        err = max(max_abs_err(got, key_bits(keys, impl="reference")),
+                  max_abs_err(got.cpu(), want))
+        errs["key_bits"] = max(errs["key_bits"], err)
+        check(err == 0, f"key_bits == plain == numpy, {where}, {keys.numel()} padded rows")
+        del host_keys
+    del buffers
     keys16m = tables["r16m"].data
     flt = tables["filter"]
     padded = flt["key"].padded_length
@@ -485,43 +546,91 @@ def phase_main_path(dev, rng, cfg) -> dict:
         "key": make_key_column(table_keys, cfg, device=dev),
         **{f"p{j}": make_column(payload[:, j], cfg, device=dev) for j in range(PAYLOAD_COLS)},
     })
+    sets = {"1M shuffled": perm_1m, "2^20 shuffled": perm_2e20,
+            "2^24 random with duplicates": dup_16m}
     torch.cuda.synchronize()
 
+    # Each sort three times: the first sighting of its shape runs the eager
+    # loop, the second captures its CUDA graph (where the padded length is
+    # within GRAPH_MAX_PADDED), the third replays it; torch's sync debug mode
+    # counts each call's synchronising calls.  The cache is cleared before
+    # each sort, as the 1M sorts share a shape.
     reset_launches()
     sort_ops._fused_sort_padded.skipped_passes = 0
-    results = {}
-    for name, keys_np in (("1M shuffled", perm_1m), ("2^20 shuffled", perm_2e20),
-                          ("2^24 random with duplicates", dup_16m)):
-        skipped = sort_ops._fused_sort_padded.skipped_passes
-        s, p = sort_pairs(keys_np, cfg, method="fused", device=dev)
-        results[name] = (s.to_numpy(), p.to_numpy(), bool(device_is_sorted(s.valid())),
-                         sort_ops._fused_sort_padded.skipped_passes - skipped)
-    skipped = sort_ops._fused_sort_padded.skipped_passes
-    sorted_table = sort_table(table, "key", cfg, method="fused")
-    table_out = {k: sorted_table[k].to_numpy() for k in sorted_table.names()}
-    table_skipped = sort_ops._fused_sort_padded.skipped_passes - skipped
+    results, syncs, replays = {}, {}, {}
+    for name, keys_np in sets.items():
+        col = make_key_column(keys_np, cfg, device=dev)
+        sort_ops.clear_sort_graphs()
+        for call in CALLS:
+            skipped = sort_ops._fused_sort_padded.skipped_passes
+            out = []
+            syncs[name, call] = syncs_of(
+                lambda: out.extend(sort_pairs(col, cfg, method="fused")))
+            s, p = out
+            results[name, call] = (s.to_numpy(), p.to_numpy(), bool(device_is_sorted(s.valid())),
+                                   sort_ops._fused_sort_padded.skipped_passes - skipped)
+            replays[name, call] = graph_replays(), col.padded_length
+        del col
+    table_out = {}
+    sort_ops.clear_sort_graphs()
+    for call in CALLS:
+        out = []
+        syncs["sort_table", call] = syncs_of(lambda: out.append(
+            sort_table(table, "key", cfg, method="fused")))
+        table_out[call] = {k: out[0][k].to_numpy() for k in out[0].names()}
+        replays["sort_table", call] = graph_replays(), table["key"].padded_length
     launches = read_launches()
 
-    for name, keys_np in (("1M shuffled", perm_1m), ("2^20 shuffled", perm_2e20),
-                          ("2^24 random with duplicates", dup_16m)):
-        s, p, dev_sorted, skipped = results[name]
+    for (name, call), (s, p, dev_sorted, skipped) in results.items():
+        keys_np = sets[name]
         order = np.argsort(keys_np, kind="stable")
-        log(f"{name}: {skipped} of {cfg.num_passes} passes skipped (constant digit)")
-        check(dev_sorted, f"sort_pairs {name}: device_is_sorted")
+        what = f"sort_pairs {name} ({call})"
+        log(f"{what}: {skipped} of {cfg.num_passes} passes skipped (constant digit)")
+        check(dev_sorted, f"{what}: device_is_sorted")
         if "shuffled" in name:
-            check(is_permutation_sorted(s), f"sort_pairs {name}: keys == arange")
-        check(np.array_equal(s, keys_np[order]), f"sort_pairs {name}: keys == np.sort")
+            check(is_permutation_sorted(s), f"{what}: keys == arange")
+        check(np.array_equal(s, keys_np[order]), f"{what}: keys == np.sort")
         check(np.array_equal(p, order.astype(np.uint32)),
-              f"sort_pairs {name}: permutation == np.argsort(kind='stable')")
+              f"{what}: permutation == np.argsort(kind='stable')")
     order = np.argsort(table_keys, kind="stable")
-    log(f"sort_table 1M x 64B: {table_skipped} of {cfg.num_passes} passes skipped")
-    check(np.array_equal(table_out["key"], table_keys[order]), "sort_table key column")
-    check(all(np.array_equal(table_out[f"p{j}"], payload[order, j])
-              for j in range(PAYLOAD_COLS)),
-          f"sort_table all {PAYLOAD_COLS} payload columns == payload[argsort]")
+    for call, cols in table_out.items():
+        check(np.array_equal(cols["key"], table_keys[order]), f"sort_table key column ({call})")
+        check(all(np.array_equal(cols[f"p{j}"], payload[order, j])
+                  for j in range(PAYLOAD_COLS)),
+              f"sort_table all {PAYLOAD_COLS} payload columns == payload[argsort] ({call})")
+    for (name, call), count in syncs.items():
+        log(f"{name} ({call}): {count} synchronising CUDA call(s) (torch sync debug mode)")
+        if call != "capture":
+            check(count == 1, f"{name} ({call}): one host sync a sort")
+    check(all(count == (CALLS.index(call) if padded <= sort_ops.GRAPH_MAX_PADDED else 0)
+              for (_, call), (count, padded) in replays.items()),
+          "each sort's first sighting ran the eager loop, its second captured and replayed its "
+          "graph, its third replayed it (eager throughout above GRAPH_MAX_PADDED)")
     for name in FUSED_PATH:
         check(launches[name] > 0, f"{name} launched {launches[name]} times on the main path")
     return launches
+
+
+CALLS = ("first sighting", "capture", "replay")
+
+
+def graph_replays() -> int:
+    """Replays of every cached sort graph so far."""
+    return sum(g.replays for g in sort_ops._SORT_GRAPHS.values())
+
+
+def syncs_of(fn) -> int:
+    """Synchronising CUDA calls during ``fn()``, counted by torch's sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # Not torch's one-time notice that the mode is a prototype.
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def _kernel_name(row: str) -> str:
@@ -738,15 +847,20 @@ def global_offsets_cumsum(hist: torch.Tensor) -> torch.Tensor:
     return excl.view(radix, num_tiles).t().contiguous()
 
 
+def eager_loop():
+    """Inside the block the fused sort runs its passes by the eager loop, at any length.
+
+    An A/B that swaps a kernel or a function in must time the eager loop: a
+    cached graph replays what it captured first.
+    """
+    return mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", 0)
+
+
 @contextlib.contextmanager
 def offsets_by(fn):
-    """The sorts take ``fn`` as their global_offsets inside the block (timing only)."""
-    saved = rk.global_offsets
-    rk.global_offsets = fn
-    try:
+    """The fused sort's eager loop takes ``fn`` as its global_offsets inside the block."""
+    with eager_loop(), mock.patch.object(rk, "global_offsets", fn):
         yield
-    finally:
-        rk.global_offsets = saved
 
 
 def ab_per_call_ms(fns: dict, calls: int = 1, rounds: int = 4, reps: int = 4) -> dict:
@@ -760,7 +874,7 @@ def ab_per_call_ms(fns: dict, calls: int = 1, rounds: int = 4, reps: int = 4) ->
 
 
 def offsets_ab(col, cfg, label: str, card: str) -> None:
-    """The fused sort with exclusive_scan offsets against the cumsum ones, one run."""
+    """The fused sort's eager loop with exclusive_scan offsets against the cumsum ones."""
     def fused_with(offsets_fn):
         def run():
             with offsets_by(offsets_fn):
@@ -771,11 +885,157 @@ def offsets_ab(col, cfg, label: str, card: str) -> None:
            "torch.cumsum": fused_with(global_offsets_cumsum)}
     ms = ab_per_call_ms(fns)
     busy = {name: profiled_device_ms(fn, calls=3)[0] for name, fn in fns.items()}
-    log(f"time {label} sort_pairs fused, global_offsets by exclusive_scan against "
+    log(f"time {label} sort_pairs fused (eager loop), global_offsets by exclusive_scan against "
         f"torch.cumsum ({card}), CUDA events, median of 16 in alternating rounds: "
         + "; ".join(f"{name} {ms[name]:.4f} ms (device busy "
                     f"{f'{busy[name]:.4f} ms' if busy[name] else 'not measured'})"
                     for name in fns))
+
+
+GRAPH_AB_SIZES = (("1M", N_HEADLINE), ("2^22", 1 << 22), ("2^23", 1 << 23), ("2^24", 1 << 24),
+                  ("2^25", 1 << 25))
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(int32_bits(x), int32_bits(y)) for x, y in zip(a, b))
+
+
+def column_data(columns) -> list:
+    return [c.data for c in columns]
+
+
+def graph_ab(dev, rng, cfg, card: str) -> None:
+    """The fused sort's passes as the cached CUDA graph against the eager loop.
+
+    At 1M, 2^22, 2^23, 2^24 and 2^25 random keys, each graphed here whatever
+    ``GRAPH_MAX_PADDED`` says, so that the limit can be set from this: the
+    host time of the first three calls of a shape (the eager first
+    sighting; the capture, instantiation and one replay; a replay), each
+    equal to the eager loop bit for bit, the bytes the graph cache holds
+    (memory reserved after ``empty_cache``, less the same after
+    ``clear_sort_graphs``), CUDA-event ms per sort in alternating rounds
+    (median of 16 each, beside the graph's replay alone), and the
+    profiler's busy time split by kernel, in which every kernel of the
+    fused sort must be named inside a replay.
+    """
+    log(f"fused sort_pairs, passes by the cached CUDA graph against the eager loop ({card}); "
+        f"the sorts graph up to GRAPH_MAX_PADDED = {sort_ops.GRAPH_MAX_PADDED} padded keys, "
+        f"here up to {GRAPH_AB_SIZES[-1][1]}")
+    for label, n in GRAPH_AB_SIZES:
+        col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg, device=dev)
+
+        def eager():
+            with eager_loop():
+                return sort_pairs(col, cfg, method="fused")
+
+        fns = {"graphed": lambda: sort_pairs(col, cfg, method="fused"), "eager": eager}
+        with mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", GRAPH_AB_SIZES[-1][1]):
+            want = column_data(eager())
+            sort_ops.clear_sort_graphs()
+            torch.cuda.empty_cache()
+            calls_ms = []
+            for call in CALLS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = column_data(fns["graphed"]())
+                torch.cuda.synchronize()
+                calls_ms.append((time.perf_counter() - t0) * 1e3)
+                check(same_bits(out, want), f"{label}: graphed sort ({call}) == eager loop, "
+                      "bit for bit")
+            del out, want
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_reserved(dev)
+            sort_ops.clear_sort_graphs()
+            torch.cuda.empty_cache()
+            cache_mb = (held - torch.cuda.memory_reserved(dev)) / 2**20
+            fns["graphed"]()  # seen, then captured again for the rounds
+            fns["graphed"]()
+            # The graph's replay alone: no readback, no copies in or out.
+            replay = next(iter(sort_ops._SORT_GRAPHS.values())).graph.replay
+            ms = ab_per_call_ms({**fns, "replay alone": replay})
+            parts = [f"replay alone {ms['replay alone']:.4f} ms"]
+            for name, fn in fns.items():
+                busy, rows = profiled_device_ms(fn, calls=3)
+                ours = port_kernel_split(rows)
+                if not busy:
+                    parts.append(f"{name} {ms[name]:.4f} ms (device busy not measured)")
+                    continue
+                parts.append(f"{name} {ms[name]:.4f} ms (device busy {busy:.4f} ms, busy share "
+                             f"{busy / ms[name]:.3f}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                                   ours.items())
+                             + f", other {busy - sum(ours.values()):.4f})")
+                if name == "graphed":
+                    check(all(k in ours for k in FUSED_PATH),
+                          f"{label}: every fused-sort kernel named in the profile of a replay")
+        log(f"time {label} ({col.padded_length} padded keys, {card}): host ms of the first "
+            f"calls: " + ", ".join(f"{call} {t:.2f}" for call, t in zip(CALLS, calls_ms))
+            + f"; graph cache holds {cache_mb:.1f} MiB; CUDA events, median of 16 in "
+            f"alternating rounds: " + "; ".join(parts))
+        del col, fns
+        sort_ops.clear_sort_graphs()
+        torch.cuda.empty_cache()
+
+
+# Traffic of fused sorts for the graph cache: 12 lengths that differ, each
+# sorted once (as join build sides of different sizes are), and 4 lengths
+# that recur, each sorted 8 times in turn.
+VARYING_LENGTHS = tuple(int(n) for n in np.linspace(N_HEADLINE, 1 << 23, 12))
+RECURRING_LENGTHS = (N_HEADLINE, 1 << 21, 1 << 22, 1 << 23)
+RECURRENCES = 8
+
+
+def graph_traffic(dev, rng, cfg, card: str) -> None:
+    """Host ms of sequences of fused sorts: the graph cache against the eager loop.
+
+    Each traffic runs by the port's policy (eager at a shape's first
+    sighting, captured at its second), by the eager loop, and by a capture
+    at the first sighting (the shapes marked seen beforehand, the cache
+    room for all), in alternating rounds from an empty cache (median of 7
+    each), with the graphs captured and the replays of the policy's last
+    round.
+    """
+    pool = rng.integers(0, 2**32, size=1 << 23, dtype=np.uint32)
+    varying, recurring = ([make_key_column(pool[:n], cfg, device=dev) for n in lengths]
+                          for lengths in (VARYING_LENGTHS, RECURRING_LENGTHS))
+    traffic = {
+        f"{len(varying)} lengths {VARYING_LENGTHS[0]}-{VARYING_LENGTHS[-1]}, once each": varying,
+        f"{len(recurring)} lengths {RECURRING_LENGTHS}, {RECURRENCES} times each in turn":
+            recurring * RECURRENCES,
+    }
+    for label, cols in traffic.items():
+        shapes = {(dev, c.padded_length, cfg, sort_ops._pass_mask(c.data, cfg)) for c in cols}
+
+        def run(how: str) -> float:
+            sort_ops.clear_sort_graphs()
+            mode = eager_loop() if how == "eager loop" else contextlib.nullcontext()
+            if how == "capture at first sighting":  # and room for every shape
+                sort_ops._SEEN.update(dict.fromkeys(shapes))
+                mode = mock.patch.object(sort_ops, "GRAPH_CACHE_ENTRIES", len(shapes))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mode:
+                for c in cols:
+                    sort_pairs(c, cfg, method="fused")
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        hows = ("policy", "eager loop", "capture at first sighting")
+        samples = {how: [] for how in hows}
+        for r in range(7):
+            for how in (hows if r % 2 == 0 else hows[::-1]):
+                samples[how].append(run(how))
+        run("policy")
+        captured, replayed = len(sort_ops._SORT_GRAPHS), graph_replays()
+        sort_ops.clear_sort_graphs()
+        torch.cuda.empty_cache()
+        log(f"time graph cache traffic, {label}: {len(cols)} fused sort_pairs over "
+            f"{len(shapes)} shapes ({card}), host ms of the sequence, median of 7 in "
+            f"alternating rounds: "
+            + "; ".join(f"{how} {np.median(v):.2f} (rounds {', '.join(f'{t:.2f}' for t in v)})"
+                        for how, v in samples.items())
+            + f"; the policy captured {captured} graphs and replayed {replayed} times")
+    del traffic, varying, recurring, pool
+    torch.cuda.empty_cache()
 
 
 def add_device(st: StageTimes, name: str, ms: float) -> None:
@@ -788,6 +1048,8 @@ def add_device(st: StageTimes, name: str, ms: float) -> None:
 
 def phase_times(dev, rng, cfg, card: str) -> dict:
     """Phase 5: times; returns each kernel's ms, plain_ms, library_ms, bound_ms, bound_by at 1M."""
+    graph_ab(dev, rng, cfg, card)
+    graph_traffic(dev, rng, cfg, card)
     for n, label in ((N_HEADLINE, "1M"), (1 << 24, "16M")):
         col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
                               device=dev)
@@ -847,6 +1109,9 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                                lambda: exclusive_scan(counts, impl="reference"),
                                lambda: torch.cumsum(counts, 0, dtype=torch.int32),
                                8 * padded + 4, padded),
+            "key_bits": (lambda: key_bits(keys, impl="cuda"),
+                         lambda: key_bits(keys, impl="reference"), None,
+                         4 * padded + 8, 2 * padded),
         }
         st = StageTimes()
         log(f"one pass at {label} keys, shift 0, radix 16 ({card}): device time "
@@ -919,15 +1184,15 @@ def median_measured(turns: list[float]) -> float:
 
 
 def phase_dest_scan_times(dev, rng, card: str) -> None:
-    """Phase 5, continued: radix_dest at radix 2, 16 and 256 and exclusive_scan on a vector.
+    """Phase 5, continued: radix_dest (radix 2, 16, 256), key_bits, exclusive_scan on a vector.
 
     At 1M, 2^24 and 100M keys (padded as the sorts pad them): device time
     per call from the profiler (20 back-to-back calls, median of 3 turns),
     the bound and the share of it; exclusive_scan of a vector of int32 0..99
     beside ``torch.cumsum`` of it, in alternating turns.
     """
-    log(f"radix_dest and exclusive_scan at 1M, 2^24 and 100M ({card}): device us per call "
-        f"(profiler, 20 calls, median of 3 turns), bound, share of bound")
+    log(f"radix_dest, key_bits and exclusive_scan at 1M, 2^24 and 100M ({card}): device us per "
+        f"call (profiler, 20 calls, median of 3 turns), bound, share of bound")
     for label, n in (("1M", N_HEADLINE), ("2^24", N_LARGE), ("100M", N_OPS)):
         keys = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), EngineConfig(),
                                device=dev).data
@@ -943,6 +1208,12 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
             log(f"  radix_dest radix {kcfg.radix} @ {label} ({padded} keys): {us:.2f} us; "
                 f"bound {bound_ms * 1e3:.2f} us ({by}); share of bound {share}")
             del offsets
+        us = 1e3 * median_measured([profiled_device_ms(lambda: key_bits(keys), calls=20)[0]
+                                    for _ in range(3)])
+        bound_ms, by = bound_of(4 * padded + 8, 2 * padded)
+        share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
+        log(f"  key_bits @ {label} ({padded} keys): {us:.2f} us; bound {bound_ms * 1e3:.2f} us "
+            f"({by}); share of bound {share}")
         del keys
         x = torch.from_numpy(rng.integers(0, 100, padded, dtype=np.int32)).to(dev)
         turns = {"k": [], "l": []}
@@ -993,8 +1264,14 @@ def phase_scatter_times(dev, rng, card: str) -> None:
 
 
 def phase_operator_times(tables: dict, cfg, card: str) -> None:
-    """Phase 6: each operator by CUDA events (median of 3), with the busy share."""
+    """Phase 6: each operator by CUDA events (median of 3), with the busy share.
+
+    Then the graph cache after this traffic: its graphs, the fused sorts
+    that replayed one, and the bytes it holds.
+    """
     t = tables
+    sort_ops.clear_sort_graphs()
+    sorts = key_bits.launches  # one a fused sort of a CUDA buffer
     cfg8 = EngineConfig(radix_bits=8)
     ops = {
         "filter_table + to_table, 100M keys": lambda: filter_table(
@@ -1027,6 +1304,17 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
             continue
         log(f"  {label}: {ms:.3f} ms; device busy {busy:.3f} ms, busy share {busy / ms:.3f} "
             f"({split or 'no kernel of the port'})")
+    sorts = key_bits.launches - sorts
+    graphs = {key[1]: g.replays for key, g in sort_ops._SORT_GRAPHS.items()}
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    sort_ops.clear_sort_graphs()
+    torch.cuda.empty_cache()
+    cache_mb = (held - torch.cuda.memory_reserved()) / 2**20
+    log(f"graph cache after phase 6: {len(graphs)} graphs (padded length: replays "
+        f"{', '.join(f'{n}: {r}' for n, r in graphs.items())}) holding {cache_mb:.1f} MiB; "
+        f"{sorts} fused sorts, of which {sum(graphs.values())} replayed a graph "
+        f"({len(graphs)} of those captured it)")
 
 
 DIST_RANKS = 4

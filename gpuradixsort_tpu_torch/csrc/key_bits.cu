@@ -1,0 +1,115 @@
+// The AND and the OR of every key of a uint32 buffer: which key bits vary.
+//
+// Replaces no Pallas kernel.  The JAX package decides in each pass of its
+// fused sort, on the device, whether the pass's digit takes one value over
+// the padded buffer, and then skips the pass (the lax.cond predicate of
+// gpuradixsort_tpu/ops/sort.py:83).  A pass permutes the keys and keeps
+// their multiset, so every pass's answer is known before the first: digit p
+// is constant exactly where the AND and the OR of all keys agree on its
+// bits.  The port reduces the buffer once, reads these 8 bytes back, and
+// launches the passes that run with no further host sync.
+//
+// Bound on the H100: HBM bytes, 4 a key read once.
+//
+// Design: a grid-stride loop in which a thread issues kUnroll 16-byte loads
+// before it combines any; the warp's AND and OR by one __reduce_and_sync and
+// one __reduce_or_sync, the block's through shared memory; then one
+// atomicAnd and one atomicOr a block into out[0] and out[1], which the entry
+// point first sets to all-ones and to zero with two memsets on the stream.
+// At most kMaxBlocks blocks, so at most 2 x kMaxBlocks atomics.  The grid
+// depends on n alone and the entry point queries nothing of the device.
+
+#include <algorithm>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "warp.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;          // 16-byte loads a thread has in flight
+constexpr int64_t kMaxBlocks = 1024;  // about the blocks of 256 the H100 holds at once
+
+__global__ void __launch_bounds__(kThreads)
+    key_bits_kernel(const uint32_t* __restrict__ keys, int64_t n, int64_t head,
+                    uint32_t* __restrict__ out) {
+  // keys[0, head) lie before the first 16-byte boundary, then come whole
+  // quads, then fewer than 4 keys.
+  const uint4* quads = reinterpret_cast<const uint4*>(keys + head);
+  const int64_t num_quads = (n - head) / 4;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  uint32_t all = ~0u, any = 0u;
+  int64_t i = tid;
+  for (; i + (kUnroll - 1) * stride < num_quads; i += kUnroll * stride) {
+    uint4 q[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) q[u] = __ldg(quads + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      all &= q[u].x & q[u].y & q[u].z & q[u].w;
+      any |= q[u].x | q[u].y | q[u].z | q[u].w;
+    }
+  }
+  for (; i < num_quads; i += stride) {
+    const uint4 q = __ldg(quads + i);
+    all &= q.x & q.y & q.z & q.w;
+    any |= q.x | q.y | q.z | q.w;
+  }
+  const int64_t tail = head + 4 * num_quads;
+  if (tid < head) {
+    all &= keys[tid];
+    any |= keys[tid];
+  }
+  if (tid < n - tail) {
+    all &= keys[tail + tid];
+    any |= keys[tail + tid];
+  }
+  __shared__ uint32_t warp_all[kWarps], warp_any[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  all = __reduce_and_sync(grs::kFullWarp, all);
+  any = __reduce_or_sync(grs::kFullWarp, any);
+  if (lane == 0) {
+    warp_all[warp] = all;
+    warp_any[warp] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    all = __reduce_and_sync(grs::kFullWarp, lane < kWarps ? warp_all[lane] : ~0u);
+    any = __reduce_or_sync(grs::kFullWarp, lane < kWarps ? warp_any[lane] : 0u);
+    if (lane == 0) {
+      atomicAnd(out, all);
+      atomicOr(out + 1, any);
+    }
+  }
+}
+
+}  // namespace
+
+// keys: n uint32 (4-byte aligned, n >= 0); out: 2 uint32, set here to the
+// AND (out[0]) and the OR (out[1]) of the keys: all-ones and zero for n = 0.
+// Returns cudaGetLastError() after the launch.
+extern "C" int grs_key_bits(const void* keys, int64_t n, void* out, void* stream) {
+  if (n < 0 || reinterpret_cast<uintptr_t>(keys) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* words = static_cast<uint32_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(words, 0xFF, sizeof(uint32_t), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(words + 1, 0, sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const auto* k = static_cast<const uint32_t*>(keys);
+    const int64_t head =
+        std::min<int64_t>(n, (16 - reinterpret_cast<uintptr_t>(k) % 16) % 16 / 4);
+    const int64_t per_block = static_cast<int64_t>(kThreads) * kUnroll;
+    const int64_t blocks =
+        std::clamp<int64_t>(((n - head) / 4 + per_block - 1) / per_block, 1, kMaxBlocks);
+    key_bits_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(k, n, head, words);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

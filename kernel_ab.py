@@ -17,10 +17,13 @@ new, old) in:
    tables at 3.35 TB/s) and a device-to-device copy of the same keys and
    indices (two ``copy_``, the same 16 bytes a key, timed in the same
    turns), each turn's output checked equal to the other build's;
-2. with the old K3 swapped into the fused sort (CUDA events, median of 7,
-   and the profiler's device busy time): ``sort_pairs`` of 2^24 random keys,
-   and ``sort_keys`` of the survivors of ``filter_table`` of 100,000,000 keys
+2. with the old K3 swapped into the fused sort's eager loop (CUDA events,
+   median of 7, and the profiler's device busy time): the sort of 2^24
+   random keys, and of the survivors of ``filter_table`` of 100,000,000 keys
    keeping key < 2^31 (a 100M padded buffer, as the smoke's phase 6 sorts).
+   ``sort_pairs`` with ``GRAPH_MAX_PADDED`` patched to 0, so that its passes
+   run by the eager loop: a cached CUDA graph would replay the K3 it
+   captured first on both sides.
 
 ``--ptxas`` prints nvcc's register and spill report of both builds' K3 and
 of the new one's cp.async route.  ``--sweep`` first times builds of
@@ -41,6 +44,7 @@ import json
 import pathlib
 import subprocess
 import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -53,6 +57,7 @@ from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.filter import filter_table
+from gpuradixsort_tpu_torch.ops.sort import sort_pairs
 from gpuradixsort_tpu_torch.utils.timing import cuda_time_ms, profiled_device_ms
 
 SEED = 20170101
@@ -95,7 +100,7 @@ class ScatterBuild:
 
 @contextlib.contextmanager
 def scatter_of(side: str, old: ScatterBuild):
-    """Inside the block the fused sort runs ``side``'s K3 ("old" or "new")."""
+    """Inside the block the fused sort's eager loop runs ``side``'s K3 ("old" or "new")."""
     if side == "new":
         yield
         return
@@ -223,16 +228,16 @@ def ab_sorts(old: ScatterBuild, rng, results: dict) -> None:
     del fkeys
     torch.cuda.synchronize()
     cases = {
-        "sort_pairs fused 2^24": lambda: [c.data for c in
-                                          sort_ops.sort_pairs(col, cfg, method="fused")],
-        f"sort_keys fused of the filter's {kept.length} survivors (100M padded buffer)":
-            lambda: [sort_ops.sort_keys(kept, cfg, method="fused").data],
+        "sort_pairs fused 2^24 (eager loop)": lambda: sort_pairs(col, cfg, method="fused"),
+        f"sort_pairs fused of the filter's {kept.length} survivors (100M padded buffer, "
+        f"eager loop)": lambda: sort_pairs(kept, cfg, method="fused"),
     }
     for name, fn in cases.items():
         outs, turns, busy = {}, {"old": [], "new": []}, {"old": [], "new": []}
         for side in ("old", "new", "new", "old"):
-            with scatter_of(side, old):
-                outs[side] = fn()
+            # The eager loop: a cached CUDA graph would replay the K3 it captured first.
+            with scatter_of(side, old), mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", 0):
+                outs[side] = [c.data for c in fn()]
                 turns[side].append(float(np.median(cuda_time_ms(fn, reps=7, warmup=1))))
                 busy[side].append(profiled_device_ms(fn, calls=3)[0])
         if not same(outs["old"], outs["new"]):

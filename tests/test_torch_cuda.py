@@ -18,6 +18,7 @@ from gpuradixsort_tpu_torch.config import LANES, EngineConfig
 from gpuradixsort_tpu_torch.core.table import Table, int32_bits, make_column, make_key_column
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
+from gpuradixsort_tpu_torch.kernels import key_bits as tkey_bits
 from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.kernels import scatter as tscatter
@@ -332,6 +333,174 @@ def test_scan_scratch_across_streams_and_graphs(card, gen):
         x.copy_(torch.from_numpy(gen.integers(-(2**31), 2**31, x.numel()).astype(np.int32)))
         graph.replay()
         check(x, got)
+
+
+@pytest.mark.parametrize("n", [1, 127, 4097, 1_000_000, 1 << 24])
+def test_key_bits_matches_plain(n, card, gen):
+    # Aligned, and one word off a 16-byte boundary: a head and a tail of single keys.
+    buf = torch.from_numpy(gen.integers(0, 2**32, n + 1, dtype=np.uint32)).to(card)
+    for keys in (buf[:n], buf[1:]):
+        before = tkey_bits.key_bits.launches
+        assert _same(tkey_bits.key_bits(keys), tkey_bits.key_bits(keys, impl="reference"))
+        assert tkey_bits.key_bits.launches == before + 1
+    few = (int32_bits(buf[1:]) & 0x10).view(torch.uint32)  # one varying bit, then none
+    assert _same(tkey_bits.key_bits(few), tkey_bits.key_bits(few, impl="reference"))
+    none = torch.zeros_like(few)
+    assert _same(tkey_bits.key_bits(none), torch.zeros(2, dtype=torch.int32, device=card))
+
+
+def _sort_input(gen, card, n, high):
+    """Padded keys below ``high`` and the index column, as sort_pairs makes them."""
+    col = make_key_column(gen.integers(0, high, n, dtype=np.uint32), CFG, device=card)
+    return col.data, tsort._index_column(col)
+
+
+def test_graphed_passes_match_eager(card, gen):
+    # Two shapes and two pass masks (every pass, and passes 0-2 of keys
+    # below 2^12), four calls each with new inputs: the first sighting runs
+    # the eager loop, the second captures, the next two replay.  The output
+    # of the capturing call, held, is not changed by the replays.
+    tsort.clear_sort_graphs()
+    masks = set()
+    for n in (2 * CFG.block, 5 * CFG.block):
+        for high in (2**32, 2**12):
+            held = None
+            for call in range(4):
+                keys, idx = _sort_input(gen, card, n, high)
+                mask = tsort._pass_mask(keys, CFG)
+                got = tsort._graphed_passes(keys, idx, mask, CFG)
+                assert all(_same(g, w) for g, w in
+                           zip(got, tsort._fused_passes(keys, idx, mask, CFG))), (n, high, call)
+                if call == 1:
+                    held = (got, [g.clone() for g in got])
+            masks.add(mask)
+            assert all(_same(a, b) for a, b in zip(*held)), (n, high)
+    assert masks == {0xFF, 0b111}
+    assert len(tsort._SORT_GRAPHS) == 4
+    assert [g.replays for g in tsort._SORT_GRAPHS.values()] == [3, 3, 3, 3]
+    tsort.clear_sort_graphs()
+
+
+def test_full_graph_cache_runs_the_eager_loop(card, gen, monkeypatch):
+    # Once the cache holds GRAPH_CACHE_ENTRIES graphs, a new shape that
+    # recurs runs the eager loop: nothing is dropped or captured again.
+    monkeypatch.setattr(tsort, "GRAPH_CACHE_ENTRIES", 1)
+    tsort.clear_sort_graphs()
+    first, second = (_sort_input(gen, card, n, 2**32) for n in (2 * CFG.block, 3 * CFG.block))
+    for keys, idx in (first, first, second, second, second):
+        mask = tsort._pass_mask(keys, CFG)
+        got = tsort._graphed_passes(keys, idx, mask, CFG)
+        assert all(_same(g, w) for g, w in zip(got, tsort._fused_passes(keys, idx, mask, CFG)))
+    assert [key[1] for key in tsort._SORT_GRAPHS] == [first[0].numel()]
+    tsort.clear_sort_graphs()
+    assert not tsort._SORT_GRAPHS and not tsort._SEEN
+
+
+def test_launch_counts_stay_true_under_replay(card, gen):
+    wrappers = (tradix.tile_histograms, tbucketize.bucketize_tiles, tscatter.scatter_runs,
+                tscan.exclusive_scan, tkey_bits.key_bits)
+    col = make_key_column(gen.integers(0, 2**32, 4 * CFG.block, dtype=np.uint32), CFG,
+                          device=card)
+    tsort.clear_sort_graphs()
+
+    def launches_of(calls: int) -> list:
+        before = [w.launches for w in wrappers]
+        for _ in range(calls):
+            tsort.sort_pairs(col, CFG, method="fused")
+        return [w.launches - b for w, b in zip(wrappers, before)]
+
+    # The first call runs the eager loop; the second captures (which runs
+    # nothing) and replays; each later call replays.
+    assert launches_of(1) == [8, 8, 8, 8, 1]
+    assert launches_of(1) == [8, 8, 8, 8, 1]
+    assert launches_of(5) == [40, 40, 40, 40, 5]
+    tsort.clear_sort_graphs()
+
+
+def test_eager_loop_and_replay_make_no_host_sync(card, gen):
+    keys, idx = _sort_input(gen, card, 3 * CFG.block, 2**32)
+    mask = tsort._pass_mask(keys, CFG)
+    tsort.clear_sort_graphs()
+    tsort._graphed_passes(keys, idx, mask, CFG)  # first sighting: the eager loop
+    tsort._graphed_passes(keys, idx, mask, CFG)  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = tsort._fused_passes(keys, idx, mask, CFG)
+        graphed = tsort._graphed_passes(keys, idx, mask, CFG)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(_same(g, e) for g, e in zip(graphed, eager))
+    tsort.clear_sort_graphs()
+
+
+def test_sorts_on_two_streams_take_turns(card, gen, monkeypatch):
+    # Sorts of one shape on two streams share one graph and its buffers;
+    # each call waits for the last one's copies out, so no result mixes.
+    cols = [make_key_column(gen.integers(0, 2**32, 64 * CFG.block, dtype=np.uint32), CFG,
+                            device=card) for _ in range(8)]
+    with monkeypatch.context() as m:
+        m.setattr(tsort, "GRAPH_MAX_PADDED", 0)
+        want = [tsort.sort_pairs(c, CFG, method="fused") for c in cols]
+    tsort.clear_sort_graphs()
+    tsort.sort_pairs(cols[0], CFG, method="fused")
+    tsort.sort_pairs(cols[0], CFG, method="fused")  # captured
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(card))
+    got = []
+    for i, col in enumerate(cols * 2):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(tsort.sort_pairs(col, CFG, method="fused"))
+    torch.cuda.synchronize()
+    for i, pair in enumerate(got):
+        assert all(_same(g.data, w.data) for g, w in zip(pair, want[i % len(cols)])), i
+    assert len(tsort._SORT_GRAPHS) == 1
+    tsort.clear_sort_graphs()
+
+
+def test_clear_sort_graphs_frees_the_pool(card, gen):
+    tsort.clear_sort_graphs()
+    col = make_key_column(gen.integers(0, 2**32, 64 * CFG.block, dtype=np.uint32), CFG,
+                          device=card)
+    tsort.sort_pairs(col, CFG, method="fused")  # first sighting: the eager loop
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(card)
+    tsort.sort_pairs(col, CFG, method="fused")  # the capture
+    torch.cuda.empty_cache()
+    # At least the static inputs and the captured outputs: 16 bytes a key.
+    assert torch.cuda.memory_reserved(card) - base >= 16 * col.padded_length
+    tsort.clear_sort_graphs()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(card) <= base
+
+
+def test_failed_capture_raises(card, gen, monkeypatch):
+    # A wrapper that fails during the capture: the call raises, caches
+    # nothing and leaves the launch counts as they were; it does not fall
+    # back to the eager loop.
+    keys, idx = _sort_input(gen, card, 2 * CFG.block, 2**32)
+    mask = tsort._pass_mask(keys, CFG)
+    bucketize = tsort.bucketize_tiles
+
+    def failing(*args):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused during capture")
+        return bucketize(*args)
+
+    tsort.clear_sort_graphs()
+    tsort._graphed_passes(keys, idx, mask, CFG)  # first sighting: the eager loop
+    monkeypatch.setattr(tsort, "bucketize_tiles", failing)
+    before = tradix.tile_histograms.launches
+    with pytest.raises(RuntimeError, match="refused during capture"):
+        tsort._graphed_passes(keys, idx, mask, CFG)
+    assert not tsort._SORT_GRAPHS
+    assert tradix.tile_histograms.launches == before
+    monkeypatch.undo()
+    got = tsort._graphed_passes(keys, idx, mask, CFG)
+    assert len(tsort._SORT_GRAPHS) == 1
+    assert all(_same(g, e) for g, e in zip(got, tsort._fused_passes(keys, idx, mask, CFG)))
+    tsort.clear_sort_graphs()
 
 
 def _table_pair(card, key, keys, **cols):

@@ -17,6 +17,7 @@ from gpuradixsort_tpu.core import table as jtable
 from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch import config as tconfig
 from gpuradixsort_tpu_torch.core import table as ttable
+from gpuradixsort_tpu_torch.kernels.key_bits import key_bits
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.utils import timing, verify
@@ -177,6 +178,77 @@ def test_constant_digit_passes_are_skipped():
     # Keys below 2^14 have constant digits in passes 4..7.
     assert tsort._fused_sort_padded.skipped_passes - before == 4
     assert verify.is_permutation_sorted(s.valid())
+
+
+def _skip_keys(name: str) -> np.ndarray:
+    """The key sets of the constant-digit skip's tests, each from its own seed."""
+    gen = np.random.default_rng(sorted(SKIP_SETS).index(name))
+    if name == "all equal, no pads":
+        return np.full(BLOCK, 7, dtype=np.uint32)
+    if name == "permutation of 2^14":
+        return gen.permutation(1 << 14).astype(np.uint32)
+    if name == "random":
+        return gen.integers(0, 2**32, size=2 * BLOCK, dtype=np.uint32)
+    if name == "pad rows":  # small keys: only the pads' PAD_KEY sets the high digits
+        return gen.integers(0, 1 << 12, size=BLOCK + 100, dtype=np.uint32)
+    if name == "fixed middle digits":  # bits 16-23 constant: 4-bit passes 4 and 5 skip
+        keys = gen.integers(0, 2**32, size=BLOCK, dtype=np.uint32)
+        return (keys & np.uint32(0xFF00FFFF)) | np.uint32(0x00AB0000)
+    return np.where(gen.integers(0, 2, size=BLOCK + 5).astype(bool),  # "live PAD_KEY"
+                    np.uint32(tconfig.PAD_KEY), gen.integers(0, 100, size=BLOCK + 5,
+                                                             dtype=np.uint32))
+
+
+SKIP_SETS = ("all equal, no pads", "permutation of 2^14", "random", "pad rows", "live PAD_KEY",
+             "fixed middle digits")
+
+
+def _jax_pass_mask(padded: np.ndarray, cfg) -> int:
+    """The JAX package's per-pass criterion, from the tile histograms of the padded buffer:
+    pass p runs when more than one bucket of their sum is filled."""
+    mask = 0
+    for p in range(cfg.num_passes):
+        digits = ((padded >> np.uint32(p * cfg.radix_bits)) & np.uint32(cfg.radix - 1))
+        hist = np.stack([np.bincount(t, minlength=cfg.radix)
+                         for t in digits.astype(np.int64).reshape(-1, cfg.tile)])
+        if np.sum(hist.sum(axis=0) > 0) > 1:
+            mask |= 1 << p
+    return mask
+
+
+@pytest.mark.parametrize("name", SKIP_SETS)
+def test_key_bits_plain_matches_numpy(name):
+    keys = _skip_keys(name)
+    for buf in (keys, ttable.make_key_column(keys, CFG, device="cpu").data.numpy()):
+        words = key_bits(torch.from_numpy(buf)).numpy()
+        assert words.dtype == np.uint32
+        assert (words[0], words[1]) == (np.bitwise_and.reduce(buf), np.bitwise_or.reduce(buf))
+
+
+def test_key_bits_of_no_keys():
+    # An empty buffer fills no bucket: all-ones and zero, so no digit varies.
+    words = key_bits(torch.empty(0, dtype=torch.uint32)).numpy()
+    assert (words[0], words[1]) == (0xFFFFFFFF, 0)
+    assert tsort._pass_mask(torch.empty(0, dtype=torch.uint32), CFG) == 0
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("name", SKIP_SETS)
+def test_pass_mask_matches_jax_criterion(name, bits):
+    cfg = tconfig.EngineConfig(radix_bits=bits)
+    padded = ttable.make_key_column(_skip_keys(name), cfg, device="cpu").data
+    assert tsort._pass_mask(padded, cfg) == _jax_pass_mask(padded.numpy(), cfg)
+
+
+@pytest.mark.parametrize("name", SKIP_SETS)
+def test_skip_sets_match_jax_fused(name):
+    keys = _skip_keys(name)
+    want = _jax_pass_mask(ttable.make_key_column(keys, CFG, device="cpu").data.numpy(), CFG)
+    before = tsort._fused_sort_padded.skipped_passes
+    _check_pairs(keys, CFG, JCFG)
+    skipped = tsort._fused_sort_padded.skipped_passes - before
+    assert skipped == CFG.num_passes - bin(want).count("1")
+    assert not tsort._SORT_GRAPHS  # CPU tensors never capture a graph
 
 
 def test_stale_rows_past_length_are_repadded(rng):
