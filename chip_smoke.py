@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels of ``gpuradixsort_tpu_torch/csrc`` into
 ``build/kernels/`` (nvcc, sm_90a, one process per source, all at once), then
-in seven phases:
+in eight phases:
 
 1. device: PyTorch version, the card's name and power limit, build time;
 2. each kernel against its plain PyTorch version on the card, exact
@@ -76,7 +76,12 @@ in seven phases:
    ``dist_join_inner`` of the join_expand inputs.  Each op runs once
    untimed, then timed (wall after synchronize and a barrier, split by
    stage on every rank); every result is checked exactly against numpy,
-   and K1, K4 and K5 must have launched on every rank.
+   and K1, K4 and K5 must have launched on every rank;
+8. the bench, ``python -m gpuradixsort_tpu_torch.bench --sizes 1000000``,
+   in a child process: every method checked and timed at 1M keys, the
+   per-stage table and the table sort; it must exit 0, and its JSON line
+   (logged, never the last line) and its table must name this card.
+   Phase 5's bytes per kernel are the bench's ``stage_work``.
 
 Exits non-zero at the first failure, including when no CUDA device is
 present or a kernel's launch count stayed 0.  Before it exits, pass or
@@ -104,6 +109,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from gpuradixsort_tpu_torch.bench import DURATIONS_FILE, stage_work
 from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import (
     Table,
@@ -126,7 +132,15 @@ from gpuradixsort_tpu_torch.ops.filter import filter_table
 from gpuradixsort_tpu_torch.ops.join import join, join_expand
 from gpuradixsort_tpu_torch.ops.sort import sort_keys, sort_pairs, sort_table
 from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
-from gpuradixsort_tpu_torch.utils.timing import StageTimes, cuda_time_ms, profiled_device_ms
+from gpuradixsort_tpu_torch.utils.timing import (
+    HBM_PEAK_TBS,
+    StageTimes,
+    bound_of,
+    card_line,
+    median_per_call_ms,
+    per_call_ms,
+    profiled_device_ms,
+)
 from gpuradixsort_tpu_torch.utils.verify import (
     device_is_sorted,
     is_permutation_sorted,
@@ -136,8 +150,6 @@ from gpuradixsort_tpu_torch.utils.verify import (
 SEED = 20170101
 N_HEADLINE = 1_000_000
 PAYLOAD_COLS = 16
-HBM_PEAK_TBS = 3.35  # H100 SXM data sheet
-SCALAR_PEAK_OPS = 67e12  # H100 SXM, float32 outside the tensor cores: the scalar rate
 
 # name: (wrapper, source, TPU kernel it replaces, its __global__ functions)
 KERNELS = {
@@ -196,30 +208,10 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((wide[0] - wide[1]).abs().max()) if a.numel() else 0
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
-
-
 def iota_index(n: int, cfg: EngineConfig, device) -> torch.Tensor:
     """0..n-1 as uint32, padded with PAD_INDEX as the sort pads its index."""
     iota = torch.arange(n, dtype=torch.int32, device=device).view(torch.uint32)
     return pad_to_tile(iota, cfg, PAD_INDEX)
-
-
-def per_call_ms(fn, calls: int = 20, reps: int = 7) -> list[float]:
-    """Per-call device ms of ``fn``: one sample per run of ``calls`` back-to-back calls."""
-    def many():
-        for _ in range(calls):
-            fn()
-    return [t / calls for t in cuda_time_ms(many, reps=reps, warmup=1)]
-
-
-def median_per_call_ms(fn, calls: int = 20) -> float:
-    return float(np.median(per_call_ms(fn, calls)))
 
 
 def phase_kernels(dev, rng, errs: dict) -> None:
@@ -1060,7 +1052,7 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         t_raw = median_per_call_ms(lambda: torch.sort(flipped, stable=True), calls=1)
         log(f"time {label} ({col.padded_length} padded keys, {card}), CUDA events, "
             f"median of 7: sort_pairs fused {t_fused:.4f} ms ({n / t_fused / 1e3:.1f} M "
-            f"keys/s); sort_pairs torch (torch.sort of int64-widened keys + gathers) "
+            f"keys/s); sort_pairs torch (torch.sort of sign-flipped int32 keys + gathers) "
             f"{t_torch:.4f} ms; bare torch.sort of sign-flipped int32 keys {t_raw:.4f} ms")
         offsets_ab(col, cfg, label, card)
         reset_launches()
@@ -1086,38 +1078,33 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         offsets = rk.global_offsets(hist)
         bk, bi = bucketize_tiles(keys, idx, 0, cfg)
         padded = keys.numel()
-        table_bytes = 4 * cfg.radix * (padded // cfg.tile)  # one (tiles, radix) int32 table
         counts = torch.randint(0, 100, (padded,), dtype=torch.int32, device=dev)
-        # name: (kernel, plain, one library call of the same function or None,
-        #        bytes it must move, integer operations it must do)
+        # name: (kernel, plain, one library call of the same function or None);
+        # the bytes each must move and operations it must do are stage_work's.
         stage = {
             "radix_hist": (lambda: rk.tile_histograms(keys, 0, cfg, impl="cuda"),
-                           lambda: rk.tile_histograms(keys, 0, cfg, impl="reference"), None,
-                           4 * padded + table_bytes, 3 * padded),
+                           lambda: rk.tile_histograms(keys, 0, cfg, impl="reference"), None),
             "bucketize": (lambda: bucketize_tiles(keys, idx, 0, cfg, impl="cuda"),
-                          lambda: bucketize_tiles(keys, idx, 0, cfg, impl="reference"), None,
-                          16 * padded, 4 * padded),
+                          lambda: bucketize_tiles(keys, idx, 0, cfg, impl="reference"), None),
             "scatter_runs": (lambda: scatter_runs(bk, bi, hist, offsets, cfg, impl="cuda"),
                              lambda: scatter_runs(bk, bi, hist, offsets, cfg,
-                                                  impl="reference"), None,
-                             16 * padded + 2 * table_bytes, 2 * padded),
+                                                  impl="reference"), None),
             "radix_dest": (lambda: rk.tile_destinations(keys, offsets, 0, cfg, impl="cuda"),
                            lambda: rk.tile_destinations(keys, offsets, 0, cfg,
-                                                        impl="reference"), None,
-                           8 * padded + table_bytes, 4 * padded),
+                                                        impl="reference"), None),
             "exclusive_scan": (lambda: exclusive_scan(counts, impl="cuda"),
                                lambda: exclusive_scan(counts, impl="reference"),
-                               lambda: torch.cumsum(counts, 0, dtype=torch.int32),
-                               8 * padded + 4, padded),
+                               lambda: torch.cumsum(counts, 0, dtype=torch.int32)),
             "key_bits": (lambda: key_bits(keys, impl="cuda"),
-                         lambda: key_bits(keys, impl="reference"), None,
-                         4 * padded + 8, 2 * padded),
+                         lambda: key_bits(keys, impl="reference"), None),
         }
+        work = stage_work(padded, cfg)
         st = StageTimes()
         log(f"one pass at {label} keys, shift 0, radix 16 ({card}): device time "
             f"(profiler) and per-call time of 20 back-to-back calls (CUDA events); "
             f"exclusive_scan of {padded} int32 values, beside torch.cumsum of them")
-        for name, (kernel, plain, library, nbytes, ops) in stage.items():
+        for name, (kernel, plain, library) in stage.items():
+            nbytes, ops = work[name]
             # Alternating turns, so both sides see the same card state; the
             # median over turns in which the profiler recorded device time.
             turns = {"k": [], "p": []}
@@ -1131,9 +1118,7 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             if library is not None:
                 lib_ms = profiled_device_ms(library, calls=20)[0] or median_per_call_ms(library)
                 st.add(f"{name} library call device", lib_ms / 1e3)
-            bytes_ms = nbytes / (HBM_PEAK_TBS * 1e12) * 1e3
-            ops_ms = ops / SCALAR_PEAK_OPS * 1e3
-            bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+            bound_ms, bound_by = bound_of(nbytes, ops)
             if label == "1M":  # CUDA-event time where the profiler saw nothing
                 times[name] = {"ms": dev_k or wall_k, "plain_ms": dev_p or wall_p,
                                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1172,12 +1157,6 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
     return times
 
 
-def bound_of(nbytes: int, ops: int) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of the bytes at the HBM rate and the ops at the scalar rate."""
-    return max((nbytes / (HBM_PEAK_TBS * 1e12) * 1e3, "bytes"),
-               (ops / SCALAR_PEAK_OPS * 1e3, "operations"))
-
-
 def median_measured(turns: list[float]) -> float:
     """The median of the turns in which the profiler recorded device time, else 0."""
     return float(np.median([t for t in turns if t] or [0.0]))
@@ -1203,14 +1182,15 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
             us = 1e3 * median_measured([profiled_device_ms(
                 lambda: rk.tile_destinations(keys, offsets, 0, kcfg), calls=20)[0]
                 for _ in range(3)])
-            bound_ms, by = bound_of(8 * padded + 4 * offsets.numel(), 4 * padded)
+            bound_ms, by = bound_of(*stage_work(padded, kcfg)["radix_dest"])
             share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
             log(f"  radix_dest radix {kcfg.radix} @ {label} ({padded} keys): {us:.2f} us; "
                 f"bound {bound_ms * 1e3:.2f} us ({by}); share of bound {share}")
             del offsets
         us = 1e3 * median_measured([profiled_device_ms(lambda: key_bits(keys), calls=20)[0]
                                     for _ in range(3)])
-        bound_ms, by = bound_of(4 * padded + 8, 2 * padded)
+        work = stage_work(padded, EngineConfig())
+        bound_ms, by = bound_of(*work["key_bits"])
         share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
         log(f"  key_bits @ {label} ({padded} keys): {us:.2f} us; bound {bound_ms * 1e3:.2f} us "
             f"({by}); share of bound {share}")
@@ -1222,7 +1202,7 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
                   else (lambda: torch.cumsum(x, 0, dtype=torch.int32)))
             turns[side].append(1e3 * profiled_device_ms(fn, calls=20)[0])
         k_us, l_us = (median_measured(turns[side]) for side in "kl")
-        bound_ms, by = bound_of(8 * padded + 4, padded)
+        bound_ms, by = bound_of(*work["exclusive_scan"])
         share = f"{bound_ms * 1e3 / k_us:.3f}" if k_us else "not measured"
         log(f"  exclusive_scan vector @ {label} ({padded} int32): {k_us:.2f} us (turns "
             f"{', '.join(f'{t:.2f}' for t in turns['k'])}); torch.cumsum {l_us:.2f} us (turns "
@@ -1254,7 +1234,7 @@ def phase_scatter_times(dev, rng, card: str) -> None:
         turns = [1e3 * profiled_device_ms(lambda: scatter_runs(bk, bi, hist, offsets, cfg),
                                           calls=20)[0] for _ in range(3)]
         us = median_measured(turns)
-        bound_ms, by = bound_of(16 * padded + 8 * hist.numel(), 2 * padded)
+        bound_ms, by = bound_of(*stage_work(padded, cfg)["scatter_runs"])
         share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
         log(f"  scatter_runs @ {label} ({padded} keys): {us:.2f} us (turns "
             f"{', '.join(f'{t:.2f}' for t in turns)}); bound {bound_ms * 1e3:.2f} us ({by}); "
@@ -1461,6 +1441,41 @@ def phase_distributed(d: dict, cfg, card: str) -> dict:
     return launches
 
 
+BENCH_TIMEOUT = 600.0
+
+
+def phase_bench(card: str) -> None:
+    """Phase 8: the bench module at its headline size, as a user runs it.
+
+    ``python -m gpuradixsort_tpu_torch.bench --sizes 1000000`` in a child
+    process (every method and check, the stage table, the table sort), its
+    stage table written to a temporary directory.  Its log and its JSON line
+    are logged here; it must exit 0, and its line and its table must name
+    this card.
+    """
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "gpuradixsort_tpu_torch.bench", "--sizes", str(N_HEADLINE),
+             "--out", tmp],
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        for line in done.stderr.splitlines():
+            log(f"  {line}")
+        check(done.returncode == 0, f"python -m gpuradixsort_tpu_torch.bench --sizes {N_HEADLINE} "
+              f"exited {done.returncode} in {time.perf_counter() - t0:.1f} s")
+        last = done.stdout.splitlines()[-1]
+        log(f"bench JSON line: {last}")
+        result = json.loads(last)
+        with open(os.path.join(tmp, DURATIONS_FILE)) as f:
+            first = f.readline().strip()
+    name, limit = (s.strip() for s in card.rsplit(",", 1))
+    check(result["device"] == {"name": name, "power_limit": limit} and first == card,
+          f"the bench's JSON line and {DURATIONS_FILE} name this card")
+    check(result["value"] is not None and result["value"] > 0,
+          f"the bench's headline: {result['value']} keys/s, vs_baseline {result['vs_baseline']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL no CUDA device: torch.cuda.is_available() is False")
@@ -1487,6 +1502,7 @@ def main() -> int:
     del tables
     torch.cuda.empty_cache()
     dist_launches = phase_distributed(host_inputs, cfg, card)
+    phase_bench(card)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s, the build included")
 
     # launches: the main path's count, the operator path's, and every rank's

@@ -251,12 +251,14 @@ def _sort_padded(keys: torch.Tensor, carried: tuple,
 def _torch_sort_padded(keys: torch.Tensor, idx: torch.Tensor):
     """Library baseline: one stable ``torch.sort`` of the padded keys.
 
-    ``torch.sort`` takes no uint32 on CUDA, so it sorts the keys widened to
-    int64, and the keys and indices follow through the order.
+    ``torch.sort`` takes no uint32 on CUDA, so it sorts the int32 view with
+    the sign bit flipped, whose order is the keys' unsigned order, at 4 bytes
+    a key; flipped back, its values are the sorted keys, and the indices
+    follow through its order.
     """
-    wide = int32_bits(keys).to(torch.int64) & 0xFFFFFFFF
-    order = torch.sort(wide, stable=True).indices
-    return gather_rows(keys, order), gather_rows(idx, order)
+    sign = torch.iinfo(torch.int32).min
+    values, order = torch.sort(int32_bits(keys) ^ sign, stable=True)
+    return (values ^ sign).view(keys.dtype), gather_rows(idx, order)
 
 
 def _resolve_method(method: str, cfg: EngineConfig) -> str:

@@ -58,10 +58,14 @@ from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.filter import filter_table
 from gpuradixsort_tpu_torch.ops.sort import sort_pairs
-from gpuradixsort_tpu_torch.utils.timing import cuda_time_ms, profiled_device_ms
+from gpuradixsort_tpu_torch.utils.timing import (
+    HBM_PEAK_TBS,
+    card_line,
+    cuda_time_ms,
+    profiled_device_ms,
+)
 
 SEED = 20170101
-HBM_PEAK_TBS = 3.35  # H100 SXM data sheet
 SIZES = {"1M": 1_000_000, "2^24": 1 << 24, "100M": 100_000_000}
 ROOT = pathlib.Path(__file__).resolve().parent
 OLD_BUILD = ROOT / "build" / "kernels_old"
@@ -115,12 +119,6 @@ def same(a, b) -> bool:
     if isinstance(a, (tuple, list)):
         return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
     return torch.equal(int32_bits(a), int32_bits(b))
-
-
-def card_line() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60
-                          ).stdout.strip().splitlines()[0]
 
 
 def ptxas_report(src: pathlib.Path, label: str, flags=()) -> None:

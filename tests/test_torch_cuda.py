@@ -8,6 +8,10 @@ imports no JAX, so it also runs on a machine with PyTorch and a card only:
 (``tests/conftest.py`` imports JAX for the JAX package's tests.)
 """
 
+import json
+import pathlib
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -27,11 +31,13 @@ from gpuradixsort_tpu_torch.ops import filter as tfilter
 from gpuradixsort_tpu_torch.ops import join as tjoin
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
+from gpuradixsort_tpu_torch.utils.timing import card_line
 from gpuradixsort_tpu_torch.utils.verify import join_oracle
 
 pytestmark = pytest.mark.cuda
 
 CFG = EngineConfig()
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -630,3 +636,19 @@ def test_dist_join_one_nccl_rank(card, gen):
     assert result["launches"]["radix_dest"] > 0
     for got, want in zip(result["gathered"], join_oracle(pk, pv, bk, bv)):
         np.testing.assert_array_equal(got, want)
+
+
+def test_bench_at_1m_checks_every_result(card, tmp_path):
+    # The bench module as a user runs it, at its headline size: each method
+    # checked before and after its timing, the table sort likewise.
+    done = subprocess.run([sys.executable, "-m", "gpuradixsort_tpu_torch.bench", "--sizes",
+                           "1000000", "--out", str(tmp_path)],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    assert done.returncode == 0, done.stderr[-4000:]
+    assert done.stderr.count("PASS  n=1000000") == 2 * 3 + 2
+    line = json.loads(done.stdout.splitlines()[-1])
+    name, limit = (s.strip() for s in card_line().rsplit(",", 1))
+    assert line["device"] == {"name": name, "power_limit": limit}
+    assert line["value"] > 0 and line["vs_baseline"] > 0
+    durations = (tmp_path / "durations_cuda.txt").read_text().splitlines()
+    assert durations[0] == card_line() and len(durations) == 8

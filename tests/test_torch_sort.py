@@ -114,6 +114,23 @@ def test_torch_method_and_auto_agree_with_fused(rng):
         np.testing.assert_array_equal(p2.data.numpy(), p.data.numpy())
 
 
+def test_torch_method_matches_jax_xla_on_high_and_pad_keys(rng):
+    # The library baseline sorts the sign-flipped int32 view: keys at and
+    # above 2^31 (negative in that view) and live keys equal to PAD_KEY must
+    # keep the JAX package's stable uint32 order, live rows before pad rows.
+    n = 2 * BLOCK + 17
+    edges = np.array([0, 1, 2**31 - 1, 2**31, 2**31 + 1, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+    keys = np.where(rng.integers(0, 2, size=n).astype(bool), rng.choice(edges, size=n),
+                    rng.integers(0, 2**32, size=n, dtype=np.uint32))
+    s, p = tsort.sort_pairs(keys, CFG, method="torch", device="cpu")
+    js, jp = jsort.sort_pairs(jtable.make_key_column(keys, JCFG), JCFG, method="xla")
+    np.testing.assert_array_equal(s.data.numpy(), np.asarray(js.data))
+    np.testing.assert_array_equal(p.data.numpy(), np.asarray(jp.data))
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(p.to_numpy(), order.astype(np.uint32))
+    assert (keys >= 2**31).sum() > n // 4 and (keys == 0xFFFFFFFF).sum() > 100
+
+
 def test_unported_and_unknown_methods_raise():
     # Every method of the port sorts; the JAX package's "xla" is not one.
     keys = np.arange(10, dtype=np.uint32)[::-1].copy()
