@@ -25,7 +25,10 @@ in eight phases:
    1,000,000, 2^24 and 100,000,000, each also one word off a 16-byte
    boundary, on values whose sums wrap; key_bits (the AND and OR of the
    keys) at lengths 0 to 2^24, aligned and one word off, also against
-   numpy (radix_hist, bucketize, scatter_runs
+   numpy; the fused sort's pass plan and radix_hist, bucketize and
+   scatter_runs routed by it, pass by pass, for every mask of 4-bit digits
+   over 8 passes on 4 blocks and four masks at 1M keys (radix_hist,
+   bucketize, scatter_runs
    and radix_dest are also held against their plain versions at the
    operator path's shapes, after phase 4: 2^24 keys at radix_bits 1, 4 and
    8, the filter's 100,000,000 keys at radix_bits 1, 4 and 8, and its 1-bit
@@ -36,9 +39,11 @@ in eight phases:
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
    2^24 random keys with duplicates, and ``sort_table`` of 1,000,000 rows of a
    key and 16 int32 payload columns (64-byte rows), every column checked;
-   each sort twice, the first call capturing its CUDA graph and the second
-   replaying it, under torch's sync debug mode, which must count one host
-   sync in the replaying call;
+   each pair sort by the fused and the radix method, each sort three times
+   (the first sighting of its shape eager, the second capturing its CUDA
+   graph, the third replaying it) under torch's sync debug mode, which must
+   count no host sync at the first sighting and at the replay; the fused
+   sorts' skipped passes read from the card's counter between the calls;
 4. the operator path, counts again set to 0 before and read after, every
    result checked exactly against numpy (float means within rtol 1e-5 of a
    float64 oracle): ``filter_table`` of 100,000,000 keys keeping about half,
@@ -49,9 +54,11 @@ in eight phases:
    against about two copies of each build key; ``sort_pairs`` by the radix
    method at 1M and 2^24 keys and ``sort_keys`` with 8-bit digits;
 5. times: the fused sort's passes as the cached CUDA graph against the
-   eager loop at 1M, 2^22, 2^23 and 2^24 keys, in alternating rounds (CUDA
+   eager loop at 1M, 2^22, 2^23, 12M, 2^24 and 2^25 keys, and the radix
+   method's at 1M, 2^22, 2^23, 12M and 2^24, in alternating rounds (CUDA
    events and busy time, the first call's capture time, the bytes the graph
-   cache holds; the profile of a replay must name every kernel); fused sort
+   cache holds;
+   the profile of a replay must name every kernel of the method); fused sort
    against ``torch.sort(stable=True)`` at 1M and 16M keys
    (CUDA events, median of 7 runs after warm-up, and the device's busy time
    from torch.profiler); the fused sort's eager loop with ``global_offsets`` on
@@ -122,7 +129,7 @@ from gpuradixsort_tpu_torch.core.table import (
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
-from gpuradixsort_tpu_torch.kernels.key_bits import key_bits
+from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_mask, pass_plan, plan_of_mask
 from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
@@ -165,12 +172,14 @@ KERNELS = {
                    "gpuradixsort_tpu/kernels/radix.py:92", ("radix_dest_kernel",)),
     "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
                        "gpuradixsort_tpu/kernels/scan.py:31", ("scan_kernel",)),
-    # Glue with no Pallas kernel: the JAX package's per-pass skip predicate.
+    # Glue with no Pallas kernel: the JAX package's per-pass skip predicate,
+    # and the fused sort's pass plan made from it.
     "key_bits": (key_bits, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
-                 "gpuradixsort_tpu/ops/sort.py:83", ("key_bits_kernel",)),
+                 "gpuradixsort_tpu/ops/sort.py:83", ("key_bits_kernel", "pass_plan_kernel")),
 }
-# The kernels the fused sort runs; radix_dest runs on the operator path.
+# The kernels each sort method runs.
 FUSED_PATH = ("radix_hist", "bucketize", "scatter_runs", "exclusive_scan", "key_bits")
+RADIX_PATH = ("radix_hist", "radix_dest", "exclusive_scan")
 
 
 def reset_launches() -> None:
@@ -253,7 +262,88 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     check_scatter_geometry(dev, rng, errs)
     check_scan_lengths(dev, rng, errs)
     check_key_bits(dev, rng, errs)
+    check_plan_routing(dev, errs)
     torch.cuda.synchronize()
+
+
+def mask_keys(mask: int, n: int, cfg) -> np.ndarray:
+    """n keys whose digit p varies exactly where bit p of ``mask`` is set (seeded by the mask)."""
+    gen = np.random.default_rng([SEED, mask])
+    keys = np.full(n, 0x9C3A5E71, dtype=np.uint32)  # every digit constant
+    digit = np.uint32(cfg.radix - 1)
+    for p in range(cfg.num_passes):
+        if (mask >> p) & 1:
+            shift = np.uint32(p * cfg.radix_bits)
+            vals = gen.integers(0, cfg.radix, n).astype(np.uint32)
+            vals[:2] = (0, cfg.radix - 1)  # two values at least
+            keys = (keys & ~(digit << shift)) | (vals << shift)
+    return keys
+
+
+def check_plan_routing(dev, errs: dict) -> None:
+    """The fused sort's pass plan, and K1, K2 and K3 routed by it, against their plain versions.
+
+    Every mask of 4-bit digits over the 8 passes on 4 blocks of keys whose
+    digit p varies exactly where bit p is set, and the masks none, all, the
+    top two constant and one pass on 1,007,616 keys (1M rounded up to a
+    block, no pad keys).  The plan (key_bits with a plan) against the plain
+    one and ``plan_of_mask``, the skip counters equal; then in each pass of
+    the kernels' sort, each kernel against its plain version on the same
+    inputs, plan and result buffer (K1 and K2 where the pass runs; K3's
+    result buffer always, a skipped pass writing nothing); the sorted pairs
+    against a stable ``torch.sort``, and the input unwritten.
+    """
+    cfg = EngineConfig()
+    cases = [(4 * cfg.block, m) for m in range(1 << cfg.num_passes)]
+    cases += [(round_up(N_HEADLINE, cfg.block), m) for m in (0, 0xFF, 0x3F, 0b10000)]
+    for n, mask in cases:
+        keys = torch.from_numpy(mask_keys(mask, n, cfg)).to(dev)
+        held = keys.clone()
+        idx = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+        counters = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
+        plan = pass_plan(keys, cfg, counters[0], impl="cuda")
+        want_plan = plan_of_mask(mask, cfg.num_passes)
+        err = max(max_abs_err(plan, pass_plan(keys, cfg, counters[1], impl="reference")),
+                  max_abs_err(plan.cpu(), torch.tensor(want_plan, dtype=torch.int32)),
+                  max_abs_err(*counters))
+        errs["key_bits"] = max(errs["key_bits"], err)
+        where = f"{n} keys, pass mask {mask:#04x}"
+        if err:
+            check(False, f"pass plan == plain == plan_of_mask, {where}")
+        result = torch.empty_like(keys), torch.empty_like(idx)
+        for p in range(cfg.num_passes):
+            shift, route = p * cfg.radix_bits, dict(plan=plan, pass_index=p)
+            runs = want_plan[p] >= 0
+            hist = rk.tile_histograms(keys, shift, cfg, impl="cuda", result=result[0], **route)
+            if runs:
+                err = max_abs_err(hist, rk.tile_histograms(keys, shift, cfg, impl="reference",
+                                                           result=result[0], **route))
+                errs["radix_hist"] = max(errs["radix_hist"], err)
+                if err:
+                    check(False, f"radix_hist with the plan == plain, {where}, pass {p}")
+            offsets = rk.global_offsets(hist)
+            bk, bi = bucketize_tiles(keys, idx, shift, cfg, impl="cuda", result=result, **route)
+            if runs:
+                err = max(map(max_abs_err, (bk, bi), bucketize_tiles(
+                    keys, idx, shift, cfg, impl="reference", result=result, **route)))
+                errs["bucketize"] = max(errs["bucketize"], err)
+                if err:
+                    check(False, f"bucketize with the plan == plain, {where}, pass {p}")
+            want = scatter_runs(bk, bi, hist, offsets, cfg, impl="reference",
+                                result=tuple(t.clone() for t in result), **route)[:2]
+            scatter_runs(bk, bi, hist, offsets, cfg, impl="cuda", result=result, **route)
+            err = max(map(max_abs_err, result, want))
+            errs["scatter_runs"] = max(errs["scatter_runs"], err)
+            if err:
+                check(False, f"scatter_runs with the plan == plain, {where}, pass {p}")
+        order = torch.sort(int32_bits(keys).to(torch.int64) & 0xFFFFFFFF, stable=True).indices
+        if not (same_bits(result, (int32_bits(keys)[order], int32_bits(idx)[order]))
+                and same_bits((keys,), (held,))):
+            check(False, f"the planned passes sort stably and leave the input unwritten, {where}")
+    check(True, f"pass plan, radix_hist, bucketize and scatter_runs routed by it == their plain "
+          f"versions pass by pass, and the sorted pairs == a stable torch.sort, for all "
+          f"{1 << cfg.num_passes} masks of 4-bit digits on {4 * cfg.block} keys and 4 masks on "
+          f"{round_up(N_HEADLINE, cfg.block)} keys")
 
 
 def check_key_bits(dev, rng, errs: dict) -> None:
@@ -542,42 +632,54 @@ def phase_main_path(dev, rng, cfg) -> dict:
             "2^24 random with duplicates": dup_16m}
     torch.cuda.synchronize()
 
-    # Each sort three times: the first sighting of its shape runs the eager
-    # loop, the second captures its CUDA graph (where the padded length is
-    # within GRAPH_MAX_PADDED), the third replays it; torch's sync debug mode
-    # counts each call's synchronising calls.  The cache is cleared before
-    # each sort, as the 1M sorts share a shape.
+    # Each sort three times by each method: the first sighting of its shape
+    # runs the passes eagerly, the second captures their CUDA graph (where
+    # the padded length is within GRAPH_MAX_PADDED), the third replays it;
+    # torch's sync debug mode counts each call's synchronising calls.  The
+    # cache is cleared before each sort, as the 1M sorts share a shape.  The
+    # skip counter is read between the calls, outside the counted window.
+    # The host's pass masks are read before the launch counts are reset, so
+    # that the window counts the sorts' own launches and nothing else.
+    cols = {name: make_key_column(keys_np, cfg, device=dev) for name, keys_np in sets.items()}
+    want = {name: cfg.num_passes - bin(pass_mask(col.data, cfg)).count("1")
+            for name, col in cols.items()}
     reset_launches()
-    sort_ops._fused_sort_padded.skipped_passes = 0
     results, syncs, replays = {}, {}, {}
-    for name, keys_np in sets.items():
-        col = make_key_column(keys_np, cfg, device=dev)
-        sort_ops.clear_sort_graphs()
-        for call in CALLS:
-            skipped = sort_ops._fused_sort_padded.skipped_passes
-            out = []
-            syncs[name, call] = syncs_of(
-                lambda: out.extend(sort_pairs(col, cfg, method="fused")))
-            s, p = out
-            results[name, call] = (s.to_numpy(), p.to_numpy(), bool(device_is_sorted(s.valid())),
-                                   sort_ops._fused_sort_padded.skipped_passes - skipped)
-            replays[name, call] = graph_replays(), col.padded_length
-        del col
+    for method in ("fused", "radix"):
+        for name, col in cols.items():
+            want_skipped = want[name] if method == "fused" else 0
+            sort_ops.clear_sort_graphs()
+            for call in CALLS:
+                skipped = sort_ops.skipped_passes()
+                out = []
+                syncs[f"sort_pairs {method} {name}", call] = syncs_of(
+                    lambda: out.extend(sort_pairs(col, cfg, method=method)))
+                s, p = out
+                results[method, name, call] = (s.to_numpy(), p.to_numpy(),
+                                               bool(device_is_sorted(s.valid())),
+                                               sort_ops.skipped_passes() - skipped, want_skipped)
+                replays[method, name, call] = graph_replays(), col.padded_length
+    del cols
     table_out = {}
     sort_ops.clear_sort_graphs()
     for call in CALLS:
         out = []
-        syncs["sort_table", call] = syncs_of(lambda: out.append(
+        syncs["sort_table fused", call] = syncs_of(lambda: out.append(
             sort_table(table, "key", cfg, method="fused")))
         table_out[call] = {k: out[0][k].to_numpy() for k in out[0].names()}
-        replays["sort_table", call] = graph_replays(), table["key"].padded_length
+        replays["sort_table", "", call] = graph_replays(), table["key"].padded_length
     launches = read_launches()
 
-    for (name, call), (s, p, dev_sorted, skipped) in results.items():
+    for (method, name, call), (s, p, dev_sorted, skipped, want_skipped) in results.items():
         keys_np = sets[name]
         order = np.argsort(keys_np, kind="stable")
-        what = f"sort_pairs {name} ({call})"
-        log(f"{what}: {skipped} of {cfg.num_passes} passes skipped (constant digit)")
+        what = f"sort_pairs {method} {name} ({call})"
+        if method == "fused":
+            check(skipped == want_skipped, f"{what}: the card's counter says {skipped} of "
+                  f"{cfg.num_passes} passes skipped (constant digit), as the host's pass mask")
+        else:
+            check(skipped == 0, f"{what}: the skip counter did not move (no skip in the radix "
+                  "method)")
         check(dev_sorted, f"{what}: device_is_sorted")
         if "shuffled" in name:
             check(is_permutation_sorted(s), f"{what}: keys == arange")
@@ -593,12 +695,12 @@ def phase_main_path(dev, rng, cfg) -> dict:
     for (name, call), count in syncs.items():
         log(f"{name} ({call}): {count} synchronising CUDA call(s) (torch sync debug mode)")
         if call != "capture":
-            check(count == 1, f"{name} ({call}): one host sync a sort")
+            check(count == 0, f"{name} ({call}): no host sync in the sort")
     check(all(count == (CALLS.index(call) if padded <= sort_ops.GRAPH_MAX_PADDED else 0)
-              for (_, call), (count, padded) in replays.items()),
-          "each sort's first sighting ran the eager loop, its second captured and replayed its "
-          "graph, its third replayed it (eager throughout above GRAPH_MAX_PADDED)")
-    for name in FUSED_PATH:
+              for (*_, call), (count, padded) in replays.items()),
+          "each sort's first sighting ran eagerly, its second captured and replayed its graph, "
+          "its third replayed it (eager throughout above GRAPH_MAX_PADDED), by both methods")
+    for name in KERNELS:
         check(launches[name] > 0, f"{name} launched {launches[name]} times on the main path")
     return launches
 
@@ -884,8 +986,13 @@ def offsets_ab(col, cfg, label: str, card: str) -> None:
                     for name in fns))
 
 
-GRAPH_AB_SIZES = (("1M", N_HEADLINE), ("2^22", 1 << 22), ("2^23", 1 << 23), ("2^24", 1 << 24),
-                  ("2^25", 1 << 25))
+GRAPH_AB_SIZES = {
+    "fused": (("1M", N_HEADLINE), ("2^22", 1 << 22), ("2^23", 1 << 23), ("12M", 3 << 22),
+              ("2^24", 1 << 24), ("2^25", 1 << 25)),
+    "radix": (("1M", N_HEADLINE), ("2^22", 1 << 22), ("2^23", 1 << 23), ("12M", 3 << 22),
+              ("2^24", 1 << 24)),
+}
+GRAPH_AB_MAX = 1 << 25
 
 
 def same_bits(a, b) -> bool:
@@ -897,31 +1004,38 @@ def column_data(columns) -> list:
 
 
 def graph_ab(dev, rng, cfg, card: str) -> None:
-    """The fused sort's passes as the cached CUDA graph against the eager loop.
+    """Each sort method's passes as the cached CUDA graph against running them eagerly.
 
-    At 1M, 2^22, 2^23, 2^24 and 2^25 random keys, each graphed here whatever
-    ``GRAPH_MAX_PADDED`` says, so that the limit can be set from this: the
-    host time of the first three calls of a shape (the eager first
-    sighting; the capture, instantiation and one replay; a replay), each
-    equal to the eager loop bit for bit, the bytes the graph cache holds
-    (memory reserved after ``empty_cache``, less the same after
-    ``clear_sort_graphs``), CUDA-event ms per sort in alternating rounds
-    (median of 16 each, beside the graph's replay alone), and the
-    profiler's busy time split by kernel, in which every kernel of the
-    fused sort must be named inside a replay.
+    The fused sort at 1M, 2^22, 2^23, 12M (3 x 2^22), 2^24 and 2^25 random
+    keys, the radix method at 1M, 2^22, 2^23, 12M and 2^24, each graphed
+    here whatever ``GRAPH_MAX_PADDED`` says, so that the limit can be set
+    from this: the host time of the
+    first three calls of a shape (the eager first sighting; the capture,
+    instantiation and one replay; a replay), each equal to the eager passes
+    bit for bit, the bytes the graph cache holds (memory reserved after
+    ``empty_cache``, less the same after ``clear_sort_graphs``), CUDA-event
+    ms per sort in alternating rounds (median of 16 each, beside the
+    graph's replay alone), and the profiler's busy time split by kernel, in
+    which every kernel of the method must be named inside a replay.
     """
-    log(f"fused sort_pairs, passes by the cached CUDA graph against the eager loop ({card}); "
-        f"the sorts graph up to GRAPH_MAX_PADDED = {sort_ops.GRAPH_MAX_PADDED} padded keys, "
-        f"here up to {GRAPH_AB_SIZES[-1][1]}")
-    for label, n in GRAPH_AB_SIZES:
+    for method, sizes in GRAPH_AB_SIZES.items():
+        graph_ab_method(method, sizes, dev, rng, cfg, card)
+
+
+def graph_ab_method(method: str, sizes, dev, rng, cfg, card: str) -> None:
+    log(f"{method} sort_pairs, passes by the cached CUDA graph against running them eagerly "
+        f"({card}); the sorts graph up to GRAPH_MAX_PADDED = {sort_ops.GRAPH_MAX_PADDED} padded "
+        f"keys, here up to {sizes[-1][1]}")
+    path = FUSED_PATH if method == "fused" else RADIX_PATH
+    for label, n in sizes:
         col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg, device=dev)
 
         def eager():
             with eager_loop():
-                return sort_pairs(col, cfg, method="fused")
+                return sort_pairs(col, cfg, method=method)
 
-        fns = {"graphed": lambda: sort_pairs(col, cfg, method="fused"), "eager": eager}
-        with mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", GRAPH_AB_SIZES[-1][1]):
+        fns = {"graphed": lambda: sort_pairs(col, cfg, method=method), "eager": eager}
+        with mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", GRAPH_AB_MAX):
             want = column_data(eager())
             sort_ops.clear_sort_graphs()
             torch.cuda.empty_cache()
@@ -932,8 +1046,8 @@ def graph_ab(dev, rng, cfg, card: str) -> None:
                 out = column_data(fns["graphed"]())
                 torch.cuda.synchronize()
                 calls_ms.append((time.perf_counter() - t0) * 1e3)
-                check(same_bits(out, want), f"{label}: graphed sort ({call}) == eager loop, "
-                      "bit for bit")
+                check(same_bits(out, want), f"{method} {label}: graphed sort ({call}) == eager "
+                      "passes, bit for bit")
             del out, want
             torch.cuda.empty_cache()
             held = torch.cuda.memory_reserved(dev)
@@ -942,7 +1056,7 @@ def graph_ab(dev, rng, cfg, card: str) -> None:
             cache_mb = (held - torch.cuda.memory_reserved(dev)) / 2**20
             fns["graphed"]()  # seen, then captured again for the rounds
             fns["graphed"]()
-            # The graph's replay alone: no readback, no copies in or out.
+            # The graph's replay alone: no copies in or out.
             replay = next(iter(sort_ops._SORT_GRAPHS.values())).graph.replay
             ms = ab_per_call_ms({**fns, "replay alone": replay})
             parts = [f"replay alone {ms['replay alone']:.4f} ms"]
@@ -957,10 +1071,11 @@ def graph_ab(dev, rng, cfg, card: str) -> None:
                                                                    ours.items())
                              + f", other {busy - sum(ours.values()):.4f})")
                 if name == "graphed":
-                    check(all(k in ours for k in FUSED_PATH),
-                          f"{label}: every fused-sort kernel named in the profile of a replay")
-        log(f"time {label} ({col.padded_length} padded keys, {card}): host ms of the first "
-            f"calls: " + ", ".join(f"{call} {t:.2f}" for call, t in zip(CALLS, calls_ms))
+                    check(all(k in ours for k in path),
+                          f"{method} {label}: every kernel of the sort named in the profile of "
+                          "a replay")
+        log(f"time {method} {label} ({col.padded_length} padded keys, {card}): host ms of the "
+            f"first calls: " + ", ".join(f"{call} {t:.2f}" for call, t in zip(CALLS, calls_ms))
             + f"; graph cache holds {cache_mb:.1f} MiB; CUDA events, median of 16 in "
             f"alternating rounds: " + "; ".join(parts))
         del col, fns
@@ -995,7 +1110,8 @@ def graph_traffic(dev, rng, cfg, card: str) -> None:
             recurring * RECURRENCES,
     }
     for label, cols in traffic.items():
-        shapes = {(dev, c.padded_length, cfg, sort_ops._pass_mask(c.data, cfg)) for c in cols}
+        shapes = {sort_ops.graph_key("fused", (c.data, sort_ops._index_column(c)), cfg)
+                  for c in cols}
 
         def run(how: str) -> float:
             sort_ops.clear_sort_graphs()
@@ -1285,15 +1401,15 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
         log(f"  {label}: {ms:.3f} ms; device busy {busy:.3f} ms, busy share {busy / ms:.3f} "
             f"({split or 'no kernel of the port'})")
     sorts = key_bits.launches - sorts
-    graphs = {key[1]: g.replays for key, g in sort_ops._SORT_GRAPHS.items()}
+    graphs = {f"{key[3]} {key[1]}": g.replays for key, g in sort_ops._SORT_GRAPHS.items()}
     torch.cuda.empty_cache()
     held = torch.cuda.memory_reserved()
     sort_ops.clear_sort_graphs()
     torch.cuda.empty_cache()
     cache_mb = (held - torch.cuda.memory_reserved()) / 2**20
-    log(f"graph cache after phase 6: {len(graphs)} graphs (padded length: replays "
+    log(f"graph cache after phase 6: {len(graphs)} graphs (method and padded length: replays "
         f"{', '.join(f'{n}: {r}' for n, r in graphs.items())}) holding {cache_mb:.1f} MiB; "
-        f"{sorts} fused sorts, of which {sum(graphs.values())} replayed a graph "
+        f"{sorts} fused sorts; {sum(graphs.values())} sorts of both methods replayed a graph "
         f"({len(graphs)} of those captured it)")
 
 

@@ -16,8 +16,10 @@ On the card it logs, to stderr:
 - each method at each size: ms per sort by CUDA events over k back-to-back
   sorts after a warm-up of k (k = 48, 8 and 2 at 1M, 16M and 64M keys;
   median of 5 runs), keys/s, the device's busy time per sort
-  (torch.profiler), and for the fused sort whether it replayed a cached
-  CUDA graph or ran the eager loop;
+  (torch.profiler), for the fused and radix sorts whether they replayed a
+  cached CUDA graph or ran eagerly, and for the fused sort the passes its
+  plan skipped (read from the card's counter around the checked calls,
+  never inside a timed run);
 - the per-stage table of one fused pass at shift 0 (``stage_table``), also
   written to ``durations_cuda.txt`` in ``--out`` below the card's name and
   power limit;
@@ -270,12 +272,19 @@ def stage_text(rows: list[dict], card: str, n: int, padded: int) -> str:
     return "\n".join(lines)
 
 
-def graph_path(padded: int) -> str:
-    """How the fused sorts of ``padded`` keys ran: a cached CUDA graph's replays, or eagerly."""
-    replays = [g.replays for key, g in sort_ops._SORT_GRAPHS.items() if key[1] == padded]
-    if replays:
-        return f"passes by a cached CUDA graph, replayed {sum(replays)} times"
-    return "passes by the eager loop (no cached graph)"
+def graph_path(method: str, keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig) -> str:
+    """How ``method``'s sorts of (keys, idx) ran: a cached CUDA graph's replays, or eagerly."""
+    graph = sort_ops._SORT_GRAPHS.get(sort_ops.graph_key(method, (keys, idx), cfg))
+    if graph is not None:
+        return f"passes by a cached CUDA graph, replayed {graph.replays} times"
+    return "passes run eagerly (no cached graph)"
+
+
+def checked_skips(fn, what: str, ok) -> int:
+    """Passes the fused sorts of one call of ``fn`` skipped, after ``ok(*fn())`` is checked."""
+    before = sort_ops.skipped_passes()
+    check(ok(*fn()), what)
+    return sort_ops.skipped_passes() - before
 
 
 def timed_ms(fn, calls: int) -> tuple[float, float]:
@@ -295,19 +304,24 @@ def run_sizes(sizes, cfg, rng, device, timed: bool) -> dict:
     for n in sizes:
         keys_np, keys, idx = make_inputs(n, cfg, rng, device)
         order = np.argsort(keys_np, kind="stable")
-        padded = keys.numel()
         results[n] = {}
         for method in methods_for(n):
             fn = lambda: sort_padded(method, keys, idx, cfg)  # noqa: E731
             what = f"n={n} {method}: live keys == np.sort, permutation == np.argsort(stable)"
-            check(pairs_match(*fn(), keys_np, order), f"{what} (first call)")
+            ok = lambda k, i: pairs_match(k, i, keys_np, order)  # noqa: E731
+            skips = [checked_skips(fn, f"{what} (first call)", ok)]
             if not timed:
                 results[n][method] = None
                 continue
             k = chain_for(n)
             ms, busy = timed_ms(fn, k)
-            check(pairs_match(*fn(), keys_np, order), f"{what} (after the timed runs)")
-            path = f"; {graph_path(padded)}" if method == "fused" else ""
+            skips.append(checked_skips(fn, f"{what} (after the timed runs)", ok))
+            path = ""
+            if method != "torch":
+                path = f"; {graph_path(method, keys, idx, cfg)}"
+            if method == "fused":
+                check(skips[0] == skips[1], f"n={n} fused: the plan skipped {skips[0]} of "
+                      f"{cfg.num_passes} passes, eagerly and after the timed runs")
             log(f"n={n:>9} {method:>5}: {ms:.4f} ms/sort by CUDA events ({k} back-to-back, "
                 f"median of {RUNS}), {n / ms / 1e3:.1f} M keys/s; device busy {_busy(busy)} "
                 f"a sort{path}")

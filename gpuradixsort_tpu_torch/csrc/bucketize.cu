@@ -32,6 +32,11 @@
 // their order.  Every other tile (bucketize_any_kernel) takes a slower route:
 // one tile a warp, counting the whole tile from device memory, then reading
 // it again to rank and place it.
+//
+// In a fused sort both kernels follow the sort's pass plan (key_bits.cu): a
+// skipped pass returns at once and leaves the outputs unwritten, and a pass
+// that runs reads its keys and indices from the sort's input or from its
+// result buffer, as the plan names.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,8 +68,11 @@ __device__ __forceinline__ void store_tile(uint32_t* out_keys, uint32_t* out_idx
 
 template <int kBits>
 __global__ void __launch_bounds__(32 * kMaxWarps)
-    bucketize_1k_kernel(const uint32_t* __restrict__ keys,
-                        const uint32_t* __restrict__ idx,
+    bucketize_1k_kernel(const uint32_t* __restrict__ in_keys,
+                        const uint32_t* __restrict__ in_idx,
+                        const uint32_t* __restrict__ result_keys,
+                        const uint32_t* __restrict__ result_idx,
+                        const int32_t* __restrict__ plan, int pass,
                         uint32_t* __restrict__ out_keys,
                         uint32_t* __restrict__ out_idx, int64_t num_tiles,
                         int shift, bool vec) {
@@ -75,7 +83,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const int warp = threadIdx.x >> 5;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
   int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (t >= num_tiles) return;  // no block barrier follows
+  const int from = grs::plan_source(plan, pass);
+  if (t >= num_tiles || from < 0) return;  // no block barrier follows
+  const uint32_t* keys = from == 0 ? in_keys : result_keys;
+  const uint32_t* idx = from == 0 ? in_idx : result_idx;
 
   uint32_t* in = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * 4 * kFastTile;
   uint32_t* sk = in + 2 * kFastTile;
@@ -122,8 +133,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 }
 
 __global__ void __launch_bounds__(32 * kMaxWarps)
-    bucketize_any_kernel(const uint32_t* __restrict__ keys,
-                         const uint32_t* __restrict__ idx,
+    bucketize_any_kernel(const uint32_t* __restrict__ in_keys,
+                         const uint32_t* __restrict__ in_idx,
+                         const uint32_t* __restrict__ result_keys,
+                         const uint32_t* __restrict__ result_idx,
+                         const int32_t* __restrict__ plan, int pass,
                          uint32_t* __restrict__ out_keys,
                          uint32_t* __restrict__ out_idx, int64_t num_tiles,
                          int tile, int shift, int radix, int bits) {
@@ -131,7 +145,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (t >= num_tiles) return;  // no block barrier follows
+  const int from = grs::plan_source(plan, pass);
+  if (t >= num_tiles || from < 0) return;  // no block barrier follows
+  const uint32_t* keys = from == 0 ? in_keys : result_keys;
+  const uint32_t* idx = from == 0 ? in_idx : result_idx;
 
   uint32_t* sk = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * 2 * tile;
   uint32_t* sv = sk + tile;
@@ -173,12 +190,23 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// The inputs a launch may read: the keys and indices, then, in a planned
+// sort, its result buffer; and the plan.
+struct Sources {
+  const uint32_t* keys;
+  const uint32_t* idx;
+  const uint32_t* result_keys;
+  const uint32_t* result_idx;
+  const int32_t* plan;
+  int pass;
+};
+
 // Persistent launch: as many blocks as fit on the card at once, at most one
 // per `per_block` tiles.
 template <int kBits>
-cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, uint32_t* out_keys,
-                      uint32_t* out_idx, int64_t num_tiles, int threads, size_t smem,
-                      int shift, cudaStream_t stream) {
+cudaError_t launch_1k(const Sources& in, uint32_t* out_keys, uint32_t* out_idx,
+                      int64_t num_tiles, int threads, size_t smem, int shift, bool vec,
+                      cudaStream_t stream) {
   const auto kernel = bucketize_1k_kernel<kBits>;
   cudaError_t err = allow_shared(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -194,8 +222,8 @@ cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, uint32_t* out_k
   if (resident > 0 && blocks > static_cast<int64_t>(resident) * sms)
     blocks = static_cast<int64_t>(resident) * sms;
   kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      keys, idx, out_keys, out_idx, num_tiles, shift,
-      aligned16(keys) && aligned16(idx));
+      in.keys, in.idx, in.result_keys, in.result_idx, in.plan, in.pass, out_keys, out_idx,
+      num_tiles, shift, vec);
   return cudaSuccess;
 }
 
@@ -206,22 +234,32 @@ cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, uint32_t* out_k
 // 32 x 8.  A block keeps 16 x tile bytes a warp in shared memory for the
 // 1,024-key tile (input and staged output) and 8 x tile bytes a warp for any
 // other (staged output), at most 232,448 bytes.  tile is a multiple of 128;
-// radix a power of two <= 16.  Returns cudaGetLastError() after the launch.
+// radix a power of two <= 16.  plan: null, or a fused sort's pass plan on the
+// device, of which entry `pass` routes this launch; result_keys and
+// result_idx are then the sort's result buffer, of keys' length.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int grs_bucketize(const void* keys, const void* idx, void* out_keys,
                              void* out_idx, int64_t num_tiles, int tile,
-                             int threads, int shift, int radix, void* stream) {
+                             int threads, int shift, int radix, const void* plan,
+                             int pass, const void* result_keys, const void* result_idx,
+                             void* stream) {
   const bool fast = tile == kFastTile;
   const size_t smem = static_cast<size_t>(threads / 32) * (fast ? 4 : 2) *
                       static_cast<size_t>(tile) * sizeof(uint32_t);
   if (radix < 2 || radix > kMaxRadix || (radix & (radix - 1)) != 0 ||
       threads < 32 || threads % 32 != 0 || threads > 32 * kMaxWarps ||
       tile <= 0 || tile % 128 != 0 || smem > kMaxShared ||
-      !aligned16(out_keys) || !aligned16(out_idx)) {
+      !aligned16(out_keys) || !aligned16(out_idx) ||
+      (plan != nullptr && (pass < 0 || result_keys == nullptr || result_idx == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  const auto* k = static_cast<const uint32_t*>(keys);
-  const auto* v = static_cast<const uint32_t*>(idx);
+  const Sources in{static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(idx),
+                   static_cast<const uint32_t*>(result_keys),
+                   static_cast<const uint32_t*>(result_idx), static_cast<const int32_t*>(plan),
+                   pass};
+  const bool vec = aligned16(keys) && aligned16(idx) &&
+                   (plan == nullptr || (aligned16(result_keys) && aligned16(result_idx)));
   auto* ok = static_cast<uint32_t*>(out_keys);
   auto* ov = static_cast<uint32_t*>(out_idx);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -229,18 +267,19 @@ extern "C" int grs_bucketize(const void* keys, const void* idx, void* out_keys,
   cudaError_t err = cudaSuccess;
   if (fast) {
     switch (bits) {
-      case 1: err = launch_1k<1>(k, v, ok, ov, num_tiles, threads, smem, shift, s); break;
-      case 2: err = launch_1k<2>(k, v, ok, ov, num_tiles, threads, smem, shift, s); break;
-      case 3: err = launch_1k<3>(k, v, ok, ov, num_tiles, threads, smem, shift, s); break;
-      default: err = launch_1k<4>(k, v, ok, ov, num_tiles, threads, smem, shift, s); break;
+      case 1: err = launch_1k<1>(in, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
+      case 2: err = launch_1k<2>(in, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
+      case 3: err = launch_1k<3>(in, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
+      default: err = launch_1k<4>(in, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
     }
   } else {
     err = allow_shared(bucketize_any_kernel, smem);
     if (err == cudaSuccess) {
       const int64_t per_block = threads / 32;
       bucketize_any_kernel<<<static_cast<unsigned>((num_tiles + per_block - 1) / per_block),
-                             threads, smem, s>>>(k, v, ok, ov, num_tiles, tile, shift,
-                                                 radix, bits);
+                             threads, smem, s>>>(in.keys, in.idx, in.result_keys,
+                                                 in.result_idx, in.plan, in.pass, ok, ov,
+                                                 num_tiles, tile, shift, radix, bits);
     }
   }
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -6,8 +6,9 @@
 // gpuradixsort_tpu/ops/sort.py:83).  A pass permutes the keys and keeps
 // their multiset, so every pass's answer is known before the first: digit p
 // is constant exactly where the AND and the OR of all keys agree on its
-// bits.  The port reduces the buffer once, reads these 8 bytes back, and
-// launches the passes that run with no further host sync.
+// bits.  The port reduces the buffer once and, for a fused sort, turns the
+// two words into the sort's pass plan on the card (pass_plan_kernel), which
+// K1, K2 and K3 read: nothing goes back to the host.
 //
 // Bound on the H100: HBM bytes, 4 a key read once.
 //
@@ -18,6 +19,18 @@
 // point first sets to all-ones and to zero with two memsets on the stream.
 // At most kMaxBlocks blocks, so at most 2 x kMaxBlocks atomics.  The grid
 // depends on n alone and the entry point queries nothing of the device.
+//
+// The plan: one int32 a pass.  -1 where the pass's digit is constant over the
+// buffer (the pass is skipped), 0 for the first pass that runs (it reads the
+// sort's input) and 1 for each later one (it reads the sort's result buffer,
+// which every pass that runs writes).  So the result is always in the result
+// buffer, the input is never written, and a skipped pass moves no byte.  With
+// no varying digit (equal keys, or no key) the JAX package's sort hands back
+// its input; the port's hands back a new buffer, so the plan then runs the
+// last pass from the input: its digit is constant, so it copies the input.
+// One thread computes it after the reduction, and adds the number of skipped
+// passes (the JAX package's count, without that copy) to a counter on the
+// card, which the host reads only when asked.
 
 #include <algorithm>
 #include <cstdint>
@@ -87,14 +100,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void pass_plan_kernel(const uint32_t* __restrict__ words, int num_passes,
+                                 int radix_bits, int32_t* __restrict__ plan,
+                                 unsigned long long* __restrict__ skipped) {
+  const uint32_t varying = words[1] & ~words[0];
+  const uint32_t digit = (1u << radix_bits) - 1u;
+  int runs = 0;
+  for (int p = 0; p < num_passes; ++p) {
+    const bool run = ((varying >> (p * radix_bits)) & digit) != 0u;
+    plan[p] = run ? (runs > 0 ? 1 : 0) : -1;
+    runs += run;
+  }
+  if (runs == 0) plan[num_passes - 1] = 0;  // the copy
+  atomicAdd(skipped, static_cast<unsigned long long>(num_passes - runs));
+}
+
 }  // namespace
 
 // keys: n uint32 (4-byte aligned, n >= 0); out: 2 uint32, set here to the
 // AND (out[0]) and the OR (out[1]) of the keys: all-ones and zero for n = 0.
-// Returns cudaGetLastError() after the launch.
-extern "C" int grs_key_bits(const void* keys, int64_t n, void* out, void* stream) {
+// plan: null, or num_passes int32 set here to the pass plan of a fused sort
+// of the keys by radix_bits-bit digits (num_passes x radix_bits <= 32); its
+// skipped passes are then added to *skipped, an 8-byte-aligned int64.
+// Returns cudaGetLastError() after the launches.
+extern "C" int grs_key_bits(const void* keys, int64_t n, void* out, void* plan,
+                            int num_passes, int radix_bits, void* skipped, void* stream) {
   if (n < 0 || reinterpret_cast<uintptr_t>(keys) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 4 != 0) {
+      reinterpret_cast<uintptr_t>(out) % 4 != 0 ||
+      (plan != nullptr &&
+       (reinterpret_cast<uintptr_t>(plan) % 4 != 0 || skipped == nullptr ||
+        reinterpret_cast<uintptr_t>(skipped) % 8 != 0 || num_passes < 1 ||
+        radix_bits < 1 || radix_bits > 8 || num_passes * radix_bits > 32))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* words = static_cast<uint32_t*>(out);
@@ -110,6 +146,12 @@ extern "C" int grs_key_bits(const void* keys, int64_t n, void* out, void* stream
     const int64_t blocks =
         std::clamp<int64_t>(((n - head) / 4 + per_block - 1) / per_block, 1, kMaxBlocks);
     key_bits_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(k, n, head, words);
+  }
+  if (plan != nullptr) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    pass_plan_kernel<<<1, 1, 0, s>>>(words, num_passes, radix_bits, static_cast<int32_t*>(plan),
+                                     static_cast<unsigned long long*>(skipped));
   }
   return static_cast<int>(cudaGetLastError());
 }

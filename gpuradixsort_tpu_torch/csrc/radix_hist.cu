@@ -27,6 +27,11 @@
 //      ballot, never conflict and cost the same on skewed keys; at the end
 //      (or every 224 keys a lane) each lane sums and clears whole rows.
 // Integer counts make the result deterministic.
+//
+// In a fused sort the kernel follows the sort's pass plan (key_bits.cu): a
+// skipped pass returns at once and leaves hist unwritten, and a pass that
+// runs reads its keys from the sort's input or from its result buffer, as
+// the plan names.  Without a plan it reads `keys`.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -87,14 +92,18 @@ __device__ __forceinline__ void drain_columns(uint32_t* table, int rows, int lan
 }
 
 __global__ void __launch_bounds__(32 * kMaxWarps)
-    radix_hist_kernel(const uint32_t* __restrict__ keys,
+    radix_hist_kernel(const uint32_t* __restrict__ input,
+                      const uint32_t* __restrict__ result,
+                      const int32_t* __restrict__ plan, int pass,
                       int32_t* __restrict__ hist, int64_t num_tiles, int tile,
                       int shift, int radix, bool vec) {
   extern __shared__ uint32_t tables[];  // radix > 16: [warps][radix / 4][32]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (t >= num_tiles) return;  // no block barrier follows
+  const int from = grs::plan_source(plan, pass);
+  if (t >= num_tiles || from < 0) return;  // no block barrier follows
+  const uint32_t* keys = from == 0 ? input : result;
 
   const uint32_t* src = keys + t * tile + 4 * lane;
   int32_t* out = hist + t * radix;
@@ -179,15 +188,20 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 // per tile: threads is 32 x the tiles of a block, at most 32 x 8.  tile is a
 // multiple of 128; radix a power of two from 2 to 256; above 16 the block
 // keeps threads / 32 x radix x 32 bytes in shared memory (64 KB at most).
-// Returns cudaGetLastError() after the launch.
+// plan: null, or a fused sort's pass plan on the device, of which entry
+// `pass` routes this launch; result is then the sort's result buffer, of
+// keys' length.  Returns cudaGetLastError() after the launch.
 extern "C" int grs_radix_hist(const void* keys, void* hist, int64_t num_tiles,
                               int tile, int threads, int shift, int radix,
+                              const void* plan, int pass, const void* result,
                               void* stream) {
   if (radix < 2 || radix > kMaxRadix || (radix & (radix - 1)) != 0 ||
       threads < 32 || threads % 32 != 0 || threads > 32 * kMaxWarps ||
-      tile <= 0 || tile % 128 != 0) {
+      tile <= 0 || tile % 128 != 0 || (plan != nullptr && (pass < 0 || result == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   (plan == nullptr || reinterpret_cast<uintptr_t>(result) % 16 == 0);
   const size_t smem = radix > kPackedRadix
                           ? static_cast<size_t>(threads / 32) * radix * 32
                           : 0;
@@ -201,9 +215,9 @@ extern "C" int grs_radix_hist(const void* keys, void* hist, int64_t num_tiles,
     const int64_t per_block = threads / 32;
     radix_hist_kernel<<<static_cast<unsigned>((num_tiles + per_block - 1) / per_block),
                         threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), static_cast<int32_t*>(hist),
-        num_tiles, tile, shift, radix,
-        reinterpret_cast<uintptr_t>(keys) % 16 == 0);
+        static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(result),
+        static_cast<const int32_t*>(plan), pass, static_cast<int32_t*>(hist),
+        num_tiles, tile, shift, radix, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

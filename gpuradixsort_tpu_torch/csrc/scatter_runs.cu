@@ -50,6 +50,12 @@
 //
 // Nothing can overflow; a destination outside [0, n) (possible only for an
 // inconsistent hist/offsets pair) is dropped, as JAX's mode="drop" drops it.
+//
+// In a fused sort the kernel follows the sort's pass plan (key_bits.cu): a
+// skipped pass returns at once and writes nothing.  Every pass that runs
+// writes the sort's result buffer, also where that buffer was the pass's
+// source: bucketize has read it into the bucketized tiles before this
+// launch.
 
 #include <climits>
 #include <cstdint>
@@ -136,13 +142,14 @@ template <int kBits>
 __global__ void __launch_bounds__(32 * kWarps)
     scatter_1k_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ idx,
                       const int32_t* __restrict__ hist, const int32_t* __restrict__ offsets,
+                      const int32_t* __restrict__ plan, int pass,
                       uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_idx,
                       int64_t num_tiles, int n, bool vec) {
   constexpr int kRadix = 1 << kBits;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (t >= num_tiles) return;  // no block barrier follows
+  if (t >= num_tiles || grs::plan_source(plan, pass) < 0) return;  // no block barrier follows
   const int h = lane < kRadix ? hist[t * kRadix + lane] : 0;
   const int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
   uint32_t k[kItems], v[kItems];
@@ -173,13 +180,14 @@ __global__ void __launch_bounds__(32 * kWarps)
 __global__ void __launch_bounds__(32 * kWarps)
     scatter_any_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ idx,
                        const int32_t* __restrict__ hist, const int32_t* __restrict__ offsets,
+                       const int32_t* __restrict__ plan, int pass,
                        uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_idx,
                        int64_t num_tiles, int tile, int radix, int n) {
   extern __shared__ int rows[];  // per warp: the run ends, then the deltas
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (t >= num_tiles) return;  // no block barrier follows
+  if (t >= num_tiles || grs::plan_source(plan, pass) < 0) return;  // no block barrier follows
 
   int* ends = rows + 2 * radix * warp;
   int* delta = ends + radix;
@@ -233,8 +241,9 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // One block per kWarps tiles.
 template <int kBits>
 cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, const int32_t* hist,
-                      const int32_t* offsets, uint32_t* out_keys, uint32_t* out_idx,
-                      int64_t num_tiles, int n, cudaStream_t stream) {
+                      const int32_t* offsets, const int32_t* plan, int pass,
+                      uint32_t* out_keys, uint32_t* out_idx, int64_t num_tiles, int n,
+                      cudaStream_t stream) {
   const auto kernel = scatter_1k_kernel<kBits>;
 #ifdef GRS_SCATTER_CP_ASYNC
   const size_t smem = static_cast<size_t>(kWarps) * 2 * kFastTile * sizeof(uint32_t);
@@ -247,7 +256,7 @@ cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, const int32_t* 
   const size_t smem = 0;
 #endif
   kernel<<<static_cast<unsigned>((num_tiles + kWarps - 1) / kWarps), 32 * kWarps, smem,
-           stream>>>(keys, idx, hist, offsets, out_keys, out_idx, num_tiles, n,
+           stream>>>(keys, idx, hist, offsets, plan, pass, out_keys, out_idx, num_tiles, n,
                      aligned16(keys) && aligned16(idx));
   return cudaSuccess;
 }
@@ -259,14 +268,17 @@ cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, const int32_t* 
 // 32, radix 1-256, and num_tiles * tile at most INT_MAX - tile (int32
 // destinations).  The 1,024-key tile at a power-of-two radix up to 16 takes
 // the register route; any other geometry keeps 8 * radix bytes a warp in
-// shared memory.  Returns cudaGetLastError() after the launch.
+// shared memory.  plan: null, or a fused sort's pass plan on the device, of
+// which entry `pass` says whether this launch runs.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int grs_scatter_runs(const void* keys, const void* idx,
                                 const void* hist, const void* offsets,
                                 void* out_keys, void* out_idx,
                                 int64_t num_tiles, int tile, int radix,
-                                void* stream) {
+                                const void* plan, int pass, void* stream) {
   if (radix < 1 || radix > kMaxRadix || tile <= 0 || tile % 32 != 0 || num_tiles < 0 ||
-      (num_tiles > 0 && num_tiles > (INT_MAX - tile) / tile)) {
+      (num_tiles > 0 && num_tiles > (INT_MAX - tile) / tile) ||
+      (plan != nullptr && pass < 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
@@ -276,20 +288,22 @@ extern "C" int grs_scatter_runs(const void* keys, const void* idx,
   const auto* o = static_cast<const int32_t*>(offsets);
   auto* ok = static_cast<uint32_t*>(out_keys);
   auto* ov = static_cast<uint32_t*>(out_idx);
+  const auto* pl = static_cast<const int32_t*>(plan);
   const auto s = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(num_tiles * tile);
   cudaError_t err = cudaSuccess;
   if (tile == kFastTile && radix <= kFastMaxRadix && (radix & (radix - 1)) == 0 && radix >= 2) {
     switch (__builtin_ctz(static_cast<unsigned>(radix))) {
-      case 1: err = launch_1k<1>(k, v, h, o, ok, ov, num_tiles, n, s); break;
-      case 2: err = launch_1k<2>(k, v, h, o, ok, ov, num_tiles, n, s); break;
-      case 3: err = launch_1k<3>(k, v, h, o, ok, ov, num_tiles, n, s); break;
-      default: err = launch_1k<4>(k, v, h, o, ok, ov, num_tiles, n, s); break;
+      case 1: err = launch_1k<1>(k, v, h, o, pl, pass, ok, ov, num_tiles, n, s); break;
+      case 2: err = launch_1k<2>(k, v, h, o, pl, pass, ok, ov, num_tiles, n, s); break;
+      case 3: err = launch_1k<3>(k, v, h, o, pl, pass, ok, ov, num_tiles, n, s); break;
+      default: err = launch_1k<4>(k, v, h, o, pl, pass, ok, ov, num_tiles, n, s); break;
     }
   } else {
     const size_t smem = static_cast<size_t>(kWarps) * 2 * radix * sizeof(int);
     scatter_any_kernel<<<static_cast<unsigned>((num_tiles + kWarps - 1) / kWarps),
-                         32 * kWarps, smem, s>>>(k, v, h, o, ok, ov, num_tiles, tile, radix, n);
+                         32 * kWarps, smem, s>>>(k, v, h, o, pl, pass, ok, ov, num_tiles, tile,
+                                                 radix, n);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -7,6 +7,13 @@ namespace grs {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
+// Where pass `pass` of a planned fused sort reads its keys (key_bits.cu
+// writes the plan): -1 skipped, 0 the sort's input, 1 its result buffer.
+// Without a plan (K1 on its own, compaction, the radix method), 0.
+__device__ __forceinline__ int plan_source(const int32_t* plan, int pass) {
+  return plan == nullptr ? 0 : plan[pass];
+}
+
 // The ballots of one digit per lane, one per digit bit (bits <= MaxBits), from
 // which any lane can find the lanes holding any digit: its own (the peers it
 // ranks among) and, in K2 and K4, the digit equal to its lane number (whose

@@ -19,7 +19,10 @@ from gpuradixsort_tpu_torch.kernels.radix import (
     MAX_SHARED_BYTES,
     WARP,
     check_keys,
+    check_plan,
+    data_ptr,
     digits_of,
+    planned_source,
 )
 
 BUCKETIZE_TILES_PER_BLOCK = 2
@@ -64,23 +67,39 @@ def bucketize_tiles(
     shift: int,
     cfg: EngineConfig,
     impl: str | None = None,
+    plan: torch.Tensor | None = None,
+    pass_index: int = 0,
+    result: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable-sort every tile by digit.  keys, idx: (num_tiles * tile,) uint32."""
+    """Stable-sort every tile by digit.  keys, idx: (num_tiles * tile,) uint32.
+
+    With ``plan`` the call is pass ``pass_index`` of a fused sort whose input
+    is (keys, idx) and whose result buffer is ``result``: the pass sorts the
+    pair the plan names, or, where the plan skips it, leaves the outputs
+    unwritten (zeros in the plain version).
+    """
     if cfg.radix > 16:
         raise ValueError("bucketize supports radix <= 16")
     num_tiles = check_keys("keys", keys, cfg)
     check_keys("idx", idx, cfg)
     if idx.numel() != keys.numel() or idx.device != keys.device:
         raise ValueError("keys and idx must have one length and one device")
+    if plan is not None:
+        check_plan(plan, pass_index, keys, result or (None,))
     if resolve_impl(keys, impl) == "reference":
-        return _bucketize_ref(keys, idx, shift, cfg)
+        source = planned_source(plan, pass_index, ((keys, idx), result))
+        if source is None:
+            return torch.zeros_like(keys), torch.zeros_like(idx)
+        return _bucketize_ref(*source, shift, cfg)
     threads, _ = bucketize_geometry(cfg)
     out_keys = torch.empty_like(keys)
     out_idx = torch.empty_like(idx)
+    result_keys, result_idx = result if plan is not None else (None, None)
     launch(
         "grs_bucketize", keys, keys.data_ptr(), idx.data_ptr(),
         out_keys.data_ptr(), out_idx.data_ptr(), num_tiles, cfg.tile,
-        threads, shift, cfg.radix,
+        threads, shift, cfg.radix, data_ptr(plan), pass_index, data_ptr(result_keys),
+        data_ptr(result_idx),
     )
     bucketize_tiles.launches += 1
     return out_keys, out_idx

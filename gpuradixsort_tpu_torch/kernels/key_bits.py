@@ -1,4 +1,4 @@
-"""The AND and the OR of every key: which bits of a key buffer vary.
+"""The AND and the OR of every key, and the fused sort's pass plan made from them.
 
 The fused sort's constant-digit skip (``ops/sort.py``).  The JAX package
 decides in every pass, on the device, whether the pass's digit has one value
@@ -6,18 +6,33 @@ over the whole padded buffer (a ``lax.cond`` in
 ``gpuradixsort_tpu/ops/sort.py::_fused_pass``); it has no Pallas kernel for
 it.  Passes only permute the keys, so the AND and the OR of the keys before
 the first pass answer it for every pass at once.  On a CUDA tensor
-``key_bits`` launches ``csrc/key_bits.cu``; on a CPU tensor it runs the plain
-version, which reduces one bit plane at a time (PyTorch has no bitwise
-reduction).
+``key_bits`` and ``pass_plan`` launch ``csrc/key_bits.cu``, which for a plan
+also turns the two words into the plan on the card; on a CPU tensor they run
+the plain versions, which reduce one bit plane at a time (PyTorch has no
+bitwise reduction) and build the plan on the host from ``pass_mask``.
+
+The plan is one int32 a pass: -1 where the pass is skipped, 0 for the first
+pass that runs (it reads the sort's input), 1 for each later one (it reads
+the sort's result buffer, which every pass that runs writes).  With no
+varying digit the last pass runs from the input: its digit is constant, so
+it copies the input into the result buffer.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gpuradixsort_tpu_torch.config import resolve_impl
+from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits, wrap_int32
 from gpuradixsort_tpu_torch.kernels._build import launch
+
+
+def _check_keys(keys: torch.Tensor) -> None:
+    if keys.dtype != torch.uint32 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError(
+            f"keys must be a contiguous 1-D torch.uint32 tensor, got {keys.dtype} of "
+            f"shape {tuple(keys.shape)}"
+        )
 
 
 def _key_bits_ref(keys: torch.Tensor) -> torch.Tensor:
@@ -35,17 +50,70 @@ def key_bits(keys: torch.Tensor, impl: str | None = None) -> torch.Tensor:
     ``keys``: a contiguous 1-D uint32 tensor of any length; an empty one
     gives all-ones and zero.
     """
-    if keys.dtype != torch.uint32 or keys.dim() != 1 or not keys.is_contiguous():
-        raise ValueError(
-            f"keys must be a contiguous 1-D torch.uint32 tensor, got {keys.dtype} of "
-            f"shape {tuple(keys.shape)}"
-        )
+    _check_keys(keys)
     if resolve_impl(keys, impl) == "reference":
         return _key_bits_ref(keys)
     out = torch.empty(2, dtype=torch.uint32, device=keys.device)
-    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), out.data_ptr())
+    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), out.data_ptr(), None, 0, 0,
+           None)
     key_bits.launches += 1
     return out
 
 
 key_bits.launches = 0
+
+
+def _mask_of(words: torch.Tensor, cfg: EngineConfig) -> int:
+    """The pass mask of the keys' AND and OR, read back to the host."""
+    all_bits, any_bits = (w & 0xFFFFFFFF for w in int32_bits(words).tolist())
+    varying = any_bits & ~all_bits  # 0 for an empty buffer, as no bucket is filled
+    return sum(1 << p for p in range(cfg.num_passes)
+               if (varying >> (p * cfg.radix_bits)) & (cfg.radix - 1))
+
+
+def pass_mask(keys: torch.Tensor, cfg: EngineConfig) -> int:
+    """Bit p set where pass p of a fused sort of the padded ``keys`` runs.
+
+    The JAX package skips pass p when the pass's histogram has one non-empty
+    bucket, pad keys included.  A pass keeps the multiset of the keys, so
+    that holds before the first pass exactly where digit p's bits agree in
+    the AND and the OR of every key.  The host counterpart of the plan: it
+    reads the two words back, which the sort itself never does.
+    """
+    return _mask_of(key_bits(keys), cfg)
+
+
+def plan_of_mask(mask: int, num_passes: int) -> list[int]:
+    """The pass plan of a pass mask, as ``csrc/key_bits.cu`` builds it on the card."""
+    plan, runs = [], 0
+    for p in range(num_passes):
+        run = (mask >> p) & 1
+        plan.append((1 if runs else 0) if run else -1)
+        runs += run
+    if not runs:
+        plan[-1] = 0  # the copy
+    return plan
+
+
+def pass_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
+              impl: str | None = None) -> torch.Tensor:
+    """(cfg.num_passes,) int32 on ``keys``' device: the pass plan of a fused sort of ``keys``.
+
+    Also adds the number of passes the JAX package would skip (the copy of
+    an all-constant buffer not counted as run) to ``skipped``, an int64 (1,)
+    counter on the same device.  On the card nothing is read back.
+    """
+    _check_keys(keys)
+    if skipped.dtype != torch.int64 or skipped.shape != (1,) or skipped.device != keys.device:
+        raise ValueError(f"skipped must be an int64 tensor of shape (1,) on {keys.device}")
+    if resolve_impl(keys, impl) == "reference":
+        mask = _mask_of(_key_bits_ref(keys), cfg)
+        skipped += cfg.num_passes - bin(mask).count("1")
+        return torch.tensor(plan_of_mask(mask, cfg.num_passes), dtype=torch.int32,
+                            device=keys.device)
+    words = torch.empty(2, dtype=torch.uint32, device=keys.device)
+    plan = torch.empty(cfg.num_passes, dtype=torch.int32, device=keys.device)
+    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), words.data_ptr(),
+           plan.data_ptr(), cfg.num_passes, cfg.radix_bits, skipped.data_ptr())
+    key_bits.launches += 1
+    return plan

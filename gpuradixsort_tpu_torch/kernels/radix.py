@@ -11,6 +11,12 @@ Buffers are 1-D: a tile is a contiguous stretch of ``cfg.tile`` keys, which
 is what the JAX package's row-major ``(rows, 128)`` view makes of it.  Tables
 are ``(num_tiles, radix)`` int32; the JAX package pads them to 128 lanes, so
 they equal its tables' first ``radix`` columns.
+
+In a fused sort, K1, K2 and K3 also take the sort's pass plan
+(``kernels/key_bits.py::pass_plan``, an int32 tensor on the keys' device)
+and a pass number: the plan says on the device whether the pass runs and
+where its keys are, so the host never reads it.  ``check_plan`` and
+``planned_source`` serve all three wrappers.
 """
 
 from __future__ import annotations
@@ -52,6 +58,42 @@ def check_keys(name: str, t: torch.Tensor, cfg: EngineConfig) -> int:
     return t.numel() // cfg.tile
 
 
+def check_plan(plan: torch.Tensor, pass_index: int, like: torch.Tensor, result) -> None:
+    """Check a fused sort's pass plan, a pass number and the sort's result buffers.
+
+    ``result``: the tensors of the result buffer, each shaped like ``like``.
+    """
+    if (plan.dtype != torch.int32 or plan.dim() != 1 or plan.device != like.device
+            or not 0 <= pass_index < plan.numel()):
+        raise ValueError(
+            f"plan must be a 1-D int32 tensor on {like.device} with an entry for pass "
+            f"{pass_index}, got {plan.dtype} of shape {tuple(plan.shape)} on {plan.device}"
+        )
+    for t in result:
+        if (t is None or t.dtype != like.dtype or t.shape != like.shape
+                or t.device != like.device or not t.is_contiguous()):
+            raise ValueError(f"a planned pass needs the sort's result buffer, contiguous "
+                             f"{like.dtype} of shape {tuple(like.shape)} on {like.device}")
+
+
+def planned_source(plan: torch.Tensor | None, pass_index: int, sources: tuple):
+    """The plain versions' routing: what pass ``pass_index`` reads, or None where it is skipped.
+
+    ``sources``: what the pass reads from the sort's input, then from its
+    result buffer.  Without a plan, the first.  Reads the plan back, as only
+    a plain version does.
+    """
+    if plan is None:
+        return sources[0]
+    where = int(plan[pass_index])
+    return None if where < 0 else sources[where]
+
+
+def data_ptr(t: torch.Tensor | None):
+    """``t``'s address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
 # Launch geometry of the kernels, checked again by their C entry points.
 WARP = 32
 MAX_SHARED_BYTES = 232_448  # shared memory one block may use on the H100
@@ -91,21 +133,33 @@ def _tile_histograms_ref(keys: torch.Tensor, shift: int, cfg: EngineConfig):
 
 
 def tile_histograms(
-    keys: torch.Tensor, shift: int, cfg: EngineConfig, impl: str | None = None
+    keys: torch.Tensor, shift: int, cfg: EngineConfig, impl: str | None = None,
+    plan: torch.Tensor | None = None, pass_index: int = 0, result: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-tile digit histograms.
 
     keys: (num_tiles * tile,) uint32.  Returns (num_tiles, radix) int32 with
     hist[t, r] = number of keys in tile t whose digit is r.
+
+    With ``plan`` the call is pass ``pass_index`` of a fused sort whose input
+    is ``keys`` and whose result buffer holds ``result`` as its keys: the
+    pass counts the keys the plan names, or, where the plan skips it, leaves
+    hist unwritten (zeros in the plain version).
     """
     num_tiles = check_keys("keys", keys, cfg)
+    if plan is not None:
+        check_plan(plan, pass_index, keys, (result,))
     if resolve_impl(keys, impl) == "reference":
-        return _tile_histograms_ref(keys, shift, cfg)
+        source = planned_source(plan, pass_index, (keys, result))
+        if source is None:
+            return torch.zeros((num_tiles, cfg.radix), dtype=torch.int32, device=keys.device)
+        return _tile_histograms_ref(source, shift, cfg)
     hist = torch.empty((num_tiles, cfg.radix), dtype=torch.int32, device=keys.device)
     threads, _ = hist_geometry(cfg)
     launch(
         "grs_radix_hist", keys, keys.data_ptr(), hist.data_ptr(), num_tiles,
-        cfg.tile, threads, shift, cfg.radix,
+        cfg.tile, threads, shift, cfg.radix, data_ptr(plan), pass_index,
+        data_ptr(result) if plan is not None else None,
     )
     tile_histograms.launches += 1
     return hist

@@ -21,7 +21,7 @@ import torch
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
-from gpuradixsort_tpu_torch.kernels.radix import check_keys
+from gpuradixsort_tpu_torch.kernels.radix import check_keys, check_plan, data_ptr, planned_source
 
 
 def _scatter_runs_ref(bk, bi, hist, offsets, cfg: EngineConfig):
@@ -53,12 +53,20 @@ def scatter_runs(
     offsets: torch.Tensor,
     cfg: EngineConfig,
     impl: str | None = None,
+    plan: torch.Tensor | None = None,
+    pass_index: int = 0,
+    result: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, bool]:
     """Scatter bucketized tiles to their global stable positions.
 
     bk, bi: (num_tiles * tile,) uint32, each tile digit-major.  hist,
     offsets: (num_tiles, radix) int32 per-tile counts and global offsets
     (``global_offsets``).  Returns (keys, indices, overflow=False).
+
+    With ``plan`` the call is pass ``pass_index`` of a fused sort: the pass
+    writes the sort's result buffer ``result`` (also where the pass read it:
+    bucketize has already copied it into bk, bi), or, where the plan skips
+    it, writes nothing; it returns ``result``.
     """
     num_tiles = check_keys("bk", bk, cfg)
     check_keys("bi", bi, cfg)
@@ -71,14 +79,20 @@ def scatter_runs(
             )
     if any(t.device != bk.device for t in (bi, hist, offsets)):
         raise ValueError("bk, bi, hist and offsets must be on one device")
+    if plan is not None:
+        check_plan(plan, pass_index, bk, result or (None,))
     if resolve_impl(bk, impl) == "reference":
-        return (*_scatter_runs_ref(bk, bi, hist, offsets, cfg), False)
-    out_keys = torch.empty_like(bk)
-    out_idx = torch.empty_like(bi)
+        if plan is None:
+            return (*_scatter_runs_ref(bk, bi, hist, offsets, cfg), False)
+        if planned_source(plan, pass_index, (bk, bi)) is not None:  # the pass runs
+            for dst, src in zip(result, _scatter_runs_ref(bk, bi, hist, offsets, cfg)):
+                dst.copy_(src)
+        return (*result, False)
+    out_keys, out_idx = result if plan is not None else (torch.empty_like(bk), torch.empty_like(bi))
     launch(
         "grs_scatter_runs", bk, bk.data_ptr(), bi.data_ptr(), hist.data_ptr(),
         offsets.data_ptr(), out_keys.data_ptr(), out_idx.data_ptr(), num_tiles,
-        cfg.tile, cfg.radix,
+        cfg.tile, cfg.radix, data_ptr(plan), pass_index,
     )
     scatter_runs.launches += 1
     return out_keys, out_idx, False

@@ -5,10 +5,9 @@ The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
 - ``"fused"``: ``cfg.num_passes`` passes, each one histogram kernel, the
   offsets scan, one bucketize kernel and one scatter kernel.  Takes 1-, 2-
   and 4-bit digits.  As the JAX package jits the whole sort and decides each
-  pass's constant-digit skip on the device, the port reads back once which
-  digits vary and then runs the passes without a host sync; on the card, a
-  shape that recurs, up to ``GRAPH_MAX_PADDED`` keys, as one cached CUDA
-  graph.
+  pass's constant-digit skip on the device, the port computes a pass plan
+  on the card from the keys' AND and OR (``kernels/key_bits.py``), which
+  the kernels read: a skipped pass's kernels exit at once.
 - ``"radix"``: ``cfg.num_passes`` passes, each one histogram kernel, the
   offsets scan, one destination kernel and one indexed store per column
   (``permute.scatter_by_destination``).  Takes digits up to 8 bits, and has
@@ -18,6 +17,11 @@ The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
   the JAX package's result wherever its ``"auto"`` sorts.
 - ``"torch"``: the library baseline, ``torch.sort(stable=True)``, standing
   where the JAX package's ``lax.sort`` method stands.  Never the main path.
+
+The fused and radix methods run with no host sync inside a sort, as the JAX
+package jits each as one program, and on the card a shape that recurs, up
+to ``GRAPH_MAX_PADDED`` padded keys, replays one cached CUDA graph
+(``_dispatch``).
 
 On CUDA tensors every pass runs the CUDA kernels; on CPU tensors their plain
 versions.  Nothing but ``"torch"`` calls ``torch.sort``.
@@ -29,6 +33,7 @@ fall-back here.
 
 from __future__ import annotations
 
+import functools
 from collections import OrderedDict
 
 import torch
@@ -44,7 +49,7 @@ from gpuradixsort_tpu_torch.core.table import (
 )
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
-from gpuradixsort_tpu_torch.kernels.key_bits import key_bits
+from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_plan
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
 from gpuradixsort_tpu_torch.ops.permute import gather_rows, scatter_by_destination
@@ -52,75 +57,106 @@ from gpuradixsort_tpu_torch.ops.permute import gather_rows, scatter_by_destinati
 METHODS = ("auto", "fused", "torch", "radix")
 
 
-def _pass_mask(keys: torch.Tensor, cfg: EngineConfig) -> int:
-    """Bit p set where pass p runs: where digit p varies over the padded buffer.
+def _fused_passes(keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig,
+                  skipped: torch.Tensor):
+    """The fused sort with no host sync: the pass plan, then every pass as it routes.
 
-    The JAX package skips pass p when the pass's histogram has one non-empty
-    bucket, pad keys included.  A pass keeps the multiset of the keys, so
-    that holds before the first pass exactly where digit p's bits agree in
-    the AND and the OR of every key (``key_bits``).  Reading those 8 bytes
-    back is the fused sort's one host sync.
+    ``pass_plan`` decides on the device which passes run, as the JAX package's
+    per-pass ``lax.cond`` does, and adds the skipped ones to ``skipped``.
+    Each pass launches K1, the offsets scan, K2 and K3; in a skipped pass
+    each kernel exits at once, so the pass moves no key.  The first pass
+    that runs reads ``keys`` and ``idx``, which are never written; every pass
+    that runs writes the result buffer, which the later ones read.  Returns
+    the result buffer (keys, idx).
     """
-    all_bits, any_bits = (w & 0xFFFFFFFF for w in int32_bits(key_bits(keys)).tolist())
-    varying = any_bits & ~all_bits  # 0 for an empty buffer, as no bucket is filled
-    return sum(1 << p for p in range(cfg.num_passes)
-               if (varying >> (p * cfg.radix_bits)) & (cfg.radix - 1))
-
-
-def _fused_passes(keys: torch.Tensor, idx: torch.Tensor, mask: int, cfg: EngineConfig):
-    """The passes of ``mask``, one after another, with no host sync: the eager loop.
-
-    Each pass: histogram -> offsets -> bucketize -> scatter.  The skip is
-    decided on the host, not by a flag on the card read by K2 and K3: a
-    skipped pass must hand back its input, so K3 would still copy its 16
-    bytes a key.  Returns (keys, idx).
-    """
+    plan = pass_plan(keys, cfg, skipped)
+    result = torch.empty_like(keys), torch.empty_like(idx)
     for p in range(cfg.num_passes):
-        if (mask >> p) & 1:
-            shift = p * cfg.radix_bits
-            hist = radix_kernels.tile_histograms(keys, shift, cfg)
-            offsets = radix_kernels.global_offsets(hist)
-            bk, bi = bucketize_tiles(keys, idx, shift, cfg)
-            keys, idx, _ = scatter_runs(bk, bi, hist, offsets, cfg)
-    return keys, idx
+        shift = p * cfg.radix_bits
+        hist = radix_kernels.tile_histograms(keys, shift, cfg, plan=plan, pass_index=p,
+                                             result=result[0])
+        # In a skipped pass this scans an unwritten histogram, which is
+        # harmless: the scan's look-back words are cleared at every call, and
+        # no kernel reads the offsets.
+        offsets = radix_kernels.global_offsets(hist)
+        bk, bi = bucketize_tiles(keys, idx, shift, cfg, plan=plan, pass_index=p, result=result)
+        scatter_runs(bk, bi, hist, offsets, cfg, plan=plan, pass_index=p, result=result)
+    return result
 
 
-# Padded lengths up to this run the fused sort's passes as one CUDA graph
-# once the shape recurs, longer ones by the eager loop.  On an H100 (700 W),
-# by CUDA events in chip_smoke.py phase 5, the graph with its copies in and
-# out against the eager loop: 0.570 / 1.661 ms at 1M keys, 0.853 / 2.345 at
-# 2^22, 1.470 / 1.906 at 2^23, 2.705 / 3.093 at 2^24, and 4.995 / 4.804 at
-# 2^25, where the copies (32 bytes a key) cost more than the host time the
-# eager loop hides behind the card.
+def _radix_pass(keys: torch.Tensor, carried: tuple, shift: int,
+                cfg: EngineConfig) -> tuple[torch.Tensor, tuple]:
+    """One stable counting pass on digit (keys >> shift) & (radix - 1).
+
+    keys: (padded,) uint32; carried: tensors of the same rows, permuted
+    alongside.  Returns (keys, carried) reordered by the digit, stably.
+    """
+    hist = radix_kernels.tile_histograms(keys, shift, cfg)
+    offsets = radix_kernels.global_offsets(hist)
+    dest = radix_kernels.tile_destinations(keys, offsets, shift, cfg)
+    out = scatter_by_destination(dest, [keys, *carried])
+    return out[0], tuple(out[1:])
+
+
+def _radix_passes(keys: torch.Tensor, *carried: torch.Tensor, cfg: EngineConfig) -> tuple:
+    """The radix method's passes, with no host sync; returns (keys, *carried)."""
+    for p in range(cfg.num_passes):
+        keys, carried = _radix_pass(keys, carried, p * cfg.radix_bits, cfg)
+    return (keys, *carried)
+
+
+# Padded lengths up to this run a sort's passes as one CUDA graph once the
+# shape recurs, longer ones eagerly.  On an H100 (700 W), by CUDA events in
+# chip_smoke.py phase 5 (four rounds, PERF.md section 5), the graph with its
+# copies in and out against the eager passes, random keys: fused 0.36-0.51
+# / 1.53-2.80 ms at 1M keys, 1.34-1.56 / 1.78-3.39 at 2^23, 1.95-2.02 /
+# 1.88-2.27 at 12M, 2.54-2.57 / 2.40-2.57 at 2^24, 4.84-5.03 / 4.56-4.83 at
+# 2^25; radix 0.64-0.78 / 2.46-4.10 at 1M, 4.35-4.66 / 4.56-4.88 at 12M,
+# 6.01-6.13 / 5.78-6.21 at 2^24.  With no host sync in a sort, the eager
+# passes hide their host time behind the card from about 12M keys on, where
+# the graph's copies (32 bytes a key) cost about what the graph saves: at
+# 2^24 the eager passes won 3 of 4 rounds by each method, by at most 0.16
+# ms (fused, 6 percent) and 0.26 (radix, 4 percent).  The data alone would
+# put the limit near 12M.  It stays at 2^24 on purpose until a benchmark
+# cell with recurring shapes settles the crossover.
 GRAPH_MAX_PADDED = 1 << 24
-# Graphs kept at most.  None is dropped to make room: once the cache is
-# full, shapes not in it run the eager loop until clear_sort_graphs(), so
-# traffic over more recurring shapes than this captures no more than this
-# many times.  A graph holds about 32 bytes a padded key (536 MiB at 2^24),
-# so the cache at most 4.2 GiB; chip_smoke.py's operator timings recur on
-# 3 shapes, whose graphs hold 1.2 GiB.
+# A graph's inputs, the keys and every carried column, hold at most
+# GRAPH_MAX_PADDED rows of this many bytes (a key and its index), so that a
+# radix sort carrying wide columns graphs only a shorter buffer.
+_GRAPH_ROW_BYTES = 8
+# Graphs kept at most, of both methods.  None is dropped to make room: once
+# the cache is full, shapes not in it run eagerly until clear_sort_graphs(),
+# so traffic over more recurring shapes than this captures no more than
+# this many times.  A graph holds its inputs, outputs and intermediates:
+# on an H100, in chip_smoke.py phase 5, 536 MiB for a fused graph at 2^24
+# (32 bytes a padded key) and 598 MiB for a radix graph carrying the index,
+# about 4.7 times its inputs' bytes.  At that ratio the byte limit above
+# holds the cache to about 4.7 GiB; a radix graph carrying wider rows than
+# the index has not been measured.
 GRAPH_CACHE_ENTRIES = 8
 # Shapes seen once and remembered, so that a second sighting captures; the
 # least recently seen is forgotten first.
 _SEEN_ENTRIES = 1024
-# The wrappers the passes call: a replay adds its capture's launches to them.
-_PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_tiles, scatter_runs, exclusive_scan)
+# The wrappers the sorts call: a replay adds its capture's launches to them.
+_PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_tiles, scatter_runs, exclusive_scan,
+                  key_bits, radix_kernels.tile_destinations)
 
 
 class _SortGraph:
-    """The passes of one (device, padded length, cfg, mask) as one CUDA graph.
+    """One sort method's passes on one shape as one CUDA graph.
 
-    Holds static input buffers, the outputs of the capture in the graph's
-    private memory pool (with every intermediate of the passes), the
-    launches each wrapper made during the capture, and an event after the
-    last call's copies out, so that calls on different streams take turns.
+    ``run(*inputs)`` is captured once on static copies of the inputs, its
+    outputs and every intermediate in the graph's private memory pool.
+    Holds the launches each wrapper made during the capture, and an event
+    after the last call's copies out, so that calls on different streams
+    take turns.
     """
 
-    def __init__(self, keys: torch.Tensor, idx: torch.Tensor, mask: int, cfg: EngineConfig):
-        # The shape's first sighting ran the eager loop: that is the warm-up
+    def __init__(self, run, inputs: tuple):
+        # The shape's first sighting ran eagerly: that is the warm-up
         # PyTorch asks for before a capture, as every kernel has launched.
-        dev = keys.device
-        self.keys, self.idx = keys.clone(), idx.clone()
+        dev = inputs[0].device
+        self.inputs = tuple(t.clone() for t in inputs)
         self.graph = torch.cuda.CUDAGraph()
         self.done = torch.cuda.Event()
         self.replays = 0
@@ -133,7 +169,7 @@ class _SortGraph:
             with torch.cuda.stream(side):
                 self.graph.capture_begin()
                 try:
-                    self.out = _fused_passes(self.keys, self.idx, mask, cfg)
+                    self.out = tuple(run(*self.inputs))
                 finally:
                     self.graph.capture_end()
             self.launches = [w.launches - n for w, n in zip(_PASS_WRAPPERS, before)]
@@ -142,14 +178,14 @@ class _SortGraph:
                 w.launches = n  # a capture runs nothing
         torch.cuda.current_stream(dev).wait_stream(side)
 
-    def __call__(self, keys: torch.Tensor, idx: torch.Tensor):
+    def __call__(self, *inputs: torch.Tensor) -> tuple:
         """Copy the inputs in, replay, and return copies of the outputs."""
-        stream = torch.cuda.current_stream(self.keys.device)
+        stream = torch.cuda.current_stream(self.inputs[0].device)
         stream.wait_event(self.done)  # the last call, on any stream, has copied out
-        self.keys.copy_(keys)
-        self.idx.copy_(idx)
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
         self.graph.replay()
-        out = self.out[0].clone(), self.out[1].clone()
+        out = tuple(t.clone() for t in self.out)
         self.done.record(stream)
         self.replays += 1
         for w, n in zip(_PASS_WRAPPERS, self.launches):
@@ -172,15 +208,33 @@ def clear_sort_graphs() -> None:
     _SEEN.clear()
 
 
-def _graphed_passes(keys: torch.Tensor, idx: torch.Tensor, mask: int, cfg: EngineConfig):
-    """The passes of ``mask`` on a CUDA buffer, by a cached graph where the shape recurs.
+def graph_key(method: str, inputs: tuple, cfg: EngineConfig) -> tuple:
+    """A sort's key in the graph cache: (device, padded length, cfg, method, carried).
 
-    The first call of a (device, padded length, cfg, mask) runs the eager
-    loop; the next one captures a graph, if the cache has room, and every
-    later one replays it.  A failed capture raises; nothing falls back to
-    the eager loop.
+    ``inputs``: the keys, then the columns carried with them, whose dtypes
+    and row shapes stand where the JAX package's jit keys on
+    ``num_carried``.  Nothing that depends on the keys' values enters it.
     """
-    key = (keys.device, keys.numel(), cfg, mask)
+    keys, *carried = inputs
+    return (keys.device, keys.numel(), cfg, method,
+            tuple((c.dtype, tuple(c.shape[1:])) for c in carried))
+
+
+def _dispatch(method: str, run, inputs: tuple, cfg: EngineConfig) -> tuple:
+    """``run(*inputs)``, by a cached CUDA graph where a CUDA shape recurs.
+
+    On a CUDA buffer of at most ``GRAPH_MAX_PADDED`` keys, whose inputs
+    hold at most ``GRAPH_MAX_PADDED * _GRAPH_ROW_BYTES`` bytes, the first
+    call of a ``graph_key`` runs eagerly; the next one captures a graph, if
+    the cache has room, and every later one replays it.  Longer or wider
+    buffers and CPU tensors run eagerly.  A failed capture raises; nothing
+    falls back.
+    """
+    keys = inputs[0]
+    if (not keys.is_cuda or keys.numel() > GRAPH_MAX_PADDED
+            or sum(t.nbytes for t in inputs) > GRAPH_MAX_PADDED * _GRAPH_ROW_BYTES):
+        return run(*inputs)
+    key = graph_key(method, inputs, cfg)
     graph = _SORT_GRAPHS.get(key)
     if graph is None:
         if key not in _SEEN or len(_SORT_GRAPHS) >= GRAPH_CACHE_ENTRIES:
@@ -188,64 +242,64 @@ def _graphed_passes(keys: torch.Tensor, idx: torch.Tensor, mask: int, cfg: Engin
             _SEEN.move_to_end(key)
             if len(_SEEN) > _SEEN_ENTRIES:
                 _SEEN.popitem(last=False)
-            return _fused_passes(keys, idx, mask, cfg)
+            return run(*inputs)
         with torch.cuda.device(keys.device):
-            graph = _SortGraph(keys, idx, mask, cfg)
+            graph = _SortGraph(run, inputs)
         _SORT_GRAPHS[key] = graph
         del _SEEN[key]
-    return graph(keys, idx)
+    return graph(*inputs)
+
+
+# Passes the fused sorts skipped: one int64 counter on each device, to which
+# the plan kernel adds, read only by skipped_passes().
+_SKIPPED: dict = {}
+
+
+def _skip_counter(device: torch.device) -> torch.Tensor:
+    if device not in _SKIPPED:
+        _SKIPPED[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _SKIPPED[device]
+
+
+def skipped_passes() -> int:
+    """Passes every fused sort so far skipped, on every device: constant digits.
+
+    Reads the counters back, a host sync: call it after the sorts, not
+    between them.
+    """
+    return sum(int(c.item()) for c in _SKIPPED.values())
 
 
 def _fused_sort_padded(keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig):
     """Stable (key, index) sort of padded 1-D uint32 buffers.
 
-    One readback decides which passes run (``_pass_mask``); they then run
-    with no host sync: on a CUDA buffer of at most ``GRAPH_MAX_PADDED`` keys
-    by ``_graphed_passes``, else by the eager loop.  Returns (keys, idx,
-    overflow); overflow is always False (no window).  Adds the number of
-    skipped passes to ``_fused_sort_padded.skipped_passes``.
+    One program on the card, as the JAX package's jit makes it: the pass
+    plan and the passes, with no host sync (``_fused_passes``), by a cached
+    graph where a CUDA shape recurs (``_dispatch``).  Returns new buffers
+    (keys, idx, overflow); overflow is always False (no window).
     """
     radix_kernels.check_keys("keys", keys, cfg)
     radix_kernels.check_keys("idx", idx, cfg)
     if idx.numel() != keys.numel() or idx.device != keys.device:
         raise ValueError("keys and idx must have one length and one device")
-    mask = _pass_mask(keys, cfg)
-    _fused_sort_padded.skipped_passes += cfg.num_passes - bin(mask).count("1")
-    if mask and keys.is_cuda and keys.numel() <= GRAPH_MAX_PADDED:
-        keys, idx = _graphed_passes(keys, idx, mask, cfg)
-    else:
-        keys, idx = _fused_passes(keys, idx, mask, cfg)
+    run = functools.partial(_fused_passes, cfg=cfg, skipped=_skip_counter(keys.device))
+    keys, idx = _dispatch("fused", run, (keys, idx), cfg)
     return keys, idx, False
-
-
-_fused_sort_padded.skipped_passes = 0
-
-
-def _radix_pass(keys: torch.Tensor, carried: tuple, shift: int,
-                cfg: EngineConfig) -> tuple[torch.Tensor, tuple]:
-    """One stable counting pass on digit (keys >> shift) & (radix - 1).
-
-    keys: (padded,) uint32; carried: tensors of the same rows, permuted
-    alongside.  Returns (keys, carried) reordered by the digit, stably.
-    """
-    hist = radix_kernels.tile_histograms(keys, shift, cfg)
-    offsets = radix_kernels.global_offsets(hist)
-    dest = radix_kernels.tile_destinations(keys, offsets, shift, cfg)
-    out = scatter_by_destination(dest, [keys, *carried])
-    return out[0], tuple(out[1:])
 
 
 def _sort_padded(keys: torch.Tensor, carried: tuple,
                  cfg: EngineConfig) -> tuple[torch.Tensor, tuple]:
     """The radix method: stable sort of padded keys, carrying other columns.
 
-    The JAX package's ``strategy`` picks how a TPU applies the permutation
-    and its ``num_carried`` keys its jit cache; neither means anything on
-    the GPU, so the port takes neither.
+    Its passes run with no host sync, by a cached graph where a CUDA shape
+    recurs (``_dispatch``), as the JAX package jits them keyed on ``cfg``
+    and ``num_carried``.  The JAX package's ``strategy`` picks how a TPU
+    applies the permutation; it means nothing on the GPU, so the port takes
+    none.
     """
-    for p in range(cfg.num_passes):
-        keys, carried = _radix_pass(keys, carried, p * cfg.radix_bits, cfg)
-    return keys, carried
+    keys, *carried = _dispatch("radix", functools.partial(_radix_passes, cfg=cfg),
+                               (keys, *carried), cfg)
+    return keys, tuple(carried)
 
 
 def _torch_sort_padded(keys: torch.Tensor, idx: torch.Tensor):

@@ -5,7 +5,8 @@
 
 ``DIR`` holds an older copy of ``gpuradixsort_tpu_torch/csrc/scatter_runs.cu``
 (and, if wanted, the rest of that ``csrc/``) whose ``grs_scatter_runs`` has
-today's C signature, such as the one-block-a-tile design of commit 17e53c9.
+the C signature from before the fused sort's pass plan, such as the
+one-block-a-tile design of commit 17e53c9.
 Both builds are made with nvcc for sm_90a; the older one goes to
 ``build/kernels_old/``.  On one CUDA card, old and new take turns (old, new,
 new, old) in:
@@ -23,7 +24,9 @@ new, old) in:
    keeping key < 2^31 (a 100M padded buffer, as the smoke's phase 6 sorts).
    ``sort_pairs`` with ``GRAPH_MAX_PADDED`` patched to 0, so that its passes
    run by the eager loop: a cached CUDA graph would replay the K3 it
-   captured first on both sides.
+   captured first on both sides.  The old K3 knows no pass plan and runs
+   every pass it is called for, so both inputs are checked to have every
+   digit varying, where the plan runs every pass too.
 
 ``--ptxas`` prints nvcc's register and spill report of both builds' K3 and
 of the new one's cp.async route.  ``--sweep`` first times builds of
@@ -54,6 +57,7 @@ from gpuradixsort_tpu_torch.core.table import Table, int32_bits, make_key_column
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
+from gpuradixsort_tpu_torch.kernels.key_bits import pass_mask
 from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.filter import filter_table
@@ -85,18 +89,26 @@ def log(msg: str) -> None:
 
 
 class ScatterBuild:
-    """``grs_scatter_runs`` of one build, behind ``scatter_runs``' signature."""
+    """``grs_scatter_runs`` of one build, behind ``scatter_runs``' signature.
 
-    def __init__(self, path: pathlib.Path):
+    ``planned``: the build takes the fused sort's pass plan, as this tree's
+    source does.  An older build does not: it writes the result buffer in
+    every pass it is called for.
+    """
+
+    def __init__(self, path: pathlib.Path, planned: bool):
         self.fn = ctypes.CDLL(str(path)).grs_scatter_runs
-        self.fn.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P]
+        self.fn.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I, _I, *([_P, _I] * planned), _P]
         self.fn.restype = ctypes.c_int
+        self.planned = planned
 
-    def __call__(self, bk, bi, hist, offsets, cfg, impl=None):
-        out_keys, out_idx = torch.empty_like(bk), torch.empty_like(bi)
+    def __call__(self, bk, bi, hist, offsets, cfg, impl=None, plan=None, pass_index=0,
+                 result=None):
+        out_keys, out_idx = result or (torch.empty_like(bk), torch.empty_like(bi))
+        route = [rk.data_ptr(plan), pass_index] if self.planned else []
         err = self.fn(bk.data_ptr(), bi.data_ptr(), hist.data_ptr(), offsets.data_ptr(),
                       out_keys.data_ptr(), out_idx.data_ptr(), bk.numel() // cfg.tile,
-                      cfg.tile, cfg.radix, torch.cuda.current_stream().cuda_stream)
+                      cfg.tile, cfg.radix, *route, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"grs_scatter_runs: CUDA error {err}")
         return out_keys, out_idx, False
@@ -192,7 +204,7 @@ def sweep(rng, results: dict) -> None:
             for name in SWEEP}
     _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, *SWEEP[name], "-shared", "-o",
                       str(libs[name]), str(SOURCE)] for name in SWEEP])
-    builds = {name: ScatterBuild(path) for name, path in libs.items()}
+    builds = {name: ScatterBuild(path, planned=True) for name, path in libs.items()}
     cfg = EngineConfig()
     for label, n in SIZES.items():
         bk, bi, hist, offsets = pass_input(rng, n, cfg)
@@ -224,6 +236,9 @@ def ab_sorts(old: ScatterBuild, rng, results: dict) -> None:
                                           cfg)})
     kept = filter_table(fkeys, lambda t: int32_bits(t["key"].data) >= 0, cfg).to_table()["key"]
     del fkeys
+    for keys in (col.data, sort_ops._as_key_column(kept, cfg).data):
+        if pass_mask(keys, cfg) != (1 << cfg.num_passes) - 1:
+            raise SystemExit("an A/B input has a constant digit, which the old K3 cannot skip")
     torch.cuda.synchronize()
     cases = {
         "sort_pairs fused 2^24 (eager loop)": lambda: sort_pairs(col, cfg, method="fused"),
@@ -266,7 +281,7 @@ def main() -> int:
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
     _build.library()
-    old = ScatterBuild(_build.build(args.old, OLD_BUILD))
+    old = ScatterBuild(_build.build(args.old, OLD_BUILD), planned=False)
     if args.ptxas:
         ptxas_report(SOURCE, "new scatter_runs.cu")
         ptxas_report(SOURCE, "new scatter_runs.cu, cp.async route", ["-DGRS_SCATTER_CP_ASYNC"])

@@ -361,11 +361,28 @@ def _sort_input(gen, card, n, high):
     return col.data, tsort._index_column(col)
 
 
+def _graphed_passes(keys, idx, cfg=CFG):
+    """The fused sort of padded buffers as the graph cache dispatches it."""
+    return tsort._fused_sort_padded(keys, idx, cfg)[:2]
+
+
+def _eager_passes(keys, idx, cfg=CFG):
+    """The fused sort's eager loop on padded buffers."""
+    return tsort._fused_passes(keys, idx, cfg, tsort._skip_counter(keys.device))
+
+
+def _stable_sort(keys, idx):
+    """(keys, idx) by torch.sort(stable=True) of the keys widened to int64."""
+    order = torch.sort(int32_bits(keys).to(torch.int64) & 0xFFFFFFFF, stable=True).indices
+    return int32_bits(keys)[order], int32_bits(idx)[order]
+
+
 def test_graphed_passes_match_eager(card, gen):
-    # Two shapes and two pass masks (every pass, and passes 0-2 of keys
-    # below 2^12), four calls each with new inputs: the first sighting runs
-    # the eager loop, the second captures, the next two replay.  The output
-    # of the capturing call, held, is not changed by the replays.
+    # Two shapes, each with keys whose digits all vary and keys below 2^12
+    # (passes 0-2 run), four calls each with new inputs: the shape's first
+    # sighting runs the eager loop, the second captures, every later one
+    # replays, whatever digits vary.  The output of the capturing call,
+    # held, is not changed by the replays.
     tsort.clear_sort_graphs()
     masks = set()
     for n in (2 * CFG.block, 5 * CFG.block):
@@ -373,17 +390,55 @@ def test_graphed_passes_match_eager(card, gen):
             held = None
             for call in range(4):
                 keys, idx = _sort_input(gen, card, n, high)
-                mask = tsort._pass_mask(keys, CFG)
-                got = tsort._graphed_passes(keys, idx, mask, CFG)
+                got = _graphed_passes(keys, idx)
                 assert all(_same(g, w) for g, w in
-                           zip(got, tsort._fused_passes(keys, idx, mask, CFG))), (n, high, call)
-                if call == 1:
+                           zip(got, _eager_passes(keys, idx))), (n, high, call)
+                if high == 2**32 and call == 1:
                     held = (got, [g.clone() for g in got])
-            masks.add(mask)
-            assert all(_same(a, b) for a, b in zip(*held)), (n, high)
+                masks.add(tkey_bits.pass_mask(keys, CFG))
+            if held:
+                assert all(_same(a, b) for a, b in zip(*held)), n
     assert masks == {0xFF, 0b111}
-    assert len(tsort._SORT_GRAPHS) == 4
-    assert [g.replays for g in tsort._SORT_GRAPHS.values()] == [3, 3, 3, 3]
+    assert len(tsort._SORT_GRAPHS) == 2
+    assert [g.replays for g in tsort._SORT_GRAPHS.values()] == [7, 7]
+    tsort.clear_sort_graphs()
+
+
+def test_one_graph_serves_every_varying_digit(card, gen):
+    # One padded length, keys whose varying digits differ from call to
+    # call (all, passes 0-2, the top two constant, one middle digit, none):
+    # one graph, captured at the second call, serves them all.
+    n = 3 * CFG.block
+    tsort.clear_sort_graphs()
+    sets = [gen.integers(0, 2**32, n, dtype=np.uint32), gen.integers(0, 2**12, n, dtype=np.uint32),
+            gen.integers(0, 2**24, n, dtype=np.uint32),
+            (gen.integers(0, 16, n, dtype=np.uint32) << np.uint32(12)) | np.uint32(0xAB000123),
+            np.full(n, 0xDEADBEEF, dtype=np.uint32)]
+    masks = []
+    for keys_np in sets + sets[:2]:
+        keys = torch.from_numpy(keys_np).to(card)
+        idx = torch.arange(n, dtype=torch.int32, device=card).view(torch.uint32)
+        masks.append(tkey_bits.pass_mask(keys, CFG))
+        got = _graphed_passes(keys, idx)
+        assert all(_same(g, w) for g, w in zip(got, _stable_sort(keys, idx))), hex(masks[-1])
+        assert _same(keys.cpu(), torch.from_numpy(keys_np))  # the input is not written
+    assert masks[:5] == [0xFF, 0b111, 0x3F, 0b1000, 0]
+    assert len(tsort._SORT_GRAPHS) == 1
+    assert next(iter(tsort._SORT_GRAPHS.values())).replays == len(masks) - 1
+    tsort.clear_sort_graphs()
+
+
+def test_skipped_passes_are_counted_on_the_card(card, gen):
+    # The plan kernel adds each sort's skipped passes to the device counter,
+    # in the eager loop and in every replay.
+    tsort.clear_sort_graphs()
+    keys, idx = _sort_input(gen, card, 2 * CFG.block - 5, 2**12)  # with PAD_KEY every digit varies
+    flat = torch.from_numpy(gen.integers(0, 2**12, 2 * CFG.block, dtype=np.uint32)).to(card)
+    before = tsort.skipped_passes()
+    for _ in range(3):
+        _graphed_passes(keys, idx)
+        _graphed_passes(flat, idx)  # passes 3-7 constant
+    assert tsort.skipped_passes() - before == 3 * 5
     tsort.clear_sort_graphs()
 
 
@@ -394,9 +449,8 @@ def test_full_graph_cache_runs_the_eager_loop(card, gen, monkeypatch):
     tsort.clear_sort_graphs()
     first, second = (_sort_input(gen, card, n, 2**32) for n in (2 * CFG.block, 3 * CFG.block))
     for keys, idx in (first, first, second, second, second):
-        mask = tsort._pass_mask(keys, CFG)
-        got = tsort._graphed_passes(keys, idx, mask, CFG)
-        assert all(_same(g, w) for g, w in zip(got, tsort._fused_passes(keys, idx, mask, CFG)))
+        got = _graphed_passes(keys, idx)
+        assert all(_same(g, w) for g, w in zip(got, _eager_passes(keys, idx)))
     assert [key[1] for key in tsort._SORT_GRAPHS] == [first[0].numel()]
     tsort.clear_sort_graphs()
     assert not tsort._SORT_GRAPHS and not tsort._SEEN
@@ -425,18 +479,87 @@ def test_launch_counts_stay_true_under_replay(card, gen):
 
 def test_eager_loop_and_replay_make_no_host_sync(card, gen):
     keys, idx = _sort_input(gen, card, 3 * CFG.block, 2**32)
-    mask = tsort._pass_mask(keys, CFG)
     tsort.clear_sort_graphs()
-    tsort._graphed_passes(keys, idx, mask, CFG)  # first sighting: the eager loop
-    tsort._graphed_passes(keys, idx, mask, CFG)  # the capture
+    _graphed_passes(keys, idx)  # first sighting: the eager loop
+    _graphed_passes(keys, idx)  # the capture
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        eager = tsort._fused_passes(keys, idx, mask, CFG)
-        graphed = tsort._graphed_passes(keys, idx, mask, CFG)
+        eager = _eager_passes(keys, idx)
+        graphed = _graphed_passes(keys, idx)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(_same(g, e) for g, e in zip(graphed, eager))
+    tsort.clear_sort_graphs()
+
+
+@pytest.mark.parametrize("method", ["fused", "radix"])
+def test_public_sorts_make_no_host_sync(method, card, gen):
+    # sort_pairs of a column on the card, at a shape's first sighting (the
+    # eager passes) and at a replay, under sync debug mode "error"; the
+    # capture, between them, may sync.
+    col = make_key_column(gen.integers(0, 2**32, 3 * CFG.block - 5, dtype=np.uint32), CFG,
+                          device=card)
+    tsort.clear_sort_graphs()
+    out = []
+    for call in ("first sighting", "capture", "replay"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("default" if call == "capture" else "error")
+        try:
+            out.append(tsort.sort_pairs(col, CFG, method=method))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    want = tsort.sort_pairs(col.data.cpu().numpy()[:col.length], CFG, method=method,
+                            device="cpu")
+    for pair in out:
+        assert all(_same(g.data.cpu(), w.data) for g, w in zip(pair, want))
+    assert sum(g.replays for g in tsort._SORT_GRAPHS.values()) == 2
+    tsort.clear_sort_graphs()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_radix_replay_matches_eager_and_plain(bits, card, gen):
+    # The radix method carrying the index and a 2-D column: its first
+    # sighting (eager), its capture and two replays equal the plain version;
+    # one graph per carried layout.
+    cfg = EngineConfig(radix_bits=bits)
+    n = 4 * cfg.block
+    tsort.clear_sort_graphs()
+    extra = torch.from_numpy(gen.integers(-(2**31), 2**31, (n, 3)).astype(np.int32))
+    for call in range(4):
+        keys_np = gen.integers(0, 2**32, n, dtype=np.uint32)
+        keys = torch.from_numpy(keys_np)
+        idx = torch.arange(n, dtype=torch.int32).view(torch.uint32)
+        want = tsort._sort_padded(keys, (idx, extra), cfg)
+        got = tsort._sort_padded(keys.to(card), (idx.to(card), extra.to(card)), cfg)
+        assert _same(got[0].cpu(), want[0]), call
+        assert all(_same(g.cpu(), w) for g, w in zip(got[1], want[1])), call
+        keys_only = tsort._sort_padded(keys.to(card), (), cfg)
+        assert _same(keys_only[0].cpu(), want[0]) and keys_only[1] == ()
+    assert {key[4] for key in tsort._SORT_GRAPHS} == {
+        ((torch.uint32, ()), (torch.int32, (3,))), ()}
+    assert [g.replays for g in tsort._SORT_GRAPHS.values()] == [3, 3]
+    tsort.clear_sort_graphs()
+
+
+def test_wide_carried_rows_run_eagerly(card, gen, monkeypatch):
+    # A graph's inputs hold at most GRAPH_MAX_PADDED rows of 8 bytes: at that
+    # length the index alone, or no carried column, graphs; the index with a
+    # 12-byte column runs eagerly, and its result still equals the plain one.
+    n = 4 * CFG.block
+    monkeypatch.setattr(tsort, "GRAPH_MAX_PADDED", n)
+    tsort.clear_sort_graphs()
+    keys = torch.from_numpy(gen.integers(0, 2**32, n, dtype=np.uint32))
+    idx = torch.arange(n, dtype=torch.int32).view(torch.uint32)
+    extra = torch.from_numpy(gen.integers(-(2**31), 2**31, (n, 3)).astype(np.int32))
+    for carried in ((idx,), (), (idx, extra)):
+        want = tsort._sort_padded(keys, carried, CFG)
+        for _ in range(3):
+            got = tsort._sort_padded(keys.to(card), tuple(c.to(card) for c in carried), CFG)
+            assert _same(got[0].cpu(), want[0])
+            assert all(_same(g.cpu(), w) for g, w in zip(got[1], want[1]))
+    assert sorted(len(key[4]) for key in tsort._SORT_GRAPHS) == [0, 1]
+    assert [g.replays for g in tsort._SORT_GRAPHS.values()] == [2, 2]
     tsort.clear_sort_graphs()
 
 
@@ -486,26 +609,25 @@ def test_failed_capture_raises(card, gen, monkeypatch):
     # nothing and leaves the launch counts as they were; it does not fall
     # back to the eager loop.
     keys, idx = _sort_input(gen, card, 2 * CFG.block, 2**32)
-    mask = tsort._pass_mask(keys, CFG)
     bucketize = tsort.bucketize_tiles
 
-    def failing(*args):
+    def failing(*args, **kwargs):
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("refused during capture")
-        return bucketize(*args)
+        return bucketize(*args, **kwargs)
 
     tsort.clear_sort_graphs()
-    tsort._graphed_passes(keys, idx, mask, CFG)  # first sighting: the eager loop
+    _graphed_passes(keys, idx)  # first sighting: the eager loop
     monkeypatch.setattr(tsort, "bucketize_tiles", failing)
     before = tradix.tile_histograms.launches
     with pytest.raises(RuntimeError, match="refused during capture"):
-        tsort._graphed_passes(keys, idx, mask, CFG)
+        _graphed_passes(keys, idx)
     assert not tsort._SORT_GRAPHS
     assert tradix.tile_histograms.launches == before
     monkeypatch.undo()
-    got = tsort._graphed_passes(keys, idx, mask, CFG)
+    got = _graphed_passes(keys, idx)
     assert len(tsort._SORT_GRAPHS) == 1
-    assert all(_same(g, e) for g, e in zip(got, tsort._fused_passes(keys, idx, mask, CFG)))
+    assert all(_same(g, e) for g, e in zip(got, _eager_passes(keys, idx)))
     tsort.clear_sort_graphs()
 
 
@@ -587,7 +709,8 @@ def test_rejected_launch_raises(card):
     with pytest.raises(RuntimeError, match="grs_bucketize"):
         _build.launch(
             "grs_bucketize", keys, keys.data_ptr(), keys.data_ptr(), out.data_ptr(),
-            out.data_ptr(), CFG.block // CFG.tile, CFG.tile, 2048, 0, CFG.radix,
+            out.data_ptr(), CFG.block // CFG.tile, CFG.tile, 2048, 0, CFG.radix, None, 0, None,
+            None,
         )
     # A chunk other than the scan kernel's is refused, as is an output off a
     # 16-byte boundary.
@@ -645,7 +768,9 @@ def test_bench_at_1m_checks_every_result(card, tmp_path):
                            "1000000", "--out", str(tmp_path)],
                           capture_output=True, text=True, timeout=600, cwd=REPO)
     assert done.returncode == 0, done.stderr[-4000:]
-    assert done.stderr.count("PASS  n=1000000") == 2 * 3 + 2
+    # Each method before and after its timing, the fused sort's skip count
+    # agreeing between them, and the table sort before and after its timing.
+    assert done.stderr.count("PASS  n=1000000") == 2 * 3 + 1 + 2
     line = json.loads(done.stdout.splitlines()[-1])
     name, limit = (s.strip() for s in card_line().rsplit(",", 1))
     assert line["device"] == {"name": name, "power_limit": limit}

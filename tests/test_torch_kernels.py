@@ -362,3 +362,54 @@ def test_scatter_runs_drops_destinations_outside_the_buffer(shift_by, rng):
         kept, lost = (g[k:], g[:k]) if shift_by > 0 else (g[: n - k], g[n - k:])
         assert torch.equal(kept, w[: n - k] if shift_by > 0 else w[k:])
         assert not lost.any()  # never written: the plain version's zeros
+
+
+@pytest.mark.parametrize("source", [-1, 0, 1])
+def test_planned_pass_reads_and_writes_the_named_buffers(source, rng):
+    # Pass 1 of a plan routes each wrapper: skipped (-1), from the sort's
+    # input (0) or from its result buffer (1).  K1 and K2 match their
+    # unplanned calls on the named buffer; K3 writes the result buffer in
+    # place, or nothing.
+    cfg = EngineConfig()
+    n = 2 * cfg.tile
+    keys, result_keys = (torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32))
+                         for _ in range(2))
+    idx = torch.arange(n, dtype=torch.int32).view(torch.uint32)
+    result = (result_keys, torch.arange(n - 1, -1, -1, dtype=torch.int32).view(torch.uint32))
+    before = [t.clone() for t in result]
+    plan = torch.tensor([0, source, 1], dtype=torch.int32)
+    route = dict(plan=plan, pass_index=1)
+    hist = tradix.tile_histograms(keys, 4, cfg, result=result_keys, **route)
+    bk, bi = tbucketize.bucketize_tiles(keys, idx, 4, cfg, result=result, **route)
+    out = tscatter.scatter_runs(bk, bi, hist, tradix.global_offsets(hist), cfg, result=result,
+                                **route)
+    assert out[0] is result[0] and out[1] is result[1] and not out[2]
+    if source < 0:
+        assert not hist.any() and not bk.any() and not bi.any()
+        assert all(torch.equal(a, b) for a, b in zip(result, before))
+        return
+    src_keys, src_idx = ((keys, idx), before)[source]
+    want_hist = tradix.tile_histograms(src_keys, 4, cfg)
+    assert torch.equal(hist, want_hist)
+    want = tbucketize.bucketize_tiles(src_keys, src_idx, 4, cfg)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip((bk, bi), want))
+    want = tscatter.scatter_runs(*want, want_hist, tradix.global_offsets(want_hist), cfg)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(result, want[:2]))
+
+
+def test_planned_pass_rejects_a_bad_plan(rng):
+    cfg = EngineConfig()
+    keys = torch.from_numpy(rng.integers(0, 2**32, cfg.tile, dtype=np.uint32))
+    plan = torch.zeros(8, dtype=torch.int32)
+    for bad in (dict(plan=plan.to(torch.int64), result=keys), dict(plan=plan, pass_index=8,
+                                                                   result=keys),
+                dict(plan=plan), dict(plan=plan, result=keys[:128])):
+        with pytest.raises(ValueError):
+            tradix.tile_histograms(keys, 0, cfg, **bad)
+    with pytest.raises(ValueError, match="result buffer"):
+        tbucketize.bucketize_tiles(keys, keys, 0, cfg, plan=plan)
+    hist = tradix.tile_histograms(keys, 0, cfg)
+    with pytest.raises(ValueError, match="result buffer"):
+        tscatter.scatter_runs(keys, keys, hist, hist, cfg, plan=plan, result=(keys, None))

@@ -17,7 +17,7 @@ from gpuradixsort_tpu.core import table as jtable
 from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch import config as tconfig
 from gpuradixsort_tpu_torch.core import table as ttable
-from gpuradixsort_tpu_torch.kernels.key_bits import key_bits
+from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_mask, pass_plan, plan_of_mask
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.utils import timing, verify
@@ -184,16 +184,16 @@ def test_radix8_auto_matches_jax(rng):
 
 
 def test_constant_digit_passes_are_skipped():
-    before = tsort._fused_sort_padded.skipped_passes
+    before = tsort.skipped_passes()
     keys = np.full(BLOCK, 7, dtype=np.uint32)  # no pads: every digit constant
     s, p = tsort.sort_pairs(keys, CFG, method="fused", device="cpu")
-    assert tsort._fused_sort_padded.skipped_passes - before == CFG.num_passes
+    assert tsort.skipped_passes() - before == CFG.num_passes
     np.testing.assert_array_equal(p.to_numpy(), np.arange(BLOCK, dtype=np.uint32))
-    before = tsort._fused_sort_padded.skipped_passes
+    before = tsort.skipped_passes()
     perm = np.random.default_rng(3).permutation(1 << 14).astype(np.uint32)
     s, _ = tsort.sort_pairs(perm, CFG, method="fused", device="cpu")
     # Keys below 2^14 have constant digits in passes 4..7.
-    assert tsort._fused_sort_padded.skipped_passes - before == 4
+    assert tsort.skipped_passes() - before == 4
     assert verify.is_permutation_sorted(s.valid())
 
 
@@ -246,7 +246,7 @@ def test_key_bits_of_no_keys():
     # An empty buffer fills no bucket: all-ones and zero, so no digit varies.
     words = key_bits(torch.empty(0, dtype=torch.uint32)).numpy()
     assert (words[0], words[1]) == (0xFFFFFFFF, 0)
-    assert tsort._pass_mask(torch.empty(0, dtype=torch.uint32), CFG) == 0
+    assert pass_mask(torch.empty(0, dtype=torch.uint32), CFG) == 0
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4])
@@ -254,18 +254,86 @@ def test_key_bits_of_no_keys():
 def test_pass_mask_matches_jax_criterion(name, bits):
     cfg = tconfig.EngineConfig(radix_bits=bits)
     padded = ttable.make_key_column(_skip_keys(name), cfg, device="cpu").data
-    assert tsort._pass_mask(padded, cfg) == _jax_pass_mask(padded.numpy(), cfg)
+    assert pass_mask(padded, cfg) == _jax_pass_mask(padded.numpy(), cfg)
 
 
 @pytest.mark.parametrize("name", SKIP_SETS)
 def test_skip_sets_match_jax_fused(name):
     keys = _skip_keys(name)
     want = _jax_pass_mask(ttable.make_key_column(keys, CFG, device="cpu").data.numpy(), CFG)
-    before = tsort._fused_sort_padded.skipped_passes
+    before = tsort.skipped_passes()
     _check_pairs(keys, CFG, JCFG)
-    skipped = tsort._fused_sort_padded.skipped_passes - before
+    skipped = tsort.skipped_passes() - before
     assert skipped == CFG.num_passes - bin(want).count("1")
     assert not tsort._SORT_GRAPHS  # CPU tensors never capture a graph
+
+
+def _mask_keys(mask: int, n: int, cfg=CFG) -> np.ndarray:
+    """n keys whose digit p varies exactly where bit p of ``mask`` is set."""
+    gen = np.random.default_rng(mask)
+    keys = np.full(n, 0x9C3A5E71, dtype=np.uint32)  # every digit constant
+    digit = np.uint32(cfg.radix - 1)
+    for p in range(cfg.num_passes):
+        if (mask >> p) & 1:
+            shift = np.uint32(p * cfg.radix_bits)
+            vals = gen.integers(0, cfg.radix, n).astype(np.uint32)
+            vals[:2] = (0, cfg.radix - 1)  # two values at least
+            keys = (keys & ~(digit << shift)) | (vals << shift)
+    return keys
+
+
+def test_plan_routes_every_mask():
+    # Every mask of 4-bit digits over 8 passes on two tiles: the plan from
+    # the AND/OR words equals the plan of the JAX package's criterion, and
+    # the plain versions routed by it sort the pairs stably, write nothing
+    # of the input and count the skipped passes.
+    n = 2 * CFG.tile
+    idx_np = np.arange(n, dtype=np.uint32)
+    skipped = torch.zeros(1, dtype=torch.int64)
+    for mask in range(1 << CFG.num_passes):
+        keys_np = _mask_keys(mask, n)
+        assert _jax_pass_mask(keys_np, CFG) == mask
+        keys, idx = torch.from_numpy(keys_np.copy()), torch.from_numpy(idx_np.copy())
+        before = int(skipped)
+        plan = pass_plan(keys, CFG, skipped)
+        assert plan.tolist() == plan_of_mask(mask, CFG.num_passes), mask
+        assert int(skipped) - before == CFG.num_passes - bin(mask).count("1")
+        out_keys, out_idx = tsort._fused_passes(keys, idx, CFG, skipped)
+        order = np.argsort(keys_np, kind="stable")
+        np.testing.assert_array_equal(out_keys.numpy(), keys_np[order], err_msg=f"{mask:#x}")
+        np.testing.assert_array_equal(out_idx.numpy(), order.astype(np.uint32))
+        np.testing.assert_array_equal(keys.numpy(), keys_np)  # the input is never written
+        np.testing.assert_array_equal(idx.numpy(), idx_np)
+
+
+def test_plan_of_mask_layout():
+    # -1 skipped, 0 the first pass that runs (from the input), 1 the later
+    # ones (from the result buffer); with no pass, the last one copies.
+    assert plan_of_mask(0xFF, 8) == [0, 1, 1, 1, 1, 1, 1, 1]
+    assert plan_of_mask(0b01010100, 8) == [-1, -1, 0, -1, 1, -1, 1, -1]
+    assert plan_of_mask(0, 8) == [-1] * 7 + [0]
+    assert plan_of_mask(0, 1) == [0]
+
+
+PLAN_MASKS = {"none": 0, "all": 0xFF, "the high two constant": 0x3F, "one pass": 0b00010000}
+
+
+@pytest.mark.parametrize("name", PLAN_MASKS)
+def test_plan_masks_match_jax_fused_sort(name):
+    # One block through the JAX package's _fused_sort_padded (jnp
+    # references on the CPU) and the port's, padded buffers equal.
+    keys_np = _mask_keys(PLAN_MASKS[name], BLOCK)
+    idx_np = np.arange(BLOCK, dtype=np.uint32)
+    js, ji, _ = jsort._fused_sort_padded(jnp.asarray(keys_np), jnp.asarray(idx_np), JCFG)
+    before = tsort.skipped_passes()
+    ts, ti, overflow = tsort._fused_sort_padded(torch.from_numpy(keys_np),
+                                                torch.from_numpy(idx_np), CFG)
+    assert not overflow
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert tsort.skipped_passes() - before == CFG.num_passes - bin(PLAN_MASKS[name]).count("1")
+    order = np.argsort(keys_np, kind="stable")
+    np.testing.assert_array_equal(ti.numpy(), order.astype(np.uint32))
 
 
 def test_stale_rows_past_length_are_repadded(rng):
