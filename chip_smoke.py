@@ -10,29 +10,32 @@ in eight phases:
 1. device: PyTorch version, the card's name and power limit, build time;
 2. each kernel against its plain PyTorch version on the card, exact
    equality: radix_hist and radix_dest at radix_bits 1, 2, 4, 8; bucketize
-   at 1, 2, 4; scatter_runs on the plain-bucketized input; each at shifts 0,
-   4 and 28, on 4 blocks of random keys and on 1,000,000 keys padded;
-   radix_hist and bucketize also at tile_rows 1, 3, 8 and 16, on tile
-   counts that leave the last block part-filled and on keys 4 bytes off a
-   16-byte boundary, and radix_hist on 64-row tiles of equal keys;
-   radix_dest at radix 2-256 (also those EngineConfig cannot name), at
-   tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off;
-   scatter_runs at radix 2, 4, 16, 32, 64 and 256, tile_rows 1, 3, 8 and
-   16, on 1 and 9 tiles and (radix 16) on more tiles than the card holds
-   warps at once, inputs also 4 bytes off, and with moved offsets whose
-   out-of-range destinations are dropped; exclusive_scan at lengths 1,
-   4,095-4,097, its chunk and one either side, two chunks and one,
-   1,000,000, 2^24 and 100,000,000, each also one word off a 16-byte
-   boundary, on values whose sums wrap; key_bits (the AND and OR of the
-   keys) at lengths 0 to 2^24, aligned and one word off, also against
-   numpy; the fused sort's pass plan and radix_hist, bucketize and
-   scatter_runs routed by it, pass by pass, for every mask of 4-bit digits
-   over 8 passes on 4 blocks and four masks at 1M keys (radix_hist,
-   bucketize, scatter_runs
-   and radix_dest are also held against their plain versions at the
-   operator path's shapes, after phase 4: 2^24 keys at radix_bits 1, 4 and
-   8, the filter's 100,000,000 keys at radix_bits 1, 4 and 8, and its 1-bit
-   compaction input);
+   at 1, 2, 4; scatter_runs on the plain-bucketized input; bucketize_scatter
+   (the fused sort's pass, K2 then K3 in one kernel) at 1, 2, 4; each at
+   shifts 0, 4 and 28, on 4 blocks of random keys and on 1,000,000 keys
+   padded; radix_hist and bucketize also at tile_rows 1, 3, 8 and 16, on
+   tile counts that leave the last block part-filled and on keys 4 bytes
+   off a 16-byte boundary, and radix_hist on 64-row tiles of equal keys;
+   bucketize_scatter at tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles
+   (and, radix 16, more tiles than the card holds warps at once), inputs
+   also 4 bytes off, and with moved offsets whose out-of-range destinations
+   are dropped; radix_dest at radix 2-256 (also those EngineConfig cannot
+   name), at tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles and on keys 4
+   bytes off; scatter_runs at radix 2, 4, 16, 32, 64 and 256, tile_rows 1,
+   3, 8 and 16, on 1 and 9 tiles and (radix 16) on more tiles than the card
+   holds warps at once, inputs also 4 bytes off, and with moved offsets;
+   exclusive_scan at lengths 1, 4,095-4,097, its chunk and one either side,
+   two chunks and one, 1,000,000, 2^24 and 100,000,000, each also one word
+   off a 16-byte boundary, on values whose sums wrap; key_bits (the AND and
+   OR of the keys) at lengths 0 to 2^24, aligned and one word off, also
+   against numpy; the fused sort's pass plan, and radix_hist and
+   bucketize_scatter routed by it, pass by pass (every route: the input
+   into R or S, R into S, S into R), for every mask of 4-bit digits over 8
+   passes on 4 blocks and four masks at 1M keys (radix_hist, bucketize,
+   scatter_runs, bucketize_scatter and radix_dest are also held against
+   their plain versions at the operator path's shapes, after phase 4: 2^24
+   keys at radix_bits 1, 4 and 8, the filter's 100,000,000 keys at
+   radix_bits 1, 4 and 8, and its 1-bit compaction input);
 3. the main path through the public entry points on CUDA tensors, with every
    launch count set to 0 before and read after: ``sort_pairs`` of 1,000,000
    shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
@@ -44,6 +47,8 @@ in eight phases:
    graph, the third replaying it) under torch's sync debug mode, which must
    count no host sync at the first sighting and at the replay; the fused
    sorts' skipped passes read from the card's counter between the calls;
+   the fused sorts must launch bucketize_scatter once a pass and bucketize
+   and scatter_runs never;
 4. the operator path, counts again set to 0 before and read after, every
    result checked exactly against numpy (float means within rtol 1e-5 of a
    float64 oracle): ``filter_table`` of 100,000,000 keys keeping about half,
@@ -58,7 +63,13 @@ in eight phases:
    method's at 1M, 2^22, 2^23, 12M and 2^24, in alternating rounds (CUDA
    events and busy time, the first call's capture time, the bytes the graph
    cache holds;
-   the profile of a replay must name every kernel of the method); fused sort
+   the profile of a replay must name every kernel of the method, and at
+   2^24 the fused sort's device time outside the port's kernels is split
+   by profiler row); the fused sort with bucketize_scatter against the same
+   sort with the two-kernel pass (K2 then K3, built here from their
+   unplanned wrappers) and the torch method at 1M, 2^24 and 2^26 random
+   keys, each by its own graph cache, in alternating rounds (CUDA events
+   over the bench's chain of sorts, and busy time); fused sort
    against ``torch.sort(stable=True)`` at 1M and 16M keys
    (CUDA events, median of 7 runs after warm-up, and the device's busy time
    from torch.profiler); the fused sort's eager loop with ``global_offsets`` on
@@ -68,9 +79,9 @@ in eight phases:
    call), its bound (the bytes it must move at 3.35 TB/s) and its share of
    that bound, and exclusive_scan beside ``torch.cumsum`` of the same int32
    vector; the 1M x 64 B table sort; radix_dest at radix 2, 16 and 256,
-   exclusive_scan beside ``torch.cumsum`` on a vector, and scatter_runs on
-   a radix-16 pass, at 1M, 2^24 and 100,000,000 keys, each with its bound
-   and share of bound;
+   exclusive_scan beside ``torch.cumsum`` on a vector, and
+   bucketize_scatter, bucketize and scatter_runs on a radix-16 pass, at
+   1M, 2^24 and 100,000,000 keys, each with its bound and share of bound;
 6. times of the operator path: each operator and the radix sort beside the
    fused sort, by CUDA events (median of 3) with the profiler's busy share;
 7. the distributed path, counts set to 0 before each timed op in every
@@ -91,7 +102,7 @@ in eight phases:
    Phase 5's bytes per kernel are the bench's ``stage_work``.
 
 Exits non-zero at the first failure, including when no CUDA device is
-present or a kernel's launch count stayed 0.  Before it exits, pass or
+present or a kernel of a path's launch count stayed 0.  Before it exits, pass or
 fail, it stops every process it started.  The line before the last is
 the card's name and power limit; the last line is the JSON result.
 """
@@ -102,6 +113,7 @@ import contextlib
 import json
 import multiprocessing
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -109,6 +121,7 @@ import tempfile
 import time
 import types
 import warnings
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from multiprocessing import resource_tracker
 from unittest import mock
@@ -116,7 +129,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from gpuradixsort_tpu_torch.bench import DURATIONS_FILE, stage_work
+from gpuradixsort_tpu_torch.bench import DURATIONS_FILE, chain_for, stage_work
 from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import (
     Table,
@@ -132,7 +145,7 @@ from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_t
 from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_mask, pass_plan, plan_of_mask
 from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
-from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
+from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter, scatter_runs
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.aggregate import group_by_aggregate
 from gpuradixsort_tpu_torch.ops.filter import filter_table
@@ -168,6 +181,11 @@ KERNELS = {
     "scatter_runs": (scatter_runs, "gpuradixsort_tpu_torch/csrc/scatter_runs.cu",
                      "gpuradixsort_tpu/kernels/scatter.py:107",
                      ("scatter_1k_kernel", "scatter_any_kernel")),
+    # The fused sort's pass: K2 then K3 in one kernel.
+    "bucketize_scatter": (bucketize_scatter, "gpuradixsort_tpu_torch/csrc/bucketize_scatter.cu",
+                          "gpuradixsort_tpu/kernels/bucketize.py:156 and "
+                          "gpuradixsort_tpu/kernels/scatter.py:107",
+                          ("bucketize_scatter_1k_kernel", "bucketize_scatter_any_kernel")),
     "radix_dest": (rk.tile_destinations, "gpuradixsort_tpu_torch/csrc/radix_dest.cu",
                    "gpuradixsort_tpu/kernels/radix.py:92", ("radix_dest_kernel",)),
     "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
@@ -177,9 +195,11 @@ KERNELS = {
     "key_bits": (key_bits, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
                  "gpuradixsort_tpu/ops/sort.py:83", ("key_bits_kernel", "pass_plan_kernel")),
 }
-# The kernels each sort method runs.
-FUSED_PATH = ("radix_hist", "bucketize", "scatter_runs", "exclusive_scan", "key_bits")
+# The kernels each sort method runs.  K2 and K3 run on no path: the fused
+# sort's passes run bucketize_scatter, which does their work.
+FUSED_PATH = ("radix_hist", "bucketize_scatter", "exclusive_scan", "key_bits")
 RADIX_PATH = ("radix_hist", "radix_dest", "exclusive_scan")
+OFF_PATH = ("bucketize", "scatter_runs")
 
 
 def reset_launches() -> None:
@@ -257,7 +277,12 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 err = max(max_abs_err(ok, ok_ref), max_abs_err(oi, oi_ref))
                 errs["scatter_runs"] = max(errs["scatter_runs"], err)
                 check(err == 0 and not overflow, f"scatter_runs == plain, {where}")
+                got = bucketize_scatter(keys, idx, hist_ref, offsets, shift, cfg, impl="cuda")
+                err = max(max_abs_err(got[0], ok_ref), max_abs_err(got[1], oi_ref))
+                errs["bucketize_scatter"] = max(errs["bucketize_scatter"], err)
+                check(err == 0, f"bucketize_scatter == plain, {where}")
     check_hist_bucketize_geometry(dev, rng, errs)
+    check_fused_geometry(dev, rng, errs)
     check_dest_geometry(dev, rng, errs)
     check_scatter_geometry(dev, rng, errs)
     check_scan_lengths(dev, rng, errs)
@@ -281,21 +306,23 @@ def mask_keys(mask: int, n: int, cfg) -> np.ndarray:
 
 
 def check_plan_routing(dev, errs: dict) -> None:
-    """The fused sort's pass plan, and K1, K2 and K3 routed by it, against their plain versions.
+    """The fused sort's pass plan, and K1 and bucketize_scatter routed by it, against their plain versions.
 
     Every mask of 4-bit digits over the 8 passes on 4 blocks of keys whose
     digit p varies exactly where bit p is set, and the masks none, all, the
     top two constant and one pass on 1,007,616 keys (1M rounded up to a
     block, no pad keys).  The plan (key_bits with a plan) against the plain
     one and ``plan_of_mask``, the skip counters equal; then in each pass of
-    the kernels' sort, each kernel against its plain version on the same
-    inputs, plan and result buffer (K1 and K2 where the pass runs; K3's
-    result buffer always, a skipped pass writing nothing); the sorted pairs
-    against a stable ``torch.sort``, and the input unwritten.
+    the kernels' sort, K1 (where the pass runs) and bucketize_scatter
+    against their plain versions on the same inputs and plan, the fused pass
+    on copies of the result R and scratch S (every route: the input into R
+    or S, R into S, S into R; a skipped pass writing nothing); the sorted
+    pairs in R against a stable ``torch.sort``, and the input unwritten.
     """
     cfg = EngineConfig()
     cases = [(4 * cfg.block, m) for m in range(1 << cfg.num_passes)]
     cases += [(round_up(N_HEADLINE, cfg.block), m) for m in (0, 0xFF, 0x3F, 0b10000)]
+    routes = set()
     for n, mask in cases:
         keys = torch.from_numpy(mask_keys(mask, n, cfg)).to(dev)
         held = keys.clone()
@@ -310,38 +337,37 @@ def check_plan_routing(dev, errs: dict) -> None:
         where = f"{n} keys, pass mask {mask:#04x}"
         if err:
             check(False, f"pass plan == plain == plan_of_mask, {where}")
-        result = torch.empty_like(keys), torch.empty_like(idx)
+        buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
         for p in range(cfg.num_passes):
-            shift, route = p * cfg.radix_bits, dict(plan=plan, pass_index=p)
+            shift, route = p * cfg.radix_bits, dict(plan=plan, pass_index=p, buffers=buffers)
             runs = want_plan[p] >= 0
-            hist = rk.tile_histograms(keys, shift, cfg, impl="cuda", result=result[0], **route)
+            routes.add(rk.planned_route(torch.tensor(want_plan), p, ("input", "R", "S")))
+            hist = rk.tile_histograms(keys, shift, cfg, impl="cuda", **route)
             if runs:
                 err = max_abs_err(hist, rk.tile_histograms(keys, shift, cfg, impl="reference",
-                                                           result=result[0], **route))
+                                                           **route))
                 errs["radix_hist"] = max(errs["radix_hist"], err)
                 if err:
                     check(False, f"radix_hist with the plan == plain, {where}, pass {p}")
             offsets = rk.global_offsets(hist)
-            bk, bi = bucketize_tiles(keys, idx, shift, cfg, impl="cuda", result=result, **route)
-            if runs:
-                err = max(map(max_abs_err, (bk, bi), bucketize_tiles(
-                    keys, idx, shift, cfg, impl="reference", result=result, **route)))
-                errs["bucketize"] = max(errs["bucketize"], err)
-                if err:
-                    check(False, f"bucketize with the plan == plain, {where}, pass {p}")
-            want = scatter_runs(bk, bi, hist, offsets, cfg, impl="reference",
-                                result=tuple(t.clone() for t in result), **route)[:2]
-            scatter_runs(bk, bi, hist, offsets, cfg, impl="cuda", result=result, **route)
-            err = max(map(max_abs_err, result, want))
-            errs["scatter_runs"] = max(errs["scatter_runs"], err)
+            want = tuple(tuple(t.clone() for t in pair) for pair in buffers)
+            bucketize_scatter(keys, idx, hist, offsets, shift, cfg, impl="reference", plan=plan,
+                              pass_index=p, buffers=want)
+            bucketize_scatter(keys, idx, hist, offsets, shift, cfg, impl="cuda", **route)
+            err = max(max_abs_err(g, w) for got, w_pair in zip(buffers, want)
+                      for g, w in zip(got, w_pair))
+            errs["bucketize_scatter"] = max(errs["bucketize_scatter"], err)
             if err:
-                check(False, f"scatter_runs with the plan == plain, {where}, pass {p}")
+                check(False, f"bucketize_scatter with the plan == plain, {where}, pass {p}")
         order = torch.sort(int32_bits(keys).to(torch.int64) & 0xFFFFFFFF, stable=True).indices
-        if not (same_bits(result, (int32_bits(keys)[order], int32_bits(idx)[order]))
+        if not (same_bits(buffers[0], (int32_bits(keys)[order], int32_bits(idx)[order]))
                 and same_bits((keys,), (held,))):
-            check(False, f"the planned passes sort stably and leave the input unwritten, {where}")
-    check(True, f"pass plan, radix_hist, bucketize and scatter_runs routed by it == their plain "
-          f"versions pass by pass, and the sorted pairs == a stable torch.sort, for all "
+            check(False, f"the planned passes sort stably into R and leave the input unwritten, "
+                  f"{where}")
+    check(routes >= {None, ("input", "R"), ("input", "S"), ("R", "S"), ("S", "R")},
+          f"the plans routed passes {sorted(map(str, routes))}")
+    check(True, f"pass plan, radix_hist and bucketize_scatter routed by it == their plain "
+          f"versions pass by pass, and the sorted pairs in R == a stable torch.sort, for all "
           f"{1 << cfg.num_passes} masks of 4-bit digits on {4 * cfg.block} keys and 4 masks on "
           f"{round_up(N_HEADLINE, cfg.block)} keys")
 
@@ -548,12 +574,53 @@ def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
           "equal keys")
 
 
+def check_fused_geometry(dev, rng, errs: dict) -> None:
+    """bucketize_scatter against its plain version at every launch geometry.
+
+    Radix 2, 4 and 16 at tile_rows 1, 3, 8 and 16 (the register route on
+    the 1,024-key tile, the staged rows on any other); 1, 8 and 29 tiles,
+    so that the last block of 8 is part-filled, and at radix 16 MANY_TILES;
+    inputs aligned and one word off a 16-byte boundary; shifts 0 and 28;
+    and offsets moved by 7 and -5 rows, whose destinations outside the
+    buffer are dropped (the rows some slot lands on compared).
+    """
+    for tile_rows in (1, 3, 8, 16):
+        for bits in (1, 2, 4):
+            cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+            for num_tiles in (1, 8, 29) + ((MANY_TILES,) if bits == 4 else ()):
+                n = num_tiles * cfg.tile
+                buf = torch.from_numpy(rng.integers(0, 2**32, n + 1, dtype=np.uint32)).to(dev)
+                pos = torch.from_numpy(rng.permutation(n + 1).astype(np.uint32)).to(dev)
+                for keys, idx in ((buf[:n], pos[:n]), (buf[1:], pos[1:])):
+                    for shift in (0, 28):
+                        hist = rk.tile_histograms(keys, shift, cfg, impl="reference")
+                        off = rk.global_offsets(hist)
+                        want = bucketize_scatter(keys, idx, hist, off, shift, cfg,
+                                                 impl="reference")
+                        got = bucketize_scatter(keys, idx, hist, off, shift, cfg, impl="cuda")
+                        errs["bucketize_scatter"] = max(errs["bucketize_scatter"],
+                                                        *map(max_abs_err, got, want))
+                    for moved_by in (7, -5):
+                        rows = slice(moved_by, n) if moved_by > 0 else slice(0, n + moved_by)
+                        got, want = (bucketize_scatter(keys, idx, hist, off + moved_by, shift,
+                                                       cfg, impl=impl) for impl in ("cuda",
+                                                                                    "reference"))
+                        errs["bucketize_scatter"] = max(errs["bucketize_scatter"], *(
+                            max_abs_err(g[rows], w[rows]) for g, w in zip(got, want)))
+    check(errs["bucketize_scatter"] == 0,
+          "bucketize_scatter (radix 2, 4, 16) == plain at tile_rows 1, 3, 8, 16, "
+          f"1/8/29/{MANY_TILES} tiles, aligned and unaligned inputs; out-of-range destinations "
+          "of moved offsets dropped")
+    torch.cuda.empty_cache()
+
+
 def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     """The kernels against their plain versions at the path's shapes.
 
-    radix_hist, bucketize, scatter_runs and radix_dest: the 2^24 keys of the
-    sorts at radix_bits 1, 4 and 8 (bucketize and scatter_runs, on the
-    kernel's bucketized tiles, at 4), the filter's 100,000,000 keys at
+    radix_hist, bucketize, scatter_runs, bucketize_scatter and radix_dest:
+    the 2^24 keys of the sorts at radix_bits 1, 4 and 8 (bucketize,
+    scatter_runs on the kernel's bucketized tiles, and bucketize_scatter at
+    4), the filter's 100,000,000 keys at
     radix_bits 4, as the sort of its survivors sees a 100M buffer, and at 1
     and 8, and the filter's 1-bit compaction of them (digit 0 = kept), made
     as filter_table makes it.  key_bits, also against numpy: the 100M padded
@@ -604,11 +671,17 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
             err = max(map(max_abs_err, got, _bucketize_ref(keys, idx, shift, kcfg)))
             errs["bucketize"] = max(errs["bucketize"], err)
             check(err == 0, f"bucketize == plain, {where}")
+            want = scatter_runs(*got, hist, offsets, kcfg, impl="reference")[:2]
             err = max(map(max_abs_err, scatter_runs(*got, hist, offsets, kcfg, impl="cuda")[:2],
-                          scatter_runs(*got, hist, offsets, kcfg, impl="reference")[:2]))
+                          want))
             errs["scatter_runs"] = max(errs["scatter_runs"], err)
             check(err == 0, f"scatter_runs == plain, {where}")
-            del idx, got
+            del got
+            err = max(map(max_abs_err, bucketize_scatter(keys, idx, hist, offsets, shift, kcfg,
+                                                         impl="cuda"), want))
+            errs["bucketize_scatter"] = max(errs["bucketize_scatter"], err)
+            check(err == 0, f"bucketize_scatter == plain, {where}")
+            del idx, want
         del hist, offsets
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -700,8 +773,14 @@ def phase_main_path(dev, rng, cfg) -> dict:
               for (*_, call), (count, padded) in replays.items()),
           "each sort's first sighting ran eagerly, its second captured and replayed its graph, "
           "its third replayed it (eager throughout above GRAPH_MAX_PADDED), by both methods")
-    for name in KERNELS:
+    for name in FUSED_PATH + RADIX_PATH:
         check(launches[name] > 0, f"{name} launched {launches[name]} times on the main path")
+    sorts = launches["key_bits"]  # one pass plan a fused sort
+    check(launches["bucketize_scatter"] == cfg.num_passes * sorts
+          and all(launches[name] == 0 for name in OFF_PATH),
+          f"the {sorts} fused sorts launched bucketize_scatter {launches['bucketize_scatter']} "
+          f"times, once a pass, and bucketize and scatter_runs "
+          f"{', '.join(str(launches[name]) for name in OFF_PATH)} times")
     return launches
 
 
@@ -728,9 +807,18 @@ def syncs_of(fn) -> int:
 
 
 def _kernel_name(row: str) -> str:
-    """The port's kernel a profiler row names (one of its __global__ functions), or ''."""
+    """The port's kernel a profiler row names (one of its __global__ functions), or ''.
+
+    A symbol counts whole: scatter_1k_kernel is not bucketize_scatter_1k_kernel.
+    """
     return next((name for name, (*_, symbols) in KERNELS.items()
-                 if any(f"{sym}{c}" in row for sym in symbols for c in "(<")), "")
+                 if any(re.search(rf"(?<!\w){sym}[(<]", row) for sym in symbols)), "")
+
+
+def glue_split(rows: dict) -> str:
+    """A profile's rows that are none of the port's kernels, largest first, ms a call each."""
+    glue = sorted(((ms, row) for row, ms in rows.items() if not _kernel_name(row)), reverse=True)
+    return "; ".join(f"{row[:100]} {ms:.4f}" for ms, row in glue) or "none"
 
 
 def port_kernel_split(rows: dict) -> dict:
@@ -850,7 +938,10 @@ def phase_operators(dev, rng, cfg) -> tuple[dict, dict, dict]:
     log(f"operator path ran on the card in {time.perf_counter() - t0:.1f} s, inputs included")
     check_operators(d, out)
     for name, count in launches.items():
-        check(count > 0, f"{name} launched {count} times on the operator path")
+        if name in OFF_PATH:
+            check(count == 0, f"{name}, off the path, launched {count} times on the operator path")
+        else:
+            check(count > 0, f"{name} launched {count} times on the operator path")
     return launches, tables, d
 
 
@@ -1074,12 +1165,91 @@ def graph_ab_method(method: str, sizes, dev, rng, cfg, card: str) -> None:
                     check(all(k in ours for k in path),
                           f"{method} {label}: every kernel of the sort named in the profile of "
                           "a replay")
+                if method == "fused" and label == "2^24":
+                    log(f"  fused 2^24 {name}: device ms a sort outside the port's kernels, by "
+                        f"profiler row: {glue_split(rows)}")
         log(f"time {method} {label} ({col.padded_length} padded keys, {card}): host ms of the "
             f"first calls: " + ", ".join(f"{call} {t:.2f}" for call, t in zip(CALLS, calls_ms))
             + f"; graph cache holds {cache_mb:.1f} MiB; CUDA events, median of 16 in "
             f"alternating rounds: " + "; ".join(parts))
         del col, fns
         sort_ops.clear_sort_graphs()
+        torch.cuda.empty_cache()
+
+
+def two_kernel_passes(keys: torch.Tensor, idx: torch.Tensor, cfg, skipped: torch.Tensor):
+    """The fused sort's passes as they ran before bucketize_scatter: K1, offsets, K2, then K3.
+
+    The A/B's other side, never a fallback.  The pass plan is made as in
+    the sort, and not read: every pass runs, so ``pass_ab`` times it only on
+    keys whose every digit varies, where the plan runs every pass too.  K2
+    writes each pass's bucketized tiles to a new buffer and K3 reads them
+    into another; the allocator hands one pass's buffers to the next, so the
+    passes ping-pong.
+    """
+    pass_plan(keys, cfg, skipped)
+    for p in range(cfg.num_passes):
+        shift = p * cfg.radix_bits
+        hist = rk.tile_histograms(keys, shift, cfg)
+        offsets = rk.global_offsets(hist)
+        keys, idx, _ = scatter_runs(*bucketize_tiles(keys, idx, shift, cfg), hist, offsets, cfg)
+    return keys, idx
+
+
+PASS_AB_SIZES = (("1M", N_HEADLINE), ("2^24", 1 << 24), ("2^26", 1 << 26))
+
+
+def pass_ab(dev, rng, cfg, card: str) -> None:
+    """The fused sort with bucketize_scatter against the two-kernel pass, beside torch.sort.
+
+    ``sort_pairs`` of random keys (every digit varies) at 1M, 2^24 and 2^26
+    by the port (bucketize_scatter), by the fused sort with
+    ``two_kernel_passes`` swapped in, and by the ``torch`` method, each as a
+    user runs it: a cached graph of its own at up to GRAPH_MAX_PADDED keys,
+    eager above.  Outputs equal; CUDA events ms a sort over the bench's
+    chain of back-to-back sorts, median of 16 in alternating rounds; the
+    profiler's busy time a sort.
+    """
+    log(f"fused sort_pairs, bucketize_scatter against the two-kernel pass (K2 then K3), beside "
+        f"the torch method ({card})")
+    for label, n in PASS_AB_SIZES:
+        col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg, device=dev)
+        check(pass_mask(col.data, cfg) == (1 << cfg.num_passes) - 1,
+              f"pass A/B {label}: every digit of the keys varies, so every pass runs either way")
+        caches = {"bucketize_scatter": ({}, OrderedDict()), "two-kernel pass": ({}, OrderedDict())}
+
+        def fused_by(name: str):
+            graphs, seen = caches[name]
+
+            def run():
+                with contextlib.ExitStack() as stack:
+                    stack.enter_context(mock.patch.object(sort_ops, "_SORT_GRAPHS", graphs))
+                    stack.enter_context(mock.patch.object(sort_ops, "_SEEN", seen))
+                    if name == "two-kernel pass":
+                        stack.enter_context(mock.patch.object(sort_ops, "_fused_passes",
+                                                              two_kernel_passes))
+                    return sort_pairs(col, cfg, method="fused")
+            return run
+
+        fns = {name: fused_by(name) for name in caches}
+        fns["torch"] = lambda: sort_pairs(col, cfg, method="torch")
+        outs = {name: column_data(fn()) for name, fn in fns.items()}
+        check(same_bits(outs["bucketize_scatter"], outs["two-kernel pass"])
+              and same_bits(outs["bucketize_scatter"], outs["torch"]),
+              f"pass A/B {label}: both fused passes and the torch method give one result")
+        del outs
+        calls = chain_for(n)
+        ms = ab_per_call_ms(fns, calls=calls)
+        busy = {name: profiled_device_ms(fn, calls=3)[0] for name, fn in fns.items()}
+        graphed = {name: bool(graphs) for name, (graphs, _) in caches.items()}
+        log(f"time pass A/B {label} ({col.padded_length} padded keys, {card}): CUDA events ms a "
+            f"sort over {calls} back-to-back sorts, median of 16 in alternating rounds; "
+            + "; ".join(f"{name} {ms[name]:.4f} ms (device busy "
+                        f"{f'{busy[name]:.4f} ms' if busy[name] else 'not measured'}"
+                        f"{'' if name == 'torch' else ', graph' if graphed[name] else ', eager'})"
+                        for name in fns))
+        torch.cuda.synchronize()
+        del col, fns, caches
         torch.cuda.empty_cache()
 
 
@@ -1157,6 +1327,7 @@ def add_device(st: StageTimes, name: str, ms: float) -> None:
 def phase_times(dev, rng, cfg, card: str) -> dict:
     """Phase 5: times; returns each kernel's ms, plain_ms, library_ms, bound_ms, bound_by at 1M."""
     graph_ab(dev, rng, cfg, card)
+    pass_ab(dev, rng, cfg, card)
     graph_traffic(dev, rng, cfg, card)
     for n, label in ((N_HEADLINE, "1M"), (1 << 24, "16M")):
         col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
@@ -1205,6 +1376,10 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             "scatter_runs": (lambda: scatter_runs(bk, bi, hist, offsets, cfg, impl="cuda"),
                              lambda: scatter_runs(bk, bi, hist, offsets, cfg,
                                                   impl="reference"), None),
+            "bucketize_scatter": (
+                lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg, impl="cuda"),
+                lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg, impl="reference"),
+                None),
             "radix_dest": (lambda: rk.tile_destinations(keys, offsets, 0, cfg, impl="cuda"),
                            lambda: rk.tile_destinations(keys, offsets, 0, cfg,
                                                         impl="reference"), None),
@@ -1329,33 +1504,43 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
 
 
 def phase_scatter_times(dev, rng, card: str) -> None:
-    """Phase 5, continued: scatter_runs timed directly at 1M, 2^24 and 100M keys.
+    """Phase 5, continued: one radix-16 pass's scatter timed directly at 1M, 2^24 and 100M keys.
 
-    One radix-16 pass's input (the keys bucketized by the kernel, their
-    histograms and offsets); device time per call from the profiler (20
-    back-to-back calls, median of 3 turns), the bound (16 bytes a key and
-    the two tables at 3.35 TB/s) and the share of it.
+    bucketize_scatter on the keys, their indices and offsets, and K2 and K3
+    on the same (K3 on K2's bucketized tiles): device time per call from the
+    profiler (20 back-to-back calls, median of 3 turns, the fused kernel and
+    the pair in alternating turns), the bound (16 bytes a key and the two
+    tables at 3.35 TB/s for the fused kernel and for K3, 16 bytes a key for
+    K2) and the share of it.
     """
     cfg = EngineConfig()
-    log(f"scatter_runs at 1M, 2^24 and 100M, radix 16 ({card}): device us per call "
-        f"(profiler, 20 calls, median of 3 turns), bound, share of bound")
+    log(f"bucketize_scatter, bucketize and scatter_runs at 1M, 2^24 and 100M, radix 16 "
+        f"({card}): device us per call (profiler, 20 calls, median of 3 turns), bound, share "
+        f"of bound")
     for label, n in (("1M", N_HEADLINE), ("2^24", N_LARGE), ("100M", N_OPS)):
         keys = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
                                device=dev).data
+        idx = iota_index(n, cfg, dev)
         padded = keys.numel()
         hist = rk.tile_histograms(keys, 0, cfg)
         offsets = rk.global_offsets(hist)
-        bk, bi = bucketize_tiles(keys, iota_index(n, cfg, dev), 0, cfg)
-        del keys
-        turns = [1e3 * profiled_device_ms(lambda: scatter_runs(bk, bi, hist, offsets, cfg),
-                                          calls=20)[0] for _ in range(3)]
-        us = median_measured(turns)
-        bound_ms, by = bound_of(*stage_work(padded, cfg)["scatter_runs"])
-        share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
-        log(f"  scatter_runs @ {label} ({padded} keys): {us:.2f} us (turns "
-            f"{', '.join(f'{t:.2f}' for t in turns)}); bound {bound_ms * 1e3:.2f} us ({by}); "
-            f"share of bound {share}")
-        del bk, bi, hist, offsets
+        bk, bi = bucketize_tiles(keys, idx, 0, cfg)
+        fns = {"bucketize_scatter": lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg),
+               "bucketize": lambda: bucketize_tiles(keys, idx, 0, cfg),
+               "scatter_runs": lambda: scatter_runs(bk, bi, hist, offsets, cfg)}
+        turns = {name: [] for name in fns}
+        for names in (list(fns), list(fns)[::-1], list(fns)):
+            for name in names:
+                turns[name].append(1e3 * profiled_device_ms(fns[name], calls=20)[0])
+        work = stage_work(padded, cfg)
+        for name, t in turns.items():
+            us = median_measured(t)
+            bound_ms, by = bound_of(*work[name])
+            share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
+            log(f"  {name} @ {label} ({padded} keys): {us:.2f} us (turns "
+                f"{', '.join(f'{x:.2f}' for x in t)}); bound {bound_ms * 1e3:.2f} us ({by}); "
+                f"share of bound {share}")
+        del keys, idx, bk, bi, hist, offsets, fns
         torch.cuda.empty_cache()
 
 

@@ -31,24 +31,21 @@
 // Flat order is (item, lane), which is element order, so equal digits keep
 // their order.  Every other tile (bucketize_any_kernel) takes a slower route:
 // one tile a warp, counting the whole tile from device memory, then reading
-// it again to rank and place it.
-//
-// In a fused sort both kernels follow the sort's pass plan (key_bits.cu): a
-// skipped pass returns at once and leaves the outputs unwritten, and a pass
-// that runs reads its keys and indices from the sort's input or from its
-// result buffer, as the plan names.
+// it again to rank and place it.  Steps 3 and 4 are grs::rank_1k and
+// grs::rank_any (tile.cuh), which the fused pass (bucketize_scatter.cu)
+// shares; since that kernel runs the fused sort's passes, this one runs off
+// the main path, beside its plain version and in the bench's stage table.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "warp.cuh"
+#include "tile.cuh"
 
 namespace {
 
 constexpr int kMaxRadix = 16;
-constexpr int kMaxBits = 4;
-constexpr int kFastTile = 1024;      // the default tile: 32 keys a lane
-constexpr int kItems = kFastTile / 32;
+constexpr int kFastTile = grs::kFastTile;
+constexpr int kItems = grs::kFastItems;
 constexpr int kMaxWarps = 8;         // tiles a block
 constexpr int kMaxShared = 232448;   // shared memory a block may use (H100)
 
@@ -68,30 +65,20 @@ __device__ __forceinline__ void store_tile(uint32_t* out_keys, uint32_t* out_idx
 
 template <int kBits>
 __global__ void __launch_bounds__(32 * kMaxWarps)
-    bucketize_1k_kernel(const uint32_t* __restrict__ in_keys,
-                        const uint32_t* __restrict__ in_idx,
-                        const uint32_t* __restrict__ result_keys,
-                        const uint32_t* __restrict__ result_idx,
-                        const int32_t* __restrict__ plan, int pass,
-                        uint32_t* __restrict__ out_keys,
-                        uint32_t* __restrict__ out_idx, int64_t num_tiles,
-                        int shift, bool vec) {
+    bucketize_1k_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ idx,
+                        uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_idx,
+                        int64_t num_tiles, int shift, bool vec) {
   // Per warp: the input tile (keys, then indices), then the staged output.
   extern __shared__ uint4 smem[];
-  constexpr uint32_t kMask = (1u << kBits) - 1u;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
   int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  const int from = grs::plan_source(plan, pass);
-  if (t >= num_tiles || from < 0) return;  // no block barrier follows
-  const uint32_t* keys = from == 0 ? in_keys : result_keys;
-  const uint32_t* idx = from == 0 ? in_idx : result_idx;
+  if (t >= num_tiles) return;  // no block barrier follows
 
   uint32_t* in = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * 4 * kFastTile;
   uint32_t* sk = in + 2 * kFastTile;
   uint32_t* sv = sk + kFastTile;
-  const unsigned below = (1u << lane) - 1u;
   grs::load_tile<kFastTile>(in, keys, idx, t, lane, vec);
 
   for (; t < num_tiles; t += stride) {
@@ -105,27 +92,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     }
     __syncwarp();  // every lane has read the tile: refill the buffer
     if (t + stride < num_tiles) grs::load_tile<kFastTile>(in, keys, idx, t + stride, lane, vec);
-
-    int slot[kItems];
-    int count = 0;  // lane r: keys of digit r in the items so far
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const uint32_t d = (k[j] >> shift) & kMask;
-      const grs::DigitBallots<kBits> ballots(d, kBits);
-      slot[j] = __shfl_sync(grs::kFullWarp, count, d) +
-                __popc(ballots.lanes_with(d, kBits) & below);
-      count += __popc(ballots.lanes_with(lane, kBits));
-    }
-    int total;
-    const int start =
-        grs::warp_exclusive_scan(lane < (1 << kBits) ? count : 0, lane, total);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const uint32_t d = (k[j] >> shift) & kMask;
-      const int pos = __shfl_sync(grs::kFullWarp, start, d) + slot[j];
-      sk[pos] = k[j];
-      sv[pos] = v[j];
-    }
+    grs::rank_1k<kBits>(k, v, shift, lane, sk, sv);
     __syncwarp();
     store_tile(out_keys, out_idx, sk, sv, t * kFastTile, kFastTile, lane);
     __syncwarp();  // the staging is rewritten by the next tile
@@ -133,50 +100,21 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 }
 
 __global__ void __launch_bounds__(32 * kMaxWarps)
-    bucketize_any_kernel(const uint32_t* __restrict__ in_keys,
-                         const uint32_t* __restrict__ in_idx,
-                         const uint32_t* __restrict__ result_keys,
-                         const uint32_t* __restrict__ result_idx,
-                         const int32_t* __restrict__ plan, int pass,
-                         uint32_t* __restrict__ out_keys,
-                         uint32_t* __restrict__ out_idx, int64_t num_tiles,
-                         int tile, int shift, int radix, int bits) {
+    bucketize_any_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ idx,
+                         uint32_t* __restrict__ out_keys, uint32_t* __restrict__ out_idx,
+                         int64_t num_tiles, int tile, int shift, int radix, int bits) {
   extern __shared__ uint4 smem[];  // per warp: the staged output
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  const int from = grs::plan_source(plan, pass);
-  if (t >= num_tiles || from < 0) return;  // no block barrier follows
-  const uint32_t* keys = from == 0 ? in_keys : result_keys;
-  const uint32_t* idx = from == 0 ? in_idx : result_idx;
+  if (t >= num_tiles) return;  // no block barrier follows
 
   uint32_t* sk = reinterpret_cast<uint32_t*>(smem) + static_cast<size_t>(warp) * 2 * tile;
   uint32_t* sv = sk + tile;
   const int64_t base = t * tile;
-  const uint32_t* kin = keys + base + lane;
-  const uint32_t* vin = idx + base + lane;
-  const uint32_t mask = static_cast<uint32_t>(radix - 1);
-  const unsigned below = (1u << lane) - 1u;
-  const int items = tile >> 5;
-
-  int count = 0;  // lane r: keys of digit r in the tile
-  for (int j = 0; j < items; ++j) {
-    const grs::DigitBallots<kMaxBits> ballots((kin[32 * j] >> shift) & mask, bits);
-    count += __popc(ballots.lanes_with(lane, bits));
-  }
-  int total;
-  // lane r: the next slot of digit r in the staged tile.
-  int next = grs::warp_exclusive_scan(lane < radix ? count : 0, lane, total);
-  for (int j = 0; j < items; ++j) {
-    const uint32_t k = kin[32 * j];
-    const uint32_t d = (k >> shift) & mask;
-    const grs::DigitBallots<kMaxBits> ballots(d, bits);
-    const int pos = __shfl_sync(grs::kFullWarp, next, d) +
-                    __popc(ballots.lanes_with(d, bits) & below);
-    next += __popc(ballots.lanes_with(lane, bits));
-    sk[pos] = k;
-    sv[pos] = vin[32 * j];
-  }
+  int start;
+  grs::rank_any(keys + base + lane, idx + base + lane, tile >> 5, shift, radix, bits, lane, sk,
+                sv, start);
   __syncwarp();
   store_tile(out_keys, out_idx, sk, sv, base, tile, lane);
 }
@@ -190,23 +128,12 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The inputs a launch may read: the keys and indices, then, in a planned
-// sort, its result buffer; and the plan.
-struct Sources {
-  const uint32_t* keys;
-  const uint32_t* idx;
-  const uint32_t* result_keys;
-  const uint32_t* result_idx;
-  const int32_t* plan;
-  int pass;
-};
-
 // Persistent launch: as many blocks as fit on the card at once, at most one
 // per `per_block` tiles.
 template <int kBits>
-cudaError_t launch_1k(const Sources& in, uint32_t* out_keys, uint32_t* out_idx,
-                      int64_t num_tiles, int threads, size_t smem, int shift, bool vec,
-                      cudaStream_t stream) {
+cudaError_t launch_1k(const uint32_t* keys, const uint32_t* idx, uint32_t* out_keys,
+                      uint32_t* out_idx, int64_t num_tiles, int threads, size_t smem, int shift,
+                      bool vec, cudaStream_t stream) {
   const auto kernel = bucketize_1k_kernel<kBits>;
   cudaError_t err = allow_shared(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -221,9 +148,8 @@ cudaError_t launch_1k(const Sources& in, uint32_t* out_keys, uint32_t* out_idx,
   int64_t blocks = (num_tiles + per_block - 1) / per_block;
   if (resident > 0 && blocks > static_cast<int64_t>(resident) * sms)
     blocks = static_cast<int64_t>(resident) * sms;
-  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-      in.keys, in.idx, in.result_keys, in.result_idx, in.plan, in.pass, out_keys, out_idx,
-      num_tiles, shift, vec);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(keys, idx, out_keys, out_idx,
+                                                                   num_tiles, shift, vec);
   return cudaSuccess;
 }
 
@@ -234,32 +160,23 @@ cudaError_t launch_1k(const Sources& in, uint32_t* out_keys, uint32_t* out_idx,
 // 32 x 8.  A block keeps 16 x tile bytes a warp in shared memory for the
 // 1,024-key tile (input and staged output) and 8 x tile bytes a warp for any
 // other (staged output), at most 232,448 bytes.  tile is a multiple of 128;
-// radix a power of two <= 16.  plan: null, or a fused sort's pass plan on the
-// device, of which entry `pass` routes this launch; result_keys and
-// result_idx are then the sort's result buffer, of keys' length.  Returns
-// cudaGetLastError() after the launch.
+// radix a power of two <= 16.  Returns cudaGetLastError() after the launch.
 extern "C" int grs_bucketize(const void* keys, const void* idx, void* out_keys,
                              void* out_idx, int64_t num_tiles, int tile,
-                             int threads, int shift, int radix, const void* plan,
-                             int pass, const void* result_keys, const void* result_idx,
-                             void* stream) {
+                             int threads, int shift, int radix, void* stream) {
   const bool fast = tile == kFastTile;
   const size_t smem = static_cast<size_t>(threads / 32) * (fast ? 4 : 2) *
                       static_cast<size_t>(tile) * sizeof(uint32_t);
   if (radix < 2 || radix > kMaxRadix || (radix & (radix - 1)) != 0 ||
       threads < 32 || threads % 32 != 0 || threads > 32 * kMaxWarps ||
       tile <= 0 || tile % 128 != 0 || smem > kMaxShared ||
-      !aligned16(out_keys) || !aligned16(out_idx) ||
-      (plan != nullptr && (pass < 0 || result_keys == nullptr || result_idx == nullptr))) {
+      !aligned16(out_keys) || !aligned16(out_idx)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles <= 0) return static_cast<int>(cudaGetLastError());
-  const Sources in{static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(idx),
-                   static_cast<const uint32_t*>(result_keys),
-                   static_cast<const uint32_t*>(result_idx), static_cast<const int32_t*>(plan),
-                   pass};
-  const bool vec = aligned16(keys) && aligned16(idx) &&
-                   (plan == nullptr || (aligned16(result_keys) && aligned16(result_idx)));
+  const auto* k = static_cast<const uint32_t*>(keys);
+  const auto* v = static_cast<const uint32_t*>(idx);
+  const bool vec = aligned16(keys) && aligned16(idx);
   auto* ok = static_cast<uint32_t*>(out_keys);
   auto* ov = static_cast<uint32_t*>(out_idx);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -267,19 +184,18 @@ extern "C" int grs_bucketize(const void* keys, const void* idx, void* out_keys,
   cudaError_t err = cudaSuccess;
   if (fast) {
     switch (bits) {
-      case 1: err = launch_1k<1>(in, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
-      case 2: err = launch_1k<2>(in, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
-      case 3: err = launch_1k<3>(in, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
-      default: err = launch_1k<4>(in, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
+      case 1: err = launch_1k<1>(k, v, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
+      case 2: err = launch_1k<2>(k, v, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
+      case 3: err = launch_1k<3>(k, v, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
+      default: err = launch_1k<4>(k, v, ok, ov, num_tiles, threads, smem, shift, vec, s); break;
     }
   } else {
     err = allow_shared(bucketize_any_kernel, smem);
     if (err == cudaSuccess) {
       const int64_t per_block = threads / 32;
       bucketize_any_kernel<<<static_cast<unsigned>((num_tiles + per_block - 1) / per_block),
-                             threads, smem, s>>>(in.keys, in.idx, in.result_keys,
-                                                 in.result_idx, in.plan, in.pass, ok, ov,
-                                                 num_tiles, tile, shift, radix, bits);
+                             threads, smem, s>>>(k, v, ok, ov, num_tiles, tile, shift, radix,
+                                                 bits);
     }
   }
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -8,7 +8,8 @@
 // is constant exactly where the AND and the OR of all keys agree on its
 // bits.  The port reduces the buffer once and, for a fused sort, turns the
 // two words into the sort's pass plan on the card (pass_plan_kernel), which
-// K1, K2 and K3 read: nothing goes back to the host.
+// K1 and the fused pass (bucketize_scatter.cu) read: nothing goes back to
+// the host.
 //
 // Bound on the H100: HBM bytes, 4 a key read once.
 //
@@ -20,15 +21,20 @@
 // At most kMaxBlocks blocks, so at most 2 x kMaxBlocks atomics.  The grid
 // depends on n alone and the entry point queries nothing of the device.
 //
-// The plan: one int32 a pass.  -1 where the pass's digit is constant over the
-// buffer (the pass is skipped), 0 for the first pass that runs (it reads the
-// sort's input) and 1 for each later one (it reads the sort's result buffer,
-// which every pass that runs writes).  So the result is always in the result
-// buffer, the input is never written, and a skipped pass moves no byte.  With
-// no varying digit (equal keys, or no key) the JAX package's sort hands back
-// its input; the port's hands back a new buffer, so the plan then runs the
-// last pass from the input: its digit is constant, so it copies the input.
-// One thread computes it after the reduction, and adds the number of skipped
+// The plan: one int32 a pass, -1 where the pass's digit is constant over
+// the buffer (the pass is skipped), else source | destination << 2 over the
+// sort's buffers: 0 its input, 1 its result R, 2 its scratch S (warp.cuh).
+// A pass cannot scatter into the buffer it reads, since one tile's stores
+// would overwrite another tile's keys before they are read, so the passes
+// that run ping-pong between R and S.  Destinations are assigned from the
+// last pass that runs backwards, R, S, R, ..., so the last one writes R;
+// the first reads the input and each later one its predecessor's
+// destination.  So the result is always in R, the input is never written,
+// and a skipped pass moves no byte.  With no varying digit (equal keys, or
+// no key) the JAX package's sort hands back its input; the port's hands
+// back a new buffer, so the plan then runs the last pass from the input
+// into R: its digit is constant, so it copies the input.  One thread
+// computes the plan after the reduction, and adds the number of skipped
 // passes (the JAX package's count, without that copy) to a counter on the
 // card, which the host reads only when asked.
 
@@ -103,16 +109,25 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void pass_plan_kernel(const uint32_t* __restrict__ words, int num_passes,
                                  int radix_bits, int32_t* __restrict__ plan,
                                  unsigned long long* __restrict__ skipped) {
+  constexpr int kInput = 0, kResult = 1, kScratch = 2;
   const uint32_t varying = words[1] & ~words[0];
   const uint32_t digit = (1u << radix_bits) - 1u;
-  int runs = 0;
+  uint32_t runs = 0;  // bit p: pass p runs
+  for (int p = 0; p < num_passes; ++p)
+    if ((varying >> (p * radix_bits)) & digit) runs |= 1u << p;
+  const int ran = __popc(runs);
+  atomicAdd(skipped, static_cast<unsigned long long>(num_passes - ran));
+  if (ran == 0) runs = 1u << (num_passes - 1);  // the copy
+  int left = __popc(runs), source = kInput;  // left: running passes from p on
   for (int p = 0; p < num_passes; ++p) {
-    const bool run = ((varying >> (p * radix_bits)) & digit) != 0u;
-    plan[p] = run ? (runs > 0 ? 1 : 0) : -1;
-    runs += run;
+    if ((runs >> p) & 1u) {
+      const int destination = (--left & 1) ? kScratch : kResult;
+      plan[p] = source | destination << 2;
+      source = destination;
+    } else {
+      plan[p] = -1;
+    }
   }
-  if (runs == 0) plan[num_passes - 1] = 0;  // the copy
-  atomicAdd(skipped, static_cast<unsigned long long>(num_passes - runs));
 }
 
 }  // namespace

@@ -7,11 +7,20 @@ namespace grs {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Where pass `pass` of a planned fused sort reads its keys (key_bits.cu
-// writes the plan): -1 skipped, 0 the sort's input, 1 its result buffer.
-// Without a plan (K1 on its own, compaction, the radix method), 0.
-__device__ __forceinline__ int plan_source(const int32_t* plan, int pass) {
-  return plan == nullptr ? 0 : plan[pass];
+// The buffers of a fused sort: 0 its input, 1 its result R, 2 its scratch S.
+// Pass `pass` of a planned sort (key_bits.cu writes the plan) reads its
+// keys from `source` and writes them to `destination`; source -1 where the
+// plan skips the pass.  A plan entry is -1, or source | destination << 2.
+// Without a plan (K1 on its own, compaction, the radix method, an unplanned
+// bucketize_scatter) a launch reads buffer 0 and writes buffer 1.
+struct Route {
+  int source, destination;
+};
+
+__device__ __forceinline__ Route plan_route(const int32_t* plan, int pass) {
+  if (plan == nullptr) return {0, 1};
+  const int e = plan[pass];
+  return e < 0 ? Route{-1, -1} : Route{e & 3, e >> 2};
 }
 
 // The ballots of one digit per lane, one per digit bit (bits <= MaxBits), from
@@ -70,8 +79,8 @@ __device__ __forceinline__ void cp_async(uint32_t* smem, const uint32_t* gmem, b
 }
 
 // Tile t's keys and indices (kTile each) into a warp's input buffer, keys
-// first, in element order, as one cp.async group; K2 and K3 use it.  Wait
-// with cp.async.wait_group, then __syncwarp, before reading the buffer.
+// first, in element order, as one cp.async group.  Wait with
+// cp.async.wait_group, then __syncwarp, before reading the buffer.
 template <int kTile>
 __device__ __forceinline__ void load_tile(uint32_t* in, const uint32_t* keys,
                                           const uint32_t* idx, int64_t t, int lane,

@@ -5,7 +5,10 @@ it runs, every tile is digit-major, so the global scatter of
 ``kernels/scatter.py`` copies whole runs.  On a CUDA tensor it launches
 ``csrc/bucketize.cu``, one warp per tile ranking in registers and staging
 the tile in shared memory; on a CPU tensor it runs the plain version, a
-per-tile stable argsort by digit.
+per-tile stable argsort by digit.  The fused sort's passes run
+``kernels/scatter.py::bucketize_scatter``, which ranks a tile with this
+kernel's step and places it without the round trip through device memory;
+``bucketize_tiles`` stays as the counterpart of the JAX package's function.
 """
 
 from __future__ import annotations
@@ -19,10 +22,7 @@ from gpuradixsort_tpu_torch.kernels.radix import (
     MAX_SHARED_BYTES,
     WARP,
     check_keys,
-    check_plan,
-    data_ptr,
     digits_of,
-    planned_source,
 )
 
 BUCKETIZE_TILES_PER_BLOCK = 2
@@ -67,39 +67,23 @@ def bucketize_tiles(
     shift: int,
     cfg: EngineConfig,
     impl: str | None = None,
-    plan: torch.Tensor | None = None,
-    pass_index: int = 0,
-    result: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable-sort every tile by digit.  keys, idx: (num_tiles * tile,) uint32.
-
-    With ``plan`` the call is pass ``pass_index`` of a fused sort whose input
-    is (keys, idx) and whose result buffer is ``result``: the pass sorts the
-    pair the plan names, or, where the plan skips it, leaves the outputs
-    unwritten (zeros in the plain version).
-    """
+    """Stable-sort every tile by digit.  keys, idx: (num_tiles * tile,) uint32."""
     if cfg.radix > 16:
         raise ValueError("bucketize supports radix <= 16")
     num_tiles = check_keys("keys", keys, cfg)
     check_keys("idx", idx, cfg)
     if idx.numel() != keys.numel() or idx.device != keys.device:
         raise ValueError("keys and idx must have one length and one device")
-    if plan is not None:
-        check_plan(plan, pass_index, keys, result or (None,))
     if resolve_impl(keys, impl) == "reference":
-        source = planned_source(plan, pass_index, ((keys, idx), result))
-        if source is None:
-            return torch.zeros_like(keys), torch.zeros_like(idx)
-        return _bucketize_ref(*source, shift, cfg)
+        return _bucketize_ref(keys, idx, shift, cfg)
     threads, _ = bucketize_geometry(cfg)
     out_keys = torch.empty_like(keys)
     out_idx = torch.empty_like(idx)
-    result_keys, result_idx = result if plan is not None else (None, None)
     launch(
         "grs_bucketize", keys, keys.data_ptr(), idx.data_ptr(),
         out_keys.data_ptr(), out_idx.data_ptr(), num_tiles, cfg.tile,
-        threads, shift, cfg.radix, data_ptr(plan), pass_index, data_ptr(result_keys),
-        data_ptr(result_idx),
+        threads, shift, cfg.radix,
     )
     bucketize_tiles.launches += 1
     return out_keys, out_idx

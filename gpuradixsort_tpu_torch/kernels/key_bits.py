@@ -11,11 +11,14 @@ also turns the two words into the plan on the card; on a CPU tensor they run
 the plain versions, which reduce one bit plane at a time (PyTorch has no
 bitwise reduction) and build the plan on the host from ``pass_mask``.
 
-The plan is one int32 a pass: -1 where the pass is skipped, 0 for the first
-pass that runs (it reads the sort's input), 1 for each later one (it reads
-the sort's result buffer, which every pass that runs writes).  With no
-varying digit the last pass runs from the input: its digit is constant, so
-it copies the input into the result buffer.
+The plan is one int32 a pass (``kernels/radix.py::plan_entry``): -1 where
+the pass is skipped, else the buffer it reads and the one it writes.  A
+pass cannot scatter into the buffer it reads, so the passes that run
+ping-pong between the sort's result R and its scratch S, assigned from the
+last pass that runs backwards (R, S, R, ...) so that the last one writes R;
+the first reads the sort's input, which is never written.  With no varying
+digit the last pass runs from the input into R: its digit is constant, so
+it copies the input.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits, wrap_int32
 from gpuradixsort_tpu_torch.kernels._build import launch
+from gpuradixsort_tpu_torch.kernels.radix import INPUT, PLAN_SKIP, RESULT, SCRATCH, plan_entry
 
 
 def _check_keys(keys: torch.Tensor) -> None:
@@ -85,13 +89,12 @@ def pass_mask(keys: torch.Tensor, cfg: EngineConfig) -> int:
 
 def plan_of_mask(mask: int, num_passes: int) -> list[int]:
     """The pass plan of a pass mask, as ``csrc/key_bits.cu`` builds it on the card."""
-    plan, runs = [], 0
-    for p in range(num_passes):
-        run = (mask >> p) & 1
-        plan.append((1 if runs else 0) if run else -1)
-        runs += run
-    if not runs:
-        plan[-1] = 0  # the copy
+    runs = [p for p in range(num_passes) if (mask >> p) & 1] or [num_passes - 1]  # or the copy
+    plan, source = [PLAN_SKIP] * num_passes, INPUT
+    for i, p in enumerate(runs):  # R for the last, S for the one before, ...
+        destination = SCRATCH if (len(runs) - 1 - i) % 2 else RESULT
+        plan[p] = plan_entry(source, destination)
+        source = destination
     return plan
 
 

@@ -1,4 +1,4 @@
-"""Scatter runs: the global stable scatter of the bucketized tiles.
+"""Scatter runs, and the fused sort's pass: bucketize and scatter in one kernel.
 
 The PyTorch counterpart of ``gpuradixsort_tpu/kernels/scatter.py``.  After
 ``bucketize_tiles`` tile t holds its digit-r run at
@@ -12,6 +12,14 @@ package's API and is always False.  A destination outside the buffer, which
 only an inconsistent hist/offsets pair gives, is dropped, as the JAX
 package drops it; the kernel then leaves that output row unwritten, where
 the plain version leaves a zero.
+
+The JAX package's fused pass runs ``bucketize_tiles`` and then
+``scatter_runs``, the bucketized tiles going through device memory between
+them.  ``bucketize_scatter`` is that pair as one kernel
+(``csrc/bucketize_scatter.cu``), which keeps the bucketized tile in shared
+memory: it reads and writes each key once.  The fused sort's passes run it;
+``bucketize_tiles`` and ``scatter_runs`` stay as the counterparts of the JAX
+package's two functions.
 """
 
 from __future__ import annotations
@@ -21,7 +29,22 @@ import torch
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
-from gpuradixsort_tpu_torch.kernels.radix import check_keys, check_plan, data_ptr, planned_source
+from gpuradixsort_tpu_torch.kernels.bucketize import FAST_TILE, _bucketize_ref
+from gpuradixsort_tpu_torch.kernels.radix import (
+    MAX_SHARED_BYTES,
+    WARP,
+    check_keys,
+    check_plan,
+    data_ptr,
+    planned_route,
+)
+
+# Tiles a bucketize_scatter block: at about 170 registers a thread, blocks of
+# 4 warps put 12 warps on an SM where blocks of 8 put 8; on an H100 (700 W)
+# 4 ran 10% faster than 8 and 2% faster than 2 at 2^24 keys (kernel_ab.py;
+# PERF.md, Findings).
+FUSED_TILES_PER_BLOCK = 4
+_MAX_FUSED_RADIX = 16
 
 
 def _scatter_runs_ref(bk, bi, hist, offsets, cfg: EngineConfig):
@@ -46,30 +69,8 @@ def _scatter_runs_ref(bk, bi, hist, offsets, cfg: EngineConfig):
     return scatter(bk), scatter(bi)
 
 
-def scatter_runs(
-    bk: torch.Tensor,
-    bi: torch.Tensor,
-    hist: torch.Tensor,
-    offsets: torch.Tensor,
-    cfg: EngineConfig,
-    impl: str | None = None,
-    plan: torch.Tensor | None = None,
-    pass_index: int = 0,
-    result: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, bool]:
-    """Scatter bucketized tiles to their global stable positions.
-
-    bk, bi: (num_tiles * tile,) uint32, each tile digit-major.  hist,
-    offsets: (num_tiles, radix) int32 per-tile counts and global offsets
-    (``global_offsets``).  Returns (keys, indices, overflow=False).
-
-    With ``plan`` the call is pass ``pass_index`` of a fused sort: the pass
-    writes the sort's result buffer ``result`` (also where the pass read it:
-    bucketize has already copied it into bk, bi), or, where the plan skips
-    it, writes nothing; it returns ``result``.
-    """
-    num_tiles = check_keys("bk", bk, cfg)
-    check_keys("bi", bi, cfg)
+def _check_tables(hist: torch.Tensor, offsets: torch.Tensor, like: torch.Tensor,
+                  num_tiles: int, cfg: EngineConfig) -> None:
     for name, t in (("hist", hist), ("offsets", offsets)):
         shape = (num_tiles, cfg.radix)
         if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -77,25 +78,126 @@ def scatter_runs(
                 f"{name} must be contiguous int32 of shape {shape}, got "
                 f"{t.dtype} of shape {tuple(t.shape)}"
             )
-    if any(t.device != bk.device for t in (bi, hist, offsets)):
-        raise ValueError("bk, bi, hist and offsets must be on one device")
-    if plan is not None:
-        check_plan(plan, pass_index, bk, result or (None,))
+        if t.device != like.device:
+            raise ValueError("the keys, hist and offsets must be on one device")
+
+
+def scatter_runs(
+    bk: torch.Tensor,
+    bi: torch.Tensor,
+    hist: torch.Tensor,
+    offsets: torch.Tensor,
+    cfg: EngineConfig,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """Scatter bucketized tiles to their global stable positions.
+
+    bk, bi: (num_tiles * tile,) uint32, each tile digit-major.  hist,
+    offsets: (num_tiles, radix) int32 per-tile counts and global offsets
+    (``global_offsets``).  Returns (keys, indices, overflow=False).
+    """
+    num_tiles = check_keys("bk", bk, cfg)
+    check_keys("bi", bi, cfg)
+    if bi.device != bk.device:
+        raise ValueError("bk and bi must be on one device")
+    _check_tables(hist, offsets, bk, num_tiles, cfg)
     if resolve_impl(bk, impl) == "reference":
-        if plan is None:
-            return (*_scatter_runs_ref(bk, bi, hist, offsets, cfg), False)
-        if planned_source(plan, pass_index, (bk, bi)) is not None:  # the pass runs
-            for dst, src in zip(result, _scatter_runs_ref(bk, bi, hist, offsets, cfg)):
-                dst.copy_(src)
-        return (*result, False)
-    out_keys, out_idx = result if plan is not None else (torch.empty_like(bk), torch.empty_like(bi))
+        return (*_scatter_runs_ref(bk, bi, hist, offsets, cfg), False)
+    out_keys, out_idx = torch.empty_like(bk), torch.empty_like(bi)
     launch(
         "grs_scatter_runs", bk, bk.data_ptr(), bi.data_ptr(), hist.data_ptr(),
         offsets.data_ptr(), out_keys.data_ptr(), out_idx.data_ptr(), num_tiles,
-        cfg.tile, cfg.radix, data_ptr(plan), pass_index,
+        cfg.tile, cfg.radix,
     )
     scatter_runs.launches += 1
     return out_keys, out_idx, False
 
 
 scatter_runs.launches = 0
+
+
+def _bucketize_scatter_ref(keys, idx, hist, offsets, shift: int, cfg: EngineConfig):
+    """Plain version: ``scatter_runs``' of ``bucketize_tiles``' (key, index) tiles."""
+    return _scatter_runs_ref(*_bucketize_ref(keys, idx, shift, cfg), hist, offsets, cfg)
+
+
+def bucketize_scatter_geometry(cfg: EngineConfig) -> tuple[int, int]:
+    """(threads, shared bytes) of a bucketize_scatter block.
+
+    One warp a tile, up to ``FUSED_TILES_PER_BLOCK`` tiles a block; each
+    stages its tile's sorted keys and indices (8 bytes a key) in shared
+    memory, and on any tile but the 1,024-key one also its rows of run ends
+    and deltas (128 bytes).
+    """
+    per_tile = 8 * cfg.tile + (0 if cfg.tile == FAST_TILE else 8 * _MAX_FUSED_RADIX)
+    tiles = min(FUSED_TILES_PER_BLOCK, MAX_SHARED_BYTES // per_tile)
+    if tiles == 0:
+        raise ValueError(
+            f"bucketize_scatter stages {per_tile} bytes a tile, more than a block's "
+            f"{MAX_SHARED_BYTES}; use tile_rows <= {(MAX_SHARED_BYTES - 128) // (8 * 128)}"
+        )
+    return WARP * tiles, tiles * per_tile
+
+
+def bucketize_scatter(
+    keys: torch.Tensor,
+    idx: torch.Tensor,
+    hist: torch.Tensor,
+    offsets: torch.Tensor,
+    shift: int,
+    cfg: EngineConfig,
+    impl: str | None = None,
+    plan: torch.Tensor | None = None,
+    pass_index: int = 0,
+    buffers: tuple | None = None,
+):
+    """One fused pass: ``scatter_runs(*bucketize_tiles(keys, idx, shift), hist, offsets)``.
+
+    keys, idx: (num_tiles * tile,) uint32; hist: the tiles' digit
+    histograms (``tile_histograms``), offsets their ``global_offsets``.
+    Returns the output (keys, idx).  The kernel counts each tile's digits
+    itself and does not read hist, so hist must be the keys' histograms, as
+    in a sort; the plain version reads it.
+
+    With ``plan`` the call is pass ``pass_index`` of a fused sort whose input
+    is (keys, idx) and whose result and scratch buffers are ``buffers``, two
+    (keys, idx) pairs: the pass reads and writes the buffers the plan names,
+    never the same, or, where the plan skips it, writes nothing; it returns
+    None.
+    """
+    if cfg.radix > _MAX_FUSED_RADIX:
+        raise ValueError("bucketize_scatter supports radix <= 16")
+    num_tiles = check_keys("keys", keys, cfg)
+    check_keys("idx", idx, cfg)
+    if idx.numel() != keys.numel() or idx.device != keys.device:
+        raise ValueError("keys and idx must have one length and one device")
+    _check_tables(hist, offsets, keys, num_tiles, cfg)
+    if plan is not None:
+        pairs = buffers or ((None, None), (None, None))
+        check_plan(plan, pass_index, keys, (idx, *pairs[0], *pairs[1]))
+    if resolve_impl(keys, impl) == "reference":
+        if plan is None:
+            return _bucketize_scatter_ref(keys, idx, hist, offsets, shift, cfg)
+        route = planned_route(plan, pass_index, ((keys, idx), *buffers))
+        if route is not None:
+            source, destination = route
+            for dst, src in zip(destination,
+                                _bucketize_scatter_ref(*source, hist, offsets, shift, cfg)):
+                dst.copy_(src)
+        return None
+    if plan is None:
+        out = torch.empty_like(keys), torch.empty_like(idx)
+        scratch = (None, None)
+    else:
+        out, scratch = buffers
+    threads, _ = bucketize_scatter_geometry(cfg)
+    launch(
+        "grs_bucketize_scatter", keys, keys.data_ptr(), idx.data_ptr(), offsets.data_ptr(),
+        *map(data_ptr, out), *map(data_ptr, scratch), num_tiles, cfg.tile, threads, shift,
+        cfg.radix, data_ptr(plan), pass_index,
+    )
+    bucketize_scatter.launches += 1
+    return None if plan is not None else out
+
+
+bucketize_scatter.launches = 0

@@ -3,11 +3,13 @@
 The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
 
 - ``"fused"``: ``cfg.num_passes`` passes, each one histogram kernel, the
-  offsets scan, one bucketize kernel and one scatter kernel.  Takes 1-, 2-
-  and 4-bit digits.  As the JAX package jits the whole sort and decides each
-  pass's constant-digit skip on the device, the port computes a pass plan
-  on the card from the keys' AND and OR (``kernels/key_bits.py``), which
-  the kernels read: a skipped pass's kernels exit at once.
+  offsets scan and one kernel that bucketizes each tile and scatters it
+  (``kernels/scatter.py::bucketize_scatter``, the JAX package's
+  ``bucketize_tiles`` then ``scatter_runs``).  Takes 1-, 2- and 4-bit
+  digits.  As the JAX package jits the whole sort and decides each pass's
+  constant-digit skip on the device, the port computes a pass plan on the
+  card from the keys' AND and OR (``kernels/key_bits.py``), which the
+  kernels read: a skipped pass's kernels exit at once.
 - ``"radix"``: ``cfg.num_passes`` passes, each one histogram kernel, the
   offsets scan, one destination kernel and one indexed store per column
   (``permute.scatter_by_destination``).  Takes digits up to 8 bits, and has
@@ -48,10 +50,9 @@ from gpuradixsort_tpu_torch.core.table import (
     uint32_as_int32,
 )
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
-from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_plan
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
-from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
+from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter
 from gpuradixsort_tpu_torch.ops.permute import gather_rows, scatter_by_destination
 
 METHODS = ("auto", "fused", "torch", "radix")
@@ -63,25 +64,26 @@ def _fused_passes(keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig,
 
     ``pass_plan`` decides on the device which passes run, as the JAX package's
     per-pass ``lax.cond`` does, and adds the skipped ones to ``skipped``.
-    Each pass launches K1, the offsets scan, K2 and K3; in a skipped pass
-    each kernel exits at once, so the pass moves no key.  The first pass
-    that runs reads ``keys`` and ``idx``, which are never written; every pass
-    that runs writes the result buffer, which the later ones read.  Returns
-    the result buffer (keys, idx).
+    Each pass launches K1, the offsets scan and ``bucketize_scatter``; in a
+    skipped pass each kernel exits at once, so the pass moves no key.  A pass
+    cannot scatter into the buffer it reads, so the passes that run
+    ping-pong between the result buffer R and a scratch buffer S, as the
+    plan names: the first reads ``keys`` and ``idx``, which are never
+    written, and the last writes R.  Returns R (keys, idx).
     """
     plan = pass_plan(keys, cfg, skipped)
-    result = torch.empty_like(keys), torch.empty_like(idx)
+    buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
     for p in range(cfg.num_passes):
         shift = p * cfg.radix_bits
         hist = radix_kernels.tile_histograms(keys, shift, cfg, plan=plan, pass_index=p,
-                                             result=result[0])
+                                             buffers=buffers)
         # In a skipped pass this scans an unwritten histogram, which is
         # harmless: the scan's look-back words are cleared at every call, and
         # no kernel reads the offsets.
         offsets = radix_kernels.global_offsets(hist)
-        bk, bi = bucketize_tiles(keys, idx, shift, cfg, plan=plan, pass_index=p, result=result)
-        scatter_runs(bk, bi, hist, offsets, cfg, plan=plan, pass_index=p, result=result)
-    return result
+        bucketize_scatter(keys, idx, hist, offsets, shift, cfg, plan=plan, pass_index=p,
+                          buffers=buffers)
+    return buffers[0]
 
 
 def _radix_pass(keys: torch.Tensor, carried: tuple, shift: int,
@@ -128,18 +130,19 @@ _GRAPH_ROW_BYTES = 8
 # the cache is full, shapes not in it run eagerly until clear_sort_graphs(),
 # so traffic over more recurring shapes than this captures no more than
 # this many times.  A graph holds its inputs, outputs and intermediates:
-# on an H100, in chip_smoke.py phase 5, 536 MiB for a fused graph at 2^24
-# (32 bytes a padded key) and 598 MiB for a radix graph carrying the index,
-# about 4.7 times its inputs' bytes.  At that ratio the byte limit above
-# holds the cache to about 4.7 GiB; a radix graph carrying wider rows than
-# the index has not been measured.
+# on an H100, in chip_smoke.py phase 5, 408 MiB for a fused graph at 2^24
+# (about 25 bytes a padded key: the static input, the result R and the
+# scratch S) and 598 MiB for a radix graph carrying the index, about 3.2
+# and 4.7 times their inputs' bytes.  At the larger ratio the byte limit
+# above holds the cache to about 4.7 GiB; a radix graph carrying wider rows
+# than the index has not been measured.
 GRAPH_CACHE_ENTRIES = 8
 # Shapes seen once and remembered, so that a second sighting captures; the
 # least recently seen is forgotten first.
 _SEEN_ENTRIES = 1024
 # The wrappers the sorts call: a replay adds its capture's launches to them.
-_PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_tiles, scatter_runs, exclusive_scan,
-                  key_bits, radix_kernels.tile_destinations)
+_PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_scatter, exclusive_scan, key_bits,
+                  radix_kernels.tile_destinations)
 
 
 class _SortGraph:

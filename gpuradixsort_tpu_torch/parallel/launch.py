@@ -146,6 +146,7 @@ KERNEL_WRAPPERS = {
     "radix_hist": radix.tile_histograms,
     "bucketize": bucketize.bucketize_tiles,
     "scatter_runs": scatter.scatter_runs,
+    "bucketize_scatter": scatter.bucketize_scatter,
     "radix_dest": radix.tile_destinations,
     "exclusive_scan": scan.exclusive_scan,
 }

@@ -1,47 +1,40 @@
 #!/usr/bin/env python3
-"""Time the port's K3 (scatter_runs) against an older build of it.
+"""Time the fused pass's kernel (bucketize_scatter) against a persistent build of it.
 
-    python3 kernel_ab.py --old DIR [--ptxas] [--sweep] [--out FILE]
+    python3 kernel_ab.py [--ptxas] [--out FILE]
 
-``DIR`` holds an older copy of ``gpuradixsort_tpu_torch/csrc/scatter_runs.cu``
-(and, if wanted, the rest of that ``csrc/``) whose ``grs_scatter_runs`` has
-the C signature from before the fused sort's pass plan, such as the
-one-block-a-tile design of commit 17e53c9.
-Both builds are made with nvcc for sm_90a; the older one goes to
-``build/kernels_old/``.  On one CUDA card, old and new take turns (old, new,
-new, old) in:
+``csrc/bucketize_scatter.cu`` gives each warp one tile (the port's build).
+Its trial builds, into ``build/kernels_sweep/``: "persistent"
+(``-DGRS_FUSED_PERSISTENT``) has warps that walk the tiles grid-stride,
+copying the next tile into shared memory with cp.async while they rank the
+current one, as K2 does; "128 registers" is the port's source built with
+``-maxrregcount=128``.  On one CUDA card:
 
-1. K3's device time per call (torch.profiler, 20 back-to-back calls) on one
-   radix-16 pass's input (keys bucketized by the port's K2, their
-   histograms and offsets) at 1,000,000, 2^24 and 100,000,000 keys (padded
-   as the sorts pad them), beside its bound (16 bytes a key and the two
-   tables at 3.35 TB/s) and a device-to-device copy of the same keys and
-   indices (two ``copy_``, the same 16 bytes a key, timed in the same
-   turns), each turn's output checked equal to the other build's;
-2. with the old K3 swapped into the fused sort's eager loop (CUDA events,
-   median of 7, and the profiler's device busy time): the sort of 2^24
-   random keys, and of the survivors of ``filter_table`` of 100,000,000 keys
-   keeping key < 2^31 (a 100M padded buffer, as the smoke's phase 6 sorts).
-   ``sort_pairs`` with ``GRAPH_MAX_PADDED`` patched to 0, so that its passes
-   run by the eager loop: a cached CUDA graph would replay the K3 it
-   captured first on both sides.  The old K3 knows no pass plan and runs
-   every pass it is called for, so both inputs are checked to have every
-   digit varying, where the plan runs every pass too.
+1. device time per call (torch.profiler, 20 back-to-back calls) on one
+   radix-16 pass's input (random keys, their index, K1's histograms and
+   offsets) at 1,000,000, 2^24 and 100,000,000 keys (padded as the sorts
+   pad them): both builds at 8, 4 and 2 tiles a block, and K2 then K3 on
+   the same input, in mirrored turns, every output checked equal to the
+   plain version; beside the bound (16 bytes a key and the two tables at
+   3.35 TB/s);
+2. with each trial build swapped into the fused sort's eager loop (CUDA
+   events, median of 7, and the profiler's busy time), in turns port,
+   trial, trial, port: the sort of 2^24 random keys, and of the survivors
+   of ``filter_table`` of 100,000,000 keys keeping key < 2^31 (a 100M
+   padded buffer, as the smoke's phase 6 sorts them).  ``sort_pairs`` with
+   ``GRAPH_MAX_PADDED`` patched to 0: a cached CUDA graph would replay the
+   kernel it captured first on both sides.
 
-``--ptxas`` prints nvcc's register and spill report of both builds' K3 and
-of the new one's cp.async route.  ``--sweep`` first times builds of
-``csrc/scatter_runs.cu`` alone: the register route and the cp.async route
-(``GRS_SCATTER_CP_ASYNC``), each at 2, 4 and 8 tiles a block
-(``GRS_SCATTER_WARPS``), beside the port's own build, in
-mirrored turns at the three sizes, every output checked equal to the plain
-version.  The card's name and power limit and one JSON line of every number
-end the output; ``--out`` also writes that JSON to a file.
+``--ptxas`` prints nvcc's register and spill report of both builds.  The
+card's name and power limit and one JSON line of every number end the
+output; ``--out`` also writes that JSON to a file.  K3's A/B against its
+first design is ``kernel_ab.py`` of commit 6fc2579; K4's and K5's that of
+commit 17e53c9.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import json
 import pathlib
@@ -56,9 +49,8 @@ from gpuradixsort_tpu_torch.config import PAD_INDEX, EngineConfig
 from gpuradixsort_tpu_torch.core.table import Table, int32_bits, make_key_column, pad_to_tile
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
+from gpuradixsort_tpu_torch.kernels import scatter as scatter_kernels
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
-from gpuradixsort_tpu_torch.kernels.key_bits import pass_mask
-from gpuradixsort_tpu_torch.kernels.scatter import scatter_runs
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.filter import filter_table
 from gpuradixsort_tpu_torch.ops.sort import sort_pairs
@@ -72,59 +64,41 @@ from gpuradixsort_tpu_torch.utils.timing import (
 SEED = 20170101
 SIZES = {"1M": 1_000_000, "2^24": 1 << 24, "100M": 100_000_000}
 ROOT = pathlib.Path(__file__).resolve().parent
-OLD_BUILD = ROOT / "build" / "kernels_old"
 SWEEP_BUILD = ROOT / "build" / "kernels_sweep"
-SOURCE = _build._CSRC / "scatter_runs.cu"
-# name: nvcc flags of a trial build of scatter_runs.cu: each route at 2, 4
-# and 8 tiles a block.
-ROUTES = {"register": [], "cp.async": ["-DGRS_SCATTER_CP_ASYNC"]}
-SWEEP = {f"{route} {warps}/block": [*flags, f"-DGRS_SCATTER_WARPS={warps}"]
-         for route, flags in ROUTES.items() for warps in (2, 4, 8)}
-
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+SOURCE = _build._CSRC / "bucketize_scatter.cu"
+# name: nvcc flags of a trial build of bucketize_scatter.cu.
+TRIALS = {"persistent": ["-DGRS_FUSED_PERSISTENT"], "128 registers": ["-maxrregcount=128"]}
+TILES_A_BLOCK = (8, 4, 2)
 
 
 def log(msg: str) -> None:
     print(f"[ab] {msg}", flush=True)
 
 
-class ScatterBuild:
-    """``grs_scatter_runs`` of one build, behind ``scatter_runs``' signature.
+class FusedBuild:
+    """One build's ``grs_bucketize_scatter`` behind ``bucketize_scatter``'s signature.
 
-    ``planned``: the build takes the fused sort's pass plan, as this tree's
-    source does.  An older build does not: it writes the result buffer in
-    every pass it is called for.
+    ``tiles``: tiles a block, or None for the wrapper's geometry.
     """
 
-    def __init__(self, path: pathlib.Path, planned: bool):
-        self.fn = ctypes.CDLL(str(path)).grs_scatter_runs
-        self.fn.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I, _I, *([_P, _I] * planned), _P]
+    def __init__(self, fn, tiles: int | None = None):
+        self.fn = fn
+        self.fn.argtypes = _build._SIGNATURES["grs_bucketize_scatter"]
         self.fn.restype = ctypes.c_int
-        self.planned = planned
+        self.tiles = tiles
 
-    def __call__(self, bk, bi, hist, offsets, cfg, impl=None, plan=None, pass_index=0,
-                 result=None):
-        out_keys, out_idx = result or (torch.empty_like(bk), torch.empty_like(bi))
-        route = [rk.data_ptr(plan), pass_index] if self.planned else []
-        err = self.fn(bk.data_ptr(), bi.data_ptr(), hist.data_ptr(), offsets.data_ptr(),
-                      out_keys.data_ptr(), out_idx.data_ptr(), bk.numel() // cfg.tile,
-                      cfg.tile, cfg.radix, *route, torch.cuda.current_stream().cuda_stream)
+    def __call__(self, keys, idx, hist, offsets, shift, cfg, impl=None, plan=None, pass_index=0,
+                 buffers=None):
+        out, scratch = buffers or ((torch.empty_like(keys), torch.empty_like(idx)), (None, None))
+        threads = (32 * self.tiles if self.tiles
+                   else scatter_kernels.bucketize_scatter_geometry(cfg)[0])
+        err = self.fn(keys.data_ptr(), idx.data_ptr(), offsets.data_ptr(),
+                      *map(rk.data_ptr, out), *map(rk.data_ptr, scratch), keys.numel() // cfg.tile,
+                      cfg.tile, threads, shift, cfg.radix, rk.data_ptr(plan), pass_index,
+                      torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"grs_scatter_runs: CUDA error {err}")
-        return out_keys, out_idx, False
-
-
-@contextlib.contextmanager
-def scatter_of(side: str, old: ScatterBuild):
-    """Inside the block the fused sort's eager loop runs ``side``'s K3 ("old" or "new")."""
-    if side == "new":
-        yield
-        return
-    sort_ops.scatter_runs = old
-    try:
-        yield
-    finally:
-        sort_ops.scatter_runs = scatter_runs
+            raise RuntimeError(f"grs_bucketize_scatter: CUDA error {err}")
+        return None if plan is not None else out
 
 
 def same(a, b) -> bool:
@@ -133,9 +107,10 @@ def same(a, b) -> bool:
     return torch.equal(int32_bits(a), int32_bits(b))
 
 
-def ptxas_report(src: pathlib.Path, label: str, flags=()) -> None:
+def ptxas_report(label: str, flags=()) -> None:
     done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-c",
-                           "-o", "/dev/null", str(src)], capture_output=True, text=True, timeout=300)
+                           "-o", "/dev/null", str(SOURCE)], capture_output=True, text=True,
+                          timeout=300)
     for line in (done.stdout + done.stderr).splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log(f"ptxas {label}: {line.strip()}")
@@ -156,123 +131,99 @@ def fmt(x: float, digits: int = 2) -> str:
 
 
 def pass_input(rng, n: int, cfg: EngineConfig):
-    """One radix-16 pass's K3 input at n keys: (bk, bi, hist, offsets)."""
+    """One radix-16 pass's input at n keys: (keys, idx, hist, offsets)."""
     keys = make_key_column(rng.integers(0, 2**32, n, dtype=np.uint32), cfg).data
     idx = pad_to_tile(torch.arange(n, dtype=torch.int32, device=keys.device).view(torch.uint32),
                       cfg, PAD_INDEX)
     hist = rk.tile_histograms(keys, 0, cfg)
-    bk, bi = bucketize_tiles(keys, idx, 0, cfg)
-    return bk, bi, hist, rk.global_offsets(hist)
+    return keys, idx, hist, rk.global_offsets(hist)
 
 
-def bound_us(bk: torch.Tensor, hist: torch.Tensor) -> float:
-    return (16 * bk.numel() + 8 * hist.numel()) / (HBM_PEAK_TBS * 1e12) * 1e6
+def bound_us(keys: torch.Tensor, hist: torch.Tensor) -> float:
+    return (16 * keys.numel() + 8 * hist.numel()) / (HBM_PEAK_TBS * 1e12) * 1e6
 
 
-def phase_kernel(old: ScatterBuild, rng, results: dict) -> None:
-    cfg = EngineConfig()
-    for label, n in SIZES.items():
-        bk, bi, hist, offsets = pass_input(rng, n, cfg)
-        ck, ci = torch.empty_like(bk), torch.empty_like(bi)
-        fns = {"old": lambda: old(bk, bi, hist, offsets, cfg),
-               "new": lambda: scatter_runs(bk, bi, hist, offsets, cfg)}
-        turns = {"old": [], "new": [], "copy": []}
-        for side in ("old", "new", "new", "old"):
-            turns[side].append(device_us(fns[side]))
-            turns["copy"].append(device_us(lambda: (ck.copy_(bk), ci.copy_(bi))))
-        if not same(fns["old"]()[:2], fns["new"]()[:2]):
-            raise SystemExit(f"scatter_runs at {label}: old and new outputs differ")
-        bound = bound_us(bk, hist)
-        row = {side: median_measured(v) for side, v in turns.items()}
-        row.update(turns=turns, bound_us=bound, padded=bk.numel(),
-                   share_old=bound / row["old"] if row["old"] else None,
-                   share_new=bound / row["new"] if row["new"] else None)
-        results[f"scatter_runs @ {label}"] = row
-        log(f"scatter_runs radix 16 @ {label} ({bk.numel()} keys): device us per call, turns "
-            f"old {fmt(turns['old'][0])} new {fmt(turns['new'][0])} new {fmt(turns['new'][1])} "
-            f"old {fmt(turns['old'][1])}; copy of the same bytes {fmt(row['copy'])}; "
-            f"bound {bound:.2f} us; share of bound old "
-            f"{fmt(row['share_old'] or 0, 3)} new {fmt(row['share_new'] or 0, 3)}")
-        del bk, bi, hist, offsets, fns, ck, ci
-        torch.cuda.empty_cache()
-
-
-def sweep(rng, results: dict) -> None:
-    """The port's K3 beside trial builds of its routes and tiles a block."""
+def build_trials() -> dict:
+    """The trial builds, each loaded: name -> ctypes.CDLL."""
     SWEEP_BUILD.mkdir(parents=True, exist_ok=True)
-    libs = {name: SWEEP_BUILD / f"scatter_{name.replace(' ', '_').replace('/', '_')}.so"
-            for name in SWEEP}
-    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, *SWEEP[name], "-shared", "-o",
-                      str(libs[name]), str(SOURCE)] for name in SWEEP])
-    builds = {name: ScatterBuild(path, planned=True) for name, path in libs.items()}
+    libs = {name: SWEEP_BUILD / f"bucketize_scatter_{name.replace(' ', '_')}.so"
+            for name in TRIALS}
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, *TRIALS[name], "-shared", "-o",
+                      str(libs[name]), str(SOURCE)] for name in TRIALS])
+    return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}
+
+
+def phase_kernel(trials: dict, rng, results: dict) -> None:
     cfg = EngineConfig()
+    libs = {"port": _build.library(), **trials}
+    builds = {f"{name} {t}/block": FusedBuild(lib.grs_bucketize_scatter, t)
+              for name, lib in libs.items() for t in TILES_A_BLOCK}
     for label, n in SIZES.items():
-        bk, bi, hist, offsets = pass_input(rng, n, cfg)
-        want = scatter_runs(bk, bi, hist, offsets, cfg, impl="reference")[:2]
-        sides = {"port": lambda: scatter_runs(bk, bi, hist, offsets, cfg)}
-        sides.update({name: (lambda b=b: b(bk, bi, hist, offsets, cfg))
-                      for name, b in builds.items()})
+        keys, idx, hist, offsets = pass_input(rng, n, cfg)
+        want = scatter_kernels.bucketize_scatter(keys, idx, hist, offsets, 0, cfg,
+                                                 impl="reference")
+        sides = {name: (lambda b=b: b(keys, idx, hist, offsets, 0, cfg))
+                 for name, b in builds.items()}
         for name, fn in sides.items():
-            if not same(fn()[:2], want):
-                raise SystemExit(f"scatter sweep {label} {name}: differs from the plain version")
+            if not same(fn(), want):
+                raise SystemExit(f"bucketize_scatter {label} {name}: differs from the plain version")
         del want
+        sides["K2 then K3"] = lambda: scatter_kernels.scatter_runs(
+            *bucketize_tiles(keys, idx, 0, cfg), hist, offsets, cfg)
         turns = {name: [] for name in sides}
         for name in list(sides) + list(sides)[::-1]:  # mirrored turns
             turns[name].append(device_us(sides[name]))
         row = {name: median_measured(t) for name, t in turns.items()}
-        results[f"sweep scatter_runs @ {label}"] = {**row, "turns": turns,
-                                                    "bound_us": bound_us(bk, hist)}
-        log(f"sweep scatter_runs radix 16 @ {label} ({bk.numel()} keys): device us per call, "
-            f"median of 2 mirrored turns: " + ", ".join(f"{k} {fmt(v)}" for k, v in row.items())
-            + f"; bound {bound_us(bk, hist):.2f} us")
-        del bk, bi, hist, offsets, sides
+        bound = bound_us(keys, hist)
+        results[f"bucketize_scatter @ {label}"] = {**row, "turns": turns, "bound_us": bound,
+                                                   "padded": keys.numel()}
+        log(f"bucketize_scatter radix 16 @ {label} ({keys.numel()} keys): device us per call, "
+            f"median of 2 mirrored turns: " + ", ".join(
+                f"{k} {fmt(v)} (share of bound {fmt(bound / v if v else 0, 3)})"
+                for k, v in row.items()) + f"; bound {bound:.2f} us")
+        del keys, idx, hist, offsets, sides
         torch.cuda.empty_cache()
 
 
-def ab_sorts(old: ScatterBuild, rng, results: dict) -> None:
+def ab_sorts(trials: dict, rng, results: dict) -> None:
     cfg = EngineConfig()
     col = make_key_column(rng.integers(0, 2**32, 1 << 24, dtype=np.uint32), cfg)
     fkeys = Table({"key": make_key_column(rng.integers(0, 2**32, 100_000_000, dtype=np.uint32),
                                           cfg)})
     kept = filter_table(fkeys, lambda t: int32_bits(t["key"].data) >= 0, cfg).to_table()["key"]
     del fkeys
-    for keys in (col.data, sort_ops._as_key_column(kept, cfg).data):
-        if pass_mask(keys, cfg) != (1 << cfg.num_passes) - 1:
-            raise SystemExit("an A/B input has a constant digit, which the old K3 cannot skip")
     torch.cuda.synchronize()
     cases = {
         "sort_pairs fused 2^24 (eager loop)": lambda: sort_pairs(col, cfg, method="fused"),
         f"sort_pairs fused of the filter's {kept.length} survivors (100M padded buffer, "
         f"eager loop)": lambda: sort_pairs(kept, cfg, method="fused"),
     }
-    for name, fn in cases.items():
-        outs, turns, busy = {}, {"old": [], "new": []}, {"old": [], "new": []}
-        for side in ("old", "new", "new", "old"):
-            # The eager loop: a cached CUDA graph would replay the K3 it captured first.
-            with scatter_of(side, old), mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", 0):
-                outs[side] = [c.data for c in fn()]
-                turns[side].append(float(np.median(cuda_time_ms(fn, reps=7, warmup=1))))
-                busy[side].append(profiled_device_ms(fn, calls=3)[0])
-        if not same(outs["old"], outs["new"]):
-            raise SystemExit(f"{name}: old and new K3 give different results")
-        results[name] = {"event_ms": turns, "busy_ms": busy,
-                         "old": float(np.median(turns["old"])),
-                         "new": float(np.median(turns["new"]))}
-        log(f"{name}: CUDA events ms (median of 7), turns old {turns['old'][0]:.4f} new "
-            f"{turns['new'][0]:.4f} new {turns['new'][1]:.4f} old {turns['old'][1]:.4f}; "
-            f"device busy ms old {fmt(busy['old'][0], 4)} new {fmt(busy['new'][0], 4)} "
-            f"new {fmt(busy['new'][1], 4)} old {fmt(busy['old'][1], 4)}")
-        del outs
-        torch.cuda.empty_cache()
+    for trial, lib in trials.items():
+        other = FusedBuild(lib.grs_bucketize_scatter)
+        for name, fn in cases.items():
+            outs, turns, busy = {}, {"port": [], trial: []}, {"port": [], trial: []}
+            for side in ("port", trial, trial, "port"):
+                fused_pass = other if side == trial else scatter_kernels.bucketize_scatter
+                with mock.patch.object(sort_ops, "bucketize_scatter", fused_pass), \
+                        mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", 0):
+                    outs[side] = [c.data for c in fn()]
+                    turns[side].append(float(np.median(cuda_time_ms(fn, reps=7, warmup=1))))
+                    busy[side].append(profiled_device_ms(fn, calls=3)[0])
+            if not same(outs["port"], outs[trial]):
+                raise SystemExit(f"{name}: the port's and the {trial} build differ")
+            results[f"{name}, port against {trial}"] = {"event_ms": turns, "busy_ms": busy}
+            log(f"{name}, port against {trial}: CUDA events ms (median of 7), turns port "
+                f"{turns['port'][0]:.4f} {trial} {turns[trial][0]:.4f} {trial} "
+                f"{turns[trial][1]:.4f} port {turns['port'][1]:.4f}; device busy ms port "
+                f"{fmt(busy['port'][0], 4)} {trial} {fmt(busy[trial][0], 4)} {trial} "
+                f"{fmt(busy[trial][1], 4)} port {fmt(busy['port'][1], 4)}")
+            del outs
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--old", required=True, type=pathlib.Path,
-                        help="directory of the older scatter_runs.cu")
     parser.add_argument("--ptxas", action="store_true", help="print nvcc's register report")
-    parser.add_argument("--sweep", action="store_true",
-                        help="time K3's routes and tiles a block first")
     parser.add_argument("--out", type=pathlib.Path, help="also write the JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -281,17 +232,15 @@ def main() -> int:
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
     _build.library()
-    old = ScatterBuild(_build.build(args.old, OLD_BUILD), planned=False)
+    trials = build_trials()
     if args.ptxas:
-        ptxas_report(SOURCE, "new scatter_runs.cu")
-        ptxas_report(SOURCE, "new scatter_runs.cu, cp.async route", ["-DGRS_SCATTER_CP_ASYNC"])
-        ptxas_report(args.old / "scatter_runs.cu", "old scatter_runs.cu")
+        ptxas_report("port (one tile a warp)")
+        for name, flags in TRIALS.items():
+            ptxas_report(name, flags)
     rng = np.random.default_rng(SEED)
     results: dict = {"card": card}
-    if args.sweep:
-        sweep(rng, results)
-    phase_kernel(old, rng, results)
-    ab_sorts(old, rng, results)
+    phase_kernel(trials, rng, results)
+    ab_sorts(trials, rng, results)
     text = json.dumps(results)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

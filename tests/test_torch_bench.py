@@ -105,6 +105,7 @@ def test_stage_bytes_equal_hand_counts():
         "global_offsets": (2048, 256),
         "bucketize": (16 * 16384, 4 * 16384),
         "scatter_runs": (16 * 16384 + 2048, 2 * 16384),
+        "bucketize_scatter": (16 * 16384 + 2048, 6 * 16384),
         "radix_dest": (8 * 16384 + 1024, 4 * 16384),
         "exclusive_scan": (8 * 16384 + 4, 16384),
         "key_bits": (4 * 16384 + 8, 2 * 16384),
@@ -128,6 +129,7 @@ def test_stage_table_untimed_on_cpu(inputs):
     text = tbench.stage_text(rows, "cpu: nothing timed", N, keys.numel())
     assert text.splitlines()[0] == "cpu: nothing timed"
     assert "scatter_runs kernel (per pass)" in text and "window" not in text
+    assert "bucketize+scatter kernel (per pass)" in text
     assert "not measured per launch by events" in text
 
 

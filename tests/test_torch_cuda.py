@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from gpuradixsort_tpu_torch import bench as tbench
 from gpuradixsort_tpu_torch.config import LANES, EngineConfig
 from gpuradixsort_tpu_torch.core.table import Table, int32_bits, make_column, make_key_column
 from gpuradixsort_tpu_torch.kernels import _build
@@ -86,6 +87,8 @@ def test_kernels_match_plain(bits, card, gen):
             ref = tscatter.scatter_runs(*ref, hist, off, cfg, impl="reference")[:2]
             got = tscatter.scatter_runs(*got, hist, off, cfg)[:2]
             assert all(_same(g, r) for g, r in zip(got, ref))
+            got = tscatter.bucketize_scatter(keys, idx, hist, off, shift, cfg)
+            assert all(_same(g, r) for g, r in zip(got, ref))
     torch.cuda.synchronize()
 
 
@@ -104,6 +107,37 @@ def test_kernels_at_other_tile_sizes(tile_rows, card, gen):
     ref = tscatter.scatter_runs(*ref, hist, off, cfg, impl="reference")[:2]
     got = tscatter.scatter_runs(*got, hist, off, cfg)[:2]
     assert all(_same(g, r) for g, r in zip(got, ref))
+    got = tscatter.bucketize_scatter(keys, idx, hist, off, 4, cfg)
+    assert all(_same(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_bucketize_scatter_matches_plain_at_every_geometry(tile_rows, bits, card, gen):
+    # Radix 2, 4 and 16 at every tile size; 1, 8 and 29 tiles (the last
+    # block of 8 part-filled), inputs aligned and 4 bytes off, and offsets
+    # moved by 7 rows, whose destinations past the end are dropped (the rows
+    # some slot lands on compared: the kernel leaves the others unwritten).
+    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+    for num_tiles in (1, 8, 8 * 3 + 5):
+        n = num_tiles * cfg.tile
+        for name, keys_np in _keysets(gen, n + 1).items():
+            buf = torch.from_numpy(keys_np).to(card)
+            pos = torch.from_numpy(gen.permutation(n + 1).astype(np.uint32)).to(card)
+            for keys, idx in ((buf[:n], pos[:n]), (buf[1:], pos[1:])):
+                for shift in (0, 4, 28):
+                    where = f"{name} tiles={num_tiles} shift={shift} offset={keys.data_ptr() % 16}"
+                    hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
+                    off = tradix.global_offsets(hist)
+                    ref = tscatter.bucketize_scatter(keys, idx, hist, off, shift, cfg,
+                                                     impl="reference")
+                    got = tscatter.bucketize_scatter(keys, idx, hist, off, shift, cfg)
+                    assert all(_same(g, r) for g, r in zip(got, ref)), where
+                moved = (tscatter.bucketize_scatter(keys, idx, hist, off + 7, shift, cfg),
+                         tscatter.bucketize_scatter(keys, idx, hist, off + 7, shift, cfg,
+                                                    impl="reference"))
+                assert all(_same(g[7:], r[7:]) for g, r in zip(*moved)), name
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
@@ -155,6 +189,10 @@ def test_every_tile_size_launches(card, gen):
             if cfg.radix <= 16:
                 ref = tbucketize.bucketize_tiles(keys, keys, 0, cfg, impl="reference")
                 got = tbucketize.bucketize_tiles(keys, keys, 0, cfg)
+                assert all(_same(g, r) for g, r in zip(got, ref))
+                off = tradix.global_offsets(hist)
+                ref = tscatter.bucketize_scatter(keys, keys, hist, off, 0, cfg, impl="reference")
+                got = tscatter.bucketize_scatter(keys, keys, hist, off, 0, cfg)
                 assert all(_same(g, r) for g, r in zip(got, ref))
     torch.cuda.synchronize()
 
@@ -457,8 +495,9 @@ def test_full_graph_cache_runs_the_eager_loop(card, gen, monkeypatch):
 
 
 def test_launch_counts_stay_true_under_replay(card, gen):
-    wrappers = (tradix.tile_histograms, tbucketize.bucketize_tiles, tscatter.scatter_runs,
-                tscan.exclusive_scan, tkey_bits.key_bits)
+    # K2 and K3 are off the fused sort's path: its passes run bucketize_scatter.
+    wrappers = (tradix.tile_histograms, tscatter.bucketize_scatter, tscan.exclusive_scan,
+                tkey_bits.key_bits, tbucketize.bucketize_tiles, tscatter.scatter_runs)
     col = make_key_column(gen.integers(0, 2**32, 4 * CFG.block, dtype=np.uint32), CFG,
                           device=card)
     tsort.clear_sort_graphs()
@@ -471,9 +510,9 @@ def test_launch_counts_stay_true_under_replay(card, gen):
 
     # The first call runs the eager loop; the second captures (which runs
     # nothing) and replays; each later call replays.
-    assert launches_of(1) == [8, 8, 8, 8, 1]
-    assert launches_of(1) == [8, 8, 8, 8, 1]
-    assert launches_of(5) == [40, 40, 40, 40, 5]
+    assert launches_of(1) == [8, 8, 8, 1, 0, 0]
+    assert launches_of(1) == [8, 8, 8, 1, 0, 0]
+    assert launches_of(5) == [40, 40, 40, 5, 0, 0]
     tsort.clear_sort_graphs()
 
 
@@ -490,6 +529,77 @@ def test_eager_loop_and_replay_make_no_host_sync(card, gen):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(_same(g, e) for g, e in zip(graphed, eager))
+    tsort.clear_sort_graphs()
+
+
+def _mask_keys(mask: int, n: int, gen) -> np.ndarray:
+    """n keys whose 4-bit digit p varies exactly where bit p of ``mask`` is set."""
+    keys = np.full(n, 0x9C3A5E71, dtype=np.uint32)
+    for p in range(CFG.num_passes):
+        if (mask >> p) & 1:
+            shift = np.uint32(4 * p)
+            vals = gen.integers(0, 16, n).astype(np.uint32)
+            vals[:2] = (0, 15)
+            keys = (keys & ~(np.uint32(15) << shift)) | (vals << shift)
+    return keys
+
+
+def test_plan_routes_every_mask_on_card(card, gen):
+    # Every mask of 4-bit digits: the plan against plan_of_mask, then in each
+    # pass K1 and bucketize_scatter routed by it (input -> R or S, R -> S,
+    # S -> R) against their plain versions on copies of the same buffers;
+    # the result R against a stable sort, the input unwritten.
+    n = 2 * CFG.block
+    for mask in range(1 << CFG.num_passes):
+        keys_np = _mask_keys(mask, n, gen)
+        keys = torch.from_numpy(keys_np).to(card)
+        idx = torch.from_numpy(gen.permutation(n).astype(np.uint32)).to(card)
+        held = keys.clone(), idx.clone()
+        plan = tkey_bits.pass_plan(keys, CFG, torch.zeros(1, dtype=torch.int64, device=card))
+        assert plan.tolist() == tkey_bits.plan_of_mask(mask, CFG.num_passes), mask
+        buffers = tuple((torch.zeros_like(keys), torch.zeros_like(idx)) for _ in range(2))
+        for p in range(CFG.num_passes):
+            routed = dict(plan=plan, pass_index=p, buffers=buffers)
+            want_buffers = tuple(tuple(t.clone() for t in pair) for pair in buffers)
+            hist = tradix.tile_histograms(keys, 4 * p, CFG, **routed)
+            want_hist = tradix.tile_histograms(keys, 4 * p, CFG, impl="reference", **routed)
+            off = tradix.global_offsets(want_hist)
+            tscatter.bucketize_scatter(keys, idx, want_hist, off, 4 * p, CFG, **routed)
+            tscatter.bucketize_scatter(keys, idx, want_hist, off, 4 * p, CFG, impl="reference",
+                                       plan=plan, pass_index=p, buffers=want_buffers)
+            if plan[p] >= 0:
+                assert _same(hist, want_hist), (mask, p)
+            assert all(_same(g, w) for got, want in zip(buffers, want_buffers)
+                       for g, w in zip(got, want)), (mask, p)
+        assert all(_same(g, w) for g, w in zip(buffers[0], _stable_sort(*held))), mask
+        assert _same(keys, held[0]) and _same(idx, held[1]), mask
+
+
+def test_sort_buffers_never_alias_the_input(card, gen, monkeypatch):
+    # The fused sort's result and scratch buffers, recorded at every pass of
+    # the eager loop and of the capture, lie apart from each other and from
+    # the caller's keys and index, which hold their values after the sort.
+    seen = []
+    fused_pass = tsort.bucketize_scatter
+
+    def recording(keys, idx, *args, buffers=None, **kwargs):
+        seen.append([(t.data_ptr(), t.data_ptr() + t.nbytes)
+                     for t in (keys, idx, *buffers[0], *buffers[1])])
+        return fused_pass(keys, idx, *args, buffers=buffers, **kwargs)
+
+    monkeypatch.setattr(tsort, "bucketize_scatter", recording)
+    tsort.clear_sort_graphs()
+    keys, idx = _sort_input(gen, card, 3 * CFG.block, 2**32)
+    held = keys.clone(), idx.clone()
+    for _ in range(3):  # eager, capture, replay
+        out = _graphed_passes(keys, idx)
+        assert all(_same(g, w) for g, w in zip(out, _stable_sort(*held)))
+        assert _same(keys, held[0]) and _same(idx, held[1])
+        assert all(o.data_ptr() not in (keys.data_ptr(), idx.data_ptr()) for o in out)
+    assert len(seen) == 2 * CFG.num_passes
+    for spans in seen:
+        spans = sorted(spans)
+        assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:])), spans
     tsort.clear_sort_graphs()
 
 
@@ -609,16 +719,16 @@ def test_failed_capture_raises(card, gen, monkeypatch):
     # nothing and leaves the launch counts as they were; it does not fall
     # back to the eager loop.
     keys, idx = _sort_input(gen, card, 2 * CFG.block, 2**32)
-    bucketize = tsort.bucketize_tiles
+    fused_pass = tsort.bucketize_scatter
 
     def failing(*args, **kwargs):
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("refused during capture")
-        return bucketize(*args, **kwargs)
+        return fused_pass(*args, **kwargs)
 
     tsort.clear_sort_graphs()
     _graphed_passes(keys, idx)  # first sighting: the eager loop
-    monkeypatch.setattr(tsort, "bucketize_tiles", failing)
+    monkeypatch.setattr(tsort, "bucketize_scatter", failing)
     before = tradix.tile_histograms.launches
     with pytest.raises(RuntimeError, match="refused during capture"):
         _graphed_passes(keys, idx)
@@ -709,8 +819,7 @@ def test_rejected_launch_raises(card):
     with pytest.raises(RuntimeError, match="grs_bucketize"):
         _build.launch(
             "grs_bucketize", keys, keys.data_ptr(), keys.data_ptr(), out.data_ptr(),
-            out.data_ptr(), CFG.block // CFG.tile, CFG.tile, 2048, 0, CFG.radix, None, 0, None,
-            None,
+            out.data_ptr(), CFG.block // CFG.tile, CFG.tile, 2048, 0, CFG.radix,
         )
     # A chunk other than the scan kernel's is refused, as is an output off a
     # 16-byte boundary.
@@ -776,4 +885,4 @@ def test_bench_at_1m_checks_every_result(card, tmp_path):
     assert line["device"] == {"name": name, "power_limit": limit}
     assert line["value"] > 0 and line["vs_baseline"] > 0
     durations = (tmp_path / "durations_cuda.txt").read_text().splitlines()
-    assert durations[0] == card_line() and len(durations) == 8
+    assert durations[0] == card_line() and len(durations) == 3 + len(tbench.STAGES)

@@ -140,6 +140,54 @@ def test_plain_versions_match_pallas_interpret(rng):
     _eq(toi, joi)
 
 
+def _jax_fused_pass(keys, idx, shift, cfg, impl):
+    """The JAX package's fused pass: scatter_runs(bucketize_tiles(...)) with its tables.
+
+    Returns (hist, offsets) as the port's (tiles, radix) tables, then the
+    output keys and indices.
+    """
+    jcfg = JaxConfig(radix_bits=cfg.radix_bits, tile_rows=cfg.tile_rows)
+    jk, ji, _, _ = _both(keys, idx)
+    jhist = jradix.tile_histograms(jk, shift, jcfg, impl="reference")
+    joff = jradix.global_offsets(jhist)
+    jbk, jbi = jbucketize.bucketize_tiles(jk, ji, shift, jcfg, impl=impl)
+    jok, joi, joverflow = jscatter.scatter_runs(jbk, jbi, jhist, joff, jcfg,
+                                                window_rows=cfg.tile_rows, impl=impl)
+    assert not bool(joverflow)
+    tables = (torch.from_numpy(np.asarray(t)[:, : cfg.radix].copy()) for t in (jhist, joff))
+    return (*tables, jok, joi)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("tile_rows", [1, 8])
+def test_bucketize_scatter_matches_jax(bits, tile_rows, rng):
+    # The fused pass's plain version against the JAX package's two kernels,
+    # their jnp references, at radix 2, 4 and 16 and tiles of 128 and 1,024
+    # keys, exactly.
+    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+    for shift in (0, 28):
+        for name, keys in _keysets(rng, 3 * cfg.block).items():
+            idx = rng.permutation(keys.size).astype(np.uint32)
+            hist, offsets, jok, joi = _jax_fused_pass(keys, idx, shift, cfg, "reference")
+            tk, ti = torch.from_numpy(keys.copy()), torch.from_numpy(idx.copy())
+            _eq(tradix.tile_histograms(tk, shift, cfg), hist)
+            tok, toi = tscatter.bucketize_scatter(tk, ti, hist, offsets, shift, cfg)
+            _eq(tok, jok)
+            _eq(toi, joi)
+
+
+def test_bucketize_scatter_matches_pallas_interpret(rng):
+    # The Pallas bodies of both of the JAX package's kernels, at one small shape.
+    cfg = EngineConfig(radix_bits=2)
+    keys = rng.integers(0, 2**32, cfg.block, dtype=np.uint32)
+    idx = rng.permutation(keys.size).astype(np.uint32)
+    hist, offsets, jok, joi = _jax_fused_pass(keys, idx, 2, cfg, "interpret")
+    tok, toi = tscatter.bucketize_scatter(torch.from_numpy(keys), torch.from_numpy(idx), hist,
+                                          offsets, 2, cfg)
+    _eq(tok, jok)
+    _eq(toi, joi)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("shift", SHIFTS)
 def test_tile_destinations_match_jax(bits, shift, rng):
@@ -308,13 +356,14 @@ def test_bucketize_geometry_limits():
 def test_plain_path_launches_no_kernel(rng):
     cfg = EngineConfig()
     wrappers = (tradix.tile_histograms, tbucketize.bucketize_tiles, tscatter.scatter_runs,
-                tradix.tile_destinations, tscan.exclusive_scan)
+                tscatter.bucketize_scatter, tradix.tile_destinations, tscan.exclusive_scan)
     before = [w.launches for w in wrappers]
     keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
     hist = tradix.tile_histograms(keys, 0, cfg)
     offsets = tradix.global_offsets(hist)
     bk, bi = tbucketize.bucketize_tiles(keys, keys, 0, cfg)
     tscatter.scatter_runs(bk, bi, hist, offsets, cfg)
+    tscatter.bucketize_scatter(keys, keys, hist, offsets, 0, cfg)
     tradix.tile_destinations(keys, offsets, 0, cfg)
     assert [w.launches for w in wrappers] == before
 
@@ -337,6 +386,7 @@ def test_check_keys_refuses_2_31_rows(rows, refused):
         lambda: tradix.tile_histograms(keys, 0, cfg),
         lambda: tbucketize.bucketize_tiles(keys, keys, 0, cfg),
         lambda: tscatter.scatter_runs(keys, keys, tables, tables, cfg),
+        lambda: tscatter.bucketize_scatter(keys, keys, tables, tables, 0, cfg),
         lambda: tradix.tile_destinations(keys, tables, 0, cfg),
     ):
         with pytest.raises(ValueError, match=r"2\^31.*int32"):
@@ -364,52 +414,99 @@ def test_scatter_runs_drops_destinations_outside_the_buffer(shift_by, rng):
         assert not lost.any()  # never written: the plain version's zeros
 
 
-@pytest.mark.parametrize("source", [-1, 0, 1])
-def test_planned_pass_reads_and_writes_the_named_buffers(source, rng):
-    # Pass 1 of a plan routes each wrapper: skipped (-1), from the sort's
-    # input (0) or from its result buffer (1).  K1 and K2 match their
-    # unplanned calls on the named buffer; K3 writes the result buffer in
-    # place, or nothing.
+ROUTES = {"skipped": None, "from the input": (tradix.INPUT, tradix.RESULT),
+          "from R": (tradix.RESULT, tradix.SCRATCH), "from S": (tradix.SCRATCH, tradix.RESULT)}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_planned_pass_reads_and_writes_the_named_buffers(route, rng):
+    # Pass 1 of a plan routes K1 and the fused pass: skipped, or from the
+    # sort's input, its result R or its scratch S into another buffer.  K1
+    # counts the named keys; the fused pass writes the named destination as
+    # its unplanned call on the named source would, and no other buffer.
     cfg = EngineConfig()
     n = 2 * cfg.tile
-    keys, result_keys = (torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32))
-                         for _ in range(2))
-    idx = torch.arange(n, dtype=torch.int32).view(torch.uint32)
-    result = (result_keys, torch.arange(n - 1, -1, -1, dtype=torch.int32).view(torch.uint32))
-    before = [t.clone() for t in result]
-    plan = torch.tensor([0, source, 1], dtype=torch.int32)
-    route = dict(plan=plan, pass_index=1)
-    hist = tradix.tile_histograms(keys, 4, cfg, result=result_keys, **route)
-    bk, bi = tbucketize.bucketize_tiles(keys, idx, 4, cfg, result=result, **route)
-    out = tscatter.scatter_runs(bk, bi, hist, tradix.global_offsets(hist), cfg, result=result,
-                                **route)
-    assert out[0] is result[0] and out[1] is result[1] and not out[2]
-    if source < 0:
-        assert not hist.any() and not bk.any() and not bi.any()
-        assert all(torch.equal(a, b) for a, b in zip(result, before))
-        return
-    src_keys, src_idx = ((keys, idx), before)[source]
-    want_hist = tradix.tile_histograms(src_keys, 4, cfg)
-    assert torch.equal(hist, want_hist)
-    want = tbucketize.bucketize_tiles(src_keys, src_idx, 4, cfg)
-    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-               for a, b in zip((bk, bi), want))
-    want = tscatter.scatter_runs(*want, want_hist, tradix.global_offsets(want_hist), cfg)
-    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-               for a, b in zip(result, want[:2]))
+
+    def pair():
+        return (torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)),
+                torch.from_numpy(rng.permutation(n).astype(np.uint32)))
+
+    sources = (pair(), pair(), pair())  # the input, R, S
+    before = [tuple(t.clone() for t in p) for p in sources]
+    entry = tradix.PLAN_SKIP if ROUTES[route] is None else tradix.plan_entry(*ROUTES[route])
+    plan = torch.tensor([tradix.plan_entry(tradix.INPUT, tradix.RESULT), entry, -1],
+                        dtype=torch.int32)
+    routed = dict(plan=plan, pass_index=1, buffers=sources[1:])
+    keys, idx = sources[0]
+    hist = tradix.tile_histograms(keys, 4, cfg, **routed)
+    offsets = tradix.global_offsets(hist)
+    assert tscatter.bucketize_scatter(keys, idx, hist, offsets, 4, cfg, **routed) is None
+    written = None
+    if ROUTES[route] is not None:
+        src, written = ROUTES[route]
+        want_hist = tradix.tile_histograms(before[src][0], 4, cfg)
+        assert torch.equal(hist, want_hist)
+        want = tscatter.bucketize_scatter(*before[src], want_hist,
+                                          tradix.global_offsets(want_hist), 4, cfg)
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(sources[written], want))
+    else:
+        assert not hist.any()
+    for i, (now, then) in enumerate(zip(sources, before)):
+        if i != written:  # every other buffer, the source included, is unwritten
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(now, then)), (route, i)
 
 
 def test_planned_pass_rejects_a_bad_plan(rng):
     cfg = EngineConfig()
     keys = torch.from_numpy(rng.integers(0, 2**32, cfg.tile, dtype=np.uint32))
+    buffers = tuple((torch.empty_like(keys), torch.empty_like(keys)) for _ in range(2))
     plan = torch.zeros(8, dtype=torch.int32)
-    for bad in (dict(plan=plan.to(torch.int64), result=keys), dict(plan=plan, pass_index=8,
-                                                                   result=keys),
-                dict(plan=plan), dict(plan=plan, result=keys[:128])):
+    for bad in (dict(plan=plan.to(torch.int64), buffers=buffers),
+                dict(plan=plan, pass_index=8, buffers=buffers), dict(plan=plan),
+                dict(plan=plan, buffers=((keys[:128], keys[:128]), buffers[1]))):
         with pytest.raises(ValueError):
             tradix.tile_histograms(keys, 0, cfg, **bad)
-    with pytest.raises(ValueError, match="result buffer"):
-        tbucketize.bucketize_tiles(keys, keys, 0, cfg, plan=plan)
     hist = tradix.tile_histograms(keys, 0, cfg)
-    with pytest.raises(ValueError, match="result buffer"):
-        tscatter.scatter_runs(keys, keys, hist, hist, cfg, plan=plan, result=(keys, None))
+    for bad in (dict(plan=plan), dict(plan=plan, buffers=(buffers[0], (None, None)))):
+        with pytest.raises(ValueError, match="result and scratch"):
+            tscatter.bucketize_scatter(keys, keys.clone(), hist, hist, 0, cfg, **bad)
+    # A pass must not write the buffer it reads, nor R and S share memory.
+    for overlapping in (((keys, buffers[0][1]), buffers[1]), (buffers[0], buffers[0]),
+                        ((buffers[1][0], buffers[0][1]), buffers[1])):
+        with pytest.raises(ValueError, match="overlap"):
+            tscatter.bucketize_scatter(keys, keys.clone(), hist, hist, 0, cfg, plan=plan,
+                                       buffers=overlapping)
+    with pytest.raises(ValueError, match="overlap"):
+        tradix.tile_histograms(keys, 0, cfg, plan=plan, buffers=((keys, keys), buffers[1]))
+
+
+def test_bucketize_scatter_rejects_bad_input():
+    cfg = EngineConfig()
+    good = torch.zeros(cfg.block, dtype=torch.int32).view(torch.uint32)
+    hist = tradix.tile_histograms(good, 0, cfg)
+    with pytest.raises(ValueError, match="radix <= 16"):
+        tscatter.bucketize_scatter(good, good, hist, hist, 0, EngineConfig(radix_bits=8))
+    with pytest.raises(ValueError, match="one length"):
+        tscatter.bucketize_scatter(good, good[: cfg.tile], hist, hist, 0, cfg)
+    with pytest.raises(ValueError, match="offsets"):
+        tscatter.bucketize_scatter(good, good, hist, hist[:, :4].contiguous(), 0, cfg)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tscatter.bucketize_scatter(good, good, hist, hist, 0, cfg, impl="cuda")
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16, 226])
+def test_bucketize_scatter_geometry_fits_the_card(tile_rows):
+    # What grs_bucketize_scatter accepts: one warp a tile, at most 8 a block,
+    # 8 bytes a key of staging and, off the 1,024-key tile, 128 bytes of rows.
+    cfg = _geometry_cfg(16, tile_rows)
+    threads, shared = tscatter.bucketize_scatter_geometry(cfg)
+    tiles = threads // 32
+    assert 1 <= tiles <= tscatter.FUSED_TILES_PER_BLOCK
+    assert shared == tiles * (8 * cfg.tile + (0 if cfg.tile == 1024 else 128))
+    assert shared <= tradix.MAX_SHARED_BYTES
+    if tile_rows <= 28:
+        assert tiles == tscatter.FUSED_TILES_PER_BLOCK
+    with pytest.raises(ValueError, match="tile_rows <= 226"):
+        tscatter.bucketize_scatter_geometry(_geometry_cfg(16, 227))

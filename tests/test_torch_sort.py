@@ -17,6 +17,7 @@ from gpuradixsort_tpu.core import table as jtable
 from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch import config as tconfig
 from gpuradixsort_tpu_torch.core import table as ttable
+from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_mask, pass_plan, plan_of_mask
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
@@ -282,11 +283,21 @@ def _mask_keys(mask: int, n: int, cfg=CFG) -> np.ndarray:
     return keys
 
 
+def _routes(plan) -> list:
+    """(source, destination) of each pass that runs, over (input, R, S) = (0, 1, 2)."""
+    buffers = (tradix.INPUT, tradix.RESULT, tradix.SCRATCH)
+    routes = [tradix.planned_route(torch.as_tensor(plan, dtype=torch.int32), p, buffers)
+              for p in range(len(plan))]
+    return [r for r in routes if r is not None]
+
+
 def test_plan_routes_every_mask():
     # Every mask of 4-bit digits over 8 passes on two tiles: the plan from
-    # the AND/OR words equals the plan of the JAX package's criterion, and
-    # the plain versions routed by it sort the pairs stably, write nothing
-    # of the input and count the skipped passes.
+    # the AND/OR words equals the plan of the JAX package's criterion; the
+    # passes that run read the input first, then each the buffer the one
+    # before wrote, never the buffer they write, and the last writes R; the
+    # plain versions routed by it sort the pairs stably, write nothing of
+    # the input and count the skipped passes.
     n = 2 * CFG.tile
     idx_np = np.arange(n, dtype=np.uint32)
     skipped = torch.zeros(1, dtype=torch.int64)
@@ -297,6 +308,11 @@ def test_plan_routes_every_mask():
         before = int(skipped)
         plan = pass_plan(keys, CFG, skipped)
         assert plan.tolist() == plan_of_mask(mask, CFG.num_passes), mask
+        routes = _routes(plan)
+        assert len(routes) == max(1, bin(mask).count("1"))  # or the copy
+        assert routes[0][0] == tradix.INPUT and routes[-1][1] == tradix.RESULT
+        assert all(dst in (tradix.RESULT, tradix.SCRATCH) and dst != src for src, dst in routes)
+        assert all(a[1] == b[0] for a, b in zip(routes, routes[1:]))
         assert int(skipped) - before == CFG.num_passes - bin(mask).count("1")
         out_keys, out_idx = tsort._fused_passes(keys, idx, CFG, skipped)
         order = np.argsort(keys_np, kind="stable")
@@ -307,12 +323,18 @@ def test_plan_routes_every_mask():
 
 
 def test_plan_of_mask_layout():
-    # -1 skipped, 0 the first pass that runs (from the input), 1 the later
-    # ones (from the result buffer); with no pass, the last one copies.
-    assert plan_of_mask(0xFF, 8) == [0, 1, 1, 1, 1, 1, 1, 1]
-    assert plan_of_mask(0b01010100, 8) == [-1, -1, 0, -1, 1, -1, 1, -1]
-    assert plan_of_mask(0, 8) == [-1] * 7 + [0]
-    assert plan_of_mask(0, 1) == [0]
+    # -1 skipped, else source | destination << 2 over the input (0), R (1)
+    # and S (2): the passes that run alternate R and S backwards from the
+    # last, which writes R, and the first reads the input; with no pass, the
+    # last one copies the input into R.
+    e, inp, r, s = tradix.plan_entry, tradix.INPUT, tradix.RESULT, tradix.SCRATCH
+    assert (e(inp, r), e(inp, s), e(r, s), e(s, r)) == (4, 8, 9, 6)
+    assert plan_of_mask(0xFF, 8) == [e(inp, s), e(s, r), e(r, s), e(s, r), e(r, s), e(s, r),
+                                     e(r, s), e(s, r)]
+    assert plan_of_mask(0b01010100, 8) == [-1, -1, e(inp, r), -1, e(r, s), -1, e(s, r), -1]
+    assert plan_of_mask(0b00011000, 8) == [-1, -1, -1, e(inp, s), e(s, r), -1, -1, -1]
+    assert plan_of_mask(0, 8) == [-1] * 7 + [e(inp, r)]
+    assert plan_of_mask(0, 1) == [e(inp, r)]
 
 
 PLAN_MASKS = {"none": 0, "all": 0xFF, "the high two constant": 0x3F, "one pass": 0b00010000}
@@ -326,9 +348,13 @@ def test_plan_masks_match_jax_fused_sort(name):
     idx_np = np.arange(BLOCK, dtype=np.uint32)
     js, ji, _ = jsort._fused_sort_padded(jnp.asarray(keys_np), jnp.asarray(idx_np), JCFG)
     before = tsort.skipped_passes()
-    ts, ti, overflow = tsort._fused_sort_padded(torch.from_numpy(keys_np),
-                                                torch.from_numpy(idx_np), CFG)
+    keys, idx = torch.from_numpy(keys_np.copy()), torch.from_numpy(idx_np.copy())
+    ts, ti, overflow = tsort._fused_sort_padded(keys, idx, CFG)
     assert not overflow
+    # A new buffer, whichever passes ran, and the input unwritten.
+    assert ts.data_ptr() not in (keys.data_ptr(), idx.data_ptr())
+    np.testing.assert_array_equal(keys.numpy(), keys_np)
+    np.testing.assert_array_equal(idx.numpy(), idx_np)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     assert tsort.skipped_passes() - before == CFG.num_passes - bin(PLAN_MASKS[name]).count("1")
