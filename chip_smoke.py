@@ -165,6 +165,7 @@ from gpuradixsort_tpu_torch.utils.verify import (
     device_is_sorted,
     is_permutation_sorted,
     join_oracle,
+    mask_keys,
 )
 
 SEED = 20170101
@@ -291,20 +292,6 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     torch.cuda.synchronize()
 
 
-def mask_keys(mask: int, n: int, cfg) -> np.ndarray:
-    """n keys whose digit p varies exactly where bit p of ``mask`` is set (seeded by the mask)."""
-    gen = np.random.default_rng([SEED, mask])
-    keys = np.full(n, 0x9C3A5E71, dtype=np.uint32)  # every digit constant
-    digit = np.uint32(cfg.radix - 1)
-    for p in range(cfg.num_passes):
-        if (mask >> p) & 1:
-            shift = np.uint32(p * cfg.radix_bits)
-            vals = gen.integers(0, cfg.radix, n).astype(np.uint32)
-            vals[:2] = (0, cfg.radix - 1)  # two values at least
-            keys = (keys & ~(digit << shift)) | (vals << shift)
-    return keys
-
-
 def check_plan_routing(dev, errs: dict) -> None:
     """The fused sort's pass plan, and K1 and bucketize_scatter routed by it, against their plain versions.
 
@@ -324,7 +311,8 @@ def check_plan_routing(dev, errs: dict) -> None:
     cases += [(round_up(N_HEADLINE, cfg.block), m) for m in (0, 0xFF, 0x3F, 0b10000)]
     routes = set()
     for n, mask in cases:
-        keys = torch.from_numpy(mask_keys(mask, n, cfg)).to(dev)
+        keys = torch.from_numpy(
+            mask_keys(mask, n, cfg, np.random.default_rng([SEED, mask]))).to(dev)
         held = keys.clone()
         idx = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
         counters = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]

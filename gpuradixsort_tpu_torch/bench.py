@@ -178,8 +178,9 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
     Each input is read once and each output written once; a table is one
     (tiles, radix) int32 table.  ``exclusive_scan`` is the scan of a vector
     of ``padded`` int32 values; ``global_offsets`` is one pass's scan of the
-    histogram table; ``gather_rows`` moves a row of ``PAYLOAD_COLS`` int32
-    through a 4-byte index.
+    histogram table; ``bucketize_scatter`` counts each tile's digits itself
+    and reads only the offsets table; ``gather_rows`` moves a row of
+    ``PAYLOAD_COLS`` int32 through a 4-byte index.
     """
     table = 4 * cfg.radix * (padded // cfg.tile)
     return {
@@ -187,7 +188,7 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
         "global_offsets": (2 * table, table // 4),
         "bucketize": (16 * padded, 4 * padded),
         "scatter_runs": (16 * padded + 2 * table, 2 * padded),
-        "bucketize_scatter": (16 * padded + 2 * table, 6 * padded),
+        "bucketize_scatter": (16 * padded + table, 6 * padded),
         "radix_dest": (8 * padded + table, 4 * padded),
         "exclusive_scan": (8 * padded + 4, padded),
         "key_bits": (4 * padded + 8, 2 * padded),

@@ -27,9 +27,8 @@
 //      instruction covers 32 neighbouring slots, one or two runs.
 // The warps are not persistent, one tile a warp, as in K3: run r of tile t
 // and of tile t + 1 share a 32-byte sector of the output, and tiles placed
-// close in time meet in L2.  Built with -DGRS_FUSED_PERSISTENT the warps
-// instead walk the tiles grid-stride with K2's cp.async prefetch of the next
-// tile; kernel_ab.py times both builds (PERF.md, Findings).  Any other tile
+// close in time meet in L2; persistent warps with K2's cp.async prefetch of
+// the next tile measured slower (PERF.md, Findings).  Any other tile
 // (bucketize_scatter_any_kernel) counts the tile from device memory, reads
 // it again to stage it (grs::rank_any) and places it from the staging
 // (grs::place_any).  A destination outside [0, n), possible only for an
@@ -56,11 +55,6 @@ constexpr int kFastTile = grs::kFastTile;
 constexpr int kItems = grs::kFastItems;
 constexpr int kMaxWarps = 8;        // tiles a block
 constexpr int kMaxShared = 232448;  // shared memory a block may use (H100)
-#ifdef GRS_FUSED_PERSISTENT
-constexpr bool kPersistent = true;
-#else
-constexpr bool kPersistent = false;
-#endif
 
 // The sort's buffers: 0 the input, 1 the result (or an unplanned launch's
 // output), 2 the scratch.  The input is only read.
@@ -81,15 +75,16 @@ __device__ __forceinline__ Pair buffer(const Buffers& b, int i) {
                 : (i == 1 ? Pair{b.keys[1], b.idx[1]} : Pair{b.keys[2], b.idx[2]});
 }
 
-// Words of shared memory a warp keeps: the staged tile, on the fast route
-// also the prefetched one when persistent, on any other the rows of run ends
-// and deltas.
+// Words of shared memory a warp keeps: the staged tile, and off the fast
+// route also the rows of run ends and deltas.
 __host__ __device__ constexpr int warp_words(int tile, bool fast) {
-  return fast ? (kPersistent ? 4 : 2) * kFastTile : 2 * tile + 2 * kMaxRadix;
+  return fast ? 2 * kFastTile : 2 * tile + 2 * kMaxRadix;
 }
 
 // Steps 2 and 3 of one 1,024-key tile held in k, v; o is lane r's offsets
-// entry.
+// entry.  The outputs come in as __restrict__ parameters: with this body
+// written into the kernel, where they are not, the kernel took 6-9% longer
+// at 2^24 and 100M keys on the H100 (PERF.md, Findings).
 template <int kBits>
 __device__ __forceinline__ void rank_and_place(uint32_t (&k)[kItems], uint32_t (&v)[kItems],
                                                int o, int shift, int lane, uint32_t* sk,
@@ -110,55 +105,29 @@ template <int kBits>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     bucketize_scatter_1k_kernel(Buffers b, const int32_t* __restrict__ offsets,
                                 const int32_t* __restrict__ plan, int pass, int64_t num_tiles,
-                                int shift, int n, bool vec) {
+                                int shift, int n) {
   constexpr int kRadix = 1 << kBits;
   extern __shared__ uint4 smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  int64_t t = static_cast<int64_t>(blockIdx.x) * warps + warp;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
   const grs::Route route = grs::plan_route(plan, pass);
   if (t >= num_tiles || route.source < 0) return;  // no block barrier follows
   const Pair in = buffer(b, route.source), out = buffer(b, route.destination);
-  const uint32_t* keys = in.keys;
-  const uint32_t* idx = in.idx;
-  uint32_t* out_keys = out.keys;
-  uint32_t* out_idx = out.idx;
 
   uint32_t* sk = reinterpret_cast<uint32_t*>(smem) +
                  static_cast<size_t>(warp) * warp_words(kFastTile, true);
   uint32_t* sv = sk + kFastTile;
   uint32_t k[kItems], v[kItems];
-  if constexpr (kPersistent) {
-    uint32_t* next = sv + kFastTile;  // the next tile, keys then indices
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * warps;
-    grs::load_tile<kFastTile>(next, keys, idx, t, lane, vec);
-    for (; t < num_tiles; t += stride) {
-      const int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      __syncwarp();
+  const int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
+  const uint32_t* kin = in.keys + t * kFastTile + lane;
+  const uint32_t* vin = in.idx + t * kFastTile + lane;
 #pragma unroll
-      for (int j = 0; j < kItems; ++j) {
-        k[j] = next[32 * j + lane];
-        v[j] = next[kFastTile + 32 * j + lane];
-      }
-      __syncwarp();  // every lane has read the tile: refill the buffer
-      if (t + stride < num_tiles) grs::load_tile<kFastTile>(next, keys, idx, t + stride, lane, vec);
-      rank_and_place<kBits>(k, v, o, shift, lane, sk, sv, out_keys, out_idx, n);
-      __syncwarp();  // the staging is rewritten by the next tile
-    }
-  } else {
-    (void)vec;  // the register route loads 4 bytes a lane, at any alignment
-    const int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
-    const uint32_t* kin = keys + t * kFastTile + lane;
-    const uint32_t* vin = idx + t * kFastTile + lane;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      k[j] = grs::load_global(kin + 32 * j);
-      v[j] = grs::load_global(vin + 32 * j);
-    }
-    rank_and_place<kBits>(k, v, o, shift, lane, sk, sv, out_keys, out_idx, n);
+  for (int j = 0; j < kItems; ++j) {
+    k[j] = grs::load_global(kin + 32 * j);
+    v[j] = grs::load_global(vin + 32 * j);
   }
+  rank_and_place<kBits>(k, v, o, shift, lane, sk, sv, out.keys, out.idx, n);
 }
 
 __global__ void __launch_bounds__(32 * kMaxWarps)
@@ -201,31 +170,18 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// One block per threads / 32 tiles; persistent, at most as many blocks as
-// fit on the card at once.
+// One block per threads / 32 tiles.
 template <int kBits>
 cudaError_t launch_1k(const Buffers& b, const int32_t* offsets, const int32_t* plan, int pass,
-                      int64_t num_tiles, int threads, size_t smem, int shift, int n, bool vec,
+                      int64_t num_tiles, int threads, size_t smem, int shift, int n,
                       cudaStream_t stream) {
   const auto kernel = bucketize_scatter_1k_kernel<kBits>;
   cudaError_t err = allow_shared(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t per_block = threads / 32;
-  int64_t blocks = (num_tiles + per_block - 1) / per_block;
-  if (kPersistent) {
-    int device = 0, sms = 0, resident = 0;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-            cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, smem)) !=
-            cudaSuccess) {
-      return err;
-    }
-    if (resident > 0 && blocks > static_cast<int64_t>(resident) * sms)
-      blocks = static_cast<int64_t>(resident) * sms;
-  }
+  const int64_t blocks = (num_tiles + per_block - 1) / per_block;
   kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(b, offsets, plan, pass,
-                                                                   num_tiles, shift, n, vec);
+                                                                   num_tiles, shift, n);
   return cudaSuccess;
 }
 
@@ -237,12 +193,11 @@ cudaError_t launch_1k(const Buffers& b, const int32_t* offsets, const int32_t* p
 // scratch_keys, scratch_idx: null, or a planned sort's scratch S; all of
 // the input's length, and no two of the buffers overlap.  One warp per tile:
 // threads is 32 x the tiles of a block, at most 32 x 8; a warp keeps 8 x
-// tile + 128 bytes of shared memory (8 KB on the 1,024-key tile, 16 KB when
-// built persistent), a block at most 232,448.  tile is a multiple of 128,
-// radix a power of two from 2 to 16, and num_tiles * tile at most INT_MAX -
-// tile (int32 destinations).  plan: null, or a fused sort's pass plan on the
-// device, of which entry `pass` routes this launch.  Returns
-// cudaGetLastError() after the launch.
+// tile + 128 bytes of shared memory (8 KB on the 1,024-key tile), a block at
+// most 232,448.  tile is a multiple of 128, radix a power of two from 2 to
+// 16, and num_tiles * tile at most INT_MAX - tile (int32 destinations).
+// plan: null, or a fused sort's pass plan on the device, of which entry
+// `pass` routes this launch.  Returns cudaGetLastError() after the launch.
 extern "C" int grs_bucketize_scatter(const void* keys, const void* idx, const void* offsets,
                                      void* out_keys, void* out_idx, void* scratch_keys,
                                      void* scratch_idx, int64_t num_tiles, int tile, int threads,
@@ -262,8 +217,6 @@ extern "C" int grs_bucketize_scatter(const void* keys, const void* idx, const vo
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
-  bool vec = true;  // 16-byte cp.async copies (the persistent build)
-  for (const void* p : buffers) vec = vec && aligned(p, 16);
   const Buffers b{{const_cast<uint32_t*>(static_cast<const uint32_t*>(keys)),
                    static_cast<uint32_t*>(out_keys), static_cast<uint32_t*>(scratch_keys)},
                   {const_cast<uint32_t*>(static_cast<const uint32_t*>(idx)),
@@ -276,10 +229,10 @@ extern "C" int grs_bucketize_scatter(const void* keys, const void* idx, const vo
   cudaError_t err = cudaSuccess;
   if (fast) {
     switch (bits) {
-      case 1: err = launch_1k<1>(b, o, pl, pass, num_tiles, threads, smem, shift, n, vec, s); break;
-      case 2: err = launch_1k<2>(b, o, pl, pass, num_tiles, threads, smem, shift, n, vec, s); break;
-      case 3: err = launch_1k<3>(b, o, pl, pass, num_tiles, threads, smem, shift, n, vec, s); break;
-      default: err = launch_1k<4>(b, o, pl, pass, num_tiles, threads, smem, shift, n, vec, s); break;
+      case 1: err = launch_1k<1>(b, o, pl, pass, num_tiles, threads, smem, shift, n, s); break;
+      case 2: err = launch_1k<2>(b, o, pl, pass, num_tiles, threads, smem, shift, n, s); break;
+      case 3: err = launch_1k<3>(b, o, pl, pass, num_tiles, threads, smem, shift, n, s); break;
+      default: err = launch_1k<4>(b, o, pl, pass, num_tiles, threads, smem, shift, n, s); break;
     }
   } else {
     err = allow_shared(bucketize_scatter_any_kernel, smem);

@@ -39,10 +39,8 @@ from gpuradixsort_tpu_torch.kernels.radix import (
     planned_route,
 )
 
-# Tiles a bucketize_scatter block: at about 170 registers a thread, blocks of
-# 4 warps put 12 warps on an SM where blocks of 8 put 8; on an H100 (700 W)
-# 4 ran 10% faster than 8 and 2% faster than 2 at 2^24 keys (kernel_ab.py;
-# PERF.md, Findings).
+# Tiles a bucketize_scatter block: on an H100 (700 W) 4 ran 10% faster than
+# 8 and 2% faster than 2 at 2^24 keys (kernel_ab.py; PERF.md, Findings).
 FUSED_TILES_PER_BLOCK = 4
 _MAX_FUSED_RADIX = 16
 

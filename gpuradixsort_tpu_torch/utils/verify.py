@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of ``gpuradixsort_tpu/utils/verify.py``: a host-side
 sortedness check, the shuffled 0..N-1 permutation oracle, and a device-side
-sortedness predicate.
+sortedness predicate; beside them the join's numpy oracle and keys whose
+varying digits are chosen, for the fused sort's pass plan.
 """
 
 from __future__ import annotations
@@ -64,3 +65,16 @@ def join_oracle(pk: np.ndarray, pv: np.ndarray, bk: np.ndarray, bv: np.ndarray):
     first = np.repeat(np.cumsum(cnt) - cnt, cnt)
     brow = order_b[np.repeat(lo, cnt) + np.arange(prow.size) - first]
     return pk[prow], pv[prow], bv[brow]
+
+
+def mask_keys(mask: int, n: int, cfg, gen: np.random.Generator) -> np.ndarray:
+    """n keys whose digit p varies exactly where bit p of ``mask`` is set, drawn from ``gen``."""
+    keys = np.full(n, 0x9C3A5E71, dtype=np.uint32)  # every digit constant
+    digit = np.uint32(cfg.radix - 1)
+    for p in range(cfg.num_passes):
+        if (mask >> p) & 1:
+            shift = np.uint32(p * cfg.radix_bits)
+            vals = gen.integers(0, cfg.radix, n).astype(np.uint32)
+            vals[:2] = (0, cfg.radix - 1)  # two values at least
+            keys = (keys & ~(digit << shift)) | (vals << shift)
+    return keys

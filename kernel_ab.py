@@ -1,35 +1,27 @@
 #!/usr/bin/env python3
-"""Time the fused pass's kernel (bucketize_scatter) against a persistent build of it.
+"""Time the fused pass's kernel (bucketize_scatter) at each block size, beside K2 then K3.
 
-    python3 kernel_ab.py [--ptxas] [--out FILE]
+    python3 kernel_ab.py [--old DIR] [--ptxas] [--out FILE]
 
-``csrc/bucketize_scatter.cu`` gives each warp one tile (the port's build).
-Its trial builds, into ``build/kernels_sweep/``: "persistent"
-(``-DGRS_FUSED_PERSISTENT``) has warps that walk the tiles grid-stride,
-copying the next tile into shared memory with cp.async while they rank the
-current one, as K2 does; "128 registers" is the port's source built with
-``-maxrregcount=128``.  On one CUDA card:
+``csrc/bucketize_scatter.cu`` gives each warp one tile; the wrapper puts
+``FUSED_TILES_PER_BLOCK`` tiles in a block.  On one CUDA card, device time
+per call (torch.profiler, 20 back-to-back calls) on one radix-16 pass's
+input (random keys, their index, K1's histograms and offsets) at
+1,000,000, 2^24 and 100,000,000 keys (padded as the sorts pad them): the
+port's build at 8, 4 and 2 tiles a block, and K2 then K3 on the same
+input, in mirrored turns, every output checked equal to the plain version;
+beside the bound (16 bytes a key and the offsets table at 3.35 TB/s).
+``--old DIR`` adds an older copy of ``csrc/`` (built the same way into
+``build/kernels_old/``), whose ``grs_bucketize_scatter`` has this one's C
+signature, at the wrapper's tiles a block to the same turns.
 
-1. device time per call (torch.profiler, 20 back-to-back calls) on one
-   radix-16 pass's input (random keys, their index, K1's histograms and
-   offsets) at 1,000,000, 2^24 and 100,000,000 keys (padded as the sorts
-   pad them): both builds at 8, 4 and 2 tiles a block, and K2 then K3 on
-   the same input, in mirrored turns, every output checked equal to the
-   plain version; beside the bound (16 bytes a key and the two tables at
-   3.35 TB/s);
-2. with each trial build swapped into the fused sort's eager loop (CUDA
-   events, median of 7, and the profiler's busy time), in turns port,
-   trial, trial, port: the sort of 2^24 random keys, and of the survivors
-   of ``filter_table`` of 100,000,000 keys keeping key < 2^31 (a 100M
-   padded buffer, as the smoke's phase 6 sorts them).  ``sort_pairs`` with
-   ``GRAPH_MAX_PADDED`` patched to 0: a cached CUDA graph would replay the
-   kernel it captured first on both sides.
-
-``--ptxas`` prints nvcc's register and spill report of both builds.  The
-card's name and power limit and one JSON line of every number end the
-output; ``--out`` also writes that JSON to a file.  K3's A/B against its
-first design is ``kernel_ab.py`` of commit 6fc2579; K4's and K5's that of
-commit 17e53c9.
+``--ptxas`` prints nvcc's register and spill report of each kernel of the
+source (and of the older one).  The card's name and power limit and one
+JSON line of every number end the output; ``--out`` also writes that JSON
+to a file.  The A/B of this kernel
+against its persistent and ``-maxrregcount=128`` builds is ``kernel_ab.py``
+of commit 28b5419; K3's against its first design that of commit 6fc2579;
+K4's and K5's that of commit 17e53c9.
 """
 
 from __future__ import annotations
@@ -40,34 +32,22 @@ import json
 import pathlib
 import subprocess
 import sys
-from unittest import mock
 
 import numpy as np
 import torch
 
+from gpuradixsort_tpu_torch.bench import stage_work
 from gpuradixsort_tpu_torch.config import PAD_INDEX, EngineConfig
-from gpuradixsort_tpu_torch.core.table import Table, int32_bits, make_key_column, pad_to_tile
+from gpuradixsort_tpu_torch.core.table import int32_bits, make_key_column, pad_to_tile
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels import scatter as scatter_kernels
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
-from gpuradixsort_tpu_torch.ops import sort as sort_ops
-from gpuradixsort_tpu_torch.ops.filter import filter_table
-from gpuradixsort_tpu_torch.ops.sort import sort_pairs
-from gpuradixsort_tpu_torch.utils.timing import (
-    HBM_PEAK_TBS,
-    card_line,
-    cuda_time_ms,
-    profiled_device_ms,
-)
+from gpuradixsort_tpu_torch.utils.timing import HBM_PEAK_TBS, card_line, profiled_device_ms
 
 SEED = 20170101
+OLD_BUILD = pathlib.Path(__file__).resolve().parent / "build" / "kernels_old"
 SIZES = {"1M": 1_000_000, "2^24": 1 << 24, "100M": 100_000_000}
-ROOT = pathlib.Path(__file__).resolve().parent
-SWEEP_BUILD = ROOT / "build" / "kernels_sweep"
-SOURCE = _build._CSRC / "bucketize_scatter.cu"
-# name: nvcc flags of a trial build of bucketize_scatter.cu.
-TRIALS = {"persistent": ["-DGRS_FUSED_PERSISTENT"], "128 registers": ["-maxrregcount=128"]}
 TILES_A_BLOCK = (8, 4, 2)
 
 
@@ -75,55 +55,45 @@ def log(msg: str) -> None:
     print(f"[ab] {msg}", flush=True)
 
 
-class FusedBuild:
-    """One build's ``grs_bucketize_scatter`` behind ``bucketize_scatter``'s signature.
+def fused_pass(keys, idx, offsets, cfg: EngineConfig, tiles: int, lib=None):
+    """``lib``'s (by default the port's) ``grs_bucketize_scatter`` at ``tiles`` tiles a block.
 
-    ``tiles``: tiles a block, or None for the wrapper's geometry.
+    Into a fresh output, unplanned.
     """
-
-    def __init__(self, fn, tiles: int | None = None):
-        self.fn = fn
-        self.fn.argtypes = _build._SIGNATURES["grs_bucketize_scatter"]
-        self.fn.restype = ctypes.c_int
-        self.tiles = tiles
-
-    def __call__(self, keys, idx, hist, offsets, shift, cfg, impl=None, plan=None, pass_index=0,
-                 buffers=None):
-        out, scratch = buffers or ((torch.empty_like(keys), torch.empty_like(idx)), (None, None))
-        threads = (32 * self.tiles if self.tiles
-                   else scatter_kernels.bucketize_scatter_geometry(cfg)[0])
-        err = self.fn(keys.data_ptr(), idx.data_ptr(), offsets.data_ptr(),
-                      *map(rk.data_ptr, out), *map(rk.data_ptr, scratch), keys.numel() // cfg.tile,
-                      cfg.tile, threads, shift, cfg.radix, rk.data_ptr(plan), pass_index,
-                      torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"grs_bucketize_scatter: CUDA error {err}")
-        return None if plan is not None else out
+    out = (torch.empty_like(keys), torch.empty_like(idx))
+    err = (lib or _build.library()).grs_bucketize_scatter(
+        keys.data_ptr(), idx.data_ptr(), offsets.data_ptr(), *map(rk.data_ptr, out), None, None,
+        keys.numel() // cfg.tile, cfg.tile, 32 * tiles, 0, cfg.radix, None, 0,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"grs_bucketize_scatter: CUDA error {err}")
+    return out
 
 
 def same(a, b) -> bool:
-    if isinstance(a, (tuple, list)):
-        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
-    return torch.equal(int32_bits(a), int32_bits(b))
+    return all(torch.equal(int32_bits(x), int32_bits(y)) for x, y in zip(a, b, strict=True))
 
 
-def ptxas_report(label: str, flags=()) -> None:
-    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-c",
-                           "-o", "/dev/null", str(SOURCE)], capture_output=True, text=True,
-                          timeout=300)
+def old_library(csrc: pathlib.Path) -> ctypes.CDLL:
+    """The older ``csrc/`` built alone, its ``grs_bucketize_scatter`` typed as the port's."""
+    lib = ctypes.CDLL(str(_build.build(csrc, OLD_BUILD)))
+    lib.grs_bucketize_scatter.argtypes = _build._SIGNATURES["grs_bucketize_scatter"]
+    lib.grs_bucketize_scatter.restype = ctypes.c_int
+    return lib
+
+
+def ptxas_report(label: str, csrc: pathlib.Path) -> None:
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                           "/dev/null", str(csrc / "bucketize_scatter.cu")],
+                          capture_output=True, text=True, timeout=300)
     for line in (done.stdout + done.stderr).splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("Compiling entry", "registers", "spill", "error")):
             log(f"ptxas {label}: {line.strip()}")
 
 
 def device_us(fn, calls: int = 20) -> float:
     """Device µs per call from the profiler; 0.0 where it recorded no whole profile."""
     return profiled_device_ms(fn, calls=calls)[0] * 1e3
-
-
-def median_measured(turns: list[float]) -> float:
-    """The median of the turns the profiler measured, else 0.0 (not measured)."""
-    return float(np.median([t for t in turns if t] or [0.0]))
 
 
 def fmt(x: float, digits: int = 2) -> str:
@@ -139,31 +109,17 @@ def pass_input(rng, n: int, cfg: EngineConfig):
     return keys, idx, hist, rk.global_offsets(hist)
 
 
-def bound_us(keys: torch.Tensor, hist: torch.Tensor) -> float:
-    return (16 * keys.numel() + 8 * hist.numel()) / (HBM_PEAK_TBS * 1e12) * 1e6
-
-
-def build_trials() -> dict:
-    """The trial builds, each loaded: name -> ctypes.CDLL."""
-    SWEEP_BUILD.mkdir(parents=True, exist_ok=True)
-    libs = {name: SWEEP_BUILD / f"bucketize_scatter_{name.replace(' ', '_')}.so"
-            for name in TRIALS}
-    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, *TRIALS[name], "-shared", "-o",
-                      str(libs[name]), str(SOURCE)] for name in TRIALS])
-    return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}
-
-
-def phase_kernel(trials: dict, rng, results: dict) -> None:
+def measure(rng, results: dict, old: ctypes.CDLL | None) -> None:
     cfg = EngineConfig()
-    libs = {"port": _build.library(), **trials}
-    builds = {f"{name} {t}/block": FusedBuild(lib.grs_bucketize_scatter, t)
-              for name, lib in libs.items() for t in TILES_A_BLOCK}
+    tiles = scatter_kernels.FUSED_TILES_PER_BLOCK
     for label, n in SIZES.items():
         keys, idx, hist, offsets = pass_input(rng, n, cfg)
         want = scatter_kernels.bucketize_scatter(keys, idx, hist, offsets, 0, cfg,
                                                  impl="reference")
-        sides = {name: (lambda b=b: b(keys, idx, hist, offsets, 0, cfg))
-                 for name, b in builds.items()}
+        sides = {f"{t}/block": (lambda t=t: fused_pass(keys, idx, offsets, cfg, t))
+                 for t in TILES_A_BLOCK}
+        if old is not None:
+            sides[f"old {tiles}/block"] = lambda: fused_pass(keys, idx, offsets, cfg, tiles, old)
         for name, fn in sides.items():
             if not same(fn(), want):
                 raise SystemExit(f"bucketize_scatter {label} {name}: differs from the plain version")
@@ -173,8 +129,8 @@ def phase_kernel(trials: dict, rng, results: dict) -> None:
         turns = {name: [] for name in sides}
         for name in list(sides) + list(sides)[::-1]:  # mirrored turns
             turns[name].append(device_us(sides[name]))
-        row = {name: median_measured(t) for name, t in turns.items()}
-        bound = bound_us(keys, hist)
+        row = {name: float(np.median([t for t in ts if t] or [0.0])) for name, ts in turns.items()}
+        bound = stage_work(keys.numel(), cfg)["bucketize_scatter"][0] / (HBM_PEAK_TBS * 1e12) * 1e6
         results[f"bucketize_scatter @ {label}"] = {**row, "turns": turns, "bound_us": bound,
                                                    "padded": keys.numel()}
         log(f"bucketize_scatter radix 16 @ {label} ({keys.numel()} keys): device us per call, "
@@ -185,44 +141,9 @@ def phase_kernel(trials: dict, rng, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def ab_sorts(trials: dict, rng, results: dict) -> None:
-    cfg = EngineConfig()
-    col = make_key_column(rng.integers(0, 2**32, 1 << 24, dtype=np.uint32), cfg)
-    fkeys = Table({"key": make_key_column(rng.integers(0, 2**32, 100_000_000, dtype=np.uint32),
-                                          cfg)})
-    kept = filter_table(fkeys, lambda t: int32_bits(t["key"].data) >= 0, cfg).to_table()["key"]
-    del fkeys
-    torch.cuda.synchronize()
-    cases = {
-        "sort_pairs fused 2^24 (eager loop)": lambda: sort_pairs(col, cfg, method="fused"),
-        f"sort_pairs fused of the filter's {kept.length} survivors (100M padded buffer, "
-        f"eager loop)": lambda: sort_pairs(kept, cfg, method="fused"),
-    }
-    for trial, lib in trials.items():
-        other = FusedBuild(lib.grs_bucketize_scatter)
-        for name, fn in cases.items():
-            outs, turns, busy = {}, {"port": [], trial: []}, {"port": [], trial: []}
-            for side in ("port", trial, trial, "port"):
-                fused_pass = other if side == trial else scatter_kernels.bucketize_scatter
-                with mock.patch.object(sort_ops, "bucketize_scatter", fused_pass), \
-                        mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", 0):
-                    outs[side] = [c.data for c in fn()]
-                    turns[side].append(float(np.median(cuda_time_ms(fn, reps=7, warmup=1))))
-                    busy[side].append(profiled_device_ms(fn, calls=3)[0])
-            if not same(outs["port"], outs[trial]):
-                raise SystemExit(f"{name}: the port's and the {trial} build differ")
-            results[f"{name}, port against {trial}"] = {"event_ms": turns, "busy_ms": busy}
-            log(f"{name}, port against {trial}: CUDA events ms (median of 7), turns port "
-                f"{turns['port'][0]:.4f} {trial} {turns[trial][0]:.4f} {trial} "
-                f"{turns[trial][1]:.4f} port {turns['port'][1]:.4f}; device busy ms port "
-                f"{fmt(busy['port'][0], 4)} {trial} {fmt(busy[trial][0], 4)} {trial} "
-                f"{fmt(busy[trial][1], 4)} port {fmt(busy['port'][1], 4)}")
-            del outs
-            torch.cuda.empty_cache()
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--old", type=pathlib.Path, help="an older copy of csrc/ to time beside")
     parser.add_argument("--ptxas", action="store_true", help="print nvcc's register report")
     parser.add_argument("--out", type=pathlib.Path, help="also write the JSON here")
     args = parser.parse_args()
@@ -232,15 +153,13 @@ def main() -> int:
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
     _build.library()
-    trials = build_trials()
+    old = old_library(args.old) if args.old else None
     if args.ptxas:
-        ptxas_report("port (one tile a warp)")
-        for name, flags in TRIALS.items():
-            ptxas_report(name, flags)
-    rng = np.random.default_rng(SEED)
+        ptxas_report("port", _build._CSRC)
+        if args.old:
+            ptxas_report("old", args.old)
     results: dict = {"card": card}
-    phase_kernel(trials, rng, results)
-    ab_sorts(trials, rng, results)
+    measure(np.random.default_rng(SEED), results, old)
     text = json.dumps(results)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -105,7 +105,7 @@ def test_stage_bytes_equal_hand_counts():
         "global_offsets": (2048, 256),
         "bucketize": (16 * 16384, 4 * 16384),
         "scatter_runs": (16 * 16384 + 2048, 2 * 16384),
-        "bucketize_scatter": (16 * 16384 + 2048, 6 * 16384),
+        "bucketize_scatter": (16 * 16384 + 1024, 6 * 16384),
         "radix_dest": (8 * 16384 + 1024, 4 * 16384),
         "exclusive_scan": (8 * 16384 + 4, 16384),
         "key_bits": (4 * 16384 + 8, 2 * 16384),

@@ -33,7 +33,7 @@ from gpuradixsort_tpu_torch.ops import join as tjoin
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
 from gpuradixsort_tpu_torch.utils.timing import card_line
-from gpuradixsort_tpu_torch.utils.verify import join_oracle
+from gpuradixsort_tpu_torch.utils.verify import join_oracle, mask_keys
 
 pytestmark = pytest.mark.cuda
 
@@ -532,18 +532,6 @@ def test_eager_loop_and_replay_make_no_host_sync(card, gen):
     tsort.clear_sort_graphs()
 
 
-def _mask_keys(mask: int, n: int, gen) -> np.ndarray:
-    """n keys whose 4-bit digit p varies exactly where bit p of ``mask`` is set."""
-    keys = np.full(n, 0x9C3A5E71, dtype=np.uint32)
-    for p in range(CFG.num_passes):
-        if (mask >> p) & 1:
-            shift = np.uint32(4 * p)
-            vals = gen.integers(0, 16, n).astype(np.uint32)
-            vals[:2] = (0, 15)
-            keys = (keys & ~(np.uint32(15) << shift)) | (vals << shift)
-    return keys
-
-
 def test_plan_routes_every_mask_on_card(card, gen):
     # Every mask of 4-bit digits: the plan against plan_of_mask, then in each
     # pass K1 and bucketize_scatter routed by it (input -> R or S, R -> S,
@@ -551,7 +539,7 @@ def test_plan_routes_every_mask_on_card(card, gen):
     # the result R against a stable sort, the input unwritten.
     n = 2 * CFG.block
     for mask in range(1 << CFG.num_passes):
-        keys_np = _mask_keys(mask, n, gen)
+        keys_np = mask_keys(mask, n, CFG, gen)
         keys = torch.from_numpy(keys_np).to(card)
         idx = torch.from_numpy(gen.permutation(n).astype(np.uint32)).to(card)
         held = keys.clone(), idx.clone()

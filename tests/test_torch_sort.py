@@ -269,18 +269,9 @@ def test_skip_sets_match_jax_fused(name):
     assert not tsort._SORT_GRAPHS  # CPU tensors never capture a graph
 
 
-def _mask_keys(mask: int, n: int, cfg=CFG) -> np.ndarray:
-    """n keys whose digit p varies exactly where bit p of ``mask`` is set."""
-    gen = np.random.default_rng(mask)
-    keys = np.full(n, 0x9C3A5E71, dtype=np.uint32)  # every digit constant
-    digit = np.uint32(cfg.radix - 1)
-    for p in range(cfg.num_passes):
-        if (mask >> p) & 1:
-            shift = np.uint32(p * cfg.radix_bits)
-            vals = gen.integers(0, cfg.radix, n).astype(np.uint32)
-            vals[:2] = (0, cfg.radix - 1)  # two values at least
-            keys = (keys & ~(digit << shift)) | (vals << shift)
-    return keys
+def _mask_keys(mask: int, n: int) -> np.ndarray:
+    """n keys whose digit p varies exactly where bit p of ``mask`` is set (seeded by the mask)."""
+    return verify.mask_keys(mask, n, CFG, np.random.default_rng(mask))
 
 
 def _routes(plan) -> list:
