@@ -11,34 +11,43 @@ in eight phases:
 2. each kernel against its plain PyTorch version on the card, exact
    equality: radix_hist and radix_dest at radix_bits 1, 2, 4, 8; bucketize
    at 1, 2, 4; scatter_runs on the plain-bucketized input; bucketize_scatter
-   (the fused sort's pass, K2 then K3 in one kernel) at 1, 2, 4; each at
-   shifts 0, 4 and 28, on 4 blocks of random keys and on 1,000,000 keys
-   padded; radix_hist and bucketize also at tile_rows 1, 3, 8 and 16, on
+   (the table pass: K2 then K3 in one kernel, reading K1's offsets table) and
+   bucketize_scatter_lookback (the fused sort's pass: its run offsets by
+   look-back from sort_plan's digit bases) at 1, 2, 4; each at shifts 0, 4
+   and 28, on 4 blocks of random keys and on 1,000,000 keys padded, with
+   sort_plan (the key read with every pass's digit counts and bases) on the
+   same; radix_hist and bucketize also at tile_rows 1, 3, 8 and 16, on
    tile counts that leave the last block part-filled and on keys 4 bytes
    off a 16-byte boundary, and radix_hist on 64-row tiles of equal keys;
    bucketize_scatter at tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles
    (and, radix 16, more tiles than the card holds warps at once), inputs
    also 4 bytes off, and with moved offsets whose out-of-range destinations
-   are dropped; radix_dest at radix 2-256 (also those EngineConfig cannot
-   name), at tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles and on keys 4
-   bytes off; scatter_runs at radix 2, 4, 16, 32, 64 and 256, tile_rows 1,
-   3, 8 and 16, on 1 and 9 tiles and (radix 16) on more tiles than the card
-   holds warps at once, inputs also 4 bytes off, and with moved offsets;
-   exclusive_scan at lengths 1, 4,095-4,097, its chunk and one either side,
-   two chunks and one, 1,000,000, 2^24 and 100,000,000, each also one word
-   off a 16-byte boundary, on values whose sums wrap; key_bits (the AND and
-   OR of the keys) at lengths 0 to 2^24, aligned and one word off, also
-   against numpy; the fused sort's pass plan, and radix_hist and
-   bucketize_scatter routed by it, pass by pass (every route: the input
-   into R or S, R into S, S into R), for every mask of 4-bit digits over 8
-   passes on 4 blocks and four masks at 1M keys (radix_hist, bucketize,
-   scatter_runs, bucketize_scatter and radix_dest are also held against
-   their plain versions at the operator path's shapes, after phase 4: 2^24
-   keys at radix_bits 1, 4 and 8, the filter's 100,000,000 keys at
-   radix_bits 1, 4 and 8, and its 1-bit compaction input);
-3. the main path through the public entry points on CUDA tensors, with every
-   launch count set to 0 before and read after: ``sort_pairs`` of 1,000,000
-   shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
+   are dropped; bucketize_scatter_lookback at the same geometries on random
+   and skewed keys (one key holding 99%), first and last pass; radix_dest
+   at radix 2-256 (also those EngineConfig cannot name), at tile_rows 1, 3,
+   8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off; scatter_runs at
+   radix 2, 4, 16, 32, 64 and 256, tile_rows 1, 3, 8 and 16, on 1 and 9
+   tiles and (radix 16) on more tiles than the card holds warps at once,
+   inputs also 4 bytes off, and with moved offsets; exclusive_scan at
+   lengths 1, 4,095-4,097, its chunk and one either side, two chunks and
+   one, 1,000,000, 2^24 and 100,000,000, each also one word off a 16-byte
+   boundary, on values whose sums wrap; key_bits (the AND and OR of the
+   keys) at lengths 0 to 2^24, aligned and one word off, also against
+   numpy; sort_plan at radix_bits 1, 2 and 4 on 0 keys to 2^24, random,
+   skewed, equal and PAD_KEY keys, aligned and one word off, its counts
+   also against numpy; the fused sort's pass plan, and radix_hist,
+   bucketize_scatter and bucketize_scatter_lookback routed by it (the last
+   by sort_plan's), pass by pass (every route: the input into R or S, R
+   into S, S into R), for every mask of 4-bit digits over 8 passes on 4
+   blocks and four masks at 1M keys (radix_hist, bucketize, scatter_runs,
+   bucketize_scatter, bucketize_scatter_lookback and radix_dest are also
+   held against their plain versions at the operator path's shapes, after
+   phase 4: 2^24 keys at radix_bits 1, 4 and 8, the filter's 100,000,000
+   keys at radix_bits 1, 4 and 8, and its 1-bit compaction input; key_bits
+   and sort_plan, its counts also against numpy, on the 100M buffers the
+   fused sorts of phase 6 reduce and the 2^24 keys);
+3. the main path through the public entry points on CUDA tensors:
+   ``sort_pairs`` of 1,000,000 shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
    2^24 random keys with duplicates, and ``sort_table`` of 1,000,000 rows of a
    key and 16 int32 payload columns (64-byte rows), every column checked;
@@ -47,8 +56,11 @@ in eight phases:
    graph, the third replaying it) under torch's sync debug mode, which must
    count no host sync at the first sighting and at the replay; the fused
    sorts' skipped passes read from the card's counter between the calls;
-   the fused sorts must launch bucketize_scatter once a pass and bucketize
-   and scatter_runs never;
+   each method's sorts one window, with every launch count set to 0 before
+   and read after it: the fused sorts must launch sort_plan once a sort and
+   bucketize_scatter_lookback once a pass, and K1, K5, bucketize_scatter,
+   key_bits, bucketize and scatter_runs never; the radix sorts K1, K4 and
+   K5;
 4. the operator path, counts again set to 0 before and read after, every
    result checked exactly against numpy (float means within rtol 1e-5 of a
    float64 oracle): ``filter_table`` of 100,000,000 keys keeping about half,
@@ -65,23 +77,22 @@ in eight phases:
    cache holds;
    the profile of a replay must name every kernel of the method, and at
    2^24 the fused sort's device time outside the port's kernels is split
-   by profiler row); the fused sort with bucketize_scatter against the same
-   sort with the two-kernel pass (K2 then K3, built here from their
-   unplanned wrappers) and the torch method at 1M, 2^24 and 2^26 random
-   keys, each by its own graph cache, in alternating rounds (CUDA events
-   over the bench's chain of sorts, and busy time); fused sort
-   against ``torch.sort(stable=True)`` at 1M and 16M keys
-   (CUDA events, median of 7 runs after warm-up, and the device's busy time
-   from torch.profiler); the fused sort's eager loop with ``global_offsets`` on
-   exclusive_scan against the same with the library-cumsum offsets,
-   in alternating rounds; each kernel of one pass at 1M and 16M beside its
-   plain version (device time from the profiler, and CUDA-event time per
-   call), its bound (the bytes it must move at 3.35 TB/s) and its share of
-   that bound, and exclusive_scan beside ``torch.cumsum`` of the same int32
-   vector; the 1M x 64 B table sort; radix_dest at radix 2, 16 and 256,
-   exclusive_scan beside ``torch.cumsum`` on a vector, and
-   bucketize_scatter, bucketize and scatter_runs on a radix-16 pass, at
-   1M, 2^24 and 100,000,000 keys, each with its bound and share of bound;
+   by profiler row); the fused sort by look-back against the same sort
+   with the table pass (K1, global_offsets, bucketize_scatter) and the torch
+   method at 1M, 2^24 and 2^26 random keys, each by its own graph cache,
+   in alternating rounds (CUDA events over the bench's chain of sorts, and
+   busy time split by kernel); fused sort against
+   ``torch.sort(stable=True)`` at 1M and 16M keys (CUDA events, median of
+   7 runs after warm-up, and the device's busy time from torch.profiler);
+   each kernel of one pass at 1M and 16M beside its plain version (device
+   time from the profiler, and CUDA-event time per call), its bound (the
+   bytes it must move at 3.35 TB/s) and its share of that bound, and
+   exclusive_scan and global_offsets beside ``torch.cumsum``; the 1M x 64
+   B table sort; radix_dest at radix 2, 16 and 256, key_bits, sort_plan
+   (random, skewed and equal keys), exclusive_scan beside ``torch.cumsum``
+   on a vector, and the look-back pass, the table pass whole, bucketize_scatter,
+   bucketize and scatter_runs on a radix-16 pass, at 1M, 2^24 and
+   100,000,000 keys, each with its bound and share of bound;
 6. times of the operator path: each operator and the radix sort beside the
    fused sort, by CUDA events (median of 3) with the profiler's busy share;
 7. the distributed path, counts set to 0 before each timed op in every
@@ -142,10 +153,20 @@ from gpuradixsort_tpu_torch.core.table import (
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
-from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_mask, pass_plan, plan_of_mask
+from gpuradixsort_tpu_torch.kernels.key_bits import (
+    key_bits,
+    pass_mask,
+    pass_plan,
+    plan_of_mask,
+    sort_plan,
+)
 from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
-from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter, scatter_runs
+from gpuradixsort_tpu_torch.kernels.scatter import (
+    bucketize_scatter,
+    bucketize_scatter_lookback,
+    scatter_runs,
+)
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.aggregate import group_by_aggregate
 from gpuradixsort_tpu_torch.ops.filter import filter_table
@@ -174,6 +195,18 @@ PAYLOAD_COLS = 16
 
 # name: (wrapper, source, TPU kernel it replaces, its __global__ functions)
 KERNELS = {
+    # The fused sort's key read: the plan and every pass's digit counts and
+    # bases, which the JAX package sums from K1 in every pass.
+    "sort_plan": (sort_plan, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
+                  "gpuradixsort_tpu/ops/sort.py:81 and gpuradixsort_tpu/ops/sort.py:83",
+                  ("key_counts_kernel", "digit_bases_kernel")),
+    # The fused sort's pass: K1, the offsets, K2 and K3 in one kernel, its
+    # run offsets by look-back.
+    "bucketize_scatter_lookback": (
+        bucketize_scatter_lookback, "gpuradixsort_tpu_torch/csrc/bucketize_scatter.cu",
+        "gpuradixsort_tpu/kernels/radix.py:57, gpuradixsort_tpu/kernels/bucketize.py:156 and "
+        "gpuradixsort_tpu/kernels/scatter.py:107",
+        ("lookback_scatter_1k_kernel", "lookback_scatter_any_kernel")),
     "radix_hist": (rk.tile_histograms, "gpuradixsort_tpu_torch/csrc/radix_hist.cu",
                    "gpuradixsort_tpu/kernels/radix.py:57", ("radix_hist_kernel",)),
     "bucketize": (bucketize_tiles, "gpuradixsort_tpu_torch/csrc/bucketize.cu",
@@ -182,7 +215,7 @@ KERNELS = {
     "scatter_runs": (scatter_runs, "gpuradixsort_tpu_torch/csrc/scatter_runs.cu",
                      "gpuradixsort_tpu/kernels/scatter.py:107",
                      ("scatter_1k_kernel", "scatter_any_kernel")),
-    # The fused sort's pass: K2 then K3 in one kernel.
+    # The table pass: K2 then K3 in one kernel, its run offsets from K1's table.
     "bucketize_scatter": (bucketize_scatter, "gpuradixsort_tpu_torch/csrc/bucketize_scatter.cu",
                           "gpuradixsort_tpu/kernels/bucketize.py:156 and "
                           "gpuradixsort_tpu/kernels/scatter.py:107",
@@ -192,15 +225,17 @@ KERNELS = {
     "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
                        "gpuradixsort_tpu/kernels/scan.py:31", ("scan_kernel",)),
     # Glue with no Pallas kernel: the JAX package's per-pass skip predicate,
-    # and the fused sort's pass plan made from it.
+    # and the plan made from it, without the digit counts.
     "key_bits": (key_bits, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
                  "gpuradixsort_tpu/ops/sort.py:83", ("key_bits_kernel", "pass_plan_kernel")),
 }
-# The kernels each sort method runs.  K2 and K3 run on no path: the fused
-# sort's passes run bucketize_scatter, which does their work.
-FUSED_PATH = ("radix_hist", "bucketize_scatter", "exclusive_scan", "key_bits")
+# The kernels each sort method runs.  A fused sort reads its keys once in
+# sort_plan and runs the look-back pass in every pass; K1, K5, the table pass,
+# the plain key_bits, K2 and K3 run on none of its path.
+FUSED_PATH = ("sort_plan", "bucketize_scatter_lookback")
 RADIX_PATH = ("radix_hist", "radix_dest", "exclusive_scan")
-OFF_PATH = ("bucketize", "scatter_runs")
+OFF_FUSED = tuple(name for name in KERNELS if name not in FUSED_PATH)
+OFF_PATH = ("bucketize", "scatter_runs", "bucketize_scatter", "key_bits")  # on no path
 
 
 def reset_launches() -> None:
@@ -252,6 +287,8 @@ def phase_kernels(dev, rng, errs: dict) -> None:
             cfg = EngineConfig(radix_bits=bits)
             keys = make_key_column(keys_np, cfg, device=dev).data
             idx = iota_index(n, cfg, dev)
+            if cfg.radix <= 16:
+                check_sort_plan(keys, cfg, errs, f"{label} radix_bits={bits}")
             for shift in (0, 4, 28):
                 where = f"{label} radix_bits={bits} shift={shift}"
                 hist_ref = rk.tile_histograms(keys, shift, cfg, impl="reference")
@@ -282,8 +319,14 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 err = max(max_abs_err(got[0], ok_ref), max_abs_err(got[1], oi_ref))
                 errs["bucketize_scatter"] = max(errs["bucketize_scatter"], err)
                 check(err == 0, f"bucketize_scatter == plain, {where}")
+                state = sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64, device=dev))
+                got = bucketize_scatter_lookback(keys, idx, cfg, state, shift // bits)
+                err = max(max_abs_err(got[0], ok_ref), max_abs_err(got[1], oi_ref))
+                errs["bucketize_scatter_lookback"] = max(errs["bucketize_scatter_lookback"], err)
+                check(err == 0, f"bucketize_scatter_lookback == plain, {where}")
     check_hist_bucketize_geometry(dev, rng, errs)
     check_fused_geometry(dev, rng, errs)
+    check_lookback_geometry(dev, rng, errs)
     check_dest_geometry(dev, rng, errs)
     check_scatter_geometry(dev, rng, errs)
     check_scan_lengths(dev, rng, errs)
@@ -325,6 +368,13 @@ def check_plan_routing(dev, errs: dict) -> None:
         where = f"{n} keys, pass mask {mask:#04x}"
         if err:
             check(False, f"pass plan == plain == plan_of_mask, {where}")
+        state = sort_plan(keys, cfg, counters[0], impl="cuda")
+        ref_state = sort_plan(keys, cfg, counters[1], impl="reference")
+        err = max(max(map(max_abs_err, state[:3], ref_state[:3])), max_abs_err(*counters))
+        errs["sort_plan"] = max(errs["sort_plan"], err)
+        if err:
+            check(False, f"sort_plan == plain, {where}")
+        check_lookback_routes(keys, idx, cfg, (state, ref_state), errs, where)
         buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
         for p in range(cfg.num_passes):
             shift, route = p * cfg.radix_bits, dict(plan=plan, pass_index=p, buffers=buffers)
@@ -354,10 +404,66 @@ def check_plan_routing(dev, errs: dict) -> None:
                   f"{where}")
     check(routes >= {None, ("input", "R"), ("input", "S"), ("R", "S"), ("S", "R")},
           f"the plans routed passes {sorted(map(str, routes))}")
-    check(True, f"pass plan, radix_hist and bucketize_scatter routed by it == their plain "
+    check(True, f"pass plan, sort_plan's plan, counts and bases, and radix_hist, "
+          f"bucketize_scatter and bucketize_scatter_lookback routed by the plan == their plain "
           f"versions pass by pass, and the sorted pairs in R == a stable torch.sort, for all "
           f"{1 << cfg.num_passes} masks of 4-bit digits on {4 * cfg.block} keys and 4 masks on "
           f"{round_up(N_HEADLINE, cfg.block)} keys")
+
+
+def check_lookback_routes(keys, idx, cfg, states, errs: dict, where: str) -> None:
+    """bucketize_scatter_lookback routed by a sort_plan, pass by pass, against its plain version.
+
+    ``states``: the kernel's sort_plan of ``keys`` and the plain one.  Each
+    pass writes copies of one pair of R and S buffers, the kernel's and the
+    plain version's; then R against a stable ``torch.sort``.
+    """
+    state, ref_state = states
+    buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
+    for p in range(cfg.num_passes):
+        want = tuple(tuple(t.clone() for t in pair) for pair in buffers)
+        bucketize_scatter_lookback(keys, idx, cfg, ref_state, p, want, impl="reference")
+        bucketize_scatter_lookback(keys, idx, cfg, state, p, buffers, impl="cuda")
+        err = max(max_abs_err(g, w) for got, w_pair in zip(buffers, want)
+                  for g, w in zip(got, w_pair))
+        errs["bucketize_scatter_lookback"] = max(errs["bucketize_scatter_lookback"], err)
+        if err:
+            check(False, f"bucketize_scatter_lookback with the plan == plain, {where}, pass {p}")
+    order = torch.sort(int32_bits(keys).to(torch.int64) & 0xFFFFFFFF, stable=True).indices
+    if not same_bits(buffers[0], (int32_bits(keys)[order], int32_bits(idx)[order])):
+        check(False, f"the look-back passes sort stably into R, {where}")
+
+
+def numpy_digit_counts(keys: np.ndarray, cfg) -> np.ndarray:
+    """Every pass's digit counts by numpy: a bincount of each 16-bit half, then one per digit."""
+    out = np.zeros((cfg.num_passes, cfg.radix), dtype=np.int64)
+    values = np.arange(1 << 16, dtype=np.uint32)
+    for half in (0, 1):
+        hist = np.bincount((keys >> np.uint32(16 * half)) & np.uint32(0xFFFF), minlength=1 << 16)
+        for p in range(cfg.num_passes):
+            shift = p * cfg.radix_bits - 16 * half
+            if 0 <= shift < 16:
+                digits = (values >> np.uint32(shift)) & np.uint32(cfg.radix - 1)
+                out[p] = np.bincount(digits, weights=hist, minlength=cfg.radix).astype(np.int64)
+    return out
+
+
+def check_sort_plan(keys: torch.Tensor, cfg, errs: dict, where: str, host=None) -> None:
+    """sort_plan's plan, counts and bases against its plain version; with ``host``
+    (the keys on the host) its counts also against numpy."""
+    counters = [torch.zeros(1, dtype=torch.int64, device=keys.device) for _ in range(2)]
+    got = sort_plan(keys, cfg, counters[0], impl="cuda")
+    want = sort_plan(keys, cfg, counters[1], impl="reference")
+    err = max(*map(max_abs_err, got[:3], want[:3]), max_abs_err(*counters))
+    if host is not None:
+        err = max(err, max_abs_err(got.counts.cpu(),
+                                   torch.from_numpy(numpy_digit_counts(host, cfg)).to(torch.int32)))
+    if got.lookback.any():
+        err = max(err, 1)
+    errs["sort_plan"] = max(errs["sort_plan"], err)
+    numpy = " == numpy" if host is not None else ""
+    check(err == 0, f"sort_plan (plan, counts, bases) == plain{numpy}, look-back scratch clear, "
+          f"{where}")
 
 
 def check_key_bits(dev, rng, errs: dict) -> None:
@@ -386,6 +492,25 @@ def check_key_bits(dev, rng, errs: dict) -> None:
         errs["key_bits"] = max(errs["key_bits"], err)
         check(err == 0, f"key_bits == plain == numpy, length {n}, {kind}, "
               f"{keys.data_ptr() % 16} bytes off a 16-byte boundary")
+    for bits in (1, 2, 4):
+        cfg = EngineConfig(radix_bits=bits)
+        for n in (0, cfg.tile, 3 * cfg.block, round_up(N_HEADLINE, cfg.block), 1 << 24):
+            for kind in ("random", "skewed", "equal", "all PAD_KEY"):
+                if bits != 4 and n == 1 << 24 and kind != "random":
+                    continue
+                buf = rng.integers(0, 2**32, n + 1, dtype=np.uint32)
+                if kind == "skewed":  # one key, so one digit of every pass, holds 99%
+                    buf = np.where(rng.random(n + 1) < 0.99, np.uint32(0x5A5A5A5A), buf)
+                elif kind != "random":
+                    buf = np.full(n + 1, PAD_KEY if kind == "all PAD_KEY" else 0xDEADBEEF,
+                                  dtype=np.uint32)
+                buf = buf.astype(np.uint32)
+                dbuf = torch.from_numpy(buf).to(dev)
+                for off in (0, 1):
+                    keys = dbuf[off:off + n]
+                    check_sort_plan(keys, cfg, errs, f"radix_bits={bits}, length {n}, {kind}, "
+                                    f"{keys.data_ptr() % 16} bytes off a 16-byte boundary",
+                                    host=buf[off:off + n])
 
 
 # More tiles than 64 warps on each of the H100's 132 SMs hold at once, the
@@ -602,6 +727,44 @@ def check_fused_geometry(dev, rng, errs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def check_lookback_geometry(dev, rng, errs: dict) -> None:
+    """bucketize_scatter_lookback against its plain version at every launch geometry.
+
+    Radix 2, 4 and 16 at tile_rows 1, 3, 8 and 16 (the register route on
+    the 1,024-key tile, the staged rows on any other); 1, 8 and 29 tiles,
+    and at radix 16 MANY_TILES, so that tiles look back across waves of
+    warps; random and skewed keys (one key holding 99%), inputs aligned and
+    one word off a 16-byte boundary; the first and the last pass, each from
+    a fresh sort_plan (a pass index serves one launch), unplanned.
+    """
+    skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+    for tile_rows in (1, 3, 8, 16):
+        for bits in (1, 2, 4):
+            cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+            for num_tiles in (1, 8, 29) + ((MANY_TILES,) if bits == 4 else ()):
+                n = num_tiles * cfg.tile
+                pos = torch.from_numpy(rng.permutation(n + 1).astype(np.uint32)).to(dev)
+                for kind in ("random", "skewed"):
+                    host = rng.integers(0, 2**32, n + 1, dtype=np.uint32)
+                    if kind == "skewed":
+                        host = np.where(rng.random(n + 1) < 0.99, np.uint32(0x5A5A5A5A), host)
+                    buf = torch.from_numpy(host.astype(np.uint32)).to(dev)
+                    for keys, idx in ((buf[:n], pos[:n]), (buf[1:], pos[1:])):
+                        for p in (0, cfg.num_passes - 1):
+                            state = sort_plan(keys, cfg, skipped)
+                            got = bucketize_scatter_lookback(keys, idx, cfg, state, p,
+                                                             impl="cuda")
+                            want = bucketize_scatter_lookback(keys, idx, cfg, state, p,
+                                                              impl="reference")
+                            errs["bucketize_scatter_lookback"] = max(
+                                errs["bucketize_scatter_lookback"], *map(max_abs_err, got, want))
+    check(errs["bucketize_scatter_lookback"] == 0,
+          "bucketize_scatter_lookback (radix 2, 4, 16) == plain at tile_rows 1, 3, 8, 16, "
+          f"1/8/29/{MANY_TILES} tiles, random and skewed keys, aligned and unaligned inputs, "
+          "first and last pass")
+    torch.cuda.empty_cache()
+
+
 def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     """The kernels against their plain versions at the path's shapes.
 
@@ -627,6 +790,7 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
                   max_abs_err(got.cpu(), want))
         errs["key_bits"] = max(errs["key_bits"], err)
         check(err == 0, f"key_bits == plain == numpy, {where}, {keys.numel()} padded rows")
+        check_sort_plan(keys, cfg, errs, f"{where}, {keys.numel()} padded rows", host=host_keys)
         del host_keys
     del buffers
     keys16m = tables["r16m"].data
@@ -669,7 +833,12 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
                                                          impl="cuda"), want))
             errs["bucketize_scatter"] = max(errs["bucketize_scatter"], err)
             check(err == 0, f"bucketize_scatter == plain, {where}")
-            del idx, want
+            state = sort_plan(keys, kcfg, torch.zeros(1, dtype=torch.int64, device=keys.device))
+            err = max(map(max_abs_err, bucketize_scatter_lookback(
+                keys, idx, kcfg, state, shift // kcfg.radix_bits, impl="cuda"), want))
+            errs["bucketize_scatter_lookback"] = max(errs["bucketize_scatter_lookback"], err)
+            check(err == 0, f"bucketize_scatter_lookback == plain, {where}")
+            del idx, want, state
         del hist, offsets
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -700,13 +869,16 @@ def phase_main_path(dev, rng, cfg) -> dict:
     # cache is cleared before each sort, as the 1M sorts share a shape.  The
     # skip counter is read between the calls, outside the counted window.
     # The host's pass masks are read before the launch counts are reset, so
-    # that the window counts the sorts' own launches and nothing else.
+    # that a window counts the sorts' own launches and nothing else.  Each
+    # method's sorts are one window (the fused method's with sort_table):
+    # the counts are set to 0 before and read after it.
     cols = {name: make_key_column(keys_np, cfg, device=dev) for name, keys_np in sets.items()}
     want = {name: cfg.num_passes - bin(pass_mask(col.data, cfg)).count("1")
             for name, col in cols.items()}
-    reset_launches()
-    results, syncs, replays = {}, {}, {}
+    results, syncs, replays, windows = {}, {}, {}, {}
+    table_out = {}
     for method in ("fused", "radix"):
+        reset_launches()
         for name, col in cols.items():
             want_skipped = want[name] if method == "fused" else 0
             sort_ops.clear_sort_graphs()
@@ -720,16 +892,16 @@ def phase_main_path(dev, rng, cfg) -> dict:
                                                bool(device_is_sorted(s.valid())),
                                                sort_ops.skipped_passes() - skipped, want_skipped)
                 replays[method, name, call] = graph_replays(), col.padded_length
+        if method == "fused":
+            sort_ops.clear_sort_graphs()
+            for call in CALLS:
+                out = []
+                syncs["sort_table fused", call] = syncs_of(lambda: out.append(
+                    sort_table(table, "key", cfg, method="fused")))
+                table_out[call] = {k: out[0][k].to_numpy() for k in out[0].names()}
+                replays["sort_table", "", call] = graph_replays(), table["key"].padded_length
+        windows[method] = read_launches()
     del cols
-    table_out = {}
-    sort_ops.clear_sort_graphs()
-    for call in CALLS:
-        out = []
-        syncs["sort_table fused", call] = syncs_of(lambda: out.append(
-            sort_table(table, "key", cfg, method="fused")))
-        table_out[call] = {k: out[0][k].to_numpy() for k in out[0].names()}
-        replays["sort_table", "", call] = graph_replays(), table["key"].padded_length
-    launches = read_launches()
 
     for (method, name, call), (s, p, dev_sorted, skipped, want_skipped) in results.items():
         keys_np = sets[name]
@@ -761,15 +933,22 @@ def phase_main_path(dev, rng, cfg) -> dict:
               for (*_, call), (count, padded) in replays.items()),
           "each sort's first sighting ran eagerly, its second captured and replayed its graph, "
           "its third replayed it (eager throughout above GRAPH_MAX_PADDED), by both methods")
-    for name in FUSED_PATH + RADIX_PATH:
-        check(launches[name] > 0, f"{name} launched {launches[name]} times on the main path")
-    sorts = launches["key_bits"]  # one pass plan a fused sort
-    check(launches["bucketize_scatter"] == cfg.num_passes * sorts
-          and all(launches[name] == 0 for name in OFF_PATH),
-          f"the {sorts} fused sorts launched bucketize_scatter {launches['bucketize_scatter']} "
-          f"times, once a pass, and bucketize and scatter_runs "
-          f"{', '.join(str(launches[name]) for name in OFF_PATH)} times")
-    return launches
+    fused, radix = windows["fused"], windows["radix"]
+    log("launches, fused sorts' window: " + ", ".join(f"{k} {v}" for k, v in fused.items()))
+    log("launches, radix sorts' window: " + ", ".join(f"{k} {v}" for k, v in radix.items()))
+    sorts = fused["sort_plan"]  # one key read a fused sort
+    check(sorts == 3 * len(sets) + len(CALLS)
+          and fused["bucketize_scatter_lookback"] == cfg.num_passes * sorts
+          and all(fused[name] == 0 for name in OFF_FUSED),
+          f"the {sorts} fused sorts launched sort_plan once each, bucketize_scatter_lookback "
+          f"{fused['bucketize_scatter_lookback']} times, once a pass (a skipped pass's launch "
+          "exits at once), and " + ", ".join(f"{name} {fused[name]}" for name in OFF_FUSED)
+          + " times")
+    for name in RADIX_PATH:
+        check(radix[name] > 0, f"{name} launched {radix[name]} times by the radix sorts")
+    check(all(radix[name] == 0 for name in FUSED_PATH + OFF_PATH),
+          "the radix sorts launched no kernel of the fused sort's and none off the paths")
+    return {name: fused[name] + radix[name] for name in KERNELS}
 
 
 CALLS = ("first sighting", "capture", "replay")
@@ -1029,13 +1208,6 @@ def eager_loop():
     return mock.patch.object(sort_ops, "GRAPH_MAX_PADDED", 0)
 
 
-@contextlib.contextmanager
-def offsets_by(fn):
-    """The fused sort's eager loop takes ``fn`` as its global_offsets inside the block."""
-    with eager_loop(), mock.patch.object(rk, "global_offsets", fn):
-        yield
-
-
 def ab_per_call_ms(fns: dict, calls: int = 1, rounds: int = 4, reps: int = 4) -> dict:
     """Median per-call ms of each function, sampled in alternating rounds (a b b a ...)."""
     names = list(fns)
@@ -1044,25 +1216,6 @@ def ab_per_call_ms(fns: dict, calls: int = 1, rounds: int = 4, reps: int = 4) ->
         for name in (names if r % 2 == 0 else names[::-1]):
             samples[name] += per_call_ms(fns[name], calls=calls, reps=reps)
     return {name: float(np.median(v)) for name, v in samples.items()}
-
-
-def offsets_ab(col, cfg, label: str, card: str) -> None:
-    """The fused sort's eager loop with exclusive_scan offsets against the cumsum ones."""
-    def fused_with(offsets_fn):
-        def run():
-            with offsets_by(offsets_fn):
-                return sort_pairs(col, cfg, method="fused")
-        return run
-
-    fns = {"exclusive_scan": fused_with(rk.global_offsets),
-           "torch.cumsum": fused_with(global_offsets_cumsum)}
-    ms = ab_per_call_ms(fns)
-    busy = {name: profiled_device_ms(fn, calls=3)[0] for name, fn in fns.items()}
-    log(f"time {label} sort_pairs fused (eager loop), global_offsets by exclusive_scan against "
-        f"torch.cumsum ({card}), CUDA events, median of 16 in alternating rounds: "
-        + "; ".join(f"{name} {ms[name]:.4f} ms (device busy "
-                    f"{f'{busy[name]:.4f} ms' if busy[name] else 'not measured'})"
-                    for name in fns))
 
 
 GRAPH_AB_SIZES = {
@@ -1165,46 +1318,43 @@ def graph_ab_method(method: str, sizes, dev, rng, cfg, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def two_kernel_passes(keys: torch.Tensor, idx: torch.Tensor, cfg, skipped: torch.Tensor):
-    """The fused sort's passes as they ran before bucketize_scatter: K1, offsets, K2, then K3.
+def offsets_passes(keys: torch.Tensor, idx: torch.Tensor, cfg, skipped: torch.Tensor):
+    """The fused sort's passes by the table pass: K1, the offsets scan, then bucketize_scatter.
 
-    The A/B's other side, never a fallback.  The pass plan is made as in
-    the sort, and not read: every pass runs, so ``pass_ab`` times it only on
-    keys whose every digit varies, where the plan runs every pass too.  K2
-    writes each pass's bucketized tiles to a new buffer and K3 reads them
-    into another; the allocator hands one pass's buffers to the next, so the
-    passes ping-pong.
+    The A/B's other side, never a fallback.  The plan comes from the AND
+    and OR alone (``pass_plan``), and every pass launches K1 and the
+    table-reading ``bucketize_scatter`` routed by it, with the offsets
+    (``global_offsets``: two transposes and K5) between them.
     """
-    pass_plan(keys, cfg, skipped)
+    plan = pass_plan(keys, cfg, skipped)
+    buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
     for p in range(cfg.num_passes):
-        shift = p * cfg.radix_bits
-        hist = rk.tile_histograms(keys, shift, cfg)
-        offsets = rk.global_offsets(hist)
-        keys, idx, _ = scatter_runs(*bucketize_tiles(keys, idx, shift, cfg), hist, offsets, cfg)
-    return keys, idx
+        shift, route = p * cfg.radix_bits, dict(plan=plan, pass_index=p, buffers=buffers)
+        hist = rk.tile_histograms(keys, shift, cfg, **route)
+        bucketize_scatter(keys, idx, hist, rk.global_offsets(hist), shift, cfg, **route)
+    return buffers[0]
 
 
 PASS_AB_SIZES = (("1M", N_HEADLINE), ("2^24", 1 << 24), ("2^26", 1 << 26))
 
 
 def pass_ab(dev, rng, cfg, card: str) -> None:
-    """The fused sort with bucketize_scatter against the two-kernel pass, beside torch.sort.
+    """The fused sort by look-back against the same sort by the table pass, beside torch.
 
-    ``sort_pairs`` of random keys (every digit varies) at 1M, 2^24 and 2^26
-    by the port (bucketize_scatter), by the fused sort with
-    ``two_kernel_passes`` swapped in, and by the ``torch`` method, each as a
-    user runs it: a cached graph of its own at up to GRAPH_MAX_PADDED keys,
-    eager above.  Outputs equal; CUDA events ms a sort over the bench's
-    chain of back-to-back sorts, median of 16 in alternating rounds; the
-    profiler's busy time a sort.
+    ``sort_pairs`` of random keys at 1M, 2^24 and 2^26 by the port (one
+    key read, then the look-back pass), by the fused sort with
+    ``offsets_passes`` swapped in (K1, offsets and the table-reading pass),
+    and by the ``torch`` method, each as a user runs it: a cached graph of
+    its own at up to GRAPH_MAX_PADDED keys, eager above.  Outputs equal;
+    CUDA events ms a sort over the bench's chain of back-to-back sorts,
+    median of 16 in alternating rounds; the profiler's busy time a sort,
+    split by the port's kernels.
     """
-    log(f"fused sort_pairs, bucketize_scatter against the two-kernel pass (K2 then K3), beside "
-        f"the torch method ({card})")
+    log(f"fused sort_pairs, the look-back pass against the table pass (K1, offsets, "
+        f"bucketize_scatter), beside the torch method ({card})")
     for label, n in PASS_AB_SIZES:
         col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg, device=dev)
-        check(pass_mask(col.data, cfg) == (1 << cfg.num_passes) - 1,
-              f"pass A/B {label}: every digit of the keys varies, so every pass runs either way")
-        caches = {"bucketize_scatter": ({}, OrderedDict()), "two-kernel pass": ({}, OrderedDict())}
+        caches = {"look-back pass": ({}, OrderedDict()), "table pass": ({}, OrderedDict())}
 
         def fused_by(name: str):
             graphs, seen = caches[name]
@@ -1213,29 +1363,36 @@ def pass_ab(dev, rng, cfg, card: str) -> None:
                 with contextlib.ExitStack() as stack:
                     stack.enter_context(mock.patch.object(sort_ops, "_SORT_GRAPHS", graphs))
                     stack.enter_context(mock.patch.object(sort_ops, "_SEEN", seen))
-                    if name == "two-kernel pass":
+                    if name == "table pass":
                         stack.enter_context(mock.patch.object(sort_ops, "_fused_passes",
-                                                              two_kernel_passes))
+                                                              offsets_passes))
                     return sort_pairs(col, cfg, method="fused")
             return run
 
         fns = {name: fused_by(name) for name in caches}
         fns["torch"] = lambda: sort_pairs(col, cfg, method="torch")
         outs = {name: column_data(fn()) for name, fn in fns.items()}
-        check(same_bits(outs["bucketize_scatter"], outs["two-kernel pass"])
-              and same_bits(outs["bucketize_scatter"], outs["torch"]),
+        check(same_bits(outs["look-back pass"], outs["table pass"])
+              and same_bits(outs["look-back pass"], outs["torch"]),
               f"pass A/B {label}: both fused passes and the torch method give one result")
         del outs
         calls = chain_for(n)
         ms = ab_per_call_ms(fns, calls=calls)
-        busy = {name: profiled_device_ms(fn, calls=3)[0] for name, fn in fns.items()}
-        graphed = {name: bool(graphs) for name, (graphs, _) in caches.items()}
+        parts = []
+        for name, fn in fns.items():
+            busy, rows = profiled_device_ms(fn, calls=3)
+            how = "" if name == "torch" else ", graph" if caches[name][0] else ", eager"
+            if not busy:
+                parts.append(f"{name} {ms[name]:.4f} ms (device busy not measured{how})")
+                continue
+            ours = port_kernel_split(rows)
+            split = "".join(f", {k} {v:.4f}" for k, v in ours.items())
+            if name != "torch":
+                split += f", other {busy - sum(ours.values()):.4f}"
+            parts.append(f"{name} {ms[name]:.4f} ms (device busy {busy:.4f} ms{how}{split})")
         log(f"time pass A/B {label} ({col.padded_length} padded keys, {card}): CUDA events ms a "
             f"sort over {calls} back-to-back sorts, median of 16 in alternating rounds; "
-            + "; ".join(f"{name} {ms[name]:.4f} ms (device busy "
-                        f"{f'{busy[name]:.4f} ms' if busy[name] else 'not measured'}"
-                        f"{'' if name == 'torch' else ', graph' if graphed[name] else ', eager'})"
-                        for name in fns))
+            + "; ".join(parts))
         torch.cuda.synchronize()
         del col, fns, caches
         torch.cuda.empty_cache()
@@ -1329,7 +1486,6 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             f"median of 7: sort_pairs fused {t_fused:.4f} ms ({n / t_fused / 1e3:.1f} M "
             f"keys/s); sort_pairs torch (torch.sort of sign-flipped int32 keys + gathers) "
             f"{t_torch:.4f} ms; bare torch.sort of sign-flipped int32 keys {t_raw:.4f} ms")
-        offsets_ab(col, cfg, label, card)
         reset_launches()
         fused()
         log(f"  launches in one fused sort at {label}: " + ", ".join(
@@ -1354,9 +1510,21 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         bk, bi = bucketize_tiles(keys, idx, 0, cfg)
         padded = keys.numel()
         counts = torch.randint(0, 100, (padded,), dtype=torch.int32, device=dev)
+        skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+        state = sort_plan(keys, cfg, skipped)
+
+        def lookback(impl: str):
+            def run():  # a pass index serves one launch: clear its scratch first
+                state.lookback.zero_()
+                return bucketize_scatter_lookback(keys, idx, cfg, state, 0, impl=impl)
+            return run
+
         # name: (kernel, plain, one library call of the same function or None);
         # the bytes each must move and operations it must do are stage_work's.
         stage = {
+            "sort_plan": (lambda: sort_plan(keys, cfg, skipped, impl="cuda"),
+                          lambda: sort_plan(keys, cfg, skipped, impl="reference"), None),
+            "bucketize_scatter_lookback": (lookback("cuda"), lookback("reference"), None),
             "radix_hist": (lambda: rk.tile_histograms(keys, 0, cfg, impl="cuda"),
                            lambda: rk.tile_histograms(keys, 0, cfg, impl="reference"), None),
             "bucketize": (lambda: bucketize_tiles(keys, idx, 0, cfg, impl="cuda"),
@@ -1381,7 +1549,9 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         st = StageTimes()
         log(f"one pass at {label} keys, shift 0, radix 16 ({card}): device time "
             f"(profiler) and per-call time of 20 back-to-back calls (CUDA events); "
-            f"exclusive_scan of {padded} int32 values, beside torch.cumsum of them")
+            f"exclusive_scan of {padded} int32 values, beside torch.cumsum of them; "
+            f"bucketize_scatter_lookback's device time its kernel's own, its per-call time "
+            f"with the fill of its scratch, which a sort's sort_plan clears once")
         for name, (kernel, plain, library) in stage.items():
             nbytes, ops = work[name]
             # Alternating turns, so both sides see the same card state; the
@@ -1389,7 +1559,10 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             turns = {"k": [], "p": []}
             for side in "kppkkp":
                 fn = kernel if side == "k" else plain
-                turns[side].append(profiled_device_ms(fn, calls=20)[0])
+                busy, rows = profiled_device_ms(fn, calls=20)
+                if side == "k" and name == "bucketize_scatter_lookback":
+                    busy = port_kernel_split(rows).get(name, 0.0)  # not the scratch's fill
+                turns[side].append(busy)
             dev_k, dev_p = (float(np.median([t for t in turns[side] if t] or [0.0]))
                             for side in "kp")
             wall_k, wall_p = median_per_call_ms(kernel), median_per_call_ms(plain)
@@ -1442,7 +1615,10 @@ def median_measured(turns: list[float]) -> float:
 
 
 def phase_dest_scan_times(dev, rng, card: str) -> None:
-    """Phase 5, continued: radix_dest (radix 2, 16, 256), key_bits, exclusive_scan on a vector.
+    """Phase 5, continued: radix_dest (radix 2, 16, 256), key_bits, sort_plan, exclusive_scan.
+
+    sort_plan on random keys, on keys of which 99% are one key (so every
+    lane adds to one counter of each pass) and on equal keys.
 
     At 1M, 2^24 and 100M keys (padded as the sorts pad them): device time
     per call from the profiler (20 back-to-back calls, median of 3 turns),
@@ -1473,6 +1649,23 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
         share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
         log(f"  key_bits @ {label} ({padded} keys): {us:.2f} us; bound {bound_ms * 1e3:.2f} us "
             f"({by}); share of bound {share}")
+        skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+        bound_ms, by = bound_of(*work["sort_plan"])
+        for kind in ("random", "skewed", "equal"):
+            if kind == "skewed":  # one key, so one digit of every pass, holds 99%
+                keys = torch.where(torch.rand(padded, device=dev) < 0.99,
+                                   torch.tensor(0x5A5A5A5A, dtype=torch.int32, device=dev),
+                                   int32_bits(keys)).view(torch.uint32)
+            elif kind == "equal":
+                keys = torch.full((padded,), 0x5A5A5A5A, dtype=torch.int32,
+                                  device=dev).view(torch.uint32)
+            turns = [1e3 * profiled_device_ms(lambda: sort_plan(keys, EngineConfig(), skipped),
+                                              calls=20)[0] for _ in range(3)]
+            us = median_measured(turns)
+            share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
+            log(f"  sort_plan ({kind} keys) @ {label} ({padded} keys): {us:.2f} us (turns "
+                f"{', '.join(f'{t:.2f}' for t in turns)}); bound {bound_ms * 1e3:.2f} us ({by}); "
+                f"share of bound {share}")
         del keys
         x = torch.from_numpy(rng.integers(0, 100, padded, dtype=np.int32)).to(dev)
         turns = {"k": [], "l": []}
@@ -1492,19 +1685,20 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
 
 
 def phase_scatter_times(dev, rng, card: str) -> None:
-    """Phase 5, continued: one radix-16 pass's scatter timed directly at 1M, 2^24 and 100M keys.
+    """Phase 5, continued: one radix-16 pass timed directly at 1M, 2^24 and 100M keys.
 
-    bucketize_scatter on the keys, their indices and offsets, and K2 and K3
-    on the same (K3 on K2's bucketized tiles): device time per call from the
-    profiler (20 back-to-back calls, median of 3 turns, the fused kernel and
-    the pair in alternating turns), the bound (16 bytes a key and the two
-    tables at 3.35 TB/s for the fused kernel and for K3, 16 bytes a key for
-    K2) and the share of it.
+    The look-back pass (the fused sort's: its kernel's own device time, its
+    scratch cleared before each launch as a sort's sort_plan clears it once),
+    the table pass whole (K1, global_offsets, then bucketize_scatter reading
+    the table), bucketize_scatter alone, and K2 and K3 on the same input (K3
+    on K2's bucketized tiles): device time per call from the profiler (20
+    back-to-back calls, median of 3 turns, the sides in alternating turns),
+    the bound (stage_work's bytes at 3.35 TB/s) and the share of it.
     """
     cfg = EngineConfig()
-    log(f"bucketize_scatter, bucketize and scatter_runs at 1M, 2^24 and 100M, radix 16 "
-        f"({card}): device us per call (profiler, 20 calls, median of 3 turns), bound, share "
-        f"of bound")
+    log(f"the look-back pass, the table pass whole, bucketize_scatter, bucketize and scatter_runs at "
+        f"1M, 2^24 and 100M, radix 16 ({card}): device us per call (profiler, 20 calls, median of "
+        f"3 turns), bound, share of bound")
     for label, n in (("1M", N_HEADLINE), ("2^24", N_LARGE), ("100M", N_OPS)):
         keys = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
                                device=dev).data
@@ -1513,14 +1707,32 @@ def phase_scatter_times(dev, rng, card: str) -> None:
         hist = rk.tile_histograms(keys, 0, cfg)
         offsets = rk.global_offsets(hist)
         bk, bi = bucketize_tiles(keys, idx, 0, cfg)
-        fns = {"bucketize_scatter": lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg),
+        state = sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64, device=dev))
+
+        def lookback():
+            state.lookback.zero_()  # a pass index serves one launch
+            return bucketize_scatter_lookback(keys, idx, cfg, state, 0)
+
+        def table_pass_whole():
+            h = rk.tile_histograms(keys, 0, cfg)
+            return bucketize_scatter(keys, idx, h, rk.global_offsets(h), 0, cfg)
+
+        fns = {"bucketize_scatter_lookback": lookback,
+               "table pass whole (K1, global_offsets, bucketize_scatter)": table_pass_whole,
+               "bucketize_scatter": lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg),
                "bucketize": lambda: bucketize_tiles(keys, idx, 0, cfg),
                "scatter_runs": lambda: scatter_runs(bk, bi, hist, offsets, cfg)}
         turns = {name: [] for name in fns}
         for names in (list(fns), list(fns)[::-1], list(fns)):
             for name in names:
-                turns[name].append(1e3 * profiled_device_ms(fns[name], calls=20)[0])
+                busy, rows = profiled_device_ms(fns[name], calls=20)
+                if name == "bucketize_scatter_lookback":
+                    busy = port_kernel_split(rows).get(name, 0.0)  # not the scratch's fill
+                turns[name].append(1e3 * busy)
         work = stage_work(padded, cfg)
+        work["table pass whole (K1, global_offsets, bucketize_scatter)"] = tuple(
+            sum(work[k][i] for k in ("radix_hist", "global_offsets", "bucketize_scatter"))
+            for i in (0, 1))
         for name, t in turns.items():
             us = median_measured(t)
             bound_ms, by = bound_of(*work[name])
@@ -1528,7 +1740,7 @@ def phase_scatter_times(dev, rng, card: str) -> None:
             log(f"  {name} @ {label} ({padded} keys): {us:.2f} us (turns "
                 f"{', '.join(f'{x:.2f}' for x in t)}); bound {bound_ms * 1e3:.2f} us ({by}); "
                 f"share of bound {share}")
-        del keys, idx, bk, bi, hist, offsets, fns
+        del keys, idx, bk, bi, hist, offsets, fns, state
         torch.cuda.empty_cache()
 
 
@@ -1540,7 +1752,7 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
     """
     t = tables
     sort_ops.clear_sort_graphs()
-    sorts = key_bits.launches  # one a fused sort of a CUDA buffer
+    sorts = sort_plan.launches  # one a fused sort of a CUDA buffer
     cfg8 = EngineConfig(radix_bits=8)
     ops = {
         "filter_table + to_table, 100M keys": lambda: filter_table(
@@ -1573,7 +1785,7 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
             continue
         log(f"  {label}: {ms:.3f} ms; device busy {busy:.3f} ms, busy share {busy / ms:.3f} "
             f"({split or 'no kernel of the port'})")
-    sorts = key_bits.launches - sorts
+    sorts = sort_plan.launches - sorts
     graphs = {f"{key[3]} {key[1]}": g.replays for key, g in sort_ops._SORT_GRAPHS.items()}
     torch.cuda.empty_cache()
     held = torch.cuda.memory_reserved()

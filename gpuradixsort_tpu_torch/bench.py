@@ -63,7 +63,17 @@ from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig, defa
 from gpuradixsort_tpu_torch.core.table import int32_bits, pad_to_tile
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
-from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter, scatter_runs
+from gpuradixsort_tpu_torch.kernels.key_bits import (
+    COUNT_LINES,
+    LOOKBACK_GROUP,
+    lookback_words,
+    sort_plan,
+)
+from gpuradixsort_tpu_torch.kernels.scatter import (
+    bucketize_scatter,
+    bucketize_scatter_lookback,
+    scatter_runs,
+)
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.utils.timing import (
@@ -179,11 +189,24 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
     (tiles, radix) int32 table.  ``exclusive_scan`` is the scan of a vector
     of ``padded`` int32 values; ``global_offsets`` is one pass's scan of the
     histogram table; ``bucketize_scatter`` counts each tile's digits itself
-    and reads only the offsets table; ``gather_rows`` moves a row of
-    ``PAYLOAD_COLS`` int32 through a 4-byte index.
+    and reads only the offsets table; ``bucketize_scatter_lookback`` writes
+    and reads its pass's look-back words (a 4-byte count a tile and digit,
+    an 8-byte sum and a 4-byte prefix a group of tiles and digit) where
+    that reads the table; ``sort_plan`` reads the keys and writes the AND
+    and OR, the plan, every pass's digit counts and bases, and the cleared
+    lines it sums the counts in and look-back scratch of every pass, and
+    adds a counter a pass to each key;
+    ``gather_rows`` moves a row of ``PAYLOAD_COLS`` int32 through a 4-byte
+    index.
     """
-    table = 4 * cfg.radix * (padded // cfg.tile)
+    tiles = padded // cfg.tile
+    table = 4 * cfg.radix * tiles
+    words = 4 * cfg.radix * (tiles + 3 * -(-tiles // LOOKBACK_GROUP))  # one pass's
+    passes = cfg.num_passes
     return {
+        "sort_plan": (4 * padded + 8 + 4 * passes * (1 + 2 * cfg.radix)
+                      + 4 * (COUNT_LINES + lookback_words(tiles, cfg)), (2 + passes) * padded),
+        "bucketize_scatter_lookback": (16 * padded + 2 * words, 6 * padded),
         "radix_hist": (4 * padded + table, 3 * padded),
         "global_offsets": (2 * table, table // 4),
         "bucketize": (16 * padded, 4 * padded),
@@ -197,11 +220,15 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
 
 
 # The stage table's rows: its label (bench.py's, the scatter named for the
-# CUDA K3, which has no window) and the stage_work entry.  A fused pass runs
-# the histogram, the offsets and the bucketize+scatter kernel; the bucketize
-# and scatter_runs rows time the two kernels that did its work before, and
-# that still stand for the JAX package's two functions.
+# CUDA K3, which has no window) and the stage_work entry.  A fused sort runs
+# the key read with its digit counts once and the look-back pass in every
+# pass.  The histogram, the offsets and the bucketize+scatter rows time the
+# table pass those replaced, and the bucketize and scatter_runs rows the two
+# kernels that did its work before that; all of them still stand for the
+# JAX package's functions.
 STAGES = {
+    "key read with digit counts (once)": "sort_plan",
+    "look-back bucketize+scatter kernel (per pass)": "bucketize_scatter_lookback",
     "histogram kernel (per pass)": "radix_hist",
     "global offsets (per pass)": "global_offsets",
     "bucketize kernel (per pass)": "bucketize",
@@ -220,17 +247,28 @@ def stage_table(keys: torch.Tensor, cfg: EngineConfig, timed: bool) -> list[dict
     device ms per launch from torch.profiler (None where no whole profile
     was taken) and the share of the bound in that device time.  Untimed,
     each stage runs once.  The gather takes the fused sort's permutation of
-    these keys, as the table sort does.
+    these keys, as the table sort does.  A look-back launch needs its pass's
+    scratch clear, which a sort's ``sort_plan`` does once; here each launch
+    clears it first, so its events include that fill and its device time
+    is the kernel's own.
     """
     padded = keys.numel()
     idx = iota(padded, keys.device)
+    skipped = torch.zeros(1, dtype=torch.int64, device=keys.device)
+    state = sort_plan(keys, cfg, skipped)
     hist = rk.tile_histograms(keys, 0, cfg)
     offsets = rk.global_offsets(hist)
     bk, bi = bucketize_tiles(keys, idx, 0, cfg)
     _, perm, _ = sort_ops._fused_sort_padded(keys, idx, cfg)
     src = int32_bits(perm)
     payload = torch.zeros((padded, PAYLOAD_COLS), dtype=torch.int32, device=keys.device)
+    def lookback():
+        state.lookback.zero_()
+        return bucketize_scatter_lookback(keys, idx, cfg, state, 0)
+
     fns = {
+        "sort_plan": lambda: sort_plan(keys, cfg, skipped),
+        "bucketize_scatter_lookback": lookback,
         "radix_hist": lambda: rk.tile_histograms(keys, 0, cfg),
         "global_offsets": lambda: rk.global_offsets(hist),
         "bucketize": lambda: bucketize_tiles(keys, idx, 0, cfg),
@@ -246,7 +284,10 @@ def stage_table(keys: torch.Tensor, cfg: EngineConfig, timed: bool) -> list[dict
         event_ms = device_ms = None
         if timed:
             event_ms = float(np.median(per_call_ms(fns[name], calls=STAGE_CALLS, reps=RUNS)))
-            device_ms = profiled_device_ms(fns[name], calls=PROFILED_STAGE_CALLS)[0] or None
+            busy, by_row = profiled_device_ms(fns[name], calls=PROFILED_STAGE_CALLS)
+            if name == "bucketize_scatter_lookback":  # the kernel's rows, not the fill's
+                busy = sum(ms for row, ms in by_row.items() if "lookback_scatter" in row)
+            device_ms = busy or None
         else:
             fns[name]()
         rows.append({"stage": label, "bytes": nbytes, "bound_ms": bound_ms,

@@ -21,6 +21,30 @@
 // At most kMaxBlocks blocks, so at most 2 x kMaxBlocks atomics.  The grid
 // depends on n alone and the entry point queries nothing of the device.
 //
+// Digit counts (key_counts_kernel).  A fused sort also counts, in the same
+// read, every pass's digits over the whole buffer: num_passes x radix
+// counters, 8 x 16 at 4-bit digits.  The JAX package sums them from K1's
+// tile histograms in every pass (gpuradixsort_tpu/ops/sort.py:81); a pass
+// keeps the keys' multiset, so the counts of the input serve every pass, as
+// the AND and the OR do.  From them the plan kernel (digit_bases_kernel)
+// writes each pass's digit bases, the exclusive prefix of its counts: where
+// the pass's run of digit r starts in the output.  The fused pass
+// (bucketize_scatter.cu) takes each tile's run offsets from the bases and a
+// look-back over the tiles, so a pass launches one kernel and no K1 and no
+// offsets scan.  Counting is 4 bits a counter in registers: each lane adds
+// 1 << (4 x field) to a 64-bit word per 16 counters, so a key costs a shift
+// and an add a pass, and no two lanes share a counter, so skewed keys (one
+// digit holding every key) cost what random ones cost.  Every round of
+// kCountUnroll loads (12 keys a lane, within a 4-bit field's 15) moves the
+// fields into 8-bit ones; every kWideRounds rounds (and at the end) the warp
+// sums those with __reduce_add_sync into the block's shared counters, and
+// the block adds each non-zero counter with one atomicAdd to a 128-byte
+// line of the counter's own (at most kMaxCountBlocks blocks); the plan
+// kernel gathers the lines into the counts.
+// The rounds are alike for every thread of the grid, so the warp sums need
+// no guard.  The counts are uint32: a buffer holds at most 2^31 - block
+// keys (core/table.py::check_padded_rows), so they cannot wrap.
+//
 // The plan: one int32 a pass, -1 where the pass's digit is constant over
 // the buffer (the pass is skipped), else source | destination << 2 over the
 // sort's buffers: 0 its input, 1 its result R, 2 its scratch S (warp.cuh).
@@ -50,6 +74,37 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;          // 16-byte loads a thread has in flight
 constexpr int64_t kMaxBlocks = 1024;  // about the blocks of 256 the H100 holds at once
+constexpr int kCountUnroll = 3;     // counting: 12 keys a lane a round, a 4-bit field holds 15
+constexpr int kWideRounds = 21;     // rounds an 8-bit field holds: 21 x 12 = 252
+constexpr int kMaxCounters = 128;   // num_passes x radix at radix_bits 1, 2 and 4
+// Counting: at most two blocks of 256 an SM, and each counter's block sums
+// added into a 128-byte line of its own, so that few atomics meet on one
+// line; the plan kernel gathers the lines into the counts.
+constexpr int64_t kMaxCountBlocks = 2 * 132;
+constexpr int kCounterStride = 32;  // words from one counter's line to the next
+
+// The block's AND and OR of every thread's all and any, added into out[0]
+// and out[1] with one atomic each.
+__device__ __forceinline__ void block_and_or(uint32_t all, uint32_t any, uint32_t* out) {
+  __shared__ uint32_t warp_all[kWarps], warp_any[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  all = __reduce_and_sync(grs::kFullWarp, all);
+  any = __reduce_or_sync(grs::kFullWarp, any);
+  if (lane == 0) {
+    warp_all[warp] = all;
+    warp_any[warp] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    all = __reduce_and_sync(grs::kFullWarp, lane < kWarps ? warp_all[lane] : ~0u);
+    any = __reduce_or_sync(grs::kFullWarp, lane < kWarps ? warp_any[lane] : 0u);
+    if (lane == 0) {
+      atomicAnd(out, all);
+      atomicOr(out + 1, any);
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
     key_bits_kernel(const uint32_t* __restrict__ keys, int64_t n, int64_t head,
@@ -86,29 +141,134 @@ __global__ void __launch_bounds__(kThreads)
     all &= keys[tail + tid];
     any |= keys[tail + tid];
   }
-  __shared__ uint32_t warp_all[kWarps], warp_any[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  all = __reduce_and_sync(grs::kFullWarp, all);
-  any = __reduce_or_sync(grs::kFullWarp, any);
-  if (lane == 0) {
-    warp_all[warp] = all;
-    warp_any[warp] = any;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    all = __reduce_and_sync(grs::kFullWarp, lane < kWarps ? warp_all[lane] : ~0u);
-    any = __reduce_or_sync(grs::kFullWarp, lane < kWarps ? warp_any[lane] : 0u);
-    if (lane == 0) {
-      atomicAnd(out, all);
-      atomicOr(out + 1, any);
-    }
-  }
+  block_and_or(all, any, out);
 }
 
-__global__ void pass_plan_kernel(const uint32_t* __restrict__ words, int num_passes,
-                                 int radix_bits, int32_t* __restrict__ plan,
-                                 unsigned long long* __restrict__ skipped) {
+// A lane's digit counters for every pass of kBits-bit digits: counter
+// c = pass x radix + digit is the 4-bit field c % 16 of nibbles[c / 16],
+// and the 8-bit fields of wide[0] (even nibbles) and wide[1] (odd ones).
+template <int kBits>
+struct DigitCounters {
+  static constexpr int kRadix = 1 << kBits;
+  static constexpr int kMaxPasses = 32 / kBits;
+  static constexpr int kCounters = kMaxPasses * kRadix;
+  static constexpr int kWords = kCounters / 16;
+  static constexpr unsigned long long kLowNibbles = 0x0F0F0F0F0F0F0F0Full;
+  static_assert(kCounters <= kMaxCounters && kCounters % 16 == 0, "counters fill 64-bit words");
+
+  unsigned long long nibbles[kWords] = {};
+  unsigned long long wide[2][kWords] = {};
+
+  // One more key: its digit of each of the num_passes passes.
+  __device__ __forceinline__ void add(uint32_t key, int num_passes) {
+#pragma unroll
+    for (int p = 0; p < kMaxPasses; ++p) {
+      if (p < num_passes) {
+        constexpr int kPerWord = 16 / kRadix;  // passes a word counts
+        const uint32_t d = (key >> (p * kBits)) & (kRadix - 1);
+        nibbles[p / kPerWord] += 1ull << (4 * ((p % kPerWord) * kRadix + d));
+      }
+    }
+  }
+
+  // The 4-bit fields into the 8-bit ones.
+  __device__ __forceinline__ void widen() {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      wide[0][w] += nibbles[w] & kLowNibbles;
+      wide[1][w] += (nibbles[w] >> 4) & kLowNibbles;
+      nibbles[w] = 0;
+    }
+  }
+
+  // The warp's sums of the 8-bit fields into the block's counters, which
+  // lane c % 32 adds counter c to; clears the fields.  All 32 lanes call it.
+  __device__ __forceinline__ void flush(uint32_t* block, int lane) {
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd) {
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t x = static_cast<uint32_t>(wide[odd][w] >> (32 * h));
+          // Bytes 0 and 2, then 1 and 3, as 16-bit pairs: sums <= 32 x 255.
+          const uint32_t pairs[2] = {__reduce_add_sync(grs::kFullWarp, x & 0x00ff00ffu),
+                                     __reduce_add_sync(grs::kFullWarp, (x >> 8) & 0x00ff00ffu)};
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            // Byte b of half h is the 8-bit field 4 h + b: nibble 2 (4 h + b) + odd.
+            const int c = 16 * w + 2 * (4 * h + b) + odd;
+            const uint32_t sum = (pairs[b & 1] >> (16 * (b >> 1))) & 0xffffu;
+            if (lane == c % 32 && sum != 0u) atomicAdd(block + c, sum);
+          }
+        }
+        wide[odd][w] = 0;
+      }
+    }
+  }
+};
+
+// The AND and OR of the keys, as key_bits_kernel, and every pass's digit
+// counts added into lines: counter c at lines[c x kCounterStride], zero before.
+template <int kBits>
+__global__ void __launch_bounds__(kThreads)
+    key_counts_kernel(const uint32_t* __restrict__ keys, int64_t n, int64_t head,
+                      uint32_t* __restrict__ out, uint32_t* __restrict__ lines,
+                      int num_passes) {
+  using Counters = DigitCounters<kBits>;
+  __shared__ uint32_t block[Counters::kCounters];
+  for (int c = threadIdx.x; c < Counters::kCounters; c += kThreads) block[c] = 0u;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const uint4* quads = reinterpret_cast<const uint4*>(keys + head);
+  const int64_t num_quads = (n - head) / 4;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t per_round = kCountUnroll * stride;
+  const int64_t rounds = (num_quads + per_round - 1) / per_round;  // alike in every thread
+  Counters counters;
+  uint32_t all = ~0u, any = 0u;
+  for (int64_t r = 0; r < rounds; ++r) {
+    const int64_t i = r * per_round + tid;
+    uint4 q[kCountUnroll];
+#pragma unroll
+    for (int u = 0; u < kCountUnroll; ++u)
+      if (i + u * stride < num_quads) q[u] = __ldg(quads + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < kCountUnroll; ++u) {
+      if (i + u * stride < num_quads) {
+        all &= q[u].x & q[u].y & q[u].z & q[u].w;
+        any |= q[u].x | q[u].y | q[u].z | q[u].w;
+        counters.add(q[u].x, num_passes);
+        counters.add(q[u].y, num_passes);
+        counters.add(q[u].z, num_passes);
+        counters.add(q[u].w, num_passes);
+      }
+    }
+    counters.widen();
+    if ((r + 1) % kWideRounds == 0) counters.flush(block, lane);
+  }
+  const int64_t tail = head + 4 * num_quads;
+  if (tid < head) {
+    all &= keys[tid];
+    any |= keys[tid];
+    counters.add(keys[tid], num_passes);
+  }
+  if (tid < n - tail) {
+    all &= keys[tail + tid];
+    any |= keys[tail + tid];
+    counters.add(keys[tail + tid], num_passes);
+  }
+  counters.widen();  // at most 20 rounds and 2 keys since the last flush: 242
+  counters.flush(block, lane);
+  block_and_or(all, any, out);  // its barrier also orders the block's counters
+  for (int c = threadIdx.x; c < num_passes * Counters::kRadix; c += kThreads)
+    if (block[c] != 0u) atomicAdd(lines + c * kCounterStride, block[c]);
+}
+
+// The plan of a fused sort from the AND and the OR of its keys.
+__device__ void write_plan(const uint32_t* __restrict__ words, int num_passes, int radix_bits,
+                           int32_t* __restrict__ plan, unsigned long long* __restrict__ skipped) {
   constexpr int kInput = 0, kResult = 1, kScratch = 2;
   const uint32_t varying = words[1] & ~words[0];
   const uint32_t digit = (1u << radix_bits) - 1u;
@@ -130,6 +290,48 @@ __global__ void pass_plan_kernel(const uint32_t* __restrict__ words, int num_pas
   }
 }
 
+__global__ void pass_plan_kernel(const uint32_t* __restrict__ words, int num_passes,
+                                 int radix_bits, int32_t* __restrict__ plan,
+                                 unsigned long long* __restrict__ skipped) {
+  write_plan(words, num_passes, radix_bits, plan, skipped);
+}
+
+// The plan, the counts gathered from their lines, then beside the plan
+// every pass's digit bases:
+// plan[num_passes + p x radix + r] = counts[p, 0] + ... + counts[p, r - 1].
+// One thread a counter; thread 0 also writes the plan.
+__global__ void __launch_bounds__(kMaxCounters)
+    digit_bases_kernel(const uint32_t* __restrict__ words, const uint32_t* __restrict__ lines,
+                       uint32_t* __restrict__ counts, int num_passes, int radix_bits,
+                       int32_t* __restrict__ plan, unsigned long long* __restrict__ skipped) {
+  __shared__ uint32_t c[kMaxCounters];
+  const int radix = 1 << radix_bits;
+  const int i = threadIdx.x;
+  const bool mine = i < num_passes * radix;
+  if (mine) {
+    c[i] = lines[i * kCounterStride];
+    counts[i] = c[i];
+  }
+  __syncthreads();
+  if (i == 0) write_plan(words, num_passes, radix_bits, plan, skipped);
+  if (mine) {
+    const int first = i - i % radix;  // the pass's digit 0
+    uint32_t base = 0;
+    for (int j = first; j < i; ++j) base += c[j];
+    plan[num_passes + i] = static_cast<int32_t>(base);
+  }
+}
+
+template <int kBits>
+void launch_counts(const uint32_t* keys, int64_t n, int64_t head, uint32_t* words,
+                   uint32_t* lines, int num_passes, cudaStream_t s) {
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kCountUnroll;
+  const int64_t blocks =
+      std::clamp<int64_t>(((n - head) / 4 + per_block - 1) / per_block, 1, kMaxCountBlocks);
+  key_counts_kernel<kBits><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      keys, n, head, words, lines, num_passes);
+}
+
 }  // namespace
 
 // keys: n uint32 (4-byte aligned, n >= 0); out: 2 uint32, set here to the
@@ -137,36 +339,68 @@ __global__ void pass_plan_kernel(const uint32_t* __restrict__ words, int num_pas
 // plan: null, or num_passes int32 set here to the pass plan of a fused sort
 // of the keys by radix_bits-bit digits (num_passes x radix_bits <= 32); its
 // skipped passes are then added to *skipped, an 8-byte-aligned int64.
-// Returns cudaGetLastError() after the launches.
+// counts: null, or (with a plan, radix_bits 1, 2 or 4) the start of
+// zeroed_bytes bytes (8-byte aligned) that this call clears on the stream:
+// first num_passes x radix uint32, set here to every pass's digit counts
+// over the keys (counts[p x radix + r]: keys whose digit p is r), then
+// COUNT_LINES uint32 in which the count kernel sums them, then whatever the
+// caller wants cleared with them (a fused sort's look-back words); the plan
+// is then followed by num_passes x radix int32, set to each pass's digit
+// bases (the exclusive prefix of its counts).  Returns cudaGetLastError()
+// after the launches.
 extern "C" int grs_key_bits(const void* keys, int64_t n, void* out, void* plan,
-                            int num_passes, int radix_bits, void* skipped, void* stream) {
+                            int num_passes, int radix_bits, void* skipped, void* counts,
+                            int64_t zeroed_bytes, void* stream) {
   if (n < 0 || reinterpret_cast<uintptr_t>(keys) % 4 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 4 != 0 ||
       (plan != nullptr &&
        (reinterpret_cast<uintptr_t>(plan) % 4 != 0 || skipped == nullptr ||
         reinterpret_cast<uintptr_t>(skipped) % 8 != 0 || num_passes < 1 ||
-        radix_bits < 1 || radix_bits > 8 || num_passes * radix_bits > 32))) {
+        radix_bits < 1 || radix_bits > 8 || num_passes * radix_bits > 32)) ||
+      (counts != nullptr &&
+       (plan == nullptr || (radix_bits != 1 && radix_bits != 2 && radix_bits != 4) ||
+        reinterpret_cast<uintptr_t>(counts) % 8 != 0 ||
+        zeroed_bytes < 4 * (static_cast<int64_t>(num_passes) * (1 << radix_bits) +
+                            kMaxCounters * kCounterStride)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* words = static_cast<uint32_t*>(out);
+  auto* tally = static_cast<uint32_t*>(counts);
+  uint32_t* lines = tally + num_passes * (1 << radix_bits);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(words, 0xFF, sizeof(uint32_t), s);
   if (err == cudaSuccess) err = cudaMemsetAsync(words + 1, 0, sizeof(uint32_t), s);
+  if (err == cudaSuccess && counts != nullptr)
+    err = cudaMemsetAsync(counts, 0, static_cast<size_t>(zeroed_bytes), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     const auto* k = static_cast<const uint32_t*>(keys);
     const int64_t head =
         std::min<int64_t>(n, (16 - reinterpret_cast<uintptr_t>(k) % 16) % 16 / 4);
-    const int64_t per_block = static_cast<int64_t>(kThreads) * kUnroll;
-    const int64_t blocks =
-        std::clamp<int64_t>(((n - head) / 4 + per_block - 1) / per_block, 1, kMaxBlocks);
-    key_bits_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(k, n, head, words);
+    if (counts == nullptr) {
+      const int64_t per_block = static_cast<int64_t>(kThreads) * kUnroll;
+      const int64_t blocks =
+          std::clamp<int64_t>(((n - head) / 4 + per_block - 1) / per_block, 1, kMaxBlocks);
+      key_bits_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(k, n, head, words);
+    } else if (radix_bits == 1) {
+      launch_counts<1>(k, n, head, words, lines, num_passes, s);
+    } else if (radix_bits == 2) {
+      launch_counts<2>(k, n, head, words, lines, num_passes, s);
+    } else {
+      launch_counts<4>(k, n, head, words, lines, num_passes, s);
+    }
   }
   if (plan != nullptr) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    pass_plan_kernel<<<1, 1, 0, s>>>(words, num_passes, radix_bits, static_cast<int32_t*>(plan),
-                                     static_cast<unsigned long long*>(skipped));
+    auto* p = static_cast<int32_t*>(plan);
+    auto* skip = static_cast<unsigned long long*>(skipped);
+    if (counts == nullptr) {
+      pass_plan_kernel<<<1, 1, 0, s>>>(words, num_passes, radix_bits, p, skip);
+    } else {
+      digit_bases_kernel<<<1, kMaxCounters, 0, s>>>(words, lines, tally, num_passes,
+                                                    radix_bits, p, skip);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

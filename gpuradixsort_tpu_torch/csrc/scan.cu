@@ -21,10 +21,9 @@
 //      which each thread reads kItems consecutive elements into registers;
 //   2. sums its chunk over the block;
 //   3. publishes the chunk's sum in a 64-bit status word that holds the tag
-//      and the value together, so that one access moves both.  Nothing else
-//      is published through the word, so relaxed loads and stores at gpu
-//      scope suffice (acquire and release were timed no faster; PERF.md,
-//      Findings);
+//      and the value together (warp.cuh's status words, which the fused
+//      sort's pass shares), read and written relaxed at gpu scope (acquire
+//      and release were timed no faster; PERF.md, Findings);
 //   4. warp 0 looks back 32 predecessors at a time: one ballot over their
 //      tags finds the nearest one that holds an inclusive prefix, and one
 //      warp sum adds the chunk sums up to it.  The block then publishes its
@@ -57,20 +56,6 @@ __host__ __device__ constexpr int padded(int i) { return i + (i >> 5); }
 constexpr size_t kSharedBytes = kWarps * padded(kSpan) * sizeof(uint32_t);
 static_assert(kSharedBytes <= 48 * 1024, "within the default dynamic shared memory");
 
-__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long status_word(uint32_t tag, uint32_t value) {
-  return (static_cast<unsigned long long>(tag) << 32) | value;
-}
-
 constexpr uint32_t kSum = 1u;
 constexpr uint32_t kInclusive = 2u;
 
@@ -78,13 +63,13 @@ constexpr uint32_t kInclusive = 2u;
 // sums of its predecessors back to the nearest inclusive prefix, publishes
 // its own inclusive prefix and returns its exclusive one (in every lane).
 __device__ uint32_t look_back(unsigned long long* status, int64_t c, uint32_t sum, int lane) {
-  if (lane == 0) store_status(status + c, status_word(kSum, sum));
+  if (lane == 0) grs::store_status(status + c, grs::status_word(kSum, sum));
   uint32_t prefix = 0;
   for (int64_t end = c;; end -= 32) {
     const int64_t i = end - 1 - lane;  // lane 0 is the nearest predecessor
     unsigned long long s;
     do {
-      s = i >= 0 ? load_status(status + i) : status_word(kInclusive, 0u);
+      s = i >= 0 ? grs::load_status(status + i) : grs::status_word(kInclusive, 0u);
     } while (__any_sync(grs::kFullWarp, static_cast<uint32_t>(s >> 32) < kSum));
     const unsigned inclusive =
         __ballot_sync(grs::kFullWarp, static_cast<uint32_t>(s >> 32) == kInclusive);
@@ -93,7 +78,7 @@ __device__ uint32_t look_back(unsigned long long* status, int64_t c, uint32_t su
     prefix += __reduce_add_sync(grs::kFullWarp, v);
     if (inclusive != 0u) break;
   }
-  if (lane == 0) store_status(status + c, status_word(kInclusive, prefix + sum));
+  if (lane == 0) grs::store_status(status + c, grs::status_word(kInclusive, prefix + sum));
   return prefix;
 }
 
@@ -157,7 +142,8 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t w = grs::warp_exclusive_scan(lane < kWarps ? warp_base[lane] : 0u, lane, sum);
     uint32_t prefix = 0;
     if (c == 0) {
-      if (lane == 0 && num_chunks > 1) store_status(status, status_word(kInclusive, sum));
+      if (lane == 0 && num_chunks > 1)
+        grs::store_status(status, grs::status_word(kInclusive, sum));
     } else {
       prefix = look_back(status, c, sum, lane);
     }

@@ -55,14 +55,21 @@ __device__ __forceinline__ uint32_t load_generic(const uint32_t* p) {
   return v;
 }
 
+// What a rank step calls once it has counted the tile: nothing, unless the
+// caller gives a functor of lane r's count of digit r (all 32 lanes call it).
+struct NoHook {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 // Rank step of the 1,024-key tile: the lane's items k, v (warp-striped:
 // item j is element 32 j + lane) into the staging sk, sv at start[digit] +
-// slot.  Returns lane r's count of digit r (garbage in lanes >= 2^kBits).
-// The caller __syncwarp()s before it reads the staging.
-template <int kBits>
+// slot.  Returns lane r's count of digit r (garbage in lanes >= 2^kBits),
+// and gives it to counted() before it stages the tile.  The caller
+// __syncwarp()s before it reads the staging.
+template <int kBits, typename Counted = NoHook>
 __device__ __forceinline__ int rank_1k(const uint32_t (&k)[kFastItems],
                                        const uint32_t (&v)[kFastItems], int shift, int lane,
-                                       uint32_t* sk, uint32_t* sv) {
+                                       uint32_t* sk, uint32_t* sv, Counted counted = {}) {
   constexpr uint32_t kMask = (1u << kBits) - 1u;
   const unsigned below = (1u << lane) - 1u;
   int slot[kFastItems];
@@ -74,6 +81,7 @@ __device__ __forceinline__ int rank_1k(const uint32_t (&k)[kFastItems],
     slot[j] = __shfl_sync(kFullWarp, count, d) + __popc(ballots.lanes_with(d, kBits) & below);
     count += __popc(ballots.lanes_with(lane, kBits));
   }
+  counted(count);
   int total;
   const int start = warp_exclusive_scan(lane < (1 << kBits) ? count : 0, lane, total);
 #pragma unroll
@@ -89,10 +97,13 @@ __device__ __forceinline__ int rank_1k(const uint32_t (&k)[kFastItems],
 // Rank step of any tile (tile / 32 items a lane, radix <= 16): counts the
 // tile's digits from device memory, then reads it again and stages it.
 // kin, vin: the tile's element `lane`.  Returns lane r's count of digit r
-// (0 in lanes >= radix); start gets its exclusive scan.
+// (0 in lanes >= radix), and gives it to counted() before it stages the
+// tile; start gets its exclusive scan.
+template <typename Counted = NoHook>
 __device__ __forceinline__ int rank_any(const uint32_t* kin, const uint32_t* vin, int items,
                                         int shift, int radix, int bits, int lane,
-                                        uint32_t* sk, uint32_t* sv, int& start) {
+                                        uint32_t* sk, uint32_t* sv, int& start,
+                                        Counted counted = {}) {
   const uint32_t mask = static_cast<uint32_t>(radix - 1);
   const unsigned below = (1u << lane) - 1u;
   int count = 0;  // lane r: keys of digit r in the tile
@@ -101,6 +112,7 @@ __device__ __forceinline__ int rank_any(const uint32_t* kin, const uint32_t* vin
     count += __popc(ballots.lanes_with(lane, bits));
   }
   count = lane < radix ? count : 0;
+  counted(count);
   int total;
   start = warp_exclusive_scan(count, lane, total);
   int next = start;  // lane r: the next slot of digit r in the staged tile

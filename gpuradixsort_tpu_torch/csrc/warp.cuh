@@ -49,6 +49,37 @@ struct DigitBallots {
   }
 };
 
+// Status words of a decoupled look-back (Merrill & Garland, "Single-pass
+// Parallel Prefix Scan with Decoupled Look-back", NVIDIA, 2016): a 64-bit
+// word holds a tag in its high half and a value in its low half, so that
+// one access moves both.  Nothing else is published through a word, so
+// relaxed loads and stores at gpu scope suffice.  K5 (scan.cu) looks back
+// across chunks, the fused sort's pass (bucketize_scatter.cu) across tiles.
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long status_word(uint32_t tag, uint32_t value) {
+  return (static_cast<unsigned long long>(tag) << 32) | value;
+}
+
+// A 32-bit status word, where the tag and the value fit in one.
+__device__ __forceinline__ uint32_t load_status(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
 // Exclusive prefix sum of x over the 32 lanes of a warp; total gets the sum.
 // All 32 lanes must call it.  With T = uint32_t the sums wrap modulo 2^32.
 template <typename T>

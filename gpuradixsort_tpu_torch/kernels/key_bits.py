@@ -19,16 +19,37 @@ last pass that runs backwards (R, S, R, ...) so that the last one writes R;
 the first reads the sort's input, which is never written.  With no varying
 digit the last pass runs from the input into R: its digit is constant, so
 it copies the input.
+
+A fused sort also needs every pass's digit counts, which the JAX package
+sums from K1's tile histograms in each pass.  A pass keeps the keys'
+multiset, so the counts of the input serve every pass: ``sort_plan``
+counts them in the same read of the keys (``key_counts_kernel``) and writes
+beside the plan each pass's digit bases, the exclusive prefix of its counts,
+from which the fused pass finds its run offsets by look-back
+(``kernels/scatter.py::bucketize_scatter_lookback``).  The look-back's
+scratch (a count word a tile and digit, and for each pass a tile ticket and
+a sum and a prefix a group of tiles and digit) lies in the same allocation
+and is cleared by the same launch, once a sort.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits, wrap_int32
 from gpuradixsort_tpu_torch.kernels._build import launch
-from gpuradixsort_tpu_torch.kernels.radix import INPUT, PLAN_SKIP, RESULT, SCRATCH, plan_entry
+from gpuradixsort_tpu_torch.kernels.radix import (
+    INPUT,
+    PLAN_SKIP,
+    RESULT,
+    SCRATCH,
+    check_keys,
+    digits_of,
+    plan_entry,
+)
 
 
 def _check_keys(keys: torch.Tensor) -> None:
@@ -59,7 +80,7 @@ def key_bits(keys: torch.Tensor, impl: str | None = None) -> torch.Tensor:
         return _key_bits_ref(keys)
     out = torch.empty(2, dtype=torch.uint32, device=keys.device)
     launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), out.data_ptr(), None, 0, 0,
-           None)
+           None, None, 0)
     key_bits.launches += 1
     return out
 
@@ -117,6 +138,101 @@ def pass_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
     words = torch.empty(2, dtype=torch.uint32, device=keys.device)
     plan = torch.empty(cfg.num_passes, dtype=torch.int32, device=keys.device)
     launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), words.data_ptr(),
-           plan.data_ptr(), cfg.num_passes, cfg.radix_bits, skipped.data_ptr())
+           plan.data_ptr(), cfg.num_passes, cfg.radix_bits, skipped.data_ptr(), None, 0)
     key_bits.launches += 1
     return plan
+
+
+class SortPlan(NamedTuple):
+    """A fused sort's plan and digit bases on its keys' device, and its look-back's scratch."""
+
+    plan: torch.Tensor  # (num_passes,) int32, as pass_plan's
+    counts: torch.Tensor  # (num_passes, radix) int32: keys whose digit p is r, pads included
+    bases: torch.Tensor  # (num_passes, radix) int32: counts[p, :r].sum()
+    lookback: torch.Tensor  # int32: the look-back's tile counts, group words and tickets
+
+
+LOOKBACK_GROUP = 32  # tiles whose counts a look-back sums as one (csrc/bucketize_scatter.cu)
+
+
+def lookback_words(num_tiles: int, cfg: EngineConfig) -> int:
+    """int32 words of a fused sort's look-back scratch (``csrc/bucketize_scatter.cu``).
+
+    One a (tile, digit) count, then a block for each pass: its tile ticket
+    and a spare word, and three for each (group of ``LOOKBACK_GROUP`` tiles,
+    digit): a 64-bit sum of the group's counts and a 32-bit prefix.
+    """
+    groups = -(-num_tiles // LOOKBACK_GROUP)
+    return num_tiles * cfg.radix + cfg.num_passes * (2 + 3 * groups * cfg.radix)
+
+
+# int32 words in which csrc/key_bits.cu sums the counts: a 128-byte line a counter.
+COUNT_LINES = 128 * 32
+
+
+def state_layout(num_tiles: int, cfg: EngineConfig) -> dict:
+    """Where ``sort_plan``'s one int32 allocation keeps each part on the card.
+
+    The AND and OR words, the plan, the bases (which ``csrc/key_bits.cu``
+    writes after the plan), then, 8-byte aligned, what its launch clears:
+    the counts, the lines it sums them in and the look-back's scratch.
+    Slices of int32 words, and the total.
+    """
+    passes, table = cfg.num_passes, cfg.num_passes * cfg.radix
+    head = 2 + passes + table
+    counts = head + head % 2
+    lines = counts + table
+    lookback = lines + COUNT_LINES
+    total = lookback + lookback_words(num_tiles, cfg)
+    return {"words": slice(0, 2), "plan": slice(2, 2 + passes), "bases": slice(2 + passes, head),
+            "counts": slice(counts, lines), "lines": slice(lines, lookback),
+            "lookback": slice(lookback, total), "total": total}
+
+
+def _digit_counts_ref(keys: torch.Tensor, cfg: EngineConfig) -> torch.Tensor:
+    """Plain version: every pass's digit counts over the keys, one bincount a pass."""
+    return torch.stack([
+        torch.bincount(digits_of(keys, p * cfg.radix_bits, cfg.radix), minlength=cfg.radix)
+        for p in range(cfg.num_passes)]).to(torch.int32)
+
+
+def _digit_bases_ref(counts: torch.Tensor) -> torch.Tensor:
+    """Plain version: each pass's exclusive prefix of its digit counts."""
+    wide = counts.to(torch.int64)
+    return (torch.cumsum(wide, dim=1) - wide).to(torch.int32)
+
+
+def sort_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
+              impl: str | None = None) -> SortPlan:
+    """The pass plan of a fused sort of the padded ``keys``, its digit counts and bases.
+
+    ``keys``: a padded buffer (a whole number of tiles), digits of 1, 2 or 4
+    bits.  Reads the keys once for the plan (``pass_plan``'s, whose skipped
+    passes it adds to ``skipped`` alike) and for every pass's digit counts,
+    then writes each pass's bases, and clears the look-back's scratch for a
+    sort's passes, each of which it serves once.  On the card one launch of
+    ``csrc/key_bits.cu`` and nothing read back.
+    """
+    num_tiles = check_keys("keys", keys, cfg)
+    if cfg.radix_bits not in (1, 2, 4):
+        raise ValueError("sort_plan counts digits of 1, 2 or 4 bits")
+    if skipped.dtype != torch.int64 or skipped.shape != (1,) or skipped.device != keys.device:
+        raise ValueError(f"skipped must be an int64 tensor of shape (1,) on {keys.device}")
+    passes, radix = cfg.num_passes, cfg.radix
+    if resolve_impl(keys, impl) == "reference":
+        counts = _digit_counts_ref(keys, cfg)
+        return SortPlan(pass_plan(keys, cfg, skipped, impl="reference"), counts,
+                        _digit_bases_ref(counts),
+                        torch.zeros(lookback_words(num_tiles, cfg), dtype=torch.int32,
+                                    device=keys.device))
+    at = state_layout(num_tiles, cfg)
+    state = torch.empty(at["total"], dtype=torch.int32, device=keys.device)
+    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), state.data_ptr(),
+           state[at["plan"]].data_ptr(), passes, cfg.radix_bits, skipped.data_ptr(),
+           state[at["counts"].start:].data_ptr(), 4 * (at["total"] - at["counts"].start))
+    sort_plan.launches += 1
+    return SortPlan(state[at["plan"]], state[at["counts"]].view(passes, radix),
+                    state[at["bases"]].view(passes, radix), state[at["lookback"]])
+
+
+sort_plan.launches = 0

@@ -17,9 +17,16 @@ The JAX package's fused pass runs ``bucketize_tiles`` and then
 ``scatter_runs``, the bucketized tiles going through device memory between
 them.  ``bucketize_scatter`` is that pair as one kernel
 (``csrc/bucketize_scatter.cu``), which keeps the bucketized tile in shared
-memory: it reads and writes each key once.  The fused sort's passes run it;
-``bucketize_tiles`` and ``scatter_runs`` stay as the counterparts of the JAX
-package's two functions.
+memory: it reads and writes each key once.  ``bucketize_tiles`` and
+``scatter_runs`` stay as the counterparts of the JAX package's two functions.
+
+The fused sort's passes run ``bucketize_scatter_lookback``: the same kernel
+template, whose run offsets come from no table.  Tile t's run of digit r
+starts at the pass's digit base (``key_bits.sort_plan``) plus the counts of
+r in tiles 0 to t - 1, which the kernel finds by a decoupled look-back over
+the tiles (``csrc/bucketize_scatter.cu``), so a pass launches no K1 and no
+offsets scan.  ``bucketize_scatter``, which reads K1's offsets table, stays
+as the counterpart of the JAX package's pass.
 """
 
 from __future__ import annotations
@@ -30,9 +37,11 @@ from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
 from gpuradixsort_tpu_torch.kernels.bucketize import FAST_TILE, _bucketize_ref
+from gpuradixsort_tpu_torch.kernels.key_bits import SortPlan, lookback_words
 from gpuradixsort_tpu_torch.kernels.radix import (
     MAX_SHARED_BYTES,
     WARP,
+    _tile_histograms_ref,
     check_keys,
     check_plan,
     data_ptr,
@@ -199,3 +208,92 @@ def bucketize_scatter(
 
 
 bucketize_scatter.launches = 0
+
+
+def _lookback_offsets_ref(hist: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+    """Plain version of the look-back's run offsets: bases[r] + hist[:t, r].sum().
+
+    hist: (num_tiles, radix) tile histograms; bases: (radix,) the pass's
+    digit bases.  The exclusive scan runs over the transposed table's rows.
+    """
+    by_digit = hist.t().to(torch.int64).contiguous()
+    excl = torch.cumsum(by_digit, dim=1) - by_digit + bases.to(torch.int64)[:, None]
+    return excl.t().to(torch.int32).contiguous()
+
+
+def _lookback_pass_ref(keys, idx, state: SortPlan, pass_index: int, cfg: EngineConfig):
+    """Plain version: ``bucketize_scatter``'s of the tiles' histograms and look-back offsets."""
+    shift = pass_index * cfg.radix_bits
+    hist = _tile_histograms_ref(keys, shift, cfg)
+    offsets = _lookback_offsets_ref(hist, state.bases[pass_index])
+    return _bucketize_scatter_ref(keys, idx, hist, offsets, shift, cfg)
+
+
+def _check_state(state: SortPlan, pass_index: int, like: torch.Tensor, num_tiles: int,
+                 cfg: EngineConfig) -> None:
+    shape = (cfg.num_passes, cfg.radix)
+    if (state.bases.dtype != torch.int32 or tuple(state.bases.shape) != shape
+            or not state.bases.is_contiguous() or state.lookback.dtype != torch.int32
+            or state.lookback.numel() < lookback_words(num_tiles, cfg)
+            or any(t.device != like.device for t in state)):
+        raise ValueError(f"state must be a sort_plan of a {num_tiles}-tile buffer on {like.device}")
+    if not 0 <= pass_index < cfg.num_passes:
+        raise ValueError(f"pass_index {pass_index} is not a pass of {cfg.num_passes}")
+
+
+def bucketize_scatter_lookback(
+    keys: torch.Tensor,
+    idx: torch.Tensor,
+    cfg: EngineConfig,
+    state: SortPlan,
+    pass_index: int,
+    buffers: tuple | None = None,
+    impl: str | None = None,
+):
+    """Fused pass ``pass_index`` of a sort, its run offsets found by look-back.
+
+    The output of ``bucketize_scatter(keys, idx, hist, offsets, shift, cfg)``
+    at ``shift = pass_index * cfg.radix_bits``, hist the keys' tile
+    histograms and offsets ``state.bases[pass_index]`` plus the exclusive sum
+    of hist over the tiles: where ``state`` is the ``sort_plan`` of keys with
+    the same multiset, as in a sort, that is ``global_offsets(hist)``.
+
+    ``state``'s look-back scratch serves each pass index once: a launch
+    leaves that pass's tickets and status words used (``sort_plan`` clears
+    them for a sort).  With ``buffers`` the call routes as
+    ``bucketize_scatter``'s with ``plan=state.plan`` and returns None;
+    without, it reads (keys, idx) and returns a new output.
+    """
+    if cfg.radix > _MAX_FUSED_RADIX:
+        raise ValueError("bucketize_scatter_lookback supports radix <= 16")
+    num_tiles = check_keys("keys", keys, cfg)
+    check_keys("idx", idx, cfg)
+    if idx.numel() != keys.numel() or idx.device != keys.device:
+        raise ValueError("keys and idx must have one length and one device")
+    _check_state(state, pass_index, keys, num_tiles, cfg)
+    if buffers is not None:
+        check_plan(state.plan, pass_index, keys, (idx, *buffers[0], *buffers[1]))
+    if resolve_impl(keys, impl) == "reference":
+        if buffers is None:
+            return _lookback_pass_ref(keys, idx, state, pass_index, cfg)
+        route = planned_route(state.plan, pass_index, ((keys, idx), *buffers))
+        if route is not None:
+            source, destination = route
+            for dst, src in zip(destination, _lookback_pass_ref(*source, state, pass_index, cfg)):
+                dst.copy_(src)
+        return None
+    if buffers is None:
+        out, scratch, plan = (torch.empty_like(keys), torch.empty_like(idx)), (None, None), None
+    else:
+        (out, scratch), plan = buffers, state.plan
+    threads, _ = bucketize_scatter_geometry(cfg)
+    launch(
+        "grs_lookback_scatter", keys, keys.data_ptr(), idx.data_ptr(), *map(data_ptr, out),
+        *map(data_ptr, scratch), num_tiles, cfg.tile, threads, pass_index * cfg.radix_bits,
+        cfg.radix, data_ptr(plan), pass_index, state.bases.data_ptr(), state.lookback.data_ptr(),
+    )
+    bucketize_scatter_lookback.launches += 1
+    return None if buffers is not None else out
+
+
+bucketize_scatter_lookback.launches = 0

@@ -2,14 +2,16 @@
 
 The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
 
-- ``"fused"``: ``cfg.num_passes`` passes, each one histogram kernel, the
-  offsets scan and one kernel that bucketizes each tile and scatters it
-  (``kernels/scatter.py::bucketize_scatter``, the JAX package's
-  ``bucketize_tiles`` then ``scatter_runs``).  Takes 1-, 2- and 4-bit
-  digits.  As the JAX package jits the whole sort and decides each pass's
-  constant-digit skip on the device, the port computes a pass plan on the
-  card from the keys' AND and OR (``kernels/key_bits.py``), which the
-  kernels read: a skipped pass's kernels exit at once.
+- ``"fused"``: one read of the keys for the pass plan and every pass's
+  digit counts (``kernels/key_bits.py::sort_plan``), then ``cfg.num_passes``
+  passes of one kernel each, which bucketizes each tile, finds its run
+  offsets by a look-back over the tiles and scatters it
+  (``kernels/scatter.py::bucketize_scatter_lookback``: the JAX package's
+  ``tile_histograms``, ``global_offsets``, ``bucketize_tiles`` and
+  ``scatter_runs``).  Takes 1-, 2- and 4-bit digits.  As the JAX package
+  jits the whole sort and decides each pass's constant-digit skip on the
+  device, the plan is made on the card from the keys' AND and OR, and the
+  passes read it: a skipped pass's kernel exits at once.
 - ``"radix"``: ``cfg.num_passes`` passes, each one histogram kernel, the
   offsets scan, one destination kernel and one indexed store per column
   (``permute.scatter_by_destination``).  Takes digits up to 8 bits, and has
@@ -50,9 +52,9 @@ from gpuradixsort_tpu_torch.core.table import (
     uint32_as_int32,
 )
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
-from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_plan
+from gpuradixsort_tpu_torch.kernels.key_bits import sort_plan
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
-from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter
+from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter_lookback
 from gpuradixsort_tpu_torch.ops.permute import gather_rows, scatter_by_destination
 
 METHODS = ("auto", "fused", "torch", "radix")
@@ -62,27 +64,20 @@ def _fused_passes(keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig,
                   skipped: torch.Tensor):
     """The fused sort with no host sync: the pass plan, then every pass as it routes.
 
-    ``pass_plan`` decides on the device which passes run, as the JAX package's
-    per-pass ``lax.cond`` does, and adds the skipped ones to ``skipped``.
-    Each pass launches K1, the offsets scan and ``bucketize_scatter``; in a
-    skipped pass each kernel exits at once, so the pass moves no key.  A pass
-    cannot scatter into the buffer it reads, so the passes that run
-    ping-pong between the result buffer R and a scratch buffer S, as the
-    plan names: the first reads ``keys`` and ``idx``, which are never
-    written, and the last writes R.  Returns R (keys, idx).
+    ``sort_plan`` reads the keys once: it decides on the device which passes
+    run, as the JAX package's per-pass ``lax.cond`` does, adds the skipped
+    ones to ``skipped``, counts every pass's digits and clears the
+    look-back's scratch.  Each pass is one ``bucketize_scatter_lookback``
+    launch, which in a skipped pass exits at once, so the pass moves no
+    key.  A pass cannot scatter into the buffer it reads, so the passes
+    that run ping-pong between the result buffer R and a scratch buffer S,
+    as the plan names: the first reads ``keys`` and ``idx``, which are
+    never written, and the last writes R.  Returns R (keys, idx).
     """
-    plan = pass_plan(keys, cfg, skipped)
+    state = sort_plan(keys, cfg, skipped)
     buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
     for p in range(cfg.num_passes):
-        shift = p * cfg.radix_bits
-        hist = radix_kernels.tile_histograms(keys, shift, cfg, plan=plan, pass_index=p,
-                                             buffers=buffers)
-        # In a skipped pass this scans an unwritten histogram, which is
-        # harmless: the scan's look-back words are cleared at every call, and
-        # no kernel reads the offsets.
-        offsets = radix_kernels.global_offsets(hist)
-        bucketize_scatter(keys, idx, hist, offsets, shift, cfg, plan=plan, pass_index=p,
-                          buffers=buffers)
+        bucketize_scatter_lookback(keys, idx, cfg, state, p, buffers)
     return buffers[0]
 
 
@@ -141,8 +136,8 @@ GRAPH_CACHE_ENTRIES = 8
 # least recently seen is forgotten first.
 _SEEN_ENTRIES = 1024
 # The wrappers the sorts call: a replay adds its capture's launches to them.
-_PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_scatter, exclusive_scan, key_bits,
-                  radix_kernels.tile_destinations)
+_PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_scatter_lookback, exclusive_scan,
+                  sort_plan, radix_kernels.tile_destinations)
 
 
 class _SortGraph:

@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from gpuradixsort_tpu_torch.config import default_device
-from gpuradixsort_tpu_torch.kernels import bucketize, radix, scan, scatter
+from gpuradixsort_tpu_torch.kernels import bucketize, key_bits, radix, scan, scatter
 from gpuradixsort_tpu_torch.parallel import mesh as M
 from gpuradixsort_tpu_torch.parallel.dist_ops import (
     dist_group_by_aggregate,
@@ -147,6 +147,8 @@ KERNEL_WRAPPERS = {
     "bucketize": bucketize.bucketize_tiles,
     "scatter_runs": scatter.scatter_runs,
     "bucketize_scatter": scatter.bucketize_scatter,
+    "bucketize_scatter_lookback": scatter.bucketize_scatter_lookback,
+    "sort_plan": key_bits.sort_plan,
     "radix_dest": radix.tile_destinations,
     "exclusive_scan": scan.exclusive_scan,
 }

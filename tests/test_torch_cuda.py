@@ -200,9 +200,9 @@ def test_every_tile_size_launches(card, gen):
 @pytest.mark.parametrize("n", [1000, 3 * CFG.block + 17])
 def test_fused_sort_on_card_matches_cpu(n, card, gen):
     for keys in _keysets(gen, n).values():
-        before = tradix.tile_histograms.launches
+        before = tscatter.bucketize_scatter_lookback.launches
         s, p = tsort.sort_pairs(keys, CFG, method="fused", device=card)
-        assert tradix.tile_histograms.launches > before
+        assert tscatter.bucketize_scatter_lookback.launches > before
         cs, cp = tsort.sort_pairs(keys, CFG, method="fused", device="cpu")
         np.testing.assert_array_equal(s.data.cpu().numpy(), cs.data.numpy())
         np.testing.assert_array_equal(p.data.cpu().numpy(), cp.data.numpy())
@@ -393,6 +393,121 @@ def test_key_bits_matches_plain(n, card, gen):
     assert _same(tkey_bits.key_bits(none), torch.zeros(2, dtype=torch.int32, device=card))
 
 
+def _skewed(gen, n: int) -> np.ndarray:
+    """n keys of which about 99% are one key: one digit of every pass holds them."""
+    return np.where(gen.random(n) < 0.99, np.uint32(0x5A5A5A5A),
+                    gen.integers(0, 2**32, n, dtype=np.uint32)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 3 * CFG.block - 5, 1_000_000, 1 << 24])
+def test_sort_plan_matches_plain(bits, n, card, gen):
+    # The key read with every pass's digit counts, the plan and the bases
+    # beside it, against the plain version: random, low, equal, PAD_KEY-heavy
+    # and skewed keys (one digit holding 99%, so every lane counts the same
+    # counter); padded buffers aligned and one word off a 16-byte boundary
+    # (a head and a tail of single keys).  The look-back's scratch is clear.
+    cfg = EngineConfig(radix_bits=bits)
+    for name, keys_np in {**_keysets(gen, n), "skewed": _skewed(gen, n)}.items():
+        padded = make_key_column(keys_np, cfg, device=card).data
+        for keys in (padded, _one_word_off(padded)):
+            skipped = [torch.zeros(1, dtype=torch.int64, device=card) for _ in range(2)]
+            before = tkey_bits.sort_plan.launches
+            got = tkey_bits.sort_plan(keys, cfg, skipped[0])
+            want = tkey_bits.sort_plan(keys, cfg, skipped[1], impl="reference")
+            assert tkey_bits.sort_plan.launches == before + 1
+            where = (name, keys.data_ptr() % 16)
+            assert all(_same(g, w) for g, w in zip(got[:3], want[:3])), where
+            assert _same(*skipped) and not got.lookback.any(), where
+            assert int(got.counts.sum()) == cfg.num_passes * keys.numel(), where
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_lookback_pass_matches_plain_at_every_geometry(tile_rows, bits, card, gen):
+    # The look-back pass, unplanned, at radix 2, 4 and 16 and every tile
+    # size; 1, 8 and 29 tiles (the last block part-filled) and at radix 16
+    # more tiles than the card holds warps at once, so that tiles wait on
+    # tiles of an earlier wave; inputs aligned and 4 bytes off; the first, a
+    # middle and the last pass; random, low, equal, PAD_KEY-heavy and skewed
+    # keys.  Each launch takes a fresh sort_plan: a pass index serves once.
+    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+    skipped = torch.zeros(1, dtype=torch.int64, device=card)
+    for num_tiles in (1, 8, 29) + ((MANY_TILES,) if bits == 4 else ()):
+        n = num_tiles * cfg.tile
+        for name, keys_np in {**_keysets(gen, n + 1), "skewed": _skewed(gen, n + 1)}.items():
+            buf = torch.from_numpy(keys_np).to(card)
+            pos = torch.from_numpy(gen.permutation(n + 1).astype(np.uint32)).to(card)
+            for keys, idx in ((buf[:n], pos[:n]), (buf[1:], pos[1:])):
+                for p in (0, cfg.num_passes // 2, cfg.num_passes - 1):
+                    state = tkey_bits.sort_plan(keys, cfg, skipped)
+                    got = tscatter.bucketize_scatter_lookback(keys, idx, cfg, state, p)
+                    want = tscatter.bucketize_scatter_lookback(keys, idx, cfg, state, p,
+                                                               impl="reference")
+                    where = f"{name} tiles={num_tiles} pass={p} offset={keys.data_ptr() % 16}"
+                    assert all(_same(g, w) for g, w in zip(got, want)), where
+    torch.cuda.synchronize()
+
+
+def test_lookback_routes_every_mask_on_card(card, gen):
+    # Every mask of 4-bit digits: sort_plan's plan against plan_of_mask,
+    # then each pass of the look-back route (input -> R or S, R -> S,
+    # S -> R, skipped) against its plain version on copies of the same
+    # buffers; the result R against a stable sort, the input unwritten.
+    n = 2 * CFG.block
+    for mask in range(1 << CFG.num_passes):
+        keys = torch.from_numpy(mask_keys(mask, n, CFG, gen)).to(card)
+        idx = torch.from_numpy(gen.permutation(n).astype(np.uint32)).to(card)
+        held = keys.clone(), idx.clone()
+        state = tkey_bits.sort_plan(keys, CFG, torch.zeros(1, dtype=torch.int64, device=card))
+        assert state.plan.tolist() == tkey_bits.plan_of_mask(mask, CFG.num_passes), mask
+        buffers = tuple((torch.zeros_like(keys), torch.zeros_like(idx)) for _ in range(2))
+        for p in range(CFG.num_passes):
+            want = tuple(tuple(t.clone() for t in pair) for pair in buffers)
+            tscatter.bucketize_scatter_lookback(keys, idx, CFG, state, p, buffers)
+            tscatter.bucketize_scatter_lookback(keys, idx, CFG, state, p, want, impl="reference")
+            assert all(_same(g, w) for got, w_pair in zip(buffers, want)
+                       for g, w in zip(got, w_pair)), (mask, p)
+        assert all(_same(g, w) for g, w in zip(buffers[0], _stable_sort(*held))), mask
+        assert _same(keys, held[0]) and _same(idx, held[1]), mask
+
+
+@pytest.mark.parametrize("kind", ["skewed", "2^24 random"])
+def test_fused_sort_of_skewed_and_large_inputs(kind, card, gen):
+    # The public fused sort, eager, captured and replayed, against numpy:
+    # 2^22 keys of which 99% are one key, and 2^24 random keys.
+    n = 1 << 22 if kind == "skewed" else 1 << 24
+    keys_np = _skewed(gen, n) if kind == "skewed" else gen.integers(0, 2**32, n, dtype=np.uint32)
+    col = make_key_column(keys_np, CFG, device=card)
+    order = np.argsort(keys_np, kind="stable")
+    tsort.clear_sort_graphs()
+    for _ in range(3):
+        s, p = tsort.sort_pairs(col, CFG, method="fused")
+        np.testing.assert_array_equal(s.to_numpy(), keys_np[order])
+        np.testing.assert_array_equal(p.to_numpy(), order.astype(np.uint32))
+    tsort.clear_sort_graphs()
+
+
+def test_rejected_lookback_and_count_launches_raise(card):
+    # Refused arguments of either new entry point raise, and nothing falls
+    # back: a look-back scratch off an 8-byte boundary, no bases, counts
+    # asked of 8-bit digits.
+    keys = torch.zeros(CFG.block, dtype=torch.int32, device=card).view(torch.uint32)
+    out = torch.empty_like(keys)
+    state = torch.zeros(4096, dtype=torch.int32, device=card)
+    tiles = CFG.block // CFG.tile
+    for bases, lookback in ((state, state[1:]), (None, state)):
+        with pytest.raises(RuntimeError, match="grs_lookback_scatter"):
+            _build.launch("grs_lookback_scatter", keys, keys.data_ptr(), keys.data_ptr(),
+                          out.data_ptr(), out.data_ptr(), None, None, tiles, CFG.tile, 128, 0,
+                          CFG.radix, None, 0, tradix.data_ptr(bases), lookback.data_ptr())
+    skipped = torch.zeros(1, dtype=torch.int64, device=card)
+    with pytest.raises(RuntimeError, match="grs_key_bits"):
+        _build.launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), state.data_ptr(),
+                      state[2:].data_ptr(), 4, 8, skipped.data_ptr(), state[64:].data_ptr(),
+                      4096)
+
+
 def _sort_input(gen, card, n, high):
     """Padded keys below ``high`` and the index column, as sort_pairs makes them."""
     col = make_key_column(gen.integers(0, high, n, dtype=np.uint32), CFG, device=card)
@@ -495,9 +610,12 @@ def test_full_graph_cache_runs_the_eager_loop(card, gen, monkeypatch):
 
 
 def test_launch_counts_stay_true_under_replay(card, gen):
-    # K2 and K3 are off the fused sort's path: its passes run bucketize_scatter.
+    # A fused sort is one sort_plan and one look-back pass a pass: K1, K5,
+    # the offsets-reading pass, the AND/OR-only key_bits, K2 and K3 are off
+    # its path.
     wrappers = (tradix.tile_histograms, tscatter.bucketize_scatter, tscan.exclusive_scan,
-                tkey_bits.key_bits, tbucketize.bucketize_tiles, tscatter.scatter_runs)
+                tkey_bits.key_bits, tbucketize.bucketize_tiles, tscatter.scatter_runs,
+                tscatter.bucketize_scatter_lookback, tkey_bits.sort_plan)
     col = make_key_column(gen.integers(0, 2**32, 4 * CFG.block, dtype=np.uint32), CFG,
                           device=card)
     tsort.clear_sort_graphs()
@@ -510,9 +628,9 @@ def test_launch_counts_stay_true_under_replay(card, gen):
 
     # The first call runs the eager loop; the second captures (which runs
     # nothing) and replays; each later call replays.
-    assert launches_of(1) == [8, 8, 8, 1, 0, 0]
-    assert launches_of(1) == [8, 8, 8, 1, 0, 0]
-    assert launches_of(5) == [40, 40, 40, 5, 0, 0]
+    assert launches_of(1) == [0, 0, 0, 0, 0, 0, 8, 1]
+    assert launches_of(1) == [0, 0, 0, 0, 0, 0, 8, 1]
+    assert launches_of(5) == [0, 0, 0, 0, 0, 0, 40, 5]
     tsort.clear_sort_graphs()
 
 
@@ -568,14 +686,14 @@ def test_sort_buffers_never_alias_the_input(card, gen, monkeypatch):
     # the eager loop and of the capture, lie apart from each other and from
     # the caller's keys and index, which hold their values after the sort.
     seen = []
-    fused_pass = tsort.bucketize_scatter
+    fused_pass = tsort.bucketize_scatter_lookback
 
-    def recording(keys, idx, *args, buffers=None, **kwargs):
+    def recording(keys, idx, cfg, state, pass_index, buffers):
         seen.append([(t.data_ptr(), t.data_ptr() + t.nbytes)
                      for t in (keys, idx, *buffers[0], *buffers[1])])
-        return fused_pass(keys, idx, *args, buffers=buffers, **kwargs)
+        return fused_pass(keys, idx, cfg, state, pass_index, buffers)
 
-    monkeypatch.setattr(tsort, "bucketize_scatter", recording)
+    monkeypatch.setattr(tsort, "bucketize_scatter_lookback", recording)
     tsort.clear_sort_graphs()
     keys, idx = _sort_input(gen, card, 3 * CFG.block, 2**32)
     held = keys.clone(), idx.clone()
@@ -707,7 +825,7 @@ def test_failed_capture_raises(card, gen, monkeypatch):
     # nothing and leaves the launch counts as they were; it does not fall
     # back to the eager loop.
     keys, idx = _sort_input(gen, card, 2 * CFG.block, 2**32)
-    fused_pass = tsort.bucketize_scatter
+    fused_pass = tsort.bucketize_scatter_lookback
 
     def failing(*args, **kwargs):
         if torch.cuda.is_current_stream_capturing():
@@ -716,12 +834,12 @@ def test_failed_capture_raises(card, gen, monkeypatch):
 
     tsort.clear_sort_graphs()
     _graphed_passes(keys, idx)  # first sighting: the eager loop
-    monkeypatch.setattr(tsort, "bucketize_scatter", failing)
-    before = tradix.tile_histograms.launches
+    monkeypatch.setattr(tsort, "bucketize_scatter_lookback", failing)
+    before = tkey_bits.sort_plan.launches
     with pytest.raises(RuntimeError, match="refused during capture"):
         _graphed_passes(keys, idx)
     assert not tsort._SORT_GRAPHS
-    assert tradix.tile_histograms.launches == before
+    assert tkey_bits.sort_plan.launches == before
     monkeypatch.undo()
     got = _graphed_passes(keys, idx)
     assert len(tsort._SORT_GRAPHS) == 1

@@ -21,7 +21,9 @@ from gpuradixsort_tpu.kernels import radix as jradix
 from gpuradixsort_tpu.kernels import scan as jscan
 from gpuradixsort_tpu.kernels import scatter as jscatter
 from gpuradixsort_tpu_torch.config import LANES, EngineConfig
+from gpuradixsort_tpu_torch.core.table import make_key_column
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
+from gpuradixsort_tpu_torch.kernels import key_bits as tkey_bits
 from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.kernels import scatter as tscatter
@@ -510,3 +512,192 @@ def test_bucketize_scatter_geometry_fits_the_card(tile_rows):
         assert tiles == tscatter.FUSED_TILES_PER_BLOCK
     with pytest.raises(ValueError, match="tile_rows <= 226"):
         tscatter.bucketize_scatter_geometry(_geometry_cfg(16, 227))
+
+
+def _count_sets(rng, cfg):
+    """Padded buffers of the digit-count tests: pad rows behind random keys, equal keys, zeros."""
+    n = cfg.block + cfg.tile + 37  # a part-filled block: PAD_KEY rows behind the live keys
+    sets = {"random with pad rows": rng.integers(0, 2**32, n, dtype=np.uint32),
+            "equal": np.full(2 * cfg.block, 0xDEADBEEF, dtype=np.uint32),
+            "zero": np.zeros(cfg.block, dtype=np.uint32),
+            "one digit holding 99%": np.where(rng.random(n) < 0.99, np.uint32(0x5A5A5A5A),
+                                              rng.integers(0, 2**32, n, dtype=np.uint32))}
+    return {name: make_key_column(keys.astype(np.uint32), cfg, device="cpu").data.numpy()
+            for name, keys in sets.items()}
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("tile_rows", [1, 3, 8])
+def test_digit_counts_and_bases_match_jax(bits, tile_rows, rng):
+    # sort_plan's plain counts and bases against the JAX package's per-pass
+    # sum of K1's tile histograms and its exclusive scan, exactly; its plan
+    # and skipped passes as pass_plan's.
+    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+    jcfg = JaxConfig(radix_bits=bits, tile_rows=tile_rows)
+    for name, keys in _count_sets(rng, cfg).items():
+        jk = jnp.asarray(keys).reshape(-1, LANES)
+        want = np.stack([
+            np.asarray(jnp.sum(jradix.tile_histograms(jk, p * bits, jcfg, impl="reference"),
+                               axis=0))[: cfg.radix] for p in range(cfg.num_passes)])
+        skipped = [torch.zeros(1, dtype=torch.int64) for _ in range(2)]
+        state = tkey_bits.sort_plan(torch.from_numpy(keys), cfg, skipped[0])
+        _eq(state.counts, want.astype(np.int32))
+        _eq(state.bases, (np.cumsum(want, axis=1) - want).astype(np.int32))
+        assert torch.equal(state.plan,
+                           tkey_bits.pass_plan(torch.from_numpy(keys), cfg, skipped[1])), name
+        assert torch.equal(*skipped), name
+        assert state.lookback.numel() == tkey_bits.lookback_words(keys.size // cfg.tile, cfg)
+
+
+def test_digit_counts_of_no_keys():
+    # No key fills no bucket; the plan then copies the (empty) input.
+    state = tkey_bits.sort_plan(torch.empty(0, dtype=torch.uint32), EngineConfig(),
+                                torch.zeros(1, dtype=torch.int64))
+    assert not state.counts.any() and not state.bases.any()
+    assert state.counts.shape == (8, 16) and state.lookback.numel() == 16
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("tile_rows", [1, 3, 8])
+def test_lookback_offsets_match_jax_global_offsets(bits, tile_rows, rng):
+    # In every pass, the look-back's plain offsets (the pass's digit base plus
+    # the counts of earlier tiles) equal the JAX package's global_offsets of
+    # its tile histograms, and the look-back pass equals its fused pass.
+    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+    jcfg = JaxConfig(radix_bits=bits, tile_rows=tile_rows)
+    for name, keys in _count_sets(rng, cfg).items():
+        tk = torch.from_numpy(keys.copy())
+        state = tkey_bits.sort_plan(tk, cfg, torch.zeros(1, dtype=torch.int64))
+        jk = jnp.asarray(keys).reshape(-1, LANES)
+        for p in range(0, cfg.num_passes, max(1, cfg.num_passes // 4)):
+            jhist = jradix.tile_histograms(jk, p * bits, jcfg, impl="reference")
+            hist = torch.from_numpy(np.asarray(jhist)[:, : cfg.radix].copy())
+            _eq(tscatter._lookback_offsets_ref(hist, state.bases[p]),
+                np.asarray(jradix.global_offsets(jhist))[:, : cfg.radix])
+        idx = rng.permutation(keys.size).astype(np.uint32)
+        shift = (cfg.num_passes - 1) * bits
+        _, _, jok, joi = _jax_fused_pass(keys, idx, shift, cfg, "reference")
+        tok, toi = tscatter.bucketize_scatter_lookback(tk, torch.from_numpy(idx), cfg, state,
+                                                       cfg.num_passes - 1)
+        _eq(tok, jok)
+        _eq(toi, joi)
+
+
+def test_lookback_pass_matches_pallas_interpret(rng):
+    # The Pallas bodies of the JAX package's pass at one small shape.
+    cfg = EngineConfig(radix_bits=2)
+    keys = rng.integers(0, 2**32, cfg.block, dtype=np.uint32)
+    idx = rng.permutation(keys.size).astype(np.uint32)
+    _, _, jok, joi = _jax_fused_pass(keys, idx, 2, cfg, "interpret")
+    state = tkey_bits.sort_plan(torch.from_numpy(keys), cfg, torch.zeros(1, dtype=torch.int64))
+    tok, toi = tscatter.bucketize_scatter_lookback(torch.from_numpy(keys), torch.from_numpy(idx),
+                                                   cfg, state, 1)
+    _eq(tok, jok)
+    _eq(toi, joi)
+
+
+@pytest.mark.parametrize("num_tiles, bits, words", [(0, 4, 16), (1, 4, 416), (16, 4, 656),
+                                                    (33, 4, 1312), (16, 2, 288), (16, 1, 288),
+                                                    (97_657, 4, 2_734_496)])
+def test_lookback_scratch_words(num_tiles, bits, words):
+    # One int32 count word a (tile, digit), then a block a pass: a ticket, a
+    # spare word, and for each (group of 32 tiles, digit) a 64-bit sum and a
+    # 32-bit prefix; sort_plan's allocation keeps the counts, the lines the
+    # key read sums them in and that scratch 8-byte aligned and last, where
+    # its launch clears them with one memset.
+    cfg = EngineConfig(radix_bits=bits)
+    assert tkey_bits.lookback_words(num_tiles, cfg) == words
+    at = tkey_bits.state_layout(num_tiles, cfg)
+    table = cfg.num_passes * cfg.radix
+    assert (at["words"], at["plan"]) == (slice(0, 2), slice(2, 2 + cfg.num_passes))
+    assert at["bases"] == slice(at["plan"].stop, at["plan"].stop + table)  # beside the plan
+    assert at["counts"].start % 2 == 0 and at["counts"].start - at["bases"].stop in (0, 1)
+    assert at["counts"].stop - at["counts"].start == table
+    assert at["lines"] == slice(at["counts"].stop, at["counts"].stop + tkey_bits.COUNT_LINES)
+    assert at["lookback"] == slice(at["lines"].stop, at["total"])
+    assert at["lookback"].start % 2 == 0 and at["total"] - at["lookback"].start == words
+
+
+def test_sort_plan_and_lookback_plain_launch_nothing(rng):
+    cfg = EngineConfig()
+    wrappers = (tkey_bits.sort_plan, tscatter.bucketize_scatter_lookback, tkey_bits.key_bits)
+    before = [w.launches for w in wrappers]
+    keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
+    state = tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64))
+    tscatter.bucketize_scatter_lookback(keys, keys, cfg, state, 0)
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_lookback_pass_reads_and_writes_the_named_buffers(route, rng):
+    # Pass 1 of a plan routes the look-back pass as it routes
+    # bucketize_scatter: it writes the named destination as its unplanned
+    # call on the named source would, and no other buffer.
+    cfg = EngineConfig()
+    n = 2 * cfg.tile
+
+    def pair():
+        return (torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)),
+                torch.from_numpy(rng.permutation(n).astype(np.uint32)))
+
+    sources = (pair(), pair(), pair())  # the input, R, S
+    before = [tuple(t.clone() for t in p) for p in sources]
+    entry = tradix.PLAN_SKIP if ROUTES[route] is None else tradix.plan_entry(*ROUTES[route])
+    state = tkey_bits.sort_plan(sources[0][0], cfg, torch.zeros(1, dtype=torch.int64))
+    state = state._replace(plan=torch.tensor(
+        [tradix.plan_entry(tradix.INPUT, tradix.RESULT), entry] + [-1] * 6, dtype=torch.int32))
+    assert tscatter.bucketize_scatter_lookback(*sources[0], cfg, state, 1,
+                                               buffers=sources[1:]) is None
+    written = None
+    if ROUTES[route] is not None:
+        src, written = ROUTES[route]
+        want = tscatter.bucketize_scatter_lookback(*before[src], cfg, state, 1)
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(sources[written], want))
+    for i, (now, then) in enumerate(zip(sources, before)):
+        if i != written:
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(now, then)), (route, i)
+
+
+def test_sort_plan_and_lookback_reject_bad_input(rng):
+    cfg = EngineConfig()
+    keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
+    skipped = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="1, 2 or 4 bits"):
+        tkey_bits.sort_plan(keys, EngineConfig(radix_bits=8), skipped)
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        tkey_bits.sort_plan(keys[:100], cfg, skipped)
+    with pytest.raises(ValueError, match="skipped"):
+        tkey_bits.sort_plan(keys, cfg, skipped.to(torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tkey_bits.sort_plan(keys, cfg, skipped, impl="cuda")
+    state = tkey_bits.sort_plan(keys, cfg, skipped)
+    for bad, match in ((dict(pass_index=8), "pass_index"),
+                       (dict(state=state._replace(lookback=state.lookback[:-1])), "sort_plan"),
+                       (dict(state=state._replace(bases=state.bases[:4])), "sort_plan")):
+        kwargs = {"state": state, "pass_index": 0, **bad}
+        with pytest.raises(ValueError, match=match):
+            tscatter.bucketize_scatter_lookback(keys, keys, cfg, **kwargs)
+    with pytest.raises(ValueError, match="radix <= 16"):
+        tscatter.bucketize_scatter_lookback(keys, keys, EngineConfig(radix_bits=8), state, 0)
+    with pytest.raises(ValueError, match="one length"):
+        tscatter.bucketize_scatter_lookback(keys, keys[: cfg.tile], cfg, state, 0)
+    with pytest.raises(ValueError, match="overlap"):
+        tscatter.bucketize_scatter_lookback(keys, keys.clone(), cfg, state, 0,
+                                            buffers=((keys, keys.clone()), (keys.clone(),) * 2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tscatter.bucketize_scatter_lookback(keys, keys, cfg, state, 0, impl="cuda")
+
+
+@pytest.mark.parametrize("rows", [2**31, 2**31 - EngineConfig().tile])
+def test_sort_plan_and_lookback_refuse_2_31_rows(rows):
+    # Meta tensors allocate nothing: from 2^31 less a block of rows the
+    # counts and the offsets would wrap, so both wrappers refuse the buffer.
+    cfg = EngineConfig()
+    keys = torch.empty(rows, dtype=torch.uint32, device="meta")
+    with pytest.raises(ValueError, match=r"2\^31.*int32"):
+        tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64, device="meta"))
+    state = tkey_bits.SortPlan(*(torch.empty(0, dtype=torch.int32, device="meta"),) * 4)
+    with pytest.raises(ValueError, match=r"2\^31.*int32"):
+        tscatter.bucketize_scatter_lookback(keys, keys, cfg, state, 0)
