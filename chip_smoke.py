@@ -22,8 +22,10 @@ in eight phases:
    bucketize_scatter at tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles
    (and, radix 16, more tiles than the card holds warps at once), inputs
    also 4 bytes off, and with moved offsets whose out-of-range destinations
-   are dropped; bucketize_scatter_lookback at the same geometries on random
-   and skewed keys (one key holding 99%), first and last pass; radix_dest
+   are dropped; bucketize_scatter_lookback at the same geometries and at
+   lengths that leave its last 4,096-key partition ragged, on more
+   partitions than the card holds blocks at once, on random, skewed (one
+   key holding 99%), equal and PAD_KEY keys, first and last pass; radix_dest
    at radix 2-256 (also those EngineConfig cannot name), at tile_rows 1, 3,
    8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off; scatter_runs at
    radix 2, 4, 16, 32, 64 and 256, tile_rows 1, 3, 8 and 16, on 1 and 9
@@ -154,6 +156,7 @@ from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.key_bits import (
+    LOOKBACK_PARTITION,
     key_bits,
     pass_mask,
     pass_plan,
@@ -199,14 +202,14 @@ KERNELS = {
     # bases, which the JAX package sums from K1 in every pass.
     "sort_plan": (sort_plan, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
                   "gpuradixsort_tpu/ops/sort.py:81 and gpuradixsort_tpu/ops/sort.py:83",
-                  ("key_counts_kernel", "digit_bases_kernel")),
+                  ("sort_plan_kernel",)),
     # The fused sort's pass: K1, the offsets, K2 and K3 in one kernel, its
     # run offsets by look-back.
     "bucketize_scatter_lookback": (
         bucketize_scatter_lookback, "gpuradixsort_tpu_torch/csrc/bucketize_scatter.cu",
         "gpuradixsort_tpu/kernels/radix.py:57, gpuradixsort_tpu/kernels/bucketize.py:156 and "
         "gpuradixsort_tpu/kernels/scatter.py:107",
-        ("lookback_scatter_1k_kernel", "lookback_scatter_any_kernel")),
+        ("lookback_scatter_kernel",)),
     "radix_hist": (rk.tile_histograms, "gpuradixsort_tpu_torch/csrc/radix_hist.cu",
                    "gpuradixsort_tpu/kernels/radix.py:57", ("radix_hist_kernel",)),
     "bucketize": (bucketize_tiles, "gpuradixsort_tpu_torch/csrc/bucketize.cu",
@@ -466,6 +469,17 @@ def check_sort_plan(keys: torch.Tensor, cfg, errs: dict, where: str, host=None) 
           f"{where}")
 
 
+def keys_of_kind(rng, n: int, kind: str) -> np.ndarray:
+    """n keys of one kind: random, skewed (one key, so one digit of every pass, holding
+    99%), equal, or all PAD_KEY."""
+    if kind == "random":
+        return rng.integers(0, 2**32, n, dtype=np.uint32)
+    if kind == "skewed":
+        return np.where(rng.random(n) < 0.99, np.uint32(0x5A5A5A5A),
+                        rng.integers(0, 2**32, n, dtype=np.uint32)).astype(np.uint32)
+    return np.full(n, PAD_KEY if kind == "all PAD_KEY" else 0xDEADBEEF, dtype=np.uint32)
+
+
 def check_key_bits(dev, rng, errs: dict) -> None:
     """key_bits against its plain version and numpy's bitwise reductions.
 
@@ -498,13 +512,7 @@ def check_key_bits(dev, rng, errs: dict) -> None:
             for kind in ("random", "skewed", "equal", "all PAD_KEY"):
                 if bits != 4 and n == 1 << 24 and kind != "random":
                     continue
-                buf = rng.integers(0, 2**32, n + 1, dtype=np.uint32)
-                if kind == "skewed":  # one key, so one digit of every pass, holds 99%
-                    buf = np.where(rng.random(n + 1) < 0.99, np.uint32(0x5A5A5A5A), buf)
-                elif kind != "random":
-                    buf = np.full(n + 1, PAD_KEY if kind == "all PAD_KEY" else 0xDEADBEEF,
-                                  dtype=np.uint32)
-                buf = buf.astype(np.uint32)
+                buf = keys_of_kind(rng, n + 1, kind)
                 dbuf = torch.from_numpy(buf).to(dev)
                 for off in (0, 1):
                     keys = dbuf[off:off + n]
@@ -727,28 +735,43 @@ def check_fused_geometry(dev, rng, errs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# Partitions of the look-back pass (4,096 keys a block of 256 threads):
+# more than the card holds at once, so that partitions wait on partitions
+# of an earlier wave of blocks.
+MANY_PARTITIONS = 8 * 132 * 3 + 5
+
+
 def check_lookback_geometry(dev, rng, errs: dict) -> None:
     """bucketize_scatter_lookback against its plain version at every launch geometry.
 
-    Radix 2, 4 and 16 at tile_rows 1, 3, 8 and 16 (the register route on
-    the 1,024-key tile, the staged rows on any other); 1, 8 and 29 tiles,
-    and at radix 16 MANY_TILES, so that tiles look back across waves of
-    warps; random and skewed keys (one key holding 99%), inputs aligned and
+    Radix 2, 4 and 16 at tile_rows 1, 3, 8 and 16; 1, 8 and 29 tiles, and
+    lengths that leave a ragged last partition of 4,096 keys (at tile_rows
+    1, 3, 8 and 16 a count of tiles that is no multiple of a partition's);
+    at radix 16 also MANY_TILES, and at tile_rows 3 and 8 MANY_PARTITIONS
+    partitions and a ragged one more, so that partitions look back across
+    waves of blocks; random and skewed (one key holding 99%) keys, and on
+    the shorter lengths also equal and PAD_KEY keys; inputs aligned and
     one word off a 16-byte boundary; the first and the last pass, each from
     a fresh sort_plan (a pass index serves one launch), unplanned.
     """
     skipped = torch.zeros(1, dtype=torch.int64, device=dev)
+    part = LOOKBACK_PARTITION
     for tile_rows in (1, 3, 8, 16):
         for bits in (1, 2, 4):
             cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
-            for num_tiles in (1, 8, 29) + ((MANY_TILES,) if bits == 4 else ()):
+            ragged = (3 * part + 5 * cfg.tile) // cfg.tile  # 3 partitions and a part
+            lengths = (1, 8, 29, ragged)
+            if bits == 4:
+                lengths += (MANY_TILES,)
+            if bits == 4 and tile_rows in (3, 8):  # several waves, the last partition ragged
+                lengths += (MANY_PARTITIONS * part // cfg.tile + 1,)
+            for num_tiles in lengths:
                 n = num_tiles * cfg.tile
                 pos = torch.from_numpy(rng.permutation(n + 1).astype(np.uint32)).to(dev)
-                for kind in ("random", "skewed"):
-                    host = rng.integers(0, 2**32, n + 1, dtype=np.uint32)
-                    if kind == "skewed":
-                        host = np.where(rng.random(n + 1) < 0.99, np.uint32(0x5A5A5A5A), host)
-                    buf = torch.from_numpy(host.astype(np.uint32)).to(dev)
+                kinds = ("random", "skewed") if num_tiles >= MANY_TILES else (
+                    "random", "skewed", "equal", "all PAD_KEY")
+                for kind in kinds:
+                    buf = torch.from_numpy(keys_of_kind(rng, n + 1, kind)).to(dev)
                     for keys, idx in ((buf[:n], pos[:n]), (buf[1:], pos[1:])):
                         for p in (0, cfg.num_passes - 1):
                             state = sort_plan(keys, cfg, skipped)
@@ -756,12 +779,18 @@ def check_lookback_geometry(dev, rng, errs: dict) -> None:
                                                              impl="cuda")
                             want = bucketize_scatter_lookback(keys, idx, cfg, state, p,
                                                               impl="reference")
+                            err = max(map(max_abs_err, got, want))
                             errs["bucketize_scatter_lookback"] = max(
-                                errs["bucketize_scatter_lookback"], *map(max_abs_err, got, want))
+                                errs["bucketize_scatter_lookback"], err)
+                            if err:
+                                check(False, f"bucketize_scatter_lookback == plain, radix "
+                                      f"{cfg.radix}, tile_rows {tile_rows}, {num_tiles} tiles, "
+                                      f"{kind}, pass {p}, {keys.data_ptr() % 16} bytes off")
     check(errs["bucketize_scatter_lookback"] == 0,
           "bucketize_scatter_lookback (radix 2, 4, 16) == plain at tile_rows 1, 3, 8, 16, "
-          f"1/8/29/{MANY_TILES} tiles, random and skewed keys, aligned and unaligned inputs, "
-          "first and last pass")
+          f"1/8/29 tiles and a ragged last partition, {MANY_TILES} tiles, {MANY_PARTITIONS} "
+          "partitions and one more tile; random, skewed, equal and PAD_KEY keys, aligned and "
+          "unaligned inputs, first and last pass")
     torch.cuda.empty_cache()
 
 

@@ -65,7 +65,7 @@ from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.key_bits import (
     COUNT_LINES,
-    LOOKBACK_GROUP,
+    lookback_partitions,
     lookback_words,
     sort_plan,
 )
@@ -190,8 +190,7 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
     of ``padded`` int32 values; ``global_offsets`` is one pass's scan of the
     histogram table; ``bucketize_scatter`` counts each tile's digits itself
     and reads only the offsets table; ``bucketize_scatter_lookback`` writes
-    and reads its pass's look-back words (a 4-byte count a tile and digit,
-    an 8-byte sum and a 4-byte prefix a group of tiles and digit) where
+    and reads its pass's status words (8 bytes a partition and digit) where
     that reads the table; ``sort_plan`` reads the keys and writes the AND
     and OR, the plan, every pass's digit counts and bases, and the cleared
     lines it sums the counts in and look-back scratch of every pass, and
@@ -201,12 +200,12 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
     """
     tiles = padded // cfg.tile
     table = 4 * cfg.radix * tiles
-    words = 4 * cfg.radix * (tiles + 3 * -(-tiles // LOOKBACK_GROUP))  # one pass's
+    status = 8 * cfg.radix * lookback_partitions(padded)  # one pass's status words
     passes = cfg.num_passes
     return {
         "sort_plan": (4 * padded + 8 + 4 * passes * (1 + 2 * cfg.radix)
                       + 4 * (COUNT_LINES + lookback_words(tiles, cfg)), (2 + passes) * padded),
-        "bucketize_scatter_lookback": (16 * padded + 2 * words, 6 * padded),
+        "bucketize_scatter_lookback": (16 * padded + 2 * status, 6 * padded),
         "radix_hist": (4 * padded + table, 3 * padded),
         "global_offsets": (2 * table, table // 4),
         "bucketize": (16 * padded, 4 * padded),

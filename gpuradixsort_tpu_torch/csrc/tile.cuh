@@ -1,7 +1,7 @@
 // The rank step and the place step of one tile, shared by K2
-// (bucketize.cu), K3 (scatter_runs.cu) and the fused pass
-// (bucketize_scatter.cu).  One warp owns a tile; nothing here needs a block
-// barrier.
+// (bucketize.cu), K3 (scatter_runs.cu) and the table-reading fused pass
+// (bucketize_scatter.cu), whose look-back route ranks with warp_ranks.  One
+// warp owns a tile; nothing here needs a block barrier.
 //
 // rank: a tile's (key, index) pairs stably sorted by digit into the warp's
 //   shared staging (K2's step): one ballot per digit bit gives each item
@@ -55,33 +55,38 @@ __device__ __forceinline__ uint32_t load_generic(const uint32_t* p) {
   return v;
 }
 
-// What a rank step calls once it has counted the tile: nothing, unless the
-// caller gives a functor of lane r's count of digit r (all 32 lanes call it).
-struct NoHook {
-  __device__ __forceinline__ void operator()(int) const {}
-};
-
-// Rank step of the 1,024-key tile: the lane's items k, v (warp-striped:
-// item j is element 32 j + lane) into the staging sk, sv at start[digit] +
-// slot.  Returns lane r's count of digit r (garbage in lanes >= 2^kBits),
-// and gives it to counted() before it stages the tile.  The caller
-// __syncwarp()s before it reads the staging.
-template <int kBits, typename Counted = NoHook>
-__device__ __forceinline__ int rank_1k(const uint32_t (&k)[kFastItems],
-                                       const uint32_t (&v)[kFastItems], int shift, int lane,
-                                       uint32_t* sk, uint32_t* sv, Counted counted = {}) {
+// The ranks of a warp's kItems items a lane (warp-striped: item j is
+// element 32 j + lane of the warp's run of 32 kItems elements): slot[j] is
+// item j's place among the earlier items of its digit.  Returns lane r's
+// count of digit r (garbage in lanes >= 2^kBits).  One ballot per digit bit
+// and item; all 32 lanes call it.
+template <int kBits, int kItems>
+__device__ __forceinline__ int warp_ranks(const uint32_t (&k)[kItems], int shift, int lane,
+                                          int (&slot)[kItems]) {
   constexpr uint32_t kMask = (1u << kBits) - 1u;
   const unsigned below = (1u << lane) - 1u;
-  int slot[kFastItems];
   int count = 0;  // lane r: keys of digit r in the items so far
 #pragma unroll
-  for (int j = 0; j < kFastItems; ++j) {
+  for (int j = 0; j < kItems; ++j) {
     const uint32_t d = (k[j] >> shift) & kMask;
     const DigitBallots<kBits> ballots(d, kBits);
     slot[j] = __shfl_sync(kFullWarp, count, d) + __popc(ballots.lanes_with(d, kBits) & below);
     count += __popc(ballots.lanes_with(lane, kBits));
   }
-  counted(count);
+  return count;
+}
+
+// Rank step of the 1,024-key tile: the lane's items k, v (warp-striped:
+// item j is element 32 j + lane) into the staging sk, sv at start[digit] +
+// slot.  Returns lane r's count of digit r (garbage in lanes >= 2^kBits).
+// The caller __syncwarp()s before it reads the staging.
+template <int kBits>
+__device__ __forceinline__ int rank_1k(const uint32_t (&k)[kFastItems],
+                                       const uint32_t (&v)[kFastItems], int shift, int lane,
+                                       uint32_t* sk, uint32_t* sv) {
+  constexpr uint32_t kMask = (1u << kBits) - 1u;
+  int slot[kFastItems];
+  const int count = warp_ranks<kBits>(k, shift, lane, slot);
   int total;
   const int start = warp_exclusive_scan(lane < (1 << kBits) ? count : 0, lane, total);
 #pragma unroll
@@ -97,13 +102,10 @@ __device__ __forceinline__ int rank_1k(const uint32_t (&k)[kFastItems],
 // Rank step of any tile (tile / 32 items a lane, radix <= 16): counts the
 // tile's digits from device memory, then reads it again and stages it.
 // kin, vin: the tile's element `lane`.  Returns lane r's count of digit r
-// (0 in lanes >= radix), and gives it to counted() before it stages the
-// tile; start gets its exclusive scan.
-template <typename Counted = NoHook>
+// (0 in lanes >= radix); start gets its exclusive scan.
 __device__ __forceinline__ int rank_any(const uint32_t* kin, const uint32_t* vin, int items,
                                         int shift, int radix, int bits, int lane,
-                                        uint32_t* sk, uint32_t* sv, int& start,
-                                        Counted counted = {}) {
+                                        uint32_t* sk, uint32_t* sv, int& start) {
   const uint32_t mask = static_cast<uint32_t>(radix - 1);
   const unsigned below = (1u << lane) - 1u;
   int count = 0;  // lane r: keys of digit r in the tile
@@ -112,7 +114,6 @@ __device__ __forceinline__ int rank_any(const uint32_t* kin, const uint32_t* vin
     count += __popc(ballots.lanes_with(lane, bits));
   }
   count = lane < radix ? count : 0;
-  counted(count);
   int total;
   start = warp_exclusive_scan(count, lane, total);
   int next = start;  // lane r: the next slot of digit r in the staged tile

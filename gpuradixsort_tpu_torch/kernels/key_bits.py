@@ -23,13 +23,13 @@ it copies the input.
 A fused sort also needs every pass's digit counts, which the JAX package
 sums from K1's tile histograms in each pass.  A pass keeps the keys'
 multiset, so the counts of the input serve every pass: ``sort_plan``
-counts them in the same read of the keys (``key_counts_kernel``) and writes
+counts them in the same read of the keys (``sort_plan_kernel``) and writes
 beside the plan each pass's digit bases, the exclusive prefix of its counts,
 from which the fused pass finds its run offsets by look-back
 (``kernels/scatter.py::bucketize_scatter_lookback``).  The look-back's
-scratch (a count word a tile and digit, and for each pass a tile ticket and
-a sum and a prefix a group of tiles and digit) lies in the same allocation
-and is cleared by the same launch, once a sort.
+scratch (a status word a partition of ``LOOKBACK_PARTITION`` keys and
+digit, and a ticket a pass) lies in the same allocation and is cleared by
+the same memset, once a sort.
 """
 
 from __future__ import annotations
@@ -79,8 +79,7 @@ def key_bits(keys: torch.Tensor, impl: str | None = None) -> torch.Tensor:
     if resolve_impl(keys, impl) == "reference":
         return _key_bits_ref(keys)
     out = torch.empty(2, dtype=torch.uint32, device=keys.device)
-    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), out.data_ptr(), None, 0, 0,
-           None, None, 0)
+    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), out.data_ptr(), None, 0, 0, None)
     key_bits.launches += 1
     return out
 
@@ -138,7 +137,7 @@ def pass_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
     words = torch.empty(2, dtype=torch.uint32, device=keys.device)
     plan = torch.empty(cfg.num_passes, dtype=torch.int32, device=keys.device)
     launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), words.data_ptr(),
-           plan.data_ptr(), cfg.num_passes, cfg.radix_bits, skipped.data_ptr(), None, 0)
+           plan.data_ptr(), cfg.num_passes, cfg.radix_bits, skipped.data_ptr())
     key_bits.launches += 1
     return plan
 
@@ -149,32 +148,36 @@ class SortPlan(NamedTuple):
     plan: torch.Tensor  # (num_passes,) int32, as pass_plan's
     counts: torch.Tensor  # (num_passes, radix) int32: keys whose digit p is r, pads included
     bases: torch.Tensor  # (num_passes, radix) int32: counts[p, :r].sum()
-    lookback: torch.Tensor  # int32: the look-back's tile counts, group words and tickets
+    lookback: torch.Tensor  # int32: the look-back's status words and tickets
 
 
-LOOKBACK_GROUP = 32  # tiles whose counts a look-back sums as one (csrc/bucketize_scatter.cu)
+LOOKBACK_PARTITION = 4096  # keys a look-back block takes (csrc/bucketize_scatter.cu)
+
+
+def lookback_partitions(padded: int) -> int:
+    """Partitions of a look-back pass over ``padded`` keys; the last may be ragged."""
+    return -(-padded // LOOKBACK_PARTITION)
 
 
 def lookback_words(num_tiles: int, cfg: EngineConfig) -> int:
     """int32 words of a fused sort's look-back scratch (``csrc/bucketize_scatter.cu``).
 
-    One a (tile, digit) count, then a block for each pass: its tile ticket
-    and a spare word, and three for each (group of ``LOOKBACK_GROUP`` tiles,
-    digit): a 64-bit sum of the group's counts and a 32-bit prefix.
+    A 64-bit status word a (partition, digit), which every pass reuses (its
+    tag names the pass), then a ticket a pass.
     """
-    groups = -(-num_tiles // LOOKBACK_GROUP)
-    return num_tiles * cfg.radix + cfg.num_passes * (2 + 3 * groups * cfg.radix)
+    return 2 * lookback_partitions(num_tiles * cfg.tile) * cfg.radix + cfg.num_passes
 
 
-# int32 words in which csrc/key_bits.cu sums the counts: a 128-byte line a counter.
-COUNT_LINES = 128 * 32
+# int32 words in which csrc/key_bits.cu sums the counts: a 128-byte line a
+# counter, and one for the AND, the OR and the blocks that finished.
+COUNT_LINES = (128 + 1) * 32
 
 
 def state_layout(num_tiles: int, cfg: EngineConfig) -> dict:
     """Where ``sort_plan``'s one int32 allocation keeps each part on the card.
 
     The AND and OR words, the plan, the bases (which ``csrc/key_bits.cu``
-    writes after the plan), then, 8-byte aligned, what its launch clears:
+    writes after the plan), then, 8-byte aligned, what its memset clears:
     the counts, the lines it sums them in and the look-back's scratch.
     Slices of int32 words, and the total.
     """
@@ -210,8 +213,8 @@ def sort_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
     bits.  Reads the keys once for the plan (``pass_plan``'s, whose skipped
     passes it adds to ``skipped`` alike) and for every pass's digit counts,
     then writes each pass's bases, and clears the look-back's scratch for a
-    sort's passes, each of which it serves once.  On the card one launch of
-    ``csrc/key_bits.cu`` and nothing read back.
+    sort's passes, each of which it serves once.  On the card one memset and
+    one launch of ``csrc/key_bits.cu`` and nothing read back.
     """
     num_tiles = check_keys("keys", keys, cfg)
     if cfg.radix_bits not in (1, 2, 4):
@@ -227,7 +230,7 @@ def sort_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
                                     device=keys.device))
     at = state_layout(num_tiles, cfg)
     state = torch.empty(at["total"], dtype=torch.int32, device=keys.device)
-    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), state.data_ptr(),
+    launch("grs_sort_plan", keys, keys.data_ptr(), keys.numel(), state.data_ptr(),
            state[at["plan"]].data_ptr(), passes, cfg.radix_bits, skipped.data_ptr(),
            state[at["counts"].start:].data_ptr(), 4 * (at["total"] - at["counts"].start))
     sort_plan.launches += 1

@@ -20,13 +20,16 @@ them.  ``bucketize_scatter`` is that pair as one kernel
 memory: it reads and writes each key once.  ``bucketize_tiles`` and
 ``scatter_runs`` stay as the counterparts of the JAX package's two functions.
 
-The fused sort's passes run ``bucketize_scatter_lookback``: the same kernel
-template, whose run offsets come from no table.  Tile t's run of digit r
-starts at the pass's digit base (``key_bits.sort_plan``) plus the counts of
-r in tiles 0 to t - 1, which the kernel finds by a decoupled look-back over
-the tiles (``csrc/bucketize_scatter.cu``), so a pass launches no K1 and no
-offsets scan.  ``bucketize_scatter``, which reads K1's offsets table, stays
-as the counterpart of the JAX package's pass.
+The fused sort's passes run ``bucketize_scatter_lookback``, whose run
+offsets come from no table.  A block of the kernel
+(``csrc/bucketize_scatter.cu``) takes a partition of
+``key_bits.LOOKBACK_PARTITION`` keys; its run of digit r starts at the
+pass's digit base (``key_bits.sort_plan``) plus the counts of r in the
+partitions before it, which the kernel finds by a decoupled look-back over
+the partitions, so a pass launches no K1 and no offsets scan.  A stable
+partition by digit has one answer, so the plain version computes it tile by
+tile as the JAX package does.  ``bucketize_scatter``, which reads K1's
+offsets table, stays as the counterpart of the JAX package's pass.
 """
 
 from __future__ import annotations
@@ -286,11 +289,11 @@ def bucketize_scatter_lookback(
         out, scratch, plan = (torch.empty_like(keys), torch.empty_like(idx)), (None, None), None
     else:
         (out, scratch), plan = buffers, state.plan
-    threads, _ = bucketize_scatter_geometry(cfg)
     launch(
         "grs_lookback_scatter", keys, keys.data_ptr(), idx.data_ptr(), *map(data_ptr, out),
-        *map(data_ptr, scratch), num_tiles, cfg.tile, threads, pass_index * cfg.radix_bits,
-        cfg.radix, data_ptr(plan), pass_index, state.bases.data_ptr(), state.lookback.data_ptr(),
+        *map(data_ptr, scratch), keys.numel(), pass_index * cfg.radix_bits, cfg.radix,
+        data_ptr(plan), pass_index, state.bases.data_ptr(), state.lookback.data_ptr(),
+        state.lookback.numel(),
     )
     bucketize_scatter_lookback.launches += 1
     return None if buffers is not None else out

@@ -4,8 +4,8 @@ The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
 
 - ``"fused"``: one read of the keys for the pass plan and every pass's
   digit counts (``kernels/key_bits.py::sort_plan``), then ``cfg.num_passes``
-  passes of one kernel each, which bucketizes each tile, finds its run
-  offsets by a look-back over the tiles and scatters it
+  passes of one kernel each, which bucketizes each partition of the keys,
+  finds its run offsets by a look-back over the partitions and scatters it
   (``kernels/scatter.py::bucketize_scatter_lookback``: the JAX package's
   ``tile_histograms``, ``global_offsets``, ``bucketize_tiles`` and
   ``scatter_runs``).  Takes 1-, 2- and 4-bit digits.  As the JAX package

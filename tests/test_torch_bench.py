@@ -102,12 +102,13 @@ def test_stage_bytes_equal_hand_counts():
     padded = 2 * CFG.block
     # sort_plan: the keys, the AND and OR, the plan (8 int32), counts and
     # bases (2 x 8 x 16 int32), the 128-byte lines it sums the counts in
-    # (128 of them), the look-back's words (16 x 16 4-byte counts, and a
-    # pass: 2 words and 1 group x 16 x 12 bytes); the look-back pass writes
-    # and reads its pass's words.
+    # (128 of them and one for the AND, the OR and the finished blocks),
+    # the look-back's words (4 partitions of 4,096 keys x 16 digits x 8
+    # bytes, and a 4-byte ticket a pass); the look-back pass writes and
+    # reads its pass's status words.
     assert tbench.stage_work(padded, CFG) == {
-        "sort_plan": (4 * 16384 + 8 + 32 + 1024 + 4 * 4096 + 1024 + 8 * (8 + 192), 10 * 16384),
-        "bucketize_scatter_lookback": (16 * 16384 + 2 * (1024 + 192), 6 * 16384),
+        "sort_plan": (4 * 16384 + 8 + 32 + 1024 + 4 * 4128 + 512 + 4 * 8, 10 * 16384),
+        "bucketize_scatter_lookback": (16 * 16384 + 2 * 512, 6 * 16384),
         "radix_hist": (4 * 16384 + 1024, 3 * 16384),
         "global_offsets": (2048, 256),
         "bucketize": (16 * 16384, 4 * 16384),

@@ -404,9 +404,10 @@ def _skewed(gen, n: int) -> np.ndarray:
 def test_sort_plan_matches_plain(bits, n, card, gen):
     # The key read with every pass's digit counts, the plan and the bases
     # beside it, against the plain version: random, low, equal, PAD_KEY-heavy
-    # and skewed keys (one digit holding 99%, so every lane counts the same
-    # counter); padded buffers aligned and one word off a 16-byte boundary
-    # (a head and a tail of single keys).  The look-back's scratch is clear.
+    # and skewed keys (one key holding 99%, so most lanes of a warp count the
+    # same bin of every byte); padded buffers aligned and one word off a
+    # 16-byte boundary (a head and a tail of single keys).  The look-back's
+    # scratch is clear.
     cfg = EngineConfig(radix_bits=bits)
     for name, keys_np in {**_keysets(gen, n), "skewed": _skewed(gen, n)}.items():
         padded = make_key_column(keys_np, cfg, device=card).data
@@ -426,14 +427,19 @@ def test_sort_plan_matches_plain(bits, n, card, gen):
 @pytest.mark.parametrize("bits", [1, 2, 4])
 def test_lookback_pass_matches_plain_at_every_geometry(tile_rows, bits, card, gen):
     # The look-back pass, unplanned, at radix 2, 4 and 16 and every tile
-    # size; 1, 8 and 29 tiles (the last block part-filled) and at radix 16
-    # more tiles than the card holds warps at once, so that tiles wait on
-    # tiles of an earlier wave; inputs aligned and 4 bytes off; the first, a
-    # middle and the last pass; random, low, equal, PAD_KEY-heavy and skewed
-    # keys.  Each launch takes a fresh sort_plan: a pass index serves once.
+    # size; 1, 8 and 29 tiles and a length that leaves the last 4,096-key
+    # partition ragged, and at radix 16 more tiles than the card holds warps
+    # at once and more partitions than it holds blocks at once (the last
+    # ragged), so that partitions wait on partitions of an earlier wave;
+    # inputs aligned and 4 bytes off; the first, a middle and the last pass;
+    # random, low, equal, PAD_KEY-heavy and skewed keys.  Each launch takes
+    # a fresh sort_plan: a pass index serves once.
     cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
     skipped = torch.zeros(1, dtype=torch.int64, device=card)
-    for num_tiles in (1, 8, 29) + ((MANY_TILES,) if bits == 4 else ()):
+    part = tkey_bits.LOOKBACK_PARTITION
+    ragged = (3 * part + 5 * cfg.tile) // cfg.tile
+    waves = (8 * 132 * 3 + 5) * part // cfg.tile + 1
+    for num_tiles in (1, 8, 29, ragged) + ((MANY_TILES, waves) if bits == 4 else ()):
         n = num_tiles * cfg.tile
         for name, keys_np in {**_keysets(gen, n + 1), "skewed": _skewed(gen, n + 1)}.items():
             buf = torch.from_numpy(keys_np).to(card)
@@ -489,23 +495,23 @@ def test_fused_sort_of_skewed_and_large_inputs(kind, card, gen):
 
 
 def test_rejected_lookback_and_count_launches_raise(card):
-    # Refused arguments of either new entry point raise, and nothing falls
-    # back: a look-back scratch off an 8-byte boundary, no bases, counts
-    # asked of 8-bit digits.
+    # Refused arguments of either entry point raise, and nothing falls
+    # back: a look-back scratch off an 8-byte boundary or too short, no
+    # bases, counts asked of 8-bit digits.
     keys = torch.zeros(CFG.block, dtype=torch.int32, device=card).view(torch.uint32)
     out = torch.empty_like(keys)
-    state = torch.zeros(4096, dtype=torch.int32, device=card)
-    tiles = CFG.block // CFG.tile
-    for bases, lookback in ((state, state[1:]), (None, state)):
+    state = torch.zeros(8192, dtype=torch.int32, device=card)
+    for bases, lookback, words in ((state, state[1:], 4096), (None, state, 4096),
+                                   (state, state, 8)):
         with pytest.raises(RuntimeError, match="grs_lookback_scatter"):
             _build.launch("grs_lookback_scatter", keys, keys.data_ptr(), keys.data_ptr(),
-                          out.data_ptr(), out.data_ptr(), None, None, tiles, CFG.tile, 128, 0,
-                          CFG.radix, None, 0, tradix.data_ptr(bases), lookback.data_ptr())
+                          out.data_ptr(), out.data_ptr(), None, None, keys.numel(), 0,
+                          CFG.radix, None, 0, tradix.data_ptr(bases), lookback.data_ptr(), words)
     skipped = torch.zeros(1, dtype=torch.int64, device=card)
-    with pytest.raises(RuntimeError, match="grs_key_bits"):
-        _build.launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), state.data_ptr(),
-                      state[2:].data_ptr(), 4, 8, skipped.data_ptr(), state[64:].data_ptr(),
-                      4096)
+    with pytest.raises(RuntimeError, match="grs_sort_plan"):
+        _build.launch("grs_sort_plan", keys, keys.data_ptr(), keys.numel(), state.data_ptr(),
+                      state[2:].data_ptr(), 4, 8, skipped.data_ptr(), state[2048:].data_ptr(),
+                      4 * 6144)
 
 
 def _sort_input(gen, card, n, high):

@@ -8,6 +8,8 @@ port's tables are (tiles, radix); the JAX package's are padded to 128 lanes,
 so the comparisons take its first ``radix`` columns.
 """
 
+import pathlib
+import re
 import types
 
 import jax.numpy as jnp
@@ -554,7 +556,7 @@ def test_digit_counts_of_no_keys():
     state = tkey_bits.sort_plan(torch.empty(0, dtype=torch.uint32), EngineConfig(),
                                 torch.zeros(1, dtype=torch.int64))
     assert not state.counts.any() and not state.bases.any()
-    assert state.counts.shape == (8, 16) and state.lookback.numel() == 16
+    assert state.counts.shape == (8, 16) and state.lookback.numel() == 8  # the tickets
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4])
@@ -596,15 +598,14 @@ def test_lookback_pass_matches_pallas_interpret(rng):
     _eq(toi, joi)
 
 
-@pytest.mark.parametrize("num_tiles, bits, words", [(0, 4, 16), (1, 4, 416), (16, 4, 656),
-                                                    (33, 4, 1312), (16, 2, 288), (16, 1, 288),
-                                                    (97_657, 4, 2_734_496)])
+@pytest.mark.parametrize("num_tiles, bits, words", [(0, 4, 8), (1, 4, 40), (16, 4, 136),
+                                                    (33, 4, 296), (16, 2, 48), (16, 1, 48),
+                                                    (97_657, 4, 781_288)])
 def test_lookback_scratch_words(num_tiles, bits, words):
-    # One int32 count word a (tile, digit), then a block a pass: a ticket, a
-    # spare word, and for each (group of 32 tiles, digit) a 64-bit sum and a
-    # 32-bit prefix; sort_plan's allocation keeps the counts, the lines the
-    # key read sums them in and that scratch 8-byte aligned and last, where
-    # its launch clears them with one memset.
+    # Two int32 words (a 64-bit status word) a (partition of 4,096 keys,
+    # digit), which every pass reuses, then a ticket a pass; sort_plan's
+    # allocation keeps the counts, the lines the key read sums them in and
+    # that scratch 8-byte aligned and last, where its memset clears them.
     cfg = EngineConfig(radix_bits=bits)
     assert tkey_bits.lookback_words(num_tiles, cfg) == words
     at = tkey_bits.state_layout(num_tiles, cfg)
@@ -616,6 +617,33 @@ def test_lookback_scratch_words(num_tiles, bits, words):
     assert at["lines"] == slice(at["counts"].stop, at["counts"].stop + tkey_bits.COUNT_LINES)
     assert at["lookback"] == slice(at["lines"].stop, at["total"])
     assert at["lookback"].start % 2 == 0 and at["total"] - at["lookback"].start == words
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8])
+@pytest.mark.parametrize("num_tiles", [1, 29, 8_485])
+def test_lookback_partitions_at_ragged_lengths(tile_rows, num_tiles):
+    # A look-back block takes 4,096 keys whatever the tile: the last
+    # partition holds the rest, and the scratch has a status word a
+    # (partition, digit) and a ticket a pass.
+    cfg = EngineConfig(tile_rows=tile_rows)
+    padded = num_tiles * cfg.tile
+    parts = tkey_bits.lookback_partitions(padded)
+    size = tkey_bits.LOOKBACK_PARTITION
+    assert (parts - 1) * size < padded <= parts * size
+    assert tkey_bits.lookback_words(num_tiles, cfg) == 2 * parts * cfg.radix + cfg.num_passes
+    if num_tiles < 100:  # sort_plan allocates it so
+        state = tkey_bits.sort_plan(torch.zeros(padded, dtype=torch.uint32), cfg,
+                                    torch.zeros(1, dtype=torch.int64))
+        assert state.lookback.numel() == 2 * parts * cfg.radix + cfg.num_passes
+
+
+def test_lookback_partition_is_the_kernels():
+    # The scratch is sized on the host for the kernel's partition
+    # (kPartThreads x kPartItems keys); the entry point refuses a shorter one.
+    src = (pathlib.Path(tscatter.__file__).parents[1] / "csrc" / "bucketize_scatter.cu").read_text()
+    consts = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+              for name in ("kPartThreads", "kPartItems")}
+    assert consts["kPartThreads"] * consts["kPartItems"] == tkey_bits.LOOKBACK_PARTITION
 
 
 def test_sort_plan_and_lookback_plain_launch_nothing(rng):
