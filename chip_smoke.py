@@ -47,7 +47,14 @@ in eight phases:
    phase 4: 2^24 keys at radix_bits 1, 4 and 8, the filter's 100,000,000
    keys at radix_bits 1, 4 and 8, and its 1-bit compaction input; key_bits
    and sort_plan, its counts also against numpy, on the 100M buffers the
-   fused sorts of phase 6 reduce and the 2^24 keys);
+   fused sorts of phase 6 reduce and the 2^24 keys); and the fused sort's
+   live route: sort_args (the argument block) against its plain words,
+   sort_plan at a live length and the look-back pass from the input with
+   its rows past the length read as pads and the index made or given,
+   pass by pass as the plan routes them, against their plain versions, at
+   radix_bits 1, 2 and 4 on 4 blocks and at radix 16 on 3,173 partitions,
+   at live lengths inside the last (ragged) partition, in earlier ones and
+   at the ends, the rows past the length stale;
 3. the main path through the public entry points on CUDA tensors:
    ``sort_pairs`` of 1,000,000 shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
@@ -58,11 +65,13 @@ in eight phases:
    graph, the third replaying it) under torch's sync debug mode, which must
    count no host sync at the first sighting and at the replay; the fused
    sorts' skipped passes read from the card's counter between the calls;
-   each method's sorts one window, with every launch count set to 0 before
-   and read after it: the fused sorts must launch sort_plan once a sort and
-   bucketize_scatter_lookback once a pass, and K1, K5, bucketize_scatter,
-   key_bits, bucketize and scatter_runs never; the radix sorts K1, K4 and
-   K5;
+   also ``sort_pairs`` of a 2^21-row key column whose 1,000,000 live rows
+   are followed by stale keys, which the fused sort reads as pads; each
+   method's sorts one window, with every launch count set to 0 before and
+   read after it: the fused sorts must launch sort_args and sort_plan once
+   a sort and bucketize_scatter_lookback once a pass, and K1, K5,
+   bucketize_scatter, key_bits, bucketize and scatter_runs never; the
+   radix sorts K1, K4 and K5 and none of the fused sort's;
 4. the operator path, counts again set to 0 before and read after, every
    result checked exactly against numpy (float means within rtol 1e-5 of a
    float64 oracle): ``filter_table`` of 100,000,000 keys keeping about half,
@@ -77,13 +86,17 @@ in eight phases:
    method's at 1M, 2^22, 2^23, 12M and 2^24, in alternating rounds (CUDA
    events and busy time, the first call's capture time, the bytes the graph
    cache holds;
-   the profile of a replay must name every kernel of the method, and at
-   2^24 the fused sort's device time outside the port's kernels is split
-   by profiler row); the fused sort by look-back against the same sort
-   with the table pass (K1, global_offsets, bucketize_scatter) and the torch
-   method at 1M, 2^24 and 2^26 random keys, each by its own graph cache,
-   in alternating rounds (CUDA events over the bench's chain of sorts, and
-   busy time split by kernel); fused sort against
+   the profile of a replay must name every kernel of the method, the fused
+   sort's profiles must hold no device work but its kernels and memsets,
+   and at 2^24 the fused sort's device time outside the port's kernels is
+   split by profiler row); the fused sort by look-back against the same
+   sort with the table pass (K1, global_offsets, bucketize_scatter, with
+   the index column and re-padding by torch and a graph that copies, as
+   the fused sort ran before its argument block) and the torch method at
+   1M, 2^24 and 2^26 random keys, each by its own graph cache, in
+   alternating rounds (CUDA events over the bench's chain of sorts, and
+   busy time split by kernel, at 2^24 and 2^26 also the look-back sort's
+   device time outside the port's kernels by row); fused sort against
    ``torch.sort(stable=True)`` at 1M and 16M keys (CUDA events, median of
    7 runs after warm-up, and the device's busy time from torch.profiler);
    each kernel of one pass at 1M and 16M beside its plain version (device
@@ -145,6 +158,7 @@ import torch
 from gpuradixsort_tpu_torch.bench import DURATIONS_FILE, chain_for, stage_work
 from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import (
+    Column,
     Table,
     int32_bits,
     make_column,
@@ -156,11 +170,15 @@ from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.key_bits import (
+    ARGS_WORDS,
     LOOKBACK_PARTITION,
+    SortArgs,
     key_bits,
+    live_input,
     pass_mask,
     pass_plan,
     plan_of_mask,
+    sort_args,
     sort_plan,
 )
 from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
@@ -198,6 +216,11 @@ PAYLOAD_COLS = 16
 
 # name: (wrapper, source, TPU kernel it replaces, its __global__ functions)
 KERNELS = {
+    # The fused sort's argument block: its input, live length and result on
+    # the card, which stand for the JAX package's index column and re-padding.
+    "sort_args": (sort_args, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
+                  "gpuradixsort_tpu/ops/sort.py:193 and gpuradixsort_tpu/ops/sort.py:246",
+                  ("sort_args_kernel",)),
     # The fused sort's key read: the plan and every pass's digit counts and
     # bases, which the JAX package sums from K1 in every pass.
     "sort_plan": (sort_plan, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
@@ -232,10 +255,11 @@ KERNELS = {
     "key_bits": (key_bits, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
                  "gpuradixsort_tpu/ops/sort.py:83", ("key_bits_kernel", "pass_plan_kernel")),
 }
-# The kernels each sort method runs.  A fused sort reads its keys once in
-# sort_plan and runs the look-back pass in every pass; K1, K5, the table pass,
-# the plain key_bits, K2 and K3 run on none of its path.
-FUSED_PATH = ("sort_plan", "bucketize_scatter_lookback")
+# The kernels each sort method runs.  A fused sort writes its argument block,
+# reads its keys once in sort_plan and runs the look-back pass in every pass;
+# K1, K5, the table pass, the plain key_bits, K2 and K3 run on none of its
+# path.
+FUSED_PATH = ("sort_args", "sort_plan", "bucketize_scatter_lookback")
 RADIX_PATH = ("radix_hist", "radix_dest", "exclusive_scan")
 OFF_FUSED = tuple(name for name in KERNELS if name not in FUSED_PATH)
 OFF_PATH = ("bucketize", "scatter_runs", "bucketize_scatter", "key_bits")  # on no path
@@ -335,6 +359,7 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     check_scan_lengths(dev, rng, errs)
     check_key_bits(dev, rng, errs)
     check_plan_routing(dev, errs)
+    check_live_route(dev, rng, errs)
     torch.cuda.synchronize()
 
 
@@ -451,12 +476,14 @@ def numpy_digit_counts(keys: np.ndarray, cfg) -> np.ndarray:
     return out
 
 
-def check_sort_plan(keys: torch.Tensor, cfg, errs: dict, where: str, host=None) -> None:
-    """sort_plan's plan, counts and bases against its plain version; with ``host``
-    (the keys on the host) its counts also against numpy."""
+def check_sort_plan(keys: torch.Tensor, cfg, errs: dict, where: str, host=None,
+                    length=None) -> None:
+    """sort_plan's plan, counts and bases at a live ``length`` (all keys by default)
+    against its plain version; with ``host`` (the re-padded keys on the host) its counts
+    also against numpy."""
     counters = [torch.zeros(1, dtype=torch.int64, device=keys.device) for _ in range(2)]
-    got = sort_plan(keys, cfg, counters[0], impl="cuda")
-    want = sort_plan(keys, cfg, counters[1], impl="reference")
+    got = sort_plan(keys, cfg, counters[0], impl="cuda", length=length)
+    want = sort_plan(keys, cfg, counters[1], impl="reference", length=length)
     err = max(*map(max_abs_err, got[:3], want[:3]), max_abs_err(*counters))
     if host is not None:
         err = max(err, max_abs_err(got.counts.cpu(),
@@ -519,6 +546,87 @@ def check_key_bits(dev, rng, errs: dict) -> None:
                     check_sort_plan(keys, cfg, errs, f"radix_bits={bits}, length {n}, {kind}, "
                                     f"{keys.data_ptr() % 16} bytes off a 16-byte boundary",
                                     host=buf[off:off + n])
+
+
+def stale_keys(rng, n: int) -> np.ndarray:
+    """n random keys, 5% of them PAD_KEY: past a live length they stand for stale rows."""
+    keys = rng.integers(0, 2**32, n, dtype=np.uint32)
+    keys[rng.random(n) < 0.05] = np.uint32(PAD_KEY)
+    return keys
+
+
+def check_live_sort(keys, idx, length: int, cfg, errs: dict, where: str) -> None:
+    """One fused sort's kernels on its live route against their plain versions.
+
+    The argument block of (keys, idx, R, length) against its plain words;
+    sort_plan at the length (plan, counts, bases, skipped passes); every
+    look-back pass as the plan routes it, reading the input's rows past the
+    length as pads and making the index where ``idx`` is None, on copies of
+    R and S; R against a stable torch.sort of the re-padded input.
+    """
+    pairs = tuple((torch.zeros_like(keys), torch.zeros_like(keys)) for _ in range(2))
+    args = SortArgs(keys, idx, pairs[0], length)
+    block = sort_args(args)
+    err = max_abs_err(block.cpu(), sort_args(args, impl="reference").cpu())
+    errs["sort_args"] = max(errs["sort_args"], err)
+    if err:
+        check(False, f"sort_args == plain, {where}")
+    counters = [torch.zeros(1, dtype=torch.int64, device=keys.device) for _ in range(2)]
+    state = sort_plan(keys, cfg, counters[0], length=length, block=block)
+    ref = sort_plan(keys, cfg, counters[1], impl="reference", length=length)
+    err = max(*map(max_abs_err, state[:3], ref[:3]), max_abs_err(*counters))
+    errs["sort_plan"] = max(errs["sort_plan"], err)
+    if err:
+        check(False, f"sort_plan at a live length == plain, {where}")
+    for p in range(cfg.num_passes):
+        want = tuple(tuple(t.clone() for t in pair) for pair in pairs)
+        bucketize_scatter_lookback(keys, idx, cfg, state, p, pairs, length=length, block=block)
+        bucketize_scatter_lookback(keys, idx, cfg, ref, p, want, impl="reference", length=length)
+        err = max(max_abs_err(g, w) for got, w_pair in zip(pairs, want)
+                  for g, w in zip(got, w_pair))
+        errs["bucketize_scatter_lookback"] = max(errs["bucketize_scatter_lookback"], err)
+        if err:
+            check(False, f"bucketize_scatter_lookback at a live length == plain, {where}, "
+                  f"pass {p}")
+    live_keys, live_idx = live_input(keys, idx, length)
+    order = torch.sort(int32_bits(live_keys).to(torch.int64) & 0xFFFFFFFF, stable=True).indices
+    if not same_bits(pairs[0], (int32_bits(live_keys)[order], int32_bits(live_idx)[order])):
+        check(False, f"the live route's passes sort the re-padded input stably into R, {where}")
+
+
+def check_live_route(dev, rng, errs: dict) -> None:
+    """The fused sort's kernels on the live route (``check_live_sort``) at ragged lengths.
+
+    4 blocks at radix_bits 1, 2 and 4, live lengths 0, 1, a tile less one,
+    one partition of 4,096 keys, one inside the fourth partition, one inside
+    the last and all; at radix 16 MANY_PARTITIONS partitions, the last
+    ragged, live lengths inside the first, an earlier and the last
+    partition and all.  The rows past each length hold stale keys (5%
+    PAD_KEY, as the live ones); the index made, and given as a permutation.
+    """
+    part = LOOKBACK_PARTITION
+    cases = []
+    for bits in (1, 2, 4):
+        cfg = EngineConfig(radix_bits=bits)
+        n = 4 * cfg.block
+        cases += [(cfg, n, length) for length in (0, 1, cfg.tile - 1, part, 3 * part + 17,
+                                                  n - 5, n)]
+    cfg = EngineConfig()
+    n = MANY_PARTITIONS * part - 3 * cfg.tile  # the last partition holds 1,024 keys
+    cases += [(cfg, n, length) for length in (1000, n - part - 100, n - 5, n)]
+    for cfg, n, length in cases:
+        keys = torch.from_numpy(stale_keys(rng, n)).to(dev)
+        perm = torch.from_numpy(rng.permutation(n).astype(np.uint32)).to(dev)
+        for idx in (None, perm):
+            check_live_sort(keys, idx, length, cfg, errs,
+                            f"radix_bits={cfg.radix_bits}, {n} keys, {length} live, index "
+                            f"{'made' if idx is None else 'given'}")
+        del keys, perm
+    check(True, f"sort_args, sort_plan and bucketize_scatter_lookback on the live route == "
+          f"their plain versions at radix_bits 1, 2, 4 on {4 * EngineConfig().block} keys and "
+          f"radix 16 on {MANY_PARTITIONS} partitions, {len(cases)} live lengths, stale rows, "
+          f"index made and given; R sorted")
+    torch.cuda.empty_cache()
 
 
 # More tiles than 64 warps on each of the H100's 132 SMs hold at once, the
@@ -805,12 +913,13 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     and 8, and the filter's 1-bit compaction of them (digit 0 = kept), made
     as filter_table makes it.  key_bits, also against numpy: the 100M padded
     buffers the fused sorts of phase 6 reduce (the filter's keys, its
-    survivors' with the pads re-asserted, the group-by's keys) and the 2^24 keys.
+    survivors' buffer at their live length, its rows past it stale, the
+    group-by's keys) and the 2^24 keys; key_bits of each re-padded buffer.
     """
-    buffers = {"filter keys": tables["filter"]["key"].data,
-               "filter survivors": sort_ops._as_key_column(tables["kept"], cfg).data,
-               "group-by keys": tables["group"]["key"].data, "2^24 keys": tables["r16m"].data}
-    for where, keys in buffers.items():
+    columns = {"filter keys": tables["filter"]["key"], "filter survivors": tables["kept"],
+               "group-by keys": tables["group"]["key"], "2^24 keys": tables["r16m"]}
+    for where, col in columns.items():
+        keys = sort_ops._repadded(col).data
         host_keys = keys.cpu().numpy()
         want = torch.from_numpy(np.array([np.bitwise_and.reduce(host_keys),
                                           np.bitwise_or.reduce(host_keys)], dtype=np.uint32))
@@ -819,9 +928,11 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
                   max_abs_err(got.cpu(), want))
         errs["key_bits"] = max(errs["key_bits"], err)
         check(err == 0, f"key_bits == plain == numpy, {where}, {keys.numel()} padded rows")
-        check_sort_plan(keys, cfg, errs, f"{where}, {keys.numel()} padded rows", host=host_keys)
+        del keys
+        check_sort_plan(col.data, cfg, errs, f"{where}, {col.padded_length} padded rows, "
+                        f"{col.length} live", host=host_keys, length=col.length)
         del host_keys
-    del buffers
+    del columns
     keys16m = tables["r16m"].data
     flt = tables["filter"]
     padded = flt["key"].padded_length
@@ -887,8 +998,10 @@ def phase_main_path(dev, rng, cfg) -> dict:
         "key": make_key_column(table_keys, cfg, device=dev),
         **{f"p{j}": make_column(payload[:, j], cfg, device=dev) for j in range(PAYLOAD_COLS)},
     })
+    stale = stale_keys(rng, 1 << 21)  # 1M live rows, then stale ones
+    stale_name = "1M random live in a 2^21 buffer, stale rows past them"
     sets = {"1M shuffled": perm_1m, "2^20 shuffled": perm_2e20,
-            "2^24 random with duplicates": dup_16m}
+            "2^24 random with duplicates": dup_16m, stale_name: stale[:N_HEADLINE]}
     torch.cuda.synchronize()
 
     # Each sort three times by each method: the first sighting of its shape
@@ -902,7 +1015,8 @@ def phase_main_path(dev, rng, cfg) -> dict:
     # method's sorts are one window (the fused method's with sort_table):
     # the counts are set to 0 before and read after it.
     cols = {name: make_key_column(keys_np, cfg, device=dev) for name, keys_np in sets.items()}
-    want = {name: cfg.num_passes - bin(pass_mask(col.data, cfg)).count("1")
+    cols[stale_name] = Column(torch.from_numpy(stale).to(dev), N_HEADLINE)
+    want = {name: cfg.num_passes - bin(pass_mask(sort_ops._repadded(col).data, cfg)).count("1")
             for name, col in cols.items()}
     results, syncs, replays, windows = {}, {}, {}, {}
     table_out = {}
@@ -966,13 +1080,13 @@ def phase_main_path(dev, rng, cfg) -> dict:
     log("launches, fused sorts' window: " + ", ".join(f"{k} {v}" for k, v in fused.items()))
     log("launches, radix sorts' window: " + ", ".join(f"{k} {v}" for k, v in radix.items()))
     sorts = fused["sort_plan"]  # one key read a fused sort
-    check(sorts == 3 * len(sets) + len(CALLS)
+    check(sorts == 3 * len(sets) + len(CALLS) and fused["sort_args"] == sorts
           and fused["bucketize_scatter_lookback"] == cfg.num_passes * sorts
           and all(fused[name] == 0 for name in OFF_FUSED),
-          f"the {sorts} fused sorts launched sort_plan once each, bucketize_scatter_lookback "
-          f"{fused['bucketize_scatter_lookback']} times, once a pass (a skipped pass's launch "
-          "exits at once), and " + ", ".join(f"{name} {fused[name]}" for name in OFF_FUSED)
-          + " times")
+          f"the {sorts} fused sorts launched sort_args and sort_plan once each, "
+          f"bucketize_scatter_lookback {fused['bucketize_scatter_lookback']} times, once a pass "
+          "(a skipped pass's launch exits at once), and "
+          + ", ".join(f"{name} {fused[name]}" for name in OFF_FUSED) + " times")
     for name in RADIX_PATH:
         check(radix[name] > 0, f"{name} launched {radix[name]} times by the radix sorts")
     check(all(radix[name] == 0 for name in FUSED_PATH + OFF_PATH),
@@ -1316,8 +1430,10 @@ def graph_ab_method(method: str, sizes, dev, rng, cfg, card: str) -> None:
             torch.cuda.empty_cache()
             cache_mb = (held - torch.cuda.memory_reserved(dev)) / 2**20
             fns["graphed"]()  # seen, then captured again for the rounds
-            fns["graphed"]()
-            # The graph's replay alone: no copies in or out.
+            # The graph's replay alone: no argument block or copies.  The
+            # last call's result is held, so that the block it left names
+            # live buffers.
+            held = fns["graphed"]()
             replay = next(iter(sort_ops._SORT_GRAPHS.values())).graph.replay
             ms = ab_per_call_ms({**fns, "replay alone": replay})
             parts = [f"replay alone {ms['replay alone']:.4f} ms"]
@@ -1335,6 +1451,11 @@ def graph_ab_method(method: str, sizes, dev, rng, cfg, card: str) -> None:
                     check(all(k in ours for k in path),
                           f"{method} {label}: every kernel of the sort named in the profile of "
                           "a replay")
+                if method == "fused":  # a memset shows as "memset32" inside a graph
+                    other = [row for row in rows
+                             if not _kernel_name(row) and "memset" not in row.lower()]
+                    check(not other, f"fused {label} {name}: no device work but the port's "
+                          f"kernels and memsets (other rows: {other or 'none'})")
                 if method == "fused" and label == "2^24":
                     log(f"  fused 2^24 {name}: device ms a sort outside the port's kernels, by "
                         f"profiler row: {glue_split(rows)}")
@@ -1342,7 +1463,7 @@ def graph_ab_method(method: str, sizes, dev, rng, cfg, card: str) -> None:
             f"first calls: " + ", ".join(f"{call} {t:.2f}" for call, t in zip(CALLS, calls_ms))
             + f"; graph cache holds {cache_mb:.1f} MiB; CUDA events, median of 16 in "
             f"alternating rounds: " + "; ".join(parts))
-        del col, fns
+        del col, fns, held
         sort_ops.clear_sort_graphs()
         torch.cuda.empty_cache()
 
@@ -1364,6 +1485,25 @@ def offsets_passes(keys: torch.Tensor, idx: torch.Tensor, cfg, skipped: torch.Te
     return buffers[0]
 
 
+def table_pass_sort(col: Column, cfg):
+    """sort_pairs of ``col`` by the table pass, as the fused sort ran before its argument block.
+
+    The re-padding and the index column by torch, then ``offsets_passes``,
+    as a graph that copies its input in and its outputs out (the radix
+    method's ``_RadixGraph``) where the shape recurs.  The A/B's other side.
+    """
+    skipped = sort_ops._skip_counter(col.device)
+
+    def run(data):
+        padded = Column(data, col.length)
+        return offsets_passes(sort_ops._repadded(padded).data, sort_ops._index_column(padded), cfg,
+                              skipped)
+
+    inputs = (col.data,)
+    graph = sort_ops._graph_of("table pass", inputs, cfg, lambda: sort_ops._RadixGraph(run, inputs))
+    return run(*inputs) if graph is None else graph(*inputs)
+
+
 PASS_AB_SIZES = (("1M", N_HEADLINE), ("2^24", 1 << 24), ("2^26", 1 << 26))
 
 
@@ -1374,10 +1514,13 @@ def pass_ab(dev, rng, cfg, card: str) -> None:
     key read, then the look-back pass), by the fused sort with
     ``offsets_passes`` swapped in (K1, offsets and the table-reading pass),
     and by the ``torch`` method, each as a user runs it: a cached graph of
-    its own at up to GRAPH_MAX_PADDED keys, eager above.  Outputs equal;
-    CUDA events ms a sort over the bench's chain of back-to-back sorts,
-    median of 16 in alternating rounds; the profiler's busy time a sort,
-    split by the port's kernels.
+    its own at up to GRAPH_MAX_PADDED keys, eager above.  The table pass
+    side (``table_pass_sort``) re-pads and makes the index with torch, as
+    the fused sort did before its argument block.  Outputs equal; CUDA
+    events ms a sort over the bench's chain of back-to-back sorts, median
+    of 16 in alternating rounds; the profiler's busy time a sort, split by
+    the port's kernels, and at 2^24 and 2^26 the look-back sort's device
+    time outside the port's kernels by profiler row.
     """
     log(f"fused sort_pairs, the look-back pass against the table pass (K1, offsets, "
         f"bucketize_scatter), beside the torch method ({card})")
@@ -1393,14 +1536,14 @@ def pass_ab(dev, rng, cfg, card: str) -> None:
                     stack.enter_context(mock.patch.object(sort_ops, "_SORT_GRAPHS", graphs))
                     stack.enter_context(mock.patch.object(sort_ops, "_SEEN", seen))
                     if name == "table pass":
-                        stack.enter_context(mock.patch.object(sort_ops, "_fused_passes",
-                                                              offsets_passes))
+                        return table_pass_sort(col, cfg)
                     return sort_pairs(col, cfg, method="fused")
             return run
 
         fns = {name: fused_by(name) for name in caches}
         fns["torch"] = lambda: sort_pairs(col, cfg, method="torch")
-        outs = {name: column_data(fn()) for name, fn in fns.items()}
+        outs = {name: column_data(fn()) if name != "table pass" else list(fn())
+                for name, fn in fns.items()}
         check(same_bits(outs["look-back pass"], outs["table pass"])
               and same_bits(outs["look-back pass"], outs["torch"]),
               f"pass A/B {label}: both fused passes and the torch method give one result")
@@ -1419,6 +1562,9 @@ def pass_ab(dev, rng, cfg, card: str) -> None:
             if name != "torch":
                 split += f", other {busy - sum(ours.values()):.4f}"
             parts.append(f"{name} {ms[name]:.4f} ms (device busy {busy:.4f} ms{how}{split})")
+            if name == "look-back pass" and label != "1M":
+                log(f"  fused {label} ({how[2:]}): device ms a sort outside the port's kernels, "
+                    f"by profiler row: {glue_split(rows)}")
         log(f"time pass A/B {label} ({col.padded_length} padded keys, {card}): CUDA events ms a "
             f"sort over {calls} back-to-back sorts, median of 16 in alternating rounds; "
             + "; ".join(parts))
@@ -1454,8 +1600,7 @@ def graph_traffic(dev, rng, cfg, card: str) -> None:
             recurring * RECURRENCES,
     }
     for label, cols in traffic.items():
-        shapes = {sort_ops.graph_key("fused", (c.data, sort_ops._index_column(c)), cfg)
-                  for c in cols}
+        shapes = {sort_ops.graph_key("fused", (c.data,), cfg) for c in cols}
 
         def run(how: str) -> float:
             sort_ops.clear_sort_graphs()
@@ -1540,7 +1685,11 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         padded = keys.numel()
         counts = torch.randint(0, 100, (padded,), dtype=torch.int32, device=dev)
         skipped = torch.zeros(1, dtype=torch.int64, device=dev)
-        state = sort_plan(keys, cfg, skipped)
+        # One argument block serves sort_plan's calls, as a sort writes one a sort;
+        # the look-back pass's device time is its kernel's own.
+        args = SortArgs(keys, idx, (torch.empty_like(keys), torch.empty_like(keys)), padded)
+        block = sort_args(args)
+        state = sort_plan(keys, cfg, skipped, block=block)
 
         def lookback(impl: str):
             def run():  # a pass index serves one launch: clear its scratch first
@@ -1551,7 +1700,9 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         # name: (kernel, plain, one library call of the same function or None);
         # the bytes each must move and operations it must do are stage_work's.
         stage = {
-            "sort_plan": (lambda: sort_plan(keys, cfg, skipped, impl="cuda"),
+            "sort_args": (lambda: sort_args(args, block), lambda: sort_args(args, impl="reference"),
+                          None),
+            "sort_plan": (lambda: sort_plan(keys, cfg, skipped, impl="cuda", block=block),
                           lambda: sort_plan(keys, cfg, skipped, impl="reference"), None),
             "bucketize_scatter_lookback": (lookback("cuda"), lookback("reference"), None),
             "radix_hist": (lambda: rk.tile_histograms(keys, 0, cfg, impl="cuda"),
@@ -1680,6 +1831,7 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
             f"({by}); share of bound {share}")
         skipped = torch.zeros(1, dtype=torch.int64, device=dev)
         bound_ms, by = bound_of(*work["sort_plan"])
+        block = torch.empty(ARGS_WORDS, dtype=torch.int64, device=dev)
         for kind in ("random", "skewed", "equal"):
             if kind == "skewed":  # one key, so one digit of every pass, holds 99%
                 keys = torch.where(torch.rand(padded, device=dev) < 0.99,
@@ -1688,8 +1840,10 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
             elif kind == "equal":
                 keys = torch.full((padded,), 0x5A5A5A5A, dtype=torch.int32,
                                   device=dev).view(torch.uint32)
-            turns = [1e3 * profiled_device_ms(lambda: sort_plan(keys, EngineConfig(), skipped),
-                                              calls=20)[0] for _ in range(3)]
+            sort_args(SortArgs(keys, None, (None, None), padded), block)
+            turns = [1e3 * profiled_device_ms(
+                lambda: sort_plan(keys, EngineConfig(), skipped, block=block), calls=20)[0]
+                for _ in range(3)]
             us = median_measured(turns)
             share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
             log(f"  sort_plan ({kind} keys) @ {label} ({padded} keys): {us:.2f} us (turns "

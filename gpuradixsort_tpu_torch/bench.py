@@ -64,9 +64,12 @@ from gpuradixsort_tpu_torch.core.table import int32_bits, pad_to_tile
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.key_bits import (
+    ARGS_WORDS,
     COUNT_LINES,
+    SortArgs,
     lookback_partitions,
     lookback_words,
+    sort_args,
     sort_plan,
 )
 from gpuradixsort_tpu_torch.kernels.scatter import (
@@ -194,7 +197,8 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
     that reads the table; ``sort_plan`` reads the keys and writes the AND
     and OR, the plan, every pass's digit counts and bases, and the cleared
     lines it sums the counts in and look-back scratch of every pass, and
-    adds a counter a pass to each key;
+    adds a counter a pass to each key; ``sort_args`` writes the argument
+    block from its launch's arguments;
     ``gather_rows`` moves a row of ``PAYLOAD_COLS`` int32 through a 4-byte
     index.
     """
@@ -203,6 +207,7 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
     status = 8 * cfg.radix * lookback_partitions(padded)  # one pass's status words
     passes = cfg.num_passes
     return {
+        "sort_args": (8 * ARGS_WORDS, 0),
         "sort_plan": (4 * padded + 8 + 4 * passes * (1 + 2 * cfg.radix)
                       + 4 * (COUNT_LINES + lookback_words(tiles, cfg)), (2 + passes) * padded),
         "bucketize_scatter_lookback": (16 * padded + 2 * status, 6 * padded),
@@ -248,13 +253,15 @@ def stage_table(keys: torch.Tensor, cfg: EngineConfig, timed: bool) -> list[dict
     each stage runs once.  The gather takes the fused sort's permutation of
     these keys, as the table sort does.  A look-back launch needs its pass's
     scratch clear, which a sort's ``sort_plan`` does once; here each launch
-    clears it first, so its events include that fill and its device time
-    is the kernel's own.
+    clears it first (and writes its argument block), so its events include
+    that fill and its device time is the kernel's own.  ``sort_plan`` reads
+    one argument block, written before, as a sort writes one a sort.
     """
     padded = keys.numel()
     idx = iota(padded, keys.device)
     skipped = torch.zeros(1, dtype=torch.int64, device=keys.device)
-    state = sort_plan(keys, cfg, skipped)
+    block = sort_args(SortArgs(keys, None, (None, None), padded))
+    state = sort_plan(keys, cfg, skipped, block=block)
     hist = rk.tile_histograms(keys, 0, cfg)
     offsets = rk.global_offsets(hist)
     bk, bi = bucketize_tiles(keys, idx, 0, cfg)
@@ -266,7 +273,7 @@ def stage_table(keys: torch.Tensor, cfg: EngineConfig, timed: bool) -> list[dict
         return bucketize_scatter_lookback(keys, idx, cfg, state, 0)
 
     fns = {
-        "sort_plan": lambda: sort_plan(keys, cfg, skipped),
+        "sort_plan": lambda: sort_plan(keys, cfg, skipped, block=block),
         "bucketize_scatter_lookback": lookback,
         "radix_hist": lambda: rk.tile_histograms(keys, 0, cfg),
         "global_offsets": lambda: rk.global_offsets(hist),

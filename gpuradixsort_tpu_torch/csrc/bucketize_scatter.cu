@@ -77,6 +77,19 @@
 // earlier pass left read as not ready; the sort clears the words and the
 // tickets once, in key_bits.cu's memset, before its first pass, so a graph's
 // replay reads none of the last sort's.
+//
+// The look-back route reads the sort's input and writes its result R where
+// the sort's argument block (warp.cuh's SortArgs, written before each sort
+// by key_bits.cu's grs_sort_args) says; only the scratch S is a parameter.
+// So one graph serves every call of a shape: the caller's keys are read
+// where they lie and R is the caller's own.  Where a pass reads the input,
+// its rows at or past the block's live length are pad rows, read as
+// PAD_KEY with index PAD_INDEX, and where the block names no index the
+// pass makes it, element e's index e: the JAX package's jnp.where
+// re-padding and jnp.arange index (gpuradixsort_tpu/ops/sort.py:193-194,
+// :246-247), with no pass over the buffer.  Pad rows are real rows,
+// counted, ranked and placed; rows past the ragged partition's end are not
+// (see lookback_scatter_kernel).
 
 // Buffers: a launch reads (keys, idx) from buffer `source` and writes buffer
 // `destination` of {input, out, scratch}.  Without a plan it reads the input
@@ -130,6 +143,14 @@ struct Pair {
 __device__ __forceinline__ Pair buffer(const Buffers& b, int i) {
   return i == 0 ? Pair{b.keys[0], b.idx[0]}
                 : (i == 1 ? Pair{b.keys[1], b.idx[1]} : Pair{b.keys[2], b.idx[2]});
+}
+
+// Buffer i of a sort on the look-back route: the input and the result R
+// from its argument block (the block's copy in shared memory), the scratch
+// S from the launch.
+__device__ __forceinline__ Pair sort_buffer(const grs::SortArgs& args, Pair scratch, int i) {
+  return i == 0 ? Pair{const_cast<uint32_t*>(args.keys), const_cast<uint32_t*>(args.idx)}
+                : (i == 1 ? Pair{args.out_keys, args.out_idx} : scratch);
 }
 
 // The look-back route's words.  bases: every pass's digit bases
@@ -231,35 +252,64 @@ __device__ uint32_t look_back(const LookBack& lb, int pass, int64_t part, int la
 // Keys past the buffer's end load as all-ones, so they rank last, in the
 // last digit, behind every key of the partition; that digit's published
 // count leaves them out, and the place step stores no slot past the valid
-// keys.
+// keys.  Pad rows of the input, from the live length to n, also load as
+// all-ones (PAD_KEY); they come before the rows past the end in element
+// order, so they rank before them, and are counted and placed.
 template <int kBits>
 __global__ void __launch_bounds__(kPartThreads, kPartBlocks)
-    lookback_scatter_kernel(Buffers b, const int32_t* __restrict__ plan, int pass, int n,
-                            int shift, LookBack lb) {
+    lookback_scatter_kernel(const grs::SortArgs* __restrict__ args, Pair scratch,
+                            const int32_t* __restrict__ plan, int pass, int n, int shift,
+                            LookBack lb) {
   constexpr int kRadix = 1 << kBits;
   constexpr uint32_t kMask = kRadix - 1u;
   __shared__ uint32_t sk[kPartition], sv[kPartition];  // the staged partition
   __shared__ int warp_start[kPartWarps][kRadix];  // each warp's counts, then its staging bases
   __shared__ int delta[kRadix];  // run r's offset in the output less its start in the staging
   __shared__ unsigned ticket;
+  // The argument block, read once a block.  Its pointers are read from
+  // here where they are used: loaded from device memory by every thread,
+  // the compiler re-loads them before each use under the register bound
+  // and each element's load waits on one (the pass took 255 us at 2^24
+  // keys on the H100, not 132; PERF.md, Findings), where kernel parameters
+  // cost no such wait.
+  __shared__ grs::SortArgs sort_args;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const grs::Route route = grs::plan_route(plan, pass);
   if (route.source < 0) return;  // the whole block, before any barrier
-  if (threadIdx.x == 0) ticket = atomicAdd(lb.tickets + pass, 1u);
+  if (threadIdx.x == 0) {
+    ticket = atomicAdd(lb.tickets + pass, 1u);
+    sort_args = *args;
+  }
   __syncthreads();
   const int64_t part = ticket;
   const int64_t first = part * kPartition;
   const int valid = n - first < kPartition ? static_cast<int>(n - first) : kPartition;
-  const Pair in = buffer(b, route.source), out = buffer(b, route.destination);
+  const Pair in = sort_buffer(sort_args, scratch, route.source);
+  // Rows below `live` are loaded; the input's rows from its length on are
+  // pads.  Where the block names no index, the input's is made.  One loop
+  // each way: a select between the made and the loaded index inside one
+  // loop compiled to branches around the loads (91 in the kernel, not 30),
+  // and the pass took about 4% longer on the H100 (PERF.md, Findings).
+  const int64_t live_rows = route.source == 0 ? sort_args.length - first : valid;
+  const int live = live_rows <= 0 ? 0 : (live_rows < valid ? static_cast<int>(live_rows) : valid);
 
   uint32_t k[kPartItems], v[kPartItems];
   const int e0 = warp * 32 * kPartItems + lane;  // the lane's first element
+  if (in.idx == nullptr) {
 #pragma unroll
-  for (int j = 0; j < kPartItems; ++j) {
-    const int e = e0 + 32 * j;
-    k[j] = e < valid ? grs::load_global(in.keys + first + e) : ~0u;
-    v[j] = e < valid ? grs::load_global(in.idx + first + e) : 0u;
+    for (int j = 0; j < kPartItems; ++j) {
+      const int e = e0 + 32 * j;
+      k[j] = e < live ? grs::load_global(in.keys + first + e) : grs::kPadKey;
+      v[j] = e < live ? static_cast<uint32_t>(first + e) : grs::kPadIndex;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPartItems; ++j) {
+      const int e = e0 + 32 * j;
+      k[j] = e < live ? grs::load_global(in.keys + first + e) : grs::kPadKey;
+      v[j] = e < live ? grs::load_global(in.idx + first + e) : grs::kPadIndex;
+    }
   }
   int slot[kPartItems];
   const int count = grs::warp_ranks<kBits>(k, shift, lane, slot);
@@ -312,6 +362,7 @@ __global__ void __launch_bounds__(kPartThreads, kPartBlocks)
     k[j] = grs::load_generic(sk + s);
     v[j] = grs::load_generic(sv + s);
   }
+  const Pair out = sort_buffer(sort_args, scratch, route.destination);
 #pragma unroll
   for (int j = 0; j < kPartItems; ++j) {
     const int s = threadIdx.x + kPartThreads * j;
@@ -429,7 +480,8 @@ Kernel table_kernel(bool fast, int bits) {
   }
 }
 
-using LookBackKernel = void (*)(Buffers, const int32_t*, int, int, int, LookBack);
+using LookBackKernel = void (*)(const grs::SortArgs*, Pair, const int32_t*, int, int, int,
+                               LookBack);
 
 LookBackKernel lookback_kernel(int bits) {
   switch (bits) {
@@ -444,12 +496,16 @@ bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// The checks both entry points share: radix, the buffers' alignment and a
-// plan's scratch.
+bool valid_radix(int radix) {
+  return radix >= 2 && radix <= kMaxRadix && (radix & (radix - 1)) == 0;
+}
+
+// The table route's checks: radix, the buffers' alignment and a plan's
+// scratch.
 bool valid_pass(const void* const (&buffers)[6], int radix, const void* plan, int pass) {
   bool words = true;
   for (const void* p : buffers) words = words && aligned(p, 4);
-  return radix >= 2 && radix <= kMaxRadix && (radix & (radix - 1)) == 0 && words &&
+  return valid_radix(radix) && words &&
          (plan == nullptr || (pass >= 0 && buffers[4] != nullptr && buffers[5] != nullptr));
 }
 
@@ -508,25 +564,31 @@ extern "C" int grs_bucketize_scatter(const void* keys, const void* idx, const vo
 }
 
 // The same pass with its run offsets by look-back (no offsets table), one
-// block of kPartThreads a partition of kPartition keys.  keys, idx, out_*,
-// scratch_*, radix, plan and pass as grs_bucketize_scatter's; n: the keys,
-// 0 <= n <= INT_MAX.  bases: (num_passes, radix) int32, every pass's digit
-// bases over the input (key_bits.cu); this launch starts digit r's run at
-// bases[pass, r].  lookback: lookback_words uint32, 8-byte aligned: a
-// 64-bit status word a (partition, digit), ceil(n / kPartition) x radix of
-// them, then a ticket a pass.  This pass's ticket must be zero and the
-// status words must hold no tag of this pass (the sort clears them all
-// before its first pass), so each pass index serves one launch.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int grs_lookback_scatter(const void* keys, const void* idx, void* out_keys,
-                                    void* out_idx, void* scratch_keys, void* scratch_idx,
+// block of kPartThreads a partition of kPartition keys.  args: the sort's
+// argument block (key_bits.cu's grs_sort_args, 8-byte aligned): the input
+// (buffer 0), its live length and the result R (buffer 1), each n uint32;
+// scratch_keys, scratch_idx: null, or the sort's scratch S (buffer 2), of
+// the same length; no two of the buffers overlap.  radix, plan and pass as
+// grs_bucketize_scatter's; without a plan the launch reads the input and
+// writes R.  n: the padded keys, 0 <= n <= INT_MAX.  bases: (num_passes,
+// radix) int32, every pass's digit bases over the input with its pads
+// (key_bits.cu); this launch starts digit r's run at bases[pass, r].
+// lookback: lookback_words uint32, 8-byte aligned: a 64-bit status word a
+// (partition, digit), ceil(n / kPartition) x radix of them, then a ticket a
+// pass.  This pass's ticket must be zero and the status words must hold no
+// tag of this pass (the sort clears them all before its first pass), so
+// each pass index serves one launch.  Returns cudaGetLastError() after the
+// launch.
+extern "C" int grs_lookback_scatter(const void* args, void* scratch_keys, void* scratch_idx,
                                     int64_t n, int shift, int radix, const void* plan, int pass,
                                     const void* bases, void* lookback, int64_t lookback_words,
                                     void* stream) {
-  const void* const buffers[] = {keys, idx, out_keys, out_idx, scratch_keys, scratch_idx};
   const int64_t parts = (n + kPartition - 1) / kPartition;
-  if (!valid_pass(buffers, radix, plan, pass) || n < 0 || n > INT_MAX || pass < 0 ||
-      bases == nullptr || !aligned(bases, 4) || lookback == nullptr || !aligned(lookback, 8) ||
+  if (args == nullptr || !aligned(args, 8) || !aligned(scratch_keys, 4) ||
+      !aligned(scratch_idx, 4) || !valid_radix(radix) ||
+      (plan != nullptr && (scratch_keys == nullptr || scratch_idx == nullptr)) || n < 0 ||
+      n > INT_MAX || pass < 0 || bases == nullptr || !aligned(bases, 4) ||
+      lookback == nullptr || !aligned(lookback, 8) ||
       lookback_words < 2 * parts * radix + pass + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -537,7 +599,8 @@ extern "C" int grs_lookback_scatter(const void* keys, const void* idx, void* out
   const int bits = __builtin_ctz(static_cast<unsigned>(radix));
   lookback_kernel(bits)<<<static_cast<unsigned>(parts), kPartThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      buffers_of(buffers), static_cast<const int32_t*>(plan), pass, static_cast<int>(n), shift,
-      lb);
+      static_cast<const grs::SortArgs*>(args),
+      Pair{static_cast<uint32_t*>(scratch_keys), static_cast<uint32_t*>(scratch_idx)},
+      static_cast<const int32_t*>(plan), pass, static_cast<int>(n), shift, lb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,9 +49,25 @@
 //     reads the sums and writes the AND and the OR, the counts, the plan
 //     and each pass's bases.  So a sort's plan is one memset (the lines and
 //     the look-back's scratch) and one kernel on the stream.
+//   - it reads only the live keys: their address and their number come
+//     from the sort's argument block (warp.cuh's SortArgs), so a graph's
+//     replay reads the caller's keys where they lie, and the 16-byte
+//     aligned head is found from that address on the card.  The rows from
+//     the live length to the padded n are pads, PAD_KEY = all-ones: the
+//     last block adds them arithmetically, one to the last digit of every
+//     pass each, and sets every bit of the OR (the AND keeps its value).
+//     The JAX package re-pads the buffer with jnp.where and makes the index
+//     with jnp.arange before its sort (gpuradixsort_tpu/ops/sort.py:167-169,
+//     :193-194, :246-247); here no pass over the buffer does either.
 // The rounds are alike for every thread of the grid, so the warp sums need
 // no guard.  The counts are uint32: a buffer holds at most 2^31 - block keys
 // (core/table.py::check_padded_rows), so they cannot wrap.
+//
+// sort_args_kernel (grs_sort_args): one thread copies its by-value
+// arguments, the sort's input, its result R and its live length, into the
+// argument block.  The launch copies the arguments, so no host buffer is
+// read while a graph replays; the fused sort launches it once a sort,
+// eager or graphed, before the passes.
 //
 // The plan: one int32 a pass, -1 where the pass's digit is constant over
 // the buffer (the pass is skipped), else source | destination << 2 over the
@@ -246,13 +262,21 @@ struct DigitCounters {
   }
 };
 
+// Keys before the first 16-byte boundary, read one by one.
+__host__ __device__ inline int64_t head_of(const void* keys, int64_t n) {
+  const auto head = static_cast<int64_t>((16 - reinterpret_cast<uintptr_t>(keys) % 16) % 16 / 4);
+  return head < n ? head : n;
+}
+
 // zeroed (cleared before the launch): the counts table (num_passes x radix),
 // then a 128-byte line a counter (lines[c x kCounterStride]), then the sync
 // line: the OR of the keys' complements, the OR of the keys, the blocks
 // finished.  words: the AND and the OR; plan: the plan, then the bases.
+// args: the sort's argument block, whose keys and length are the live keys;
+// n: the padded length.
 template <int kBits>
 __global__ void __launch_bounds__(kThreads)
-    sort_plan_kernel(const uint32_t* __restrict__ keys, int64_t n, int64_t head,
+    sort_plan_kernel(const grs::SortArgs* __restrict__ args, int64_t n,
                      uint32_t* __restrict__ words, uint32_t* __restrict__ zeroed, int num_passes,
                      int32_t* __restrict__ plan, unsigned long long* __restrict__ skipped) {
   using Counters = DigitCounters<kBits>;
@@ -268,8 +292,11 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
+  const uint32_t* keys = args->keys;
+  const int64_t live = args->length;  // alike in every thread, so are the rounds
+  const int64_t head = head_of(keys, live);
   const uint4* quads = reinterpret_cast<const uint4*>(keys + head);
-  const int64_t num_quads = (n - head) / 4;
+  const int64_t num_quads = (live - head) / 4;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t per_round = kCountUnroll * stride;
@@ -302,7 +329,7 @@ __global__ void __launch_bounds__(kThreads)
     any |= keys[tid];
     tally.add(keys[tid], num_passes);
   }
-  if (tid < n - tail) {
+  if (tid < live - tail) {
     all &= keys[tail + tid];
     any |= keys[tail + tid];
     tally.add(keys[tail + tid], num_passes);
@@ -322,10 +349,13 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!last) return;
 
-  // The last block: every other block's sums are in.
+  // The last block: every other block's sums are in.  The pad rows are
+  // PAD_KEY, in the last digit of every pass.
   __threadfence();
+  const auto pads = static_cast<uint32_t>(n - live);
   for (int c = threadIdx.x; c < counters; c += kThreads) {
-    totals[c] = grs::load_status(lines + c * kCounterStride);
+    totals[c] = grs::load_status(lines + c * kCounterStride) +
+                (c % kRadix == kRadix - 1 ? pads : 0u);
     counts[c] = totals[c];
   }
   __syncthreads();
@@ -336,7 +366,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (threadIdx.x == 0) {
     all = ~grs::load_status(sync);
-    any = grs::load_status(sync + 1);
+    any = grs::load_status(sync + 1) | (pads != 0u ? grs::kPadKey : 0u);
     words[0] = all;
     words[1] = any;
     write_plan(all, any, num_passes, kBits, plan, skipped);
@@ -344,14 +374,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int kBits>
-void launch_plan(const uint32_t* keys, int64_t n, int64_t head, uint32_t* words,
-                 uint32_t* zeroed, int num_passes, int32_t* plan, unsigned long long* skipped,
-                 cudaStream_t s) {
+void launch_plan(const grs::SortArgs* args, int64_t n, uint32_t* words, uint32_t* zeroed,
+                 int num_passes, int32_t* plan, unsigned long long* skipped, cudaStream_t s) {
+  // The grid is the padded length's, so a graph serves every live length.
   const int64_t per_block = static_cast<int64_t>(kThreads) * kCountUnroll;
-  const int64_t blocks =
-      std::clamp<int64_t>(((n - head) / 4 + per_block - 1) / per_block, 1, kMaxPlanBlocks);
+  const int64_t blocks = std::clamp<int64_t>((n / 4 + per_block - 1) / per_block, 1,
+                                             kMaxPlanBlocks);
   sort_plan_kernel<kBits><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      keys, n, head, words, zeroed, num_passes, plan, skipped);
+      args, n, words, zeroed, num_passes, plan, skipped);
+}
+
+__global__ void sort_args_kernel(grs::SortArgs* __restrict__ block, grs::SortArgs args) {
+  *block = args;
 }
 
 bool plan_args(const void* keys, int64_t n, const void* out, const void* plan, int num_passes,
@@ -362,11 +396,6 @@ bool plan_args(const void* keys, int64_t n, const void* out, const void* plan, i
           (reinterpret_cast<uintptr_t>(plan) % 4 == 0 && skipped != nullptr &&
            reinterpret_cast<uintptr_t>(skipped) % 8 == 0 && num_passes >= 1 &&
            radix_bits >= 1 && radix_bits <= 8 && num_passes * radix_bits <= 32));
-}
-
-// Keys before the first 16-byte boundary, read one by one.
-int64_t head_of(const void* keys, int64_t n) {
-  return std::min<int64_t>(n, (16 - reinterpret_cast<uintptr_t>(keys) % 16) % 16 / 4);
 }
 
 }  // namespace
@@ -403,20 +432,24 @@ extern "C" int grs_key_bits(const void* keys, int64_t n, void* out, void* plan, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// A fused sort's plan: keys, n, out, num_passes and skipped as grs_key_bits'
-// (radix_bits 1, 2 or 4); plan: num_passes int32 set to the plan, then
-// num_passes x radix int32 set to each pass's digit bases (the exclusive
-// prefix of its counts).  zeroed: the start of zeroed_bytes bytes (8-byte
-// aligned) that this call clears on the stream: first num_passes x radix
-// uint32, set to every pass's digit counts over the keys (counts[p x radix
-// + r]: keys whose digit p is r), then (kMaxCounters + 1) x kCounterStride
-// uint32 in which the kernel sums them (COUNT_LINES), then whatever the
-// caller wants cleared with them (a fused sort's look-back words).  One
-// memset and one launch; returns cudaGetLastError() after them.
-extern "C" int grs_sort_plan(const void* keys, int64_t n, void* out, void* plan, int num_passes,
+// A fused sort's plan.  args: the sort's argument block (grs_sort_args,
+// 8-byte aligned), whose keys and length are the live keys; n: the padded
+// length, 0 <= length <= n, the rows from the length on counted as PAD_KEY;
+// out, num_passes and skipped as grs_key_bits' (radix_bits 1, 2 or 4); plan:
+// num_passes int32 set to the plan, then num_passes x radix int32 set to
+// each pass's digit bases (the exclusive prefix of its counts).  zeroed:
+// the start of zeroed_bytes bytes (8-byte aligned) that this call clears on
+// the stream: first num_passes x radix uint32, set to every pass's digit
+// counts over the padded keys (counts[p x radix + r]: keys whose digit p is
+// r), then (kMaxCounters + 1) x kCounterStride uint32 in which the kernel
+// sums them (COUNT_LINES), then whatever the caller wants cleared with them
+// (a fused sort's look-back words).  One memset and one launch, whose grid
+// depends on n alone; returns cudaGetLastError() after them.
+extern "C" int grs_sort_plan(const void* args, int64_t n, void* out, void* plan, int num_passes,
                              int radix_bits, void* skipped, void* zeroed, int64_t zeroed_bytes,
                              void* stream) {
-  if (!plan_args(keys, n, out, plan, num_passes, radix_bits, skipped) || plan == nullptr ||
+  if (args == nullptr || reinterpret_cast<uintptr_t>(args) % 8 != 0 ||
+      !plan_args(args, n, out, plan, num_passes, radix_bits, skipped) || plan == nullptr ||
       zeroed == nullptr || (radix_bits != 1 && radix_bits != 2 && radix_bits != 4) ||
       reinterpret_cast<uintptr_t>(zeroed) % 8 != 0 ||
       zeroed_bytes < 4 * (static_cast<int64_t>(num_passes) * (1 << radix_bits) +
@@ -426,18 +459,40 @@ extern "C" int grs_sort_plan(const void* keys, int64_t n, void* out, void* plan,
   const auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(zeroed, 0, static_cast<size_t>(zeroed_bytes), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* k = static_cast<const uint32_t*>(keys);
-  const int64_t head = head_of(k, n);
+  const auto* a = static_cast<const grs::SortArgs*>(args);
   auto* w = static_cast<uint32_t*>(out);
   auto* z = static_cast<uint32_t*>(zeroed);
   auto* p = static_cast<int32_t*>(plan);
   auto* skip = static_cast<unsigned long long*>(skipped);
   if (radix_bits == 1) {
-    launch_plan<1>(k, n, head, w, z, num_passes, p, skip, s);
+    launch_plan<1>(a, n, w, z, num_passes, p, skip, s);
   } else if (radix_bits == 2) {
-    launch_plan<2>(k, n, head, w, z, num_passes, p, skip, s);
+    launch_plan<2>(a, n, w, z, num_passes, p, skip, s);
   } else {
-    launch_plan<4>(k, n, head, w, z, num_passes, p, skip, s);
+    launch_plan<4>(a, n, w, z, num_passes, p, skip, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A fused sort's argument block.  block: room for a grs::SortArgs (five
+// 8-byte words, 8-byte aligned), set here on the stream to the sort's input
+// keys and idx (null: the sort makes the index), its result out_keys and
+// out_idx (null where the launches that read the block write no result)
+// and its live length, 0 <= length <= n, the padded keys.  keys is null
+// only for no key (an empty buffer); every pointer is 4-byte aligned.  One launch of one thread, whose
+// arguments are copied at the launch.  Returns cudaGetLastError() after it.
+extern "C" int grs_sort_args(void* block, const void* keys, const void* idx, void* out_keys,
+                             void* out_idx, int64_t length, int64_t n, void* stream) {
+  const void* const words[] = {keys, idx, out_keys, out_idx};
+  bool aligned = block != nullptr && reinterpret_cast<uintptr_t>(block) % 8 == 0;
+  for (const void* w : words) aligned = aligned && reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  if (!aligned || (keys == nullptr && n > 0) || length < 0 || length > n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const grs::SortArgs args{static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(idx),
+                           static_cast<uint32_t*>(out_keys), static_cast<uint32_t*>(out_idx),
+                           length};
+  sort_args_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<grs::SortArgs*>(block), args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,26 @@ __device__ __forceinline__ Route plan_route(const int32_t* plan, int pass) {
   return e < 0 ? Route{-1, -1} : Route{e & 3, e >> 2};
 }
 
+constexpr uint32_t kPadKey = 0xFFFFFFFFu;    // config.PAD_KEY
+constexpr uint32_t kPadIndex = 0xFFFFFFFFu;  // config.PAD_INDEX
+
+// A fused sort's per-call inputs, its argument block on the card.
+// key_bits.cu's grs_sort_args writes it before each sort, outside any
+// graph, and sort_plan_kernel and the look-back pass (bucketize_scatter.cu)
+// read their input and the result R from it, so a captured sort reads the
+// caller's keys where they lie and writes a result the caller owns.  Rows
+// of the input at or past `length` are pad rows: they read as PAD_KEY, and
+// their index as PAD_INDEX.  idx is null where the sort makes the index:
+// element e's is e below `length`.
+struct SortArgs {
+  const uint32_t* keys;
+  const uint32_t* idx;
+  uint32_t* out_keys;
+  uint32_t* out_idx;
+  int64_t length;
+};
+static_assert(sizeof(SortArgs) == 40, "five 8-byte words (key_bits.py::ARGS_WORDS)");
+
 // The ballots of one digit per lane, one per digit bit (bits <= MaxBits), from
 // which any lane can find the lanes holding any digit: its own (the peers it
 // ranks among) and, in K2 and K4, the digit equal to its lane number (whose

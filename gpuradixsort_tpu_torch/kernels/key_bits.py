@@ -30,6 +30,17 @@ from which the fused pass finds its run offsets by look-back
 scratch (a status word a partition of ``LOOKBACK_PARTITION`` keys and
 digit, and a ticket a pass) lies in the same allocation and is cleared by
 the same memset, once a sort.
+
+A fused sort's per-call inputs, its input keys and index, its result R and
+its live length, reach its kernels through an argument block on the card
+(``SortArgs``, ``sort_args``), written once a sort before the plan, so that
+a cached graph of the sort reads the caller's keys where they lie and
+writes a result the caller owns.  ``sort_plan`` reads only the live keys
+and counts the rows from the length on as pads (PAD_KEY) without reading
+them; the look-back pass reads them as pads too and, where the block names
+no index, makes the index (``kernels/scatter.py``).  The plain versions
+re-pad the keys and make the index with torch (``live_input``), as the JAX
+package does before its sort.
 """
 
 from __future__ import annotations
@@ -38,8 +49,8 @@ from typing import NamedTuple
 
 import torch
 
-from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
-from gpuradixsort_tpu_torch.core.table import int32_bits, wrap_int32
+from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig, resolve_impl
+from gpuradixsort_tpu_torch.core.table import int32_bits, uint32_as_int32, wrap_int32
 from gpuradixsort_tpu_torch.kernels._build import launch
 from gpuradixsort_tpu_torch.kernels.radix import (
     INPUT,
@@ -47,6 +58,7 @@ from gpuradixsort_tpu_torch.kernels.radix import (
     RESULT,
     SCRATCH,
     check_keys,
+    data_ptr,
     digits_of,
     plan_entry,
 )
@@ -142,6 +154,99 @@ def pass_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
     return plan
 
 
+class SortArgs(NamedTuple):
+    """A fused sort's per-call inputs: the host tuple its argument block on the card holds.
+
+    ``keys``: the padded input keys, 1-D uint32; ``idx``: the input index,
+    of the same length, or None where the sort makes it (element e's index
+    e); ``result``: the (keys, idx) buffers of the sort's result R, or
+    (None, None) for a launch that writes none; ``length``: the live rows,
+    0 to the padded length.  The input's rows from ``length`` on are pad
+    rows, read as PAD_KEY with index PAD_INDEX whatever they hold.
+    """
+
+    keys: torch.Tensor
+    idx: torch.Tensor | None
+    result: tuple
+    length: int
+
+
+ARGS_WORDS = 5  # int64 words of the block: csrc/warp.cuh's SortArgs
+
+
+def check_length(length: int | None, keys: torch.Tensor) -> int:
+    """A sort's live length, all of ``keys`` where None; raises outside 0..keys.numel()."""
+    length = keys.numel() if length is None else int(length)
+    if not 0 <= length <= keys.numel():
+        raise ValueError(f"length {length} is not within the {keys.numel()} padded keys")
+    return length
+
+
+def _check_args(args: SortArgs) -> None:
+    _check_keys(args.keys)
+    check_length(args.length, args.keys)
+    for t in (args.idx, *args.result):
+        if t is not None and (t.dtype != torch.uint32 or t.shape != args.keys.shape
+                              or t.device != args.keys.device or not t.is_contiguous()):
+            raise ValueError(f"a sort's index and result must be contiguous torch.uint32 of "
+                             f"shape {tuple(args.keys.shape)} on {args.keys.device}")
+
+
+def check_block(block: torch.Tensor, like: torch.Tensor) -> None:
+    """Check an argument block for a sort of ``like``'s device."""
+    if (block.dtype != torch.int64 or block.shape != (ARGS_WORDS,) or block.device != like.device
+            or not block.is_contiguous()):
+        raise ValueError(f"block must be a sort_args block, (ARGS_WORDS,) int64 on {like.device}")
+
+
+def _args_words(args: SortArgs) -> list[int]:
+    """What the block holds: the input's, its index's and R's addresses (0 for none), the length."""
+    return [*(data_ptr(t) or 0 for t in (args.keys, args.idx, *args.result)), args.length]
+
+
+def sort_args(args: SortArgs, block: torch.Tensor | None = None,
+              impl: str | None = None) -> torch.Tensor:
+    """A fused sort's argument block: (ARGS_WORDS,) int64 on the keys' device.
+
+    On the card one launch of ``csrc/key_bits.cu``'s ``grs_sort_args``, a
+    single thread, writes ``args`` into ``block`` (a new one if None) on the
+    current stream: its arguments are copied at the launch, so nothing on
+    the host is read later, as when a graph replays.  The plain version
+    makes the same words on the host (the four addresses, 0 for a missing
+    buffer, then the length) and copies them to the keys' device.
+    """
+    _check_args(args)
+    if resolve_impl(args.keys, impl) == "reference":
+        return torch.tensor(_args_words(args), dtype=torch.int64, device=args.keys.device)
+    if block is None:
+        block = torch.empty(ARGS_WORDS, dtype=torch.int64, device=args.keys.device)
+    check_block(block, args.keys)
+    launch("grs_sort_args", args.keys, block.data_ptr(),
+           *(data_ptr(t) for t in (args.keys, args.idx, *args.result)), args.length,
+           args.keys.numel())
+    sort_args.launches += 1
+    return block
+
+
+sort_args.launches = 0
+
+
+def live_input(keys: torch.Tensor, idx: torch.Tensor | None, length: int):
+    """Plain version of how a fused sort reads its input: (keys, idx), both uint32.
+
+    ``where(pos < length, key, PAD_KEY)`` and ``where(pos < length, index,
+    PAD_INDEX)``, the index ``pos`` where ``idx`` is None: what the JAX
+    package's sorts build with ``jnp.where``, ``jnp.arange`` and
+    ``pad_to_tile`` before the passes.
+    """
+    pos = torch.arange(keys.numel(), dtype=torch.int32, device=keys.device)
+    live = pos < length
+    out_keys = torch.where(live, int32_bits(keys), uint32_as_int32(PAD_KEY))
+    out_idx = torch.where(live, pos if idx is None else int32_bits(idx),
+                          uint32_as_int32(PAD_INDEX))
+    return out_keys.view(torch.uint32), out_idx.view(torch.uint32)
+
+
 class SortPlan(NamedTuple):
     """A fused sort's plan and digit bases on its keys' device, and its look-back's scratch."""
 
@@ -206,31 +311,42 @@ def _digit_bases_ref(counts: torch.Tensor) -> torch.Tensor:
 
 
 def sort_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
-              impl: str | None = None) -> SortPlan:
+              impl: str | None = None, length: int | None = None,
+              block: torch.Tensor | None = None) -> SortPlan:
     """The pass plan of a fused sort of the padded ``keys``, its digit counts and bases.
 
     ``keys``: a padded buffer (a whole number of tiles), digits of 1, 2 or 4
-    bits.  Reads the keys once for the plan (``pass_plan``'s, whose skipped
+    bits; its rows from ``length`` (all of them by default) on are pad
+    rows, counted as PAD_KEY whatever they hold.  Reads the live keys once
+    for the plan (``pass_plan``'s of the re-padded buffer, whose skipped
     passes it adds to ``skipped`` alike) and for every pass's digit counts,
     then writes each pass's bases, and clears the look-back's scratch for a
     sort's passes, each of which it serves once.  On the card one memset and
-    one launch of ``csrc/key_bits.cu`` and nothing read back.
+    one launch of ``csrc/key_bits.cu`` and nothing read back; the kernel
+    reads the keys' address and the length from ``block``, the sort's
+    argument block of them (``sort_args``), which this call writes itself
+    (one more launch) where it is None.
     """
     num_tiles = check_keys("keys", keys, cfg)
+    length = check_length(length, keys)
     if cfg.radix_bits not in (1, 2, 4):
         raise ValueError("sort_plan counts digits of 1, 2 or 4 bits")
     if skipped.dtype != torch.int64 or skipped.shape != (1,) or skipped.device != keys.device:
         raise ValueError(f"skipped must be an int64 tensor of shape (1,) on {keys.device}")
     passes, radix = cfg.num_passes, cfg.radix
     if resolve_impl(keys, impl) == "reference":
+        keys, _ = live_input(keys, None, length)
         counts = _digit_counts_ref(keys, cfg)
         return SortPlan(pass_plan(keys, cfg, skipped, impl="reference"), counts,
                         _digit_bases_ref(counts),
                         torch.zeros(lookback_words(num_tiles, cfg), dtype=torch.int32,
                                     device=keys.device))
+    if block is None:
+        block = sort_args(SortArgs(keys, None, (None, None), length))
+    check_block(block, keys)
     at = state_layout(num_tiles, cfg)
     state = torch.empty(at["total"], dtype=torch.int32, device=keys.device)
-    launch("grs_sort_plan", keys, keys.data_ptr(), keys.numel(), state.data_ptr(),
+    launch("grs_sort_plan", keys, block.data_ptr(), keys.numel(), state.data_ptr(),
            state[at["plan"]].data_ptr(), passes, cfg.radix_bits, skipped.data_ptr(),
            state[at["counts"].start:].data_ptr(), 4 * (at["total"] - at["counts"].start))
     sort_plan.launches += 1

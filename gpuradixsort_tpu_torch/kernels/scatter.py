@@ -30,6 +30,14 @@ the partitions, so a pass launches no K1 and no offsets scan.  A stable
 partition by digit has one answer, so the plain version computes it tile by
 tile as the JAX package does.  ``bucketize_scatter``, which reads K1's
 offsets table, stays as the counterpart of the JAX package's pass.
+
+The look-back pass reads the sort's input and writes its result R where the
+sort's argument block says (``key_bits.sort_args``), so one graph serves
+every call of a shape.  Where it reads the input, the rows from the sort's
+live length on are pad rows (PAD_KEY, PAD_INDEX), and with no index given
+it makes the index: the JAX package's re-padding and index column, with no
+pass over the buffer.  The plain version builds both with torch
+(``key_bits.live_input``) and runs the pass on them.
 """
 
 from __future__ import annotations
@@ -40,7 +48,15 @@ from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
 from gpuradixsort_tpu_torch.kernels.bucketize import FAST_TILE, _bucketize_ref
-from gpuradixsort_tpu_torch.kernels.key_bits import SortPlan, lookback_words
+from gpuradixsort_tpu_torch.kernels.key_bits import (
+    SortArgs,
+    SortPlan,
+    check_block,
+    check_length,
+    live_input,
+    lookback_words,
+    sort_args,
+)
 from gpuradixsort_tpu_torch.kernels.radix import (
     MAX_SHARED_BYTES,
     WARP,
@@ -246,12 +262,14 @@ def _check_state(state: SortPlan, pass_index: int, like: torch.Tensor, num_tiles
 
 def bucketize_scatter_lookback(
     keys: torch.Tensor,
-    idx: torch.Tensor,
+    idx: torch.Tensor | None,
     cfg: EngineConfig,
     state: SortPlan,
     pass_index: int,
     buffers: tuple | None = None,
     impl: str | None = None,
+    length: int | None = None,
+    block: torch.Tensor | None = None,
 ):
     """Fused pass ``pass_index`` of a sort, its run offsets found by look-back.
 
@@ -261,39 +279,59 @@ def bucketize_scatter_lookback(
     of hist over the tiles: where ``state`` is the ``sort_plan`` of keys with
     the same multiset, as in a sort, that is ``global_offsets(hist)``.
 
+    Where the pass reads the input (``keys``, ``idx``), its rows from
+    ``length`` (all of them by default) on read as (PAD_KEY, PAD_INDEX), and
+    with ``idx`` None element e's index is e: the input of
+    ``key_bits.live_input(keys, idx, length)``, as ``sort_plan(keys, cfg,
+    skipped, length=length)`` counts it.
+
     ``state``'s look-back scratch serves each pass index once: a launch
     leaves that pass's tickets and status words used (``sort_plan`` clears
-    them for a sort).  With ``buffers`` the call routes as
-    ``bucketize_scatter``'s with ``plan=state.plan`` and returns None;
-    without, it reads (keys, idx) and returns a new output.
+    them for a sort).  With ``buffers``, the sort's result R and scratch S
+    as two (keys, idx) pairs, the call routes as ``bucketize_scatter``'s
+    with ``plan=state.plan`` and returns None; without, it reads the input
+    and returns a new output.  On the card the kernel reads the input, the
+    length and R from ``block``, the sort's argument block of them
+    (``key_bits.sort_args``), which this call writes itself (one more
+    launch) where it is None; a block comes with ``buffers``, whose R it
+    names.
     """
     if cfg.radix > _MAX_FUSED_RADIX:
         raise ValueError("bucketize_scatter_lookback supports radix <= 16")
     num_tiles = check_keys("keys", keys, cfg)
-    check_keys("idx", idx, cfg)
-    if idx.numel() != keys.numel() or idx.device != keys.device:
-        raise ValueError("keys and idx must have one length and one device")
+    if idx is not None:
+        check_keys("idx", idx, cfg)
+        if idx.numel() != keys.numel() or idx.device != keys.device:
+            raise ValueError("keys and idx must have one length and one device")
+    length = check_length(length, keys)
     _check_state(state, pass_index, keys, num_tiles, cfg)
+    if block is not None and buffers is None:
+        raise ValueError("an argument block names the sort's result R: pass the sort's buffers")
     if buffers is not None:
-        check_plan(state.plan, pass_index, keys, (idx, *buffers[0], *buffers[1]))
+        given = () if idx is None else (idx,)
+        check_plan(state.plan, pass_index, keys, (*given, *buffers[0], *buffers[1]))
     if resolve_impl(keys, impl) == "reference":
         if buffers is None:
-            return _lookback_pass_ref(keys, idx, state, pass_index, cfg)
-        route = planned_route(state.plan, pass_index, ((keys, idx), *buffers))
+            return _lookback_pass_ref(*live_input(keys, idx, length), state, pass_index, cfg)
+        route = planned_route(state.plan, pass_index, (None, *buffers))
         if route is not None:
             source, destination = route
+            if source is None:  # the input
+                source = live_input(keys, idx, length)
             for dst, src in zip(destination, _lookback_pass_ref(*source, state, pass_index, cfg)):
                 dst.copy_(src)
         return None
     if buffers is None:
-        out, scratch, plan = (torch.empty_like(keys), torch.empty_like(idx)), (None, None), None
+        out, scratch, plan = (torch.empty_like(keys), torch.empty_like(keys)), (None, None), None
     else:
         (out, scratch), plan = buffers, state.plan
+    if block is None:
+        block = sort_args(SortArgs(keys, idx, out, length))
+    check_block(block, keys)
     launch(
-        "grs_lookback_scatter", keys, keys.data_ptr(), idx.data_ptr(), *map(data_ptr, out),
-        *map(data_ptr, scratch), keys.numel(), pass_index * cfg.radix_bits, cfg.radix,
-        data_ptr(plan), pass_index, state.bases.data_ptr(), state.lookback.data_ptr(),
-        state.lookback.numel(),
+        "grs_lookback_scatter", keys, block.data_ptr(), *map(data_ptr, scratch), keys.numel(),
+        pass_index * cfg.radix_bits, cfg.radix, data_ptr(plan), pass_index,
+        state.bases.data_ptr(), state.lookback.data_ptr(), state.lookback.numel(),
     )
     bucketize_scatter_lookback.launches += 1
     return None if buffers is not None else out

@@ -25,7 +25,19 @@ The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
 The fused and radix methods run with no host sync inside a sort, as the JAX
 package jits each as one program, and on the card a shape that recurs, up
 to ``GRAPH_MAX_PADDED`` padded keys, replays one cached CUDA graph
-(``_dispatch``).
+(``_graph_of``).
+
+The fused sort takes a key column's buffer and its live length as they
+are.  Its per-call inputs, the caller's keys, the index (or none, where the
+sort makes it), the result R and the length, reach its kernels through an
+argument block on the card, written by one launch before the passes
+(``key_bits.sort_args``), eager or graphed alike.  So its graph copies
+nothing in or out and serves every live length of a padded shape, the
+first pass that reads the input makes the index and reads the rows past
+the length as pads, and no torch pass over the buffer re-pads the keys or
+makes the index: the JAX package's ``jnp.where`` and ``jnp.arange``, which
+the plain versions still run.  The radix and torch methods make the index
+column and re-pad with torch, as before.
 
 On CUDA tensors every pass runs the CUDA kernels; on CPU tensors their plain
 versions.  Nothing but ``"torch"`` calls ``torch.sort``.
@@ -37,6 +49,7 @@ fall-back here.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from collections import OrderedDict
 
@@ -52,7 +65,7 @@ from gpuradixsort_tpu_torch.core.table import (
     uint32_as_int32,
 )
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
-from gpuradixsort_tpu_torch.kernels.key_bits import sort_plan
+from gpuradixsort_tpu_torch.kernels.key_bits import ARGS_WORDS, SortArgs, sort_args, sort_plan
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter_lookback
 from gpuradixsort_tpu_torch.ops.permute import gather_rows, scatter_by_destination
@@ -60,25 +73,32 @@ from gpuradixsort_tpu_torch.ops.permute import gather_rows, scatter_by_destinati
 METHODS = ("auto", "fused", "torch", "radix")
 
 
-def _fused_passes(keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig,
-                  skipped: torch.Tensor):
-    """The fused sort with no host sync: the pass plan, then every pass as it routes.
+def _fused_passes(args: SortArgs, cfg: EngineConfig, skipped: torch.Tensor,
+                  block: torch.Tensor | None = None):
+    """The fused sort of ``args`` with no host sync: the pass plan, then every pass as it routes.
 
-    ``sort_plan`` reads the keys once: it decides on the device which passes
-    run, as the JAX package's per-pass ``lax.cond`` does, adds the skipped
-    ones to ``skipped``, counts every pass's digits and clears the
+    ``sort_plan`` reads the live keys once: it decides on the device which
+    passes run, as the JAX package's per-pass ``lax.cond`` does, adds the
+    skipped ones to ``skipped``, counts every pass's digits and clears the
     look-back's scratch.  Each pass is one ``bucketize_scatter_lookback``
     launch, which in a skipped pass exits at once, so the pass moves no
     key.  A pass cannot scatter into the buffer it reads, so the passes
-    that run ping-pong between the result buffer R and a scratch buffer S,
-    as the plan names: the first reads ``keys`` and ``idx``, which are
-    never written, and the last writes R.  Returns R (keys, idx).
+    that run ping-pong between the result R (``args.result``) and a scratch
+    buffer S, as the plan names them: the first reads the input, which is
+    never written, and the last writes R.  On the card every launch reads
+    the input, the length and R from ``block``, the argument block of
+    ``args`` (``sort_args``), written here where None; the plain versions
+    read ``args``.  Returns R (keys, idx).
     """
-    state = sort_plan(keys, cfg, skipped)
-    buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
+    keys = args.keys
+    if block is None and keys.is_cuda:  # an eager sort's
+        block = sort_args(args)
+    live = dict(length=args.length, block=block)
+    state = sort_plan(keys, cfg, skipped, **live)
+    scratch = (torch.empty_like(keys), torch.empty_like(keys))
     for p in range(cfg.num_passes):
-        bucketize_scatter_lookback(keys, idx, cfg, state, p, buffers)
-    return buffers[0]
+        bucketize_scatter_lookback(keys, args.idx, cfg, state, p, (args.result, scratch), **live)
+    return args.result
 
 
 def _radix_pass(keys: torch.Tensor, carried: tuple, shift: int,
@@ -103,39 +123,37 @@ def _radix_passes(keys: torch.Tensor, *carried: torch.Tensor, cfg: EngineConfig)
 
 
 # Padded lengths up to this run a sort's passes as one CUDA graph once the
-# shape recurs, longer ones eagerly.  On an H100 (700 W), by CUDA events in
-# chip_smoke.py phase 5 (four rounds, PERF.md section 5), the graph with its
-# copies in and out against the eager passes, random keys: fused 0.36-0.51
-# / 1.53-2.80 ms at 1M keys, 1.34-1.56 / 1.78-3.39 at 2^23, 1.95-2.02 /
-# 1.88-2.27 at 12M, 2.54-2.57 / 2.40-2.57 at 2^24, 4.84-5.03 / 4.56-4.83 at
-# 2^25; radix 0.64-0.78 / 2.46-4.10 at 1M, 4.35-4.66 / 4.56-4.88 at 12M,
-# 6.01-6.13 / 5.78-6.21 at 2^24.  With no host sync in a sort, the eager
-# passes hide their host time behind the card from about 12M keys on, where
-# the graph's copies (32 bytes a key) cost about what the graph saves: at
-# 2^24 the eager passes won 3 of 4 rounds by each method, by at most 0.16
-# ms (fused, 6 percent) and 0.26 (radix, 4 percent).  The data alone would
-# put the limit near 12M.  It stays at 2^24 on purpose until a benchmark
-# cell with recurring shapes settles the crossover.
+# shape recurs, longer ones eagerly.  On an H100 80GB HBM3 (700 W), by CUDA
+# events in chip_smoke.py's graph A/B (median of 16 in alternating rounds,
+# PERF.md section 5), graphed against eager, random keys: fused, whose
+# graph copies nothing, 0.2177 / 0.4652 ms at 1M keys, 0.7152 / 0.8039 at
+# 2^23, 1.3009 / 1.4326 at 2^24, 2.2809 / 2.3596 at 2^25; radix, whose
+# graph copies its inputs in and its outputs out, 0.6514 / 2.7648 at 1M,
+# 3.1864 / 3.4631 at 2^23, 6.0234 / 5.9579 at 2^24.  The fused graph led at
+# every length; from 2^24 on the radix graph's copies cost about what it
+# saves.  The limit stays at 2^24 until a benchmark cell with recurring
+# shapes settles the crossover.
 GRAPH_MAX_PADDED = 1 << 24
-# A graph's inputs, the keys and every carried column, hold at most
+# A radix graph's inputs, the keys and every carried column, hold at most
 # GRAPH_MAX_PADDED rows of this many bytes (a key and its index), so that a
 # radix sort carrying wide columns graphs only a shorter buffer.
 _GRAPH_ROW_BYTES = 8
 # Graphs kept at most, of both methods.  None is dropped to make room: once
 # the cache is full, shapes not in it run eagerly until clear_sort_graphs(),
 # so traffic over more recurring shapes than this captures no more than
-# this many times.  A graph holds its inputs, outputs and intermediates:
-# on an H100, in chip_smoke.py phase 5, 408 MiB for a fused graph at 2^24
-# (about 25 bytes a padded key: the static input, the result R and the
-# scratch S) and 598 MiB for a radix graph carrying the index, about 3.2
-# and 4.7 times their inputs' bytes.  At the larger ratio the byte limit
-# above holds the cache to about 4.7 GiB; a radix graph carrying wider rows
-# than the index has not been measured.
+# this many times.  A graph holds its intermediates and, for the radix
+# method, its inputs and outputs: on an H100, in chip_smoke.py phase 5, 598
+# MiB for a radix graph carrying the index at 2^24, about 4.7 times its
+# inputs' bytes, so the byte limit above holds the cache to about 4.7 GiB;
+# a radix graph carrying wider rows than the index has not been measured.
+# A fused graph holds the scratch S and the plan's state: 130 MiB at 2^24
+# keys, about 8 bytes a padded key (chip_smoke.py's graph A/B).
 GRAPH_CACHE_ENTRIES = 8
 # Shapes seen once and remembered, so that a second sighting captures; the
 # least recently seen is forgotten first.
 _SEEN_ENTRIES = 1024
-# The wrappers the sorts call: a replay adds its capture's launches to them.
+# The wrappers the sorts call inside a graph: a replay adds its capture's
+# launches to them.  sort_args runs outside the graph and counts itself.
 _PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_scatter_lookback, exclusive_scan,
                   sort_plan, radix_kernels.tile_destinations)
 
@@ -143,23 +161,24 @@ _PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_scatter_lookback, exc
 class _SortGraph:
     """One sort method's passes on one shape as one CUDA graph.
 
-    ``run(*inputs)`` is captured once on static copies of the inputs, its
-    outputs and every intermediate in the graph's private memory pool.
-    Holds the launches each wrapper made during the capture, and an event
-    after the last call's copies out, so that calls on different streams
-    take turns.
+    Captured once on a side stream, its intermediates in the graph's private
+    memory pool.  Holds the launches each wrapper made during the capture,
+    which every replay adds to the wrappers' counts, and an event after the
+    last call, so that calls on different streams take turns.
     """
 
-    def __init__(self, run, inputs: tuple):
-        # The shape's first sighting ran eagerly: that is the warm-up
-        # PyTorch asks for before a capture, as every kernel has launched.
-        dev = inputs[0].device
-        self.inputs = tuple(t.clone() for t in inputs)
+    def __init__(self, device: torch.device):
+        self.device = device
         self.graph = torch.cuda.CUDAGraph()
         self.done = torch.cuda.Event()
         self.replays = 0
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
+
+    def _capture(self, run, *inputs):
+        """Capture ``run(*inputs)``; returns its output, which lies in the graph's pool."""
+        # The shape's first sighting ran eagerly: that is the warm-up
+        # PyTorch asks for before a capture, as every kernel has launched.
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
         before = [w.launches for w in _PASS_WRAPPERS]
         try:
             # capture_begin/end rather than torch.cuda.graph(), which first
@@ -167,28 +186,61 @@ class _SortGraph:
             with torch.cuda.stream(side):
                 self.graph.capture_begin()
                 try:
-                    self.out = tuple(run(*self.inputs))
+                    out = run(*inputs)
                 finally:
                     self.graph.capture_end()
             self.launches = [w.launches - n for w, n in zip(_PASS_WRAPPERS, before)]
         finally:
             for w, n in zip(_PASS_WRAPPERS, before):
                 w.launches = n  # a capture runs nothing
-        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return out
 
-    def __call__(self, *inputs: torch.Tensor) -> tuple:
-        """Copy the inputs in, replay, and return copies of the outputs."""
-        stream = torch.cuda.current_stream(self.inputs[0].device)
-        stream.wait_event(self.done)  # the last call, on any stream, has copied out
-        for static, t in zip(self.inputs, inputs):
-            static.copy_(t)
-        self.graph.replay()
-        out = tuple(t.clone() for t in self.out)
+    @contextlib.contextmanager
+    def _turn(self):
+        """The body replays on the current stream once the last call, on any stream, is done."""
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(self.done)
+        yield
         self.done.record(stream)
         self.replays += 1
         for w, n in zip(_PASS_WRAPPERS, self.launches):
             w.launches += n
+
+
+class _RadixGraph(_SortGraph):
+    """The radix method's graph: captured on static copies of its inputs, which each call
+    copies in, and its outputs cloned out."""
+
+    def __init__(self, run, inputs: tuple):
+        super().__init__(inputs[0].device)
+        self.inputs = tuple(t.clone() for t in inputs)
+        self.out = tuple(self._capture(run, *self.inputs))
+
+    def __call__(self, *inputs: torch.Tensor) -> tuple:
+        with self._turn():
+            for static, t in zip(self.inputs, inputs):
+                static.copy_(t)
+            self.graph.replay()
+            out = tuple(t.clone() for t in self.out)
         return out
+
+
+class _FusedGraph(_SortGraph):
+    """The fused sort's graph: its kernels read the call's input, length and R from a
+    static argument block, which each call writes before the replay; nothing is copied."""
+
+    def __init__(self, args: SortArgs, cfg: EngineConfig, skipped: torch.Tensor):
+        super().__init__(args.keys.device)
+        self.block = torch.empty(ARGS_WORDS, dtype=torch.int64, device=self.device)
+        self._capture(functools.partial(_fused_passes, cfg=cfg, skipped=skipped,
+                                        block=self.block), args)
+
+    def __call__(self, args: SortArgs) -> tuple:
+        with self._turn():
+            sort_args(args, self.block)
+            self.graph.replay()
+        return args.result
 
 
 _SORT_GRAPHS: dict = {}
@@ -211,27 +263,32 @@ def graph_key(method: str, inputs: tuple, cfg: EngineConfig) -> tuple:
 
     ``inputs``: the keys, then the columns carried with them, whose dtypes
     and row shapes stand where the JAX package's jit keys on
-    ``num_carried``.  Nothing that depends on the keys' values enters it.
+    ``num_carried``.  The fused method's graph carries no column (it reads
+    an index, or makes one, through its argument block), so its key has
+    none.  Nothing that depends on the keys' values, or on the live length,
+    enters it.
     """
     keys, *carried = inputs
+    if method == "fused":
+        carried = ()
     return (keys.device, keys.numel(), cfg, method,
             tuple((c.dtype, tuple(c.shape[1:])) for c in carried))
 
 
-def _dispatch(method: str, run, inputs: tuple, cfg: EngineConfig) -> tuple:
-    """``run(*inputs)``, by a cached CUDA graph where a CUDA shape recurs.
+def _graph_of(method: str, inputs: tuple, cfg: EngineConfig, make):
+    """The cached graph of a CUDA sort, ``make()`` captured at its shape's second sighting.
 
     On a CUDA buffer of at most ``GRAPH_MAX_PADDED`` keys, whose inputs
     hold at most ``GRAPH_MAX_PADDED * _GRAPH_ROW_BYTES`` bytes, the first
-    call of a ``graph_key`` runs eagerly; the next one captures a graph, if
-    the cache has room, and every later one replays it.  Longer or wider
-    buffers and CPU tensors run eagerly.  A failed capture raises; nothing
-    falls back.
+    call of a ``graph_key`` runs eagerly (None); the next one captures a
+    graph, if the cache has room, and every later one replays it.  Longer
+    or wider buffers and CPU tensors run eagerly.  A failed capture raises;
+    nothing falls back.
     """
     keys = inputs[0]
     if (not keys.is_cuda or keys.numel() > GRAPH_MAX_PADDED
             or sum(t.nbytes for t in inputs) > GRAPH_MAX_PADDED * _GRAPH_ROW_BYTES):
-        return run(*inputs)
+        return None
     key = graph_key(method, inputs, cfg)
     graph = _SORT_GRAPHS.get(key)
     if graph is None:
@@ -240,12 +297,12 @@ def _dispatch(method: str, run, inputs: tuple, cfg: EngineConfig) -> tuple:
             _SEEN.move_to_end(key)
             if len(_SEEN) > _SEEN_ENTRIES:
                 _SEEN.popitem(last=False)
-            return run(*inputs)
+            return None
         with torch.cuda.device(keys.device):
-            graph = _SortGraph(run, inputs)
+            graph = make()
         _SORT_GRAPHS[key] = graph
         del _SEEN[key]
-    return graph(*inputs)
+    return graph
 
 
 # Passes the fused sorts skipped: one int64 counter on each device, to which
@@ -268,21 +325,50 @@ def skipped_passes() -> int:
     return sum(int(c.item()) for c in _SKIPPED.values())
 
 
-def _fused_sort_padded(keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig):
-    """Stable (key, index) sort of padded 1-D uint32 buffers.
+def _fused_sort(keys: torch.Tensor, idx: torch.Tensor | None, length: int,
+                cfg: EngineConfig) -> tuple:
+    """The fused sort of a padded buffer's ``length`` live keys; returns R (keys, idx), new buffers.
 
-    One program on the card, as the JAX package's jit makes it: the pass
-    plan and the passes, with no host sync (``_fused_passes``), by a cached
-    graph where a CUDA shape recurs (``_dispatch``).  Returns new buffers
-    (keys, idx, overflow); overflow is always False (no window).
+    ``idx``: the index the keys carry, or None, where the first pass that
+    reads the input makes it (element e's index e).  The input's rows from
+    ``length`` on sort as (PAD_KEY, PAD_INDEX), whatever they hold.  One
+    program on the card, as the JAX package's jit makes it: the argument
+    block (``sort_args``), then the pass plan and the passes with no host
+    sync (``_fused_passes``), eagerly or by replaying the shape's cached
+    graph (``_graph_of``), whose key holds no length.
     """
     radix_kernels.check_keys("keys", keys, cfg)
-    radix_kernels.check_keys("idx", idx, cfg)
-    if idx.numel() != keys.numel() or idx.device != keys.device:
-        raise ValueError("keys and idx must have one length and one device")
-    run = functools.partial(_fused_passes, cfg=cfg, skipped=_skip_counter(keys.device))
-    keys, idx = _dispatch("fused", run, (keys, idx), cfg)
+    if idx is not None:
+        radix_kernels.check_keys("idx", idx, cfg)
+        if idx.numel() != keys.numel() or idx.device != keys.device:
+            raise ValueError("keys and idx must have one length and one device")
+    args = SortArgs(keys, idx, (torch.empty_like(keys), torch.empty_like(keys)), length)
+    skipped = _skip_counter(keys.device)
+    graph = _graph_of("fused", (keys,), cfg, lambda: _FusedGraph(args, cfg, skipped))
+    return _fused_passes(args, cfg, skipped) if graph is None else graph(args)
+
+
+def _fused_sort_padded(keys: torch.Tensor, idx: torch.Tensor, cfg: EngineConfig):
+    """Stable (key, index) sort of padded 1-D uint32 buffers, every row live.
+
+    The counterpart of the JAX package's ``_fused_sort_padded``: the given
+    index is read through the sort's argument block (``_fused_sort``).
+    Returns new buffers (keys, idx, overflow); overflow is always False (no
+    window).
+    """
+    keys, idx = _fused_sort(keys, idx, keys.numel(), cfg)
     return keys, idx, False
+
+
+def _fused_sort_live(keys: torch.Tensor, length: int, cfg: EngineConfig) -> tuple:
+    """The fused sort of a key column's padded buffer and live length, its index made on the card.
+
+    The rows from ``length`` on sort as pads whatever they hold, and the
+    index is 0..length-1 then PAD_INDEX, as the JAX package builds them with
+    ``jnp.where``, ``jnp.arange`` and ``pad_to_tile``; on the card no torch
+    pass over the buffer does.  Returns (sorted keys, permutation).
+    """
+    return _fused_sort(keys, None, length, cfg)
 
 
 def _sort_padded(keys: torch.Tensor, carried: tuple,
@@ -290,13 +376,15 @@ def _sort_padded(keys: torch.Tensor, carried: tuple,
     """The radix method: stable sort of padded keys, carrying other columns.
 
     Its passes run with no host sync, by a cached graph where a CUDA shape
-    recurs (``_dispatch``), as the JAX package jits them keyed on ``cfg``
+    recurs (``_graph_of``), as the JAX package jits them keyed on ``cfg``
     and ``num_carried``.  The JAX package's ``strategy`` picks how a TPU
     applies the permutation; it means nothing on the GPU, so the port takes
     none.
     """
-    keys, *carried = _dispatch("radix", functools.partial(_radix_passes, cfg=cfg),
-                               (keys, *carried), cfg)
+    inputs = (keys, *carried)
+    run = functools.partial(_radix_passes, cfg=cfg)
+    graph = _graph_of("radix", inputs, cfg, lambda: _RadixGraph(run, inputs))
+    keys, *carried = run(*inputs) if graph is None else graph(*inputs)
     return keys, tuple(carried)
 
 
@@ -322,17 +410,22 @@ def _resolve_method(method: str, cfg: EngineConfig) -> str:
 
 
 def _index_column(col: Column) -> torch.Tensor:
-    """0..length-1 as uint32, then PAD_INDEX over the pad rows."""
+    """0..length-1 as uint32, then PAD_INDEX over the pad rows (the radix and torch methods)."""
     pos = torch.arange(col.padded_length, dtype=torch.int32, device=col.device)
     return torch.where(pos < col.length, pos, uint32_as_int32(PAD_INDEX)).view(torch.uint32)
 
 
 def _sort_column(col: Column, cfg: EngineConfig, method: str):
-    """(sorted keys, permutation) of a padded key column by one method."""
-    idx = _index_column(col)
+    """(sorted keys, permutation) of a key column by one method.
+
+    The fused sort takes the buffer and its length as they are; the radix
+    and torch methods sort the re-padded buffer (``_repadded``) with the
+    index column.
+    """
     if method == "fused":
-        keys, perm, _ = _fused_sort_padded(col.data, idx, cfg)
-        return keys, perm
+        return _fused_sort_live(col.data, col.length, cfg)
+    col = _repadded(col)
+    idx = _index_column(col)
     if method == "radix":
         keys, (perm,) = _sort_padded(col.data, (idx,), cfg)
         return keys, perm
@@ -350,9 +443,9 @@ def sort_keys(
     """
     cfg = cfg or EngineConfig()
     method = _resolve_method(method, cfg)
-    col = _as_key_column(keys, cfg, device)
+    col = _key_column(keys, cfg, device)
     if method == "radix":  # no index column to carry
-        sorted_keys, _ = _sort_padded(col.data, (), cfg)
+        sorted_keys, _ = _sort_padded(_repadded(col).data, (), cfg)
     else:
         sorted_keys, _ = _sort_column(col, cfg, method)
     return Column(sorted_keys, col.length)
@@ -370,7 +463,7 @@ def sort_pairs(
     """
     cfg = cfg or EngineConfig()
     method = _resolve_method(method, cfg)
-    col = _as_key_column(keys, cfg, device)
+    col = _key_column(keys, cfg, device)
     sorted_keys, perm = _sort_column(col, cfg, method)
     return Column(sorted_keys, col.length), Column(perm, col.length)
 
@@ -396,17 +489,23 @@ def sort_table(
     return Table(out)
 
 
-def _as_key_column(keys, cfg: EngineConfig, device=None) -> Column:
-    """The padded key column every sort starts from; 2^31 padded rows or more raise."""
+def _key_column(keys, cfg: EngineConfig, device=None) -> Column:
+    """The padded key column a sort starts from, its rows past the length as they lie.
+
+    2^31 padded rows or more raise.
+    """
     if not isinstance(keys, Column):
         return make_key_column(keys, cfg, device=device)
     if keys.dtype != torch.uint32 or keys.data.dim() != 1:
         raise ValueError(f"key column must be 1-D torch.uint32, got {keys.dtype}")
     check_padded_rows(keys.padded_length, cfg.tile)
-    if keys.length == keys.padded_length:
-        return keys
-    # Rows past the live prefix may hold anything; re-assert the pad key so
-    # they sort to the back.
-    pos = torch.arange(keys.padded_length, device=keys.device)
-    data = torch.where(pos < keys.length, int32_bits(keys.data), uint32_as_int32(PAD_KEY))
-    return Column(data.view(torch.uint32), keys.length)
+    return keys
+
+
+def _repadded(col: Column) -> Column:
+    """``col`` with PAD_KEY re-asserted past its length, so that stale rows sort to the back."""
+    if col.length == col.padded_length:
+        return col
+    pos = torch.arange(col.padded_length, device=col.device)
+    data = torch.where(pos < col.length, int32_bits(col.data), uint32_as_int32(PAD_KEY))
+    return Column(data.view(torch.uint32), col.length)

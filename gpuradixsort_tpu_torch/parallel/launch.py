@@ -149,6 +149,7 @@ KERNEL_WRAPPERS = {
     "bucketize_scatter": scatter.bucketize_scatter,
     "bucketize_scatter_lookback": scatter.bucketize_scatter_lookback,
     "sort_plan": key_bits.sort_plan,
+    "sort_args": key_bits.sort_args,
     "radix_dest": radix.tile_destinations,
     "exclusive_scan": scan.exclusive_scan,
 }

@@ -10,15 +10,16 @@ CUDA card, at 1,000,000, 2^24 and 100,000,000 keys (padded as the sorts pad
 them), random and skewed (one key holding 99%): device time per call
 (torch.profiler, 20 back-to-back calls) of each kernel, beside its bound
 (``bench.stage_work``'s bytes at 3.35 TB/s) and share of that bound.
-``sort_plan`` counts its memsets with its kernels; the look-back pass is
-timed on pass 0 of a radix-16 sort, its scratch cleared before each launch,
-the clearing not counted.
+``sort_plan`` counts its memsets with its kernels, and reads its keys
+through an argument block written once before the turns, as a sort writes
+one a sort; the look-back pass is timed on pass 0 of a radix-16 sort, its
+kernel's own device time, its scratch cleared before each launch.
 
-``--old DIR`` builds an older copy of ``csrc/`` (that of commit b055d90,
-whose ``grs_key_bits`` counts the digits and whose ``grs_lookback_scatter``
-takes tiles) into ``build/kernels_old/`` and times it on the same input in
-mirrored turns (new, old, old, new), each side with its own scratch layout;
-every output is checked equal to the other side's and, at 1M and 2^24, the
+``--old DIR`` builds an older copy of ``csrc/`` (that of commit 3090bf7,
+whose ``grs_sort_plan`` and ``grs_lookback_scatter`` take the keys, the
+index and the output as launch arguments) into ``build/kernels_old/`` and
+times it on the same input in mirrored turns (new, old, old, new); every
+output is checked equal to the other side's and, at 1M and 2^24, the
 look-back pass to its plain version.  ``--ptxas`` prints nvcc's register,
 shared-memory and spill report of both kernels' sources (and the older
 ones) and the resident warps an SM that follow.  The card's name and power
@@ -54,10 +55,10 @@ SIZES = {"1M": 1_000_000, "2^24": 1 << 24, "100M": 100_000_000}
 KINDS = ("random", "skewed")
 PLAIN_UP_TO = 1 << 24  # the look-back pass is also held to its plain version up to here
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# The older build's entry points (commit b055d90).
+# The older build's entry points (commit 3090bf7).
 OLD_SIGNATURES = {
-    "grs_key_bits": [_P, _I64, _P, _P, _I, _I, _P, _P, _I64, _P],
-    "grs_lookback_scatter": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    "grs_sort_plan": [_P, _I64, _P, _P, _I, _I, _P, _P, _I64, _P],
+    "grs_lookback_scatter": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P, _I, _P, _P, _I64, _P],
 }
 
 
@@ -83,10 +84,11 @@ class New:
     def __init__(self, keys: torch.Tensor, cfg: EngineConfig):
         self.keys, self.cfg = keys, cfg
         self.skipped = torch.zeros(1, dtype=torch.int64, device=keys.device)
-        self.state = kb.sort_plan(keys, cfg, self.skipped)
+        self.block = kb.sort_args(kb.SortArgs(keys, None, (None, None), keys.numel()))
+        self.plan()
 
     def plan(self):
-        self.state = kb.sort_plan(self.keys, self.cfg, self.skipped)
+        self.state = kb.sort_plan(self.keys, self.cfg, self.skipped, block=self.block)
         return self.state
 
     def tables(self) -> list[torch.Tensor]:
@@ -100,46 +102,39 @@ class New:
 
 
 class Old:
-    """The older build: its one-allocation state (counts, lines, tile and group words)."""
+    """The older build: the same state layout, the buffers passed at each launch."""
 
     label = "old"
 
     def __init__(self, lib: ctypes.CDLL, keys: torch.Tensor, cfg: EngineConfig):
         self.lib, self.keys, self.cfg = lib, keys, cfg
-        passes, table = cfg.num_passes, cfg.num_passes * cfg.radix
-        self.tiles = keys.numel() // cfg.tile
-        groups = -(-self.tiles // 32)
-        head = 2 + passes + table
-        self.counts = head + head % 2
-        self.lookback_at = self.counts + table + 128 * 32
-        total = self.lookback_at + self.tiles * cfg.radix + passes * (2 + 3 * groups * cfg.radix)
-        self.state = torch.empty(total, dtype=torch.int32, device=keys.device)
+        self.at = kb.state_layout(keys.numel() // cfg.tile, cfg)
+        self.state = torch.empty(self.at["total"], dtype=torch.int32, device=keys.device)
         self.skipped = torch.zeros(1, dtype=torch.int64, device=keys.device)
         self.plan()
 
     def plan(self):
-        s, cfg = self.state, self.cfg
-        call(self.lib, "grs_key_bits", self.keys.data_ptr(), self.keys.numel(), s.data_ptr(),
-             s[2:].data_ptr(), cfg.num_passes, cfg.radix_bits, self.skipped.data_ptr(),
-             s[self.counts:].data_ptr(), 4 * (s.numel() - self.counts))
+        s, cfg, zeroed = self.state, self.cfg, self.at["counts"].start
+        call(self.lib, "grs_sort_plan", self.keys.data_ptr(), self.keys.numel(), s.data_ptr(),
+             s[self.at["plan"]].data_ptr(), cfg.num_passes, cfg.radix_bits,
+             self.skipped.data_ptr(), s[zeroed:].data_ptr(), 4 * (s.numel() - zeroed))
         return s
 
     def tables(self) -> list[torch.Tensor]:
-        passes, radix = self.cfg.num_passes, self.cfg.radix
-        s, table = self.state, passes * radix
-        return [s[2:2 + passes], s[self.counts:self.counts + table].view(passes, radix),
-                s[2 + passes:2 + passes + table].view(passes, radix)]
+        shape = (self.cfg.num_passes, self.cfg.radix)
+        return [self.state[self.at["plan"]], self.state[self.at["counts"]].view(shape),
+                self.state[self.at["bases"]].view(shape)]
 
     def clear(self) -> None:
-        self.state[self.lookback_at:].zero_()
+        self.state[self.at["lookback"]].zero_()
 
     def lookback(self, idx: torch.Tensor):
         cfg, s = self.cfg, self.state
         out = (torch.empty_like(self.keys), torch.empty_like(idx))
+        lookback = s[self.at["lookback"]]
         call(self.lib, "grs_lookback_scatter", self.keys.data_ptr(), idx.data_ptr(),
-             out[0].data_ptr(), out[1].data_ptr(), None, None, self.tiles, cfg.tile, 128, 0,
-             cfg.radix, None, 0, s[2 + cfg.num_passes:].data_ptr(),
-             s[self.lookback_at:].data_ptr())
+             out[0].data_ptr(), out[1].data_ptr(), None, None, self.keys.numel(), 0, cfg.radix,
+             None, 0, s[self.at["bases"]].data_ptr(), lookback.data_ptr(), lookback.numel())
         return out
 
 
@@ -189,7 +184,7 @@ def ptxas_report(label: str, csrc: pathlib.Path) -> dict:
                 log(f"ptxas {label} {source}: {line.strip()}")
     for kernel, entry in report.items():
         if "lookback" in kernel and "registers" in entry:
-            threads = 256 if label == "new" else 128
+            threads = 256
             entry["resident_warps"] = resident_warps(entry["registers"], entry.get("smem", 0),
                                                      threads)
             log(f"ptxas {label}: {kernel}: {entry}")

@@ -105,8 +105,9 @@ def test_stage_bytes_equal_hand_counts():
     # (128 of them and one for the AND, the OR and the finished blocks),
     # the look-back's words (4 partitions of 4,096 keys x 16 digits x 8
     # bytes, and a 4-byte ticket a pass); the look-back pass writes and
-    # reads its pass's status words.
+    # reads its pass's status words; sort_args writes its five 8-byte words.
     assert tbench.stage_work(padded, CFG) == {
+        "sort_args": (40, 0),
         "sort_plan": (4 * 16384 + 8 + 32 + 1024 + 4 * 4128 + 512 + 4 * 8, 10 * 16384),
         "bucketize_scatter_lookback": (16 * 16384 + 2 * 512, 6 * 16384),
         "radix_hist": (4 * 16384 + 1024, 3 * 16384),

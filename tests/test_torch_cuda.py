@@ -19,8 +19,14 @@ import pytest
 import torch
 
 from gpuradixsort_tpu_torch import bench as tbench
-from gpuradixsort_tpu_torch.config import LANES, EngineConfig
-from gpuradixsort_tpu_torch.core.table import Table, int32_bits, make_column, make_key_column
+from gpuradixsort_tpu_torch.config import LANES, PAD_KEY, EngineConfig
+from gpuradixsort_tpu_torch.core.table import (
+    Column,
+    Table,
+    int32_bits,
+    make_column,
+    make_key_column,
+)
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
 from gpuradixsort_tpu_torch.kernels import key_bits as tkey_bits
@@ -32,7 +38,7 @@ from gpuradixsort_tpu_torch.ops import filter as tfilter
 from gpuradixsort_tpu_torch.ops import join as tjoin
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
-from gpuradixsort_tpu_torch.utils.timing import card_line
+from gpuradixsort_tpu_torch.utils.timing import card_line, profiled_device_ms
 from gpuradixsort_tpu_torch.utils.verify import join_oracle, mask_keys
 
 pytestmark = pytest.mark.cuda
@@ -495,23 +501,36 @@ def test_fused_sort_of_skewed_and_large_inputs(kind, card, gen):
 
 
 def test_rejected_lookback_and_count_launches_raise(card):
-    # Refused arguments of either entry point raise, and nothing falls
-    # back: a look-back scratch off an 8-byte boundary or too short, no
-    # bases, counts asked of 8-bit digits.
+    # Refused arguments of the three entry points of a fused sort raise, and
+    # nothing falls back: a look-back scratch off an 8-byte boundary or too
+    # short, no bases, an argument block off an 8-byte boundary or missing;
+    # counts asked of 8-bit digits; an argument block's length past the
+    # padded keys, or a block or keys off their boundaries.
     keys = torch.zeros(CFG.block, dtype=torch.int32, device=card).view(torch.uint32)
     out = torch.empty_like(keys)
+    block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (out, out.clone()), 5))
     state = torch.zeros(8192, dtype=torch.int32, device=card)
-    for bases, lookback, words in ((state, state[1:], 4096), (None, state, 4096),
-                                   (state, state, 8)):
+    for args, bases, lookback, words in ((block, state, state[1:], 4096),
+                                         (block, None, state, 4096), (block, state, state, 8),
+                                         (state[1:], state, state, 4096),
+                                         (None, state, state, 4096)):
         with pytest.raises(RuntimeError, match="grs_lookback_scatter"):
-            _build.launch("grs_lookback_scatter", keys, keys.data_ptr(), keys.data_ptr(),
-                          out.data_ptr(), out.data_ptr(), None, None, keys.numel(), 0,
-                          CFG.radix, None, 0, tradix.data_ptr(bases), lookback.data_ptr(), words)
+            _build.launch("grs_lookback_scatter", keys, tradix.data_ptr(args), None, None,
+                          keys.numel(), 0, CFG.radix, None, 0, tradix.data_ptr(bases),
+                          lookback.data_ptr(), words)
     skipped = torch.zeros(1, dtype=torch.int64, device=card)
-    with pytest.raises(RuntimeError, match="grs_sort_plan"):
-        _build.launch("grs_sort_plan", keys, keys.data_ptr(), keys.numel(), state.data_ptr(),
-                      state[2:].data_ptr(), 4, 8, skipped.data_ptr(), state[2048:].data_ptr(),
-                      4 * 6144)
+    for args, bits in ((block, 8), (state[1:], 4)):
+        with pytest.raises(RuntimeError, match="grs_sort_plan"):
+            _build.launch("grs_sort_plan", keys, args.data_ptr(), keys.numel(), state.data_ptr(),
+                          state[2:].data_ptr(), 32 // bits, bits, skipped.data_ptr(),
+                          state[2048:].data_ptr(), 4 * 6144)
+    for where, length, key_ptr in ((block, keys.numel() + 1, keys.data_ptr()),
+                                   (state[1:], 5, keys.data_ptr()),
+                                   (block, 5, keys.data_ptr() + 2), (block, 5, None)):
+        with pytest.raises(RuntimeError, match="grs_sort_args"):
+            _build.launch("grs_sort_args", keys, where.data_ptr(), key_ptr, None,
+                          out.data_ptr(), out.data_ptr(), length, keys.numel())
+    torch.cuda.synchronize()
 
 
 def _sort_input(gen, card, n, high):
@@ -525,9 +544,11 @@ def _graphed_passes(keys, idx, cfg=CFG):
     return tsort._fused_sort_padded(keys, idx, cfg)[:2]
 
 
-def _eager_passes(keys, idx, cfg=CFG):
-    """The fused sort's eager loop on padded buffers."""
-    return tsort._fused_passes(keys, idx, cfg, tsort._skip_counter(keys.device))
+def _eager_passes(keys, idx, cfg=CFG, length=None):
+    """The fused sort's eager loop on padded buffers, its argument block its own."""
+    args = tkey_bits.SortArgs(keys, idx, (torch.empty_like(keys), torch.empty_like(keys)),
+                              keys.numel() if length is None else length)
+    return tsort._fused_passes(args, cfg, tsort._skip_counter(keys.device))
 
 
 def _stable_sort(keys, idx):
@@ -616,12 +637,12 @@ def test_full_graph_cache_runs_the_eager_loop(card, gen, monkeypatch):
 
 
 def test_launch_counts_stay_true_under_replay(card, gen):
-    # A fused sort is one sort_plan and one look-back pass a pass: K1, K5,
-    # the offsets-reading pass, the AND/OR-only key_bits, K2 and K3 are off
-    # its path.
+    # A fused sort is one argument block, one sort_plan and one look-back
+    # pass a pass: K1, K5, the offsets-reading pass, the AND/OR-only
+    # key_bits, K2 and K3 are off its path.
     wrappers = (tradix.tile_histograms, tscatter.bucketize_scatter, tscan.exclusive_scan,
                 tkey_bits.key_bits, tbucketize.bucketize_tiles, tscatter.scatter_runs,
-                tscatter.bucketize_scatter_lookback, tkey_bits.sort_plan)
+                tscatter.bucketize_scatter_lookback, tkey_bits.sort_plan, tkey_bits.sort_args)
     col = make_key_column(gen.integers(0, 2**32, 4 * CFG.block, dtype=np.uint32), CFG,
                           device=card)
     tsort.clear_sort_graphs()
@@ -634,9 +655,9 @@ def test_launch_counts_stay_true_under_replay(card, gen):
 
     # The first call runs the eager loop; the second captures (which runs
     # nothing) and replays; each later call replays.
-    assert launches_of(1) == [0, 0, 0, 0, 0, 0, 8, 1]
-    assert launches_of(1) == [0, 0, 0, 0, 0, 0, 8, 1]
-    assert launches_of(5) == [0, 0, 0, 0, 0, 0, 40, 5]
+    assert launches_of(1) == [0, 0, 0, 0, 0, 0, 8, 1, 1]
+    assert launches_of(1) == [0, 0, 0, 0, 0, 0, 8, 1, 1]
+    assert launches_of(5) == [0, 0, 0, 0, 0, 0, 40, 5, 5]
     tsort.clear_sort_graphs()
 
 
@@ -694,10 +715,10 @@ def test_sort_buffers_never_alias_the_input(card, gen, monkeypatch):
     seen = []
     fused_pass = tsort.bucketize_scatter_lookback
 
-    def recording(keys, idx, cfg, state, pass_index, buffers):
+    def recording(keys, idx, cfg, state, pass_index, buffers, **live):
         seen.append([(t.data_ptr(), t.data_ptr() + t.nbytes)
                      for t in (keys, idx, *buffers[0], *buffers[1])])
-        return fused_pass(keys, idx, cfg, state, pass_index, buffers)
+        return fused_pass(keys, idx, cfg, state, pass_index, buffers, **live)
 
     monkeypatch.setattr(tsort, "bucketize_scatter_lookback", recording)
     tsort.clear_sort_graphs()
@@ -786,10 +807,11 @@ def test_wide_carried_rows_run_eagerly(card, gen, monkeypatch):
 
 
 def test_sorts_on_two_streams_take_turns(card, gen, monkeypatch):
-    # Sorts of one shape on two streams share one graph and its buffers;
-    # each call waits for the last one's copies out, so no result mixes.
-    cols = [make_key_column(gen.integers(0, 2**32, 64 * CFG.block, dtype=np.uint32), CFG,
-                            device=card) for _ in range(8)]
+    # Sorts of one padded shape at eight live lengths on two streams share
+    # one graph, its argument block and its scratch; each call waits for the
+    # last one's replay, so no result mixes.
+    cols = [make_key_column(gen.integers(0, 2**32, 64 * CFG.block - 997 * i, dtype=np.uint32),
+                            CFG, device=card) for i in range(8)]
     with monkeypatch.context() as m:
         m.setattr(tsort, "GRAPH_MAX_PADDED", 0)
         want = [tsort.sort_pairs(c, CFG, method="fused") for c in cols]
@@ -819,8 +841,9 @@ def test_clear_sort_graphs_frees_the_pool(card, gen):
     base = torch.cuda.memory_reserved(card)
     tsort.sort_pairs(col, CFG, method="fused")  # the capture
     torch.cuda.empty_cache()
-    # At least the static inputs and the captured outputs: 16 bytes a key.
-    assert torch.cuda.memory_reserved(card) - base >= 16 * col.padded_length
+    # At least the scratch S, keys and index: 8 bytes a key (the input is
+    # the caller's and each call's result its own).
+    assert torch.cuda.memory_reserved(card) - base >= 8 * col.padded_length
     tsort.clear_sort_graphs()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved(card) <= base
@@ -850,6 +873,126 @@ def test_failed_capture_raises(card, gen, monkeypatch):
     got = _graphed_passes(keys, idx)
     assert len(tsort._SORT_GRAPHS) == 1
     assert all(_same(g, e) for g, e in zip(got, _eager_passes(keys, idx)))
+    tsort.clear_sort_graphs()
+
+
+def _live_lengths(padded: int) -> list:
+    """Live lengths of a padded buffer: none, one, a tile less one, a partition less
+    one, a partition, one in an earlier partition, one in the last, and all."""
+    part = tkey_bits.LOOKBACK_PARTITION
+    return [0, 1, CFG.tile - 1, part - 1, part, 2 * part + 17, padded - 5, padded]
+
+
+def _stale_buffer(gen, padded: int) -> np.ndarray:
+    """Random keys, 5% of them PAD_KEY; past a live length they stand for stale rows."""
+    buf = gen.integers(0, 2**32, padded, dtype=np.uint32)
+    buf[gen.random(padded) < 0.05] = np.uint32(PAD_KEY)
+    return buf
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_lookback_at_live_lengths_matches_plain(bits, card, gen):
+    # A sort's passes at live lengths inside the last 4,096-key partition,
+    # in an earlier one and at a partition's end, the rows past the length
+    # stale: sort_plan (plan, counts, bases, skipped passes) and each
+    # look-back pass routed by its plan, with the index made and given,
+    # against their plain versions on copies of the same buffers; R against
+    # a stable sort of the re-padded input.
+    cfg = EngineConfig(radix_bits=bits)
+    padded = 3 * cfg.block  # six partitions
+    for length in _live_lengths(padded):
+        keys = torch.from_numpy(_stale_buffer(gen, padded)).to(card)
+        for idx in (None, torch.from_numpy(gen.permutation(padded).astype(np.uint32)).to(card)):
+            skipped = [torch.zeros(1, dtype=torch.int64, device=card) for _ in range(2)]
+            pairs = tuple((torch.zeros_like(keys), torch.zeros_like(keys)) for _ in range(2))
+            block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, idx, pairs[0], length))
+            state = tkey_bits.sort_plan(keys, cfg, skipped[0], length=length, block=block)
+            ref = tkey_bits.sort_plan(keys, cfg, skipped[1], impl="reference", length=length)
+            where = (length, idx is None)
+            assert all(_same(g, w) for g, w in zip(state[:3], ref[:3])), where
+            assert _same(*skipped), where
+            for p in range(cfg.num_passes):
+                want = tuple(tuple(t.clone() for t in pair) for pair in pairs)
+                tscatter.bucketize_scatter_lookback(keys, idx, cfg, state, p, pairs,
+                                                    length=length, block=block)
+                tscatter.bucketize_scatter_lookback(keys, idx, cfg, ref, p, want, impl="reference",
+                                                    length=length)
+                assert all(_same(g, w) for got, w_pair in zip(pairs, want)
+                           for g, w in zip(got, w_pair)), (*where, p)
+            live = tkey_bits.live_input(keys, idx, length)
+            assert all(_same(g, w) for g, w in zip(pairs[0], _stable_sort(*live))), where
+
+
+def test_one_graph_serves_every_live_length(card, gen):
+    # One padded shape at every live length, the rows past it stale: the
+    # first call runs eagerly, the second captures, every later one replays
+    # the one graph, each result equal to the plain route's on the CPU and
+    # the input unwritten.
+    padded = 3 * CFG.block
+    lengths = _live_lengths(padded)
+    tsort.clear_sort_graphs()
+    for length in lengths:
+        buf = _stale_buffer(gen, padded)
+        col = Column(torch.from_numpy(buf).to(card), length)
+        got = tsort.sort_pairs(col, CFG, method="fused")
+        want = tsort.sort_pairs(Column(torch.from_numpy(buf), length), CFG, method="fused")
+        assert all(_same(g.data.cpu(), w.data) for g, w in zip(got, want)), length
+        order = np.argsort(buf[:length], kind="stable")
+        np.testing.assert_array_equal(got[1].to_numpy(), order.astype(np.uint32))
+        assert _same(col.data.cpu(), torch.from_numpy(buf)), length
+    assert len(tsort._SORT_GRAPHS) == 1
+    assert next(iter(tsort._SORT_GRAPHS.values())).replays == len(lengths) - 1
+    tsort.clear_sort_graphs()
+
+
+def test_results_outlive_the_next_call(card, gen):
+    # A replay writes a result of its own: every earlier call's result, the
+    # capture's included, holds its sort after the later calls.
+    padded = 2 * CFG.block
+    cols = [Column(torch.from_numpy(_stale_buffer(gen, padded)).to(card), padded - 301 * i)
+            for i in range(5)]
+    tsort.clear_sort_graphs()
+    outs = [tsort.sort_pairs(col, CFG, method="fused") for col in cols]
+    torch.cuda.synchronize()
+    for col, out in zip(cols, outs):
+        want = tsort.sort_pairs(Column(col.data.cpu(), col.length), CFG, method="fused")
+        assert all(_same(g.data.cpu(), w.data) for g, w in zip(out, want)), col.length
+    ptrs = {t.data.data_ptr() for out in outs for t in out}
+    assert len(ptrs) == 2 * len(outs)  # no two results share a buffer
+    assert next(iter(tsort._SORT_GRAPHS.values())).replays == len(cols) - 1
+    tsort.clear_sort_graphs()
+
+
+# The device work a fused sort may do: its three kernels and sort_plan's memset
+# (a "Memset" row, or "memset32" inside a graph).
+FUSED_ROWS = ("sort_args_kernel", "sort_plan_kernel", "lookback_scatter_kernel", "memset")
+
+
+def test_fused_sort_runs_only_its_kernels(card, gen, monkeypatch):
+    # sort_pairs and sort_keys of a column with stale rows past its length,
+    # eager and replayed: the profiler sees the argument kernel, sort_plan's
+    # memset and kernel and the look-back passes, and no other device work
+    # (no arange, where or compare over the buffer, no copy of keys or
+    # index); the wrappers count 1, 1 and a launch a pass a sort.
+    padded = 4 * CFG.block
+    col = Column(torch.from_numpy(_stale_buffer(gen, padded)).to(card), padded - 777)
+    wrappers = (tkey_bits.sort_args, tkey_bits.sort_plan, tscatter.bucketize_scatter_lookback)
+    for how in ("eager", "graphed"):
+        tsort.clear_sort_graphs()
+        if how == "eager":
+            monkeypatch.setattr(tsort, "GRAPH_MAX_PADDED", 0)
+        else:
+            monkeypatch.undo()
+            for _ in range(2):  # seen, then captured
+                tsort.sort_pairs(col, CFG, method="fused")
+        for entry in (tsort.sort_pairs, tsort.sort_keys):
+            before = [w.launches for w in wrappers]
+            entry(col, CFG, method="fused")
+            assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 8], how
+            busy, rows = profiled_device_ms(lambda: entry(col, CFG, method="fused"), calls=2)
+            assert busy > 0 and rows, how
+            other = [row for row in rows if not any(name in row.lower() for name in FUSED_ROWS)]
+            assert not other, (how, entry.__name__, other)
     tsort.clear_sort_graphs()
 
 

@@ -729,3 +729,132 @@ def test_sort_plan_and_lookback_refuse_2_31_rows(rows):
     state = tkey_bits.SortPlan(*(torch.empty(0, dtype=torch.int32, device="meta"),) * 4)
     with pytest.raises(ValueError, match=r"2\^31.*int32"):
         tscatter.bucketize_scatter_lookback(keys, keys, cfg, state, 0)
+
+
+# Live lengths of a two-block buffer: none, one, a tile less one, a multiple
+# of the tile, one past it, and all of it.
+def _live_lengths(cfg):
+    return [0, 1, cfg.tile - 1, 3 * cfg.tile, 3 * cfg.tile + 1, 2 * cfg.block]
+
+
+def _stale(cfg, length, gen):
+    """A two-block buffer whose rows past ``length`` hold stale keys, and it re-padded."""
+    buf = gen.integers(0, 2**32, 2 * cfg.block, dtype=np.uint32)
+    buf[gen.random(buf.size) < 0.1] = np.uint32(0xFFFFFFFF)  # live keys equal to PAD_KEY
+    repadded = buf.copy()
+    repadded[length:] = 0xFFFFFFFF
+    return buf, repadded
+
+
+def _numpy_counts(keys: np.ndarray, cfg) -> np.ndarray:
+    return np.stack([np.bincount((keys >> np.uint32(p * cfg.radix_bits)) & np.uint32(cfg.radix - 1),
+                                 minlength=cfg.radix) for p in range(cfg.num_passes)])
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_sort_plan_counts_the_live_keys_and_the_pads(bits):
+    # sort_plan with a live length counts the rows past it as PAD_KEY,
+    # whatever they hold: its counts are numpy's of the re-padded buffer,
+    # its bases their exclusive prefix, its plan and skipped passes the
+    # re-padded buffer's.
+    cfg = EngineConfig(radix_bits=bits)
+    for length in _live_lengths(cfg):
+        buf, repadded = _stale(cfg, length, np.random.default_rng([bits, length]))
+        skipped = [torch.zeros(1, dtype=torch.int64) for _ in range(2)]
+        state = tkey_bits.sort_plan(torch.from_numpy(buf), cfg, skipped[0], length=length)
+        want = _numpy_counts(repadded, cfg)
+        _eq(state.counts, want.astype(np.int32))
+        _eq(state.bases, (np.cumsum(want, axis=1) - want).astype(np.int32))
+        plan = tkey_bits.pass_plan(torch.from_numpy(repadded), cfg, skipped[1])
+        assert torch.equal(state.plan, plan) and torch.equal(*skipped), length
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_lookback_pass_reads_pads_and_makes_the_index(bits):
+    # The look-back pass from the input with a live length and no index:
+    # the JAX package's fused pass of the re-padded buffer and its
+    # arange-then-PAD_INDEX index, in the first and the last pass; with the
+    # index given, the rows past the length still read as pads.
+    cfg = EngineConfig(radix_bits=bits)
+    for length in _live_lengths(cfg):
+        buf, repadded = _stale(cfg, length, np.random.default_rng([bits, length, 1]))
+        idx = np.where(np.arange(buf.size) < length, np.arange(buf.size),
+                       0xFFFFFFFF).astype(np.uint32)
+        state = tkey_bits.sort_plan(torch.from_numpy(buf), cfg,
+                                    torch.zeros(1, dtype=torch.int64), length=length)
+        for p in (0, cfg.num_passes - 1):
+            _, _, jok, joi = _jax_fused_pass(repadded, idx, p * bits, cfg, "reference")
+            for given in (None, torch.from_numpy(buf[::-1].copy())):  # stale index rows too
+                if given is not None:
+                    given[:length] = torch.from_numpy(idx[:length])
+                tok, toi = tscatter.bucketize_scatter_lookback(
+                    torch.from_numpy(buf), given, cfg, state, p, length=length)
+                _eq(tok, jok)
+                _eq(toi, joi)
+
+
+def test_lookback_pass_at_a_live_length_routes_as_planned():
+    # A planned pass from the input with a live length writes the named
+    # buffer as its unplanned call does; passes from R or S ignore the length.
+    cfg = EngineConfig()
+    gen = np.random.default_rng(7)
+    keys = torch.from_numpy(gen.integers(0, 2**32, 2 * cfg.tile, dtype=np.uint32))
+    pairs = [tuple(torch.from_numpy(gen.integers(0, 2**32, 2 * cfg.tile, dtype=np.uint32))
+                   for _ in range(2)) for _ in range(2)]
+    state = tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=100)
+    for source, destination in ((tradix.INPUT, tradix.SCRATCH), (tradix.SCRATCH, tradix.RESULT)):
+        plan = torch.tensor([tradix.plan_entry(source, destination)] + [-1] * 7, dtype=torch.int32)
+        routed = state._replace(plan=plan, lookback=torch.zeros_like(state.lookback))
+        before = [tuple(t.clone() for t in pair) for pair in pairs]
+        tscatter.bucketize_scatter_lookback(keys, None, cfg, routed, 0, tuple(pairs), length=100)
+        src = (keys, None) if source == tradix.INPUT else before[1]
+        want = tscatter.bucketize_scatter_lookback(*src, cfg, routed, 0,
+                                                   length=100 if source == tradix.INPUT else None)
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(pairs[destination - 1], want)), (source, destination)
+
+
+def test_sort_args_plain_words():
+    # The argument block's plain version: the input's, the index's and R's
+    # addresses (0 for none) and the live length, as int64 on the keys' device.
+    keys = torch.zeros(EngineConfig().block, dtype=torch.int32).view(torch.uint32)
+    result = (torch.empty_like(keys), torch.empty_like(keys))
+    for idx, length in ((None, 5), (keys.clone(), keys.numel()), (None, 0)):
+        block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, idx, result, length))
+        assert block.dtype == torch.int64 and block.shape == (tkey_bits.ARGS_WORDS,)
+        assert block.tolist() == [keys.data_ptr(), 0 if idx is None else idx.data_ptr(),
+                                  result[0].data_ptr(), result[1].data_ptr(), length]
+    assert tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (None, None), 3))[2:4].tolist() \
+        == [0, 0]
+
+
+def test_sort_args_and_live_lengths_reject_bad_input():
+    cfg = EngineConfig()
+    keys = torch.zeros(cfg.block, dtype=torch.int32).view(torch.uint32)
+    result = (torch.empty_like(keys), torch.empty_like(keys))
+    for length in (-1, cfg.block + 1):
+        with pytest.raises(ValueError, match="length"):
+            tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, result, length))
+        with pytest.raises(ValueError, match="length"):
+            tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=length)
+    with pytest.raises(ValueError, match="index and result"):
+        tkey_bits.sort_args(tkey_bits.SortArgs(keys, keys[:128], result, 1))
+    with pytest.raises(ValueError, match="index and result"):
+        tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (keys.view(torch.int32), keys), 1))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, result, 1), impl="cuda")
+    with pytest.raises(ValueError, match="sort_args block"):
+        tkey_bits.check_block(torch.zeros(4, dtype=torch.int64), keys)
+    state = tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="length"):
+        tscatter.bucketize_scatter_lookback(keys, None, cfg, state, 0, length=cfg.block + 1)
+    block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, result, 1))
+    with pytest.raises(ValueError, match="buffers"):  # the block's R would go unreturned
+        tscatter.bucketize_scatter_lookback(keys, None, cfg, state, 0, length=1, block=block)
+
+
+def test_sort_args_plain_launches_nothing():
+    keys = torch.zeros(EngineConfig().block, dtype=torch.int32).view(torch.uint32)
+    before = tkey_bits.sort_args.launches
+    tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (None, None), 1))
+    assert tkey_bits.sort_args.launches == before

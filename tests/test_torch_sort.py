@@ -18,7 +18,13 @@ from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch import config as tconfig
 from gpuradixsort_tpu_torch.core import table as ttable
 from gpuradixsort_tpu_torch.kernels import radix as tradix
-from gpuradixsort_tpu_torch.kernels.key_bits import key_bits, pass_mask, pass_plan, plan_of_mask
+from gpuradixsort_tpu_torch.kernels.key_bits import (
+    SortArgs,
+    key_bits,
+    pass_mask,
+    pass_plan,
+    plan_of_mask,
+)
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.utils import timing, verify
@@ -305,7 +311,8 @@ def test_plan_routes_every_mask():
         assert all(dst in (tradix.RESULT, tradix.SCRATCH) and dst != src for src, dst in routes)
         assert all(a[1] == b[0] for a, b in zip(routes, routes[1:]))
         assert int(skipped) - before == CFG.num_passes - bin(mask).count("1")
-        out_keys, out_idx = tsort._fused_passes(keys, idx, CFG, skipped)
+        result = (torch.empty_like(keys), torch.empty_like(idx))
+        out_keys, out_idx = tsort._fused_passes(SortArgs(keys, idx, result, n), CFG, skipped)
         order = np.argsort(keys_np, kind="stable")
         np.testing.assert_array_equal(out_keys.numpy(), keys_np[order], err_msg=f"{mask:#x}")
         np.testing.assert_array_equal(out_idx.numpy(), order.astype(np.uint32))
@@ -419,4 +426,76 @@ def test_sorts_take_2_31_less_a_block():
     rows = 2**31 - CFG.block
     col = ttable.make_key_column(torch.empty(rows, dtype=torch.uint32, device="meta"), CFG)
     assert col.padded_length == rows
-    assert tsort._as_key_column(col, CFG) is col
+    assert tsort._key_column(col, CFG) is col
+
+
+# Live lengths of a one-block buffer: none, one, a tile less one, a multiple
+# of the tile and one past it.
+LIVE_LENGTHS = [0, 1, CFG.tile - 1, 3 * CFG.tile, 3 * CFG.tile + 1]
+LIVE_KINDS = ["random", "live PAD_KEY", "all equal"]
+
+
+def _live_keys(kind: str, n: int, gen) -> np.ndarray:
+    if kind == "all equal":  # every digit constant: the sort is the plan's copy pass
+        return np.full(n, 0xDEADBEEF, dtype=np.uint32)
+    keys = gen.integers(0, 2**32, n, dtype=np.uint32)
+    if kind == "live PAD_KEY":  # live rows equal to the pads stay before them
+        keys[gen.random(n) < 0.3] = np.uint32(tconfig.PAD_KEY)
+    return keys
+
+
+def _stale_columns(keys: np.ndarray, length: int, padded: int, gen):
+    """One key column for each package, its rows past ``length`` stale: non-pad garbage."""
+    buf = gen.integers(0, 1 << 16, padded, dtype=np.uint32)
+    buf[:length] = keys[:length]
+    return ttable.Column(torch.from_numpy(buf.copy()), length), jtable.Column(jnp.asarray(buf), length)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("length", LIVE_LENGTHS)
+@pytest.mark.parametrize("kind", LIVE_KINDS)
+def test_fused_sorts_of_live_lengths_match_jax(bits, length, kind):
+    # The fused sort_pairs, sort_keys and sort_table of a key column whose
+    # rows past its length hold stale keys: the port's plain route (the
+    # made index, the rows past the length read as pads) against the JAX
+    # package's, which re-pads with jnp.where and makes the index with
+    # jnp.arange; padded buffers equal element for element.
+    cfg, jcfg = tconfig.EngineConfig(radix_bits=bits), jconfig.EngineConfig(radix_bits=bits)
+    gen = np.random.default_rng([bits, length, LIVE_KINDS.index(kind)])
+    padded = cfg.block
+    keys = _live_keys(kind, padded, gen)
+    col, jcol = _stale_columns(keys, length, padded, gen)
+    held = col.data.clone()
+    s, p = tsort.sort_pairs(col, cfg, method="fused")
+    js, jp = jsort.sort_pairs(jcol, jcfg, method="fused")
+    np.testing.assert_array_equal(s.data.numpy(), np.asarray(js.data))
+    np.testing.assert_array_equal(p.data.numpy(), np.asarray(jp.data))
+    order = np.argsort(keys[:length], kind="stable")
+    np.testing.assert_array_equal(p.to_numpy(), order.astype(np.uint32))
+    np.testing.assert_array_equal(
+        tsort.sort_keys(col, cfg, method="fused").data.numpy(),
+        np.asarray(jsort.sort_keys(jcol, jcfg, method="fused").data))
+    payload = gen.integers(0, 2**31, (padded, 2)).astype(np.int32)
+    table = ttable.Table({"key": col, "v": ttable.Column(torch.from_numpy(payload), length)})
+    jtable_ = jtable.Table({"key": jcol, "v": jtable.Column(jnp.asarray(payload), length)})
+    out, jout = (tsort.sort_table(table, "key", cfg, method="fused"),
+                 jsort.sort_table(jtable_, "key", jcfg, method="fused"))
+    for name in ("key", "v"):
+        np.testing.assert_array_equal(out[name].data.numpy(), np.asarray(jout[name].data))
+    assert torch.equal(col.data, held)  # the input, stale rows and all, is not written
+
+
+@pytest.mark.parametrize("length", LIVE_LENGTHS + [2 * BLOCK - 1, 2 * BLOCK])
+def test_made_index_matches_the_explicit_index(length):
+    # The made-index route (the buffer and its length, nothing built) and the
+    # explicit-index route (the re-padded buffer with the index column, every
+    # row live) give one result.
+    gen = np.random.default_rng(length)
+    keys = _live_keys("live PAD_KEY", 2 * BLOCK, gen)
+    col, _ = _stale_columns(keys, length, 2 * BLOCK, gen)
+    made = tsort._fused_sort_live(col.data, length, CFG)
+    repadded = tsort._repadded(col)
+    explicit = tsort._fused_sort_padded(repadded.data, tsort._index_column(repadded), CFG)
+    for a, b in zip(made, explicit[:2]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert tsort._repadded(ttable.Column(col.data, 2 * BLOCK)).data is col.data
