@@ -27,7 +27,12 @@ in eight phases:
    partitions than the card holds blocks at once, on random, skewed (one
    key holding 99%), equal and PAD_KEY keys, first and last pass; radix_dest
    at radix 2-256 (also those EngineConfig cannot name), at tile_rows 1, 3,
-   8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off; scatter_runs at
+   8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off; dest_scatter (K4
+   and the indexed stores after it) at radix_bits 1, 2, 4 and 8 on the same
+   keys moving the keys and their index, and at radix 2-256, tile_rows 1,
+   3, 8, 16 and 64, on 1, 8 and 29 tiles, moving 0, 1, 8 and 9 columns of
+   1- to 16-byte rows (2-D among them; 9 take two launches), rank keys also
+   4 bytes off; scatter_runs at
    radix 2, 4, 16, 32, 64 and 256, tile_rows 1, 3, 8 and 16, on 1 and 9
    tiles and (radix 16) on more tiles than the card holds warps at once,
    inputs also 4 bytes off, and with moved offsets; exclusive_scan at
@@ -42,8 +47,8 @@ in eight phases:
    by sort_plan's), pass by pass (every route: the input into R or S, R
    into S, S into R), for every mask of 4-bit digits over 8 passes on 4
    blocks and four masks at 1M keys (radix_hist, bucketize, scatter_runs,
-   bucketize_scatter, bucketize_scatter_lookback and radix_dest are also
-   held against their plain versions at the operator path's shapes, after
+   bucketize_scatter, bucketize_scatter_lookback, radix_dest and dest_scatter
+   are also held against their plain versions at the operator path's shapes, after
    phase 4: 2^24 keys at radix_bits 1, 4 and 8, the filter's 100,000,000
    keys at radix_bits 1, 4 and 8, and its 1-bit compaction input; key_bits
    and sort_plan, its counts also against numpy, on the 100M buffers the
@@ -71,7 +76,8 @@ in eight phases:
    read after it: the fused sorts must launch sort_args and sort_plan once
    a sort and bucketize_scatter_lookback once a pass, and K1, K5,
    bucketize_scatter, key_bits, bucketize and scatter_runs never; the
-   radix sorts K1, K4 and K5 and none of the fused sort's;
+   radix sorts K1, K5 and dest_scatter once a pass each, and K4 and none of
+   the fused sort's never;
 4. the operator path, counts again set to 0 before and read after, every
    result checked exactly against numpy (float means within rtol 1e-5 of a
    float64 oracle): ``filter_table`` of 100,000,000 keys keeping about half,
@@ -103,7 +109,9 @@ in eight phases:
    time from the profiler, and CUDA-event time per call), its bound (the
    bytes it must move at 3.35 TB/s) and its share of that bound, and
    exclusive_scan and global_offsets beside ``torch.cumsum``; the 1M x 64
-   B table sort; radix_dest at radix 2, 16 and 256, key_bits, sort_plan
+   B table sort; at radix 2, 16 and 256 on (key, index) pairs, dest_scatter
+   beside K4 then scatter_by_destination (the stores it replaces), K4 alone
+   and K1, in alternating turns; key_bits, sort_plan
    (random, skewed and equal keys), exclusive_scan beside ``torch.cumsum``
    on a vector, and the look-back pass, the table pass whole, bucketize_scatter,
    bucketize and scatter_runs on a radix-16 pass, at 1M, 2^24 and
@@ -120,7 +128,7 @@ in eight phases:
    ``dist_join_inner`` of the join_expand inputs.  Each op runs once
    untimed, then timed (wall after synchronize and a barrier, split by
    stage on every rank); every result is checked exactly against numpy,
-   and K1, K4 and K5 must have launched on every rank;
+   and K1, K5 and dest_scatter must have launched on every rank, K4 never;
 8. the bench, ``python -m gpuradixsort_tpu_torch.bench --sizes 1000000``,
    in a child process: every method checked and timed at 1M keys, the
    per-stage table and the table sort; it must exit 0, and its JSON line
@@ -192,6 +200,7 @@ from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.aggregate import group_by_aggregate
 from gpuradixsort_tpu_torch.ops.filter import filter_table
 from gpuradixsort_tpu_torch.ops.join import join, join_expand
+from gpuradixsort_tpu_torch.ops.permute import scatter_by_destination
 from gpuradixsort_tpu_torch.ops.sort import sort_keys, sort_pairs, sort_table
 from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
 from gpuradixsort_tpu_torch.utils.timing import (
@@ -248,6 +257,11 @@ KERNELS = {
                           ("bucketize_scatter_1k_kernel", "bucketize_scatter_any_kernel")),
     "radix_dest": (rk.tile_destinations, "gpuradixsort_tpu_torch/csrc/radix_dest.cu",
                    "gpuradixsort_tpu/kernels/radix.py:92", ("radix_dest_kernel",)),
+    # K4 and the indexed stores after it: the radix pass and the compaction
+    # place their own rows.
+    "dest_scatter": (rk.dest_scatter, "gpuradixsort_tpu_torch/csrc/radix_dest.cu",
+                     "gpuradixsort_tpu/kernels/radix.py:92 and gpuradixsort_tpu/ops/permute.py:34",
+                     ("dest_scatter_kernel",)),
     "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
                        "gpuradixsort_tpu/kernels/scan.py:31", ("scan_kernel",)),
     # Glue with no Pallas kernel: the JAX package's per-pass skip predicate,
@@ -258,11 +272,11 @@ KERNELS = {
 # The kernels each sort method runs.  A fused sort writes its argument block,
 # reads its keys once in sort_plan and runs the look-back pass in every pass;
 # K1, K5, the table pass, the plain key_bits, K2 and K3 run on none of its
-# path.
+# path.  A radix pass runs K1, K5 and dest_scatter; K4 runs on no path.
 FUSED_PATH = ("sort_args", "sort_plan", "bucketize_scatter_lookback")
-RADIX_PATH = ("radix_hist", "radix_dest", "exclusive_scan")
+RADIX_PATH = ("radix_hist", "dest_scatter", "exclusive_scan")
 OFF_FUSED = tuple(name for name in KERNELS if name not in FUSED_PATH)
-OFF_PATH = ("bucketize", "scatter_runs", "bucketize_scatter", "key_bits")  # on no path
+OFF_PATH = ("bucketize", "scatter_runs", "bucketize_scatter", "key_bits", "radix_dest")
 
 
 def reset_launches() -> None:
@@ -328,6 +342,9 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                                   dest_ref)
                 errs["radix_dest"] = max(errs["radix_dest"], err)
                 check(err == 0, f"radix_dest == plain, {where}")
+                err = max_dest_scatter_err(keys, hist_ref, offsets, shift, cfg, [keys, idx])
+                errs["dest_scatter"] = max(errs["dest_scatter"], err)
+                check(err == 0, f"dest_scatter == plain (keys and index), {where}")
                 if cfg.radix > 16:
                     continue
                 bk_ref, bi_ref = _bucketize_ref(keys, idx, shift, cfg)
@@ -355,6 +372,7 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     check_fused_geometry(dev, rng, errs)
     check_lookback_geometry(dev, rng, errs)
     check_dest_geometry(dev, rng, errs)
+    check_dest_scatter_geometry(dev, rng, errs)
     check_scatter_geometry(dev, rng, errs)
     check_scan_lengths(dev, rng, errs)
     check_key_bits(dev, rng, errs)
@@ -764,6 +782,68 @@ def check_dest_geometry(dev, rng, errs: dict) -> None:
           "aligned and unaligned keys")
 
 
+def max_dest_scatter_err(keys, hist, offsets, shift, cfg, columns) -> int:
+    """The largest difference of dest_scatter's moves from the plain ones, bit patterns
+    compared as words or bytes."""
+    want = rk.dest_scatter(keys, hist, offsets, shift, cfg, columns, impl="reference")
+    got = rk.dest_scatter(keys, hist, offsets, shift, cfg, columns, impl="cuda")
+    if len(got) != len(want):
+        raise SmokeFailure(f"dest_scatter returned {len(got)} columns, not {len(want)}")
+    err = 0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise SmokeFailure(f"dest_scatter returned {g.dtype} {tuple(g.shape)}, not "
+                               f"{w.dtype} {tuple(w.shape)}")
+        # Bits compared as 4-byte words where the elements are, else as bytes.
+        as_bits = torch.int32 if g.element_size() == 4 else torch.uint8
+        err = max(err, max_abs_err(g.reshape(-1).view(as_bits), w.reshape(-1).view(as_bits)))
+    return err
+
+
+def moved_columns(rng, n: int, count: int, dev) -> list:
+    """``count`` columns of n rows, cycling through the layouts dest_scatter moves: 4-byte
+    words, 2-D rows of 16 bytes and of three words, 2-, 1- and 8-byte elements."""
+    makers = (
+        lambda: rng.integers(0, 2**32, n, dtype=np.uint32),
+        lambda: rng.integers(-(2**31), 2**31, (n, 4)).astype(np.int32),
+        lambda: rng.standard_normal(n).astype(np.float32),
+        lambda: rng.integers(-(2**31), 2**31, (n, 3)).astype(np.int32),
+        lambda: rng.integers(-(2**15), 2**15, n).astype(np.int16),
+        lambda: rng.integers(0, 2, n).astype(bool),
+        lambda: rng.integers(-(2**62), 2**62, n, dtype=np.int64),
+        lambda: rng.integers(-(2**15), 2**15, (n, 3)).astype(np.int16),
+        lambda: rng.standard_normal((n, 2)).astype(np.float32),
+    )
+    return [torch.from_numpy(makers[i % len(makers)]()).to(dev) for i in range(count)]
+
+
+def check_dest_scatter_geometry(dev, rng, errs: dict) -> None:
+    """dest_scatter against its plain version at every launch geometry.
+
+    Radix 2-256 (registers up to 32, a warp's shared tables above), tile_rows
+    1, 3, 8, 16 and 64 (staging past 48 KB a block, opted in), 1, 8 and 29
+    tiles (the last block of 4 part-filled), 0, 1, 8 and 9 moved columns
+    (9: two launches) of every layout, 2-D rows among them, rank keys
+    aligned and 4 bytes off a 16-byte boundary.
+    """
+    for tile_rows in (1, 3, 8, 16, 64):
+        for bits in range(1, 9):
+            cfg = any_radix_cfg(1 << bits, tile_rows)
+            for num_tiles in (1, 8, 29):
+                n = num_tiles * cfg.tile
+                buf = torch.from_numpy(rng.integers(0, 2**32, n + 1, dtype=np.uint32)).to(dev)
+                for keys, shift in ((buf[:n], 0), (buf[1:], 28)):
+                    hist = rk.tile_histograms(keys, shift, cfg, impl="reference")
+                    offsets = rk.global_offsets(hist)
+                    for count in (0, 1, 8, 9):
+                        columns = moved_columns(rng, n, count, dev)
+                        errs["dest_scatter"] = max(errs["dest_scatter"], max_dest_scatter_err(
+                            keys, hist, offsets, shift, cfg, columns))
+    check(errs["dest_scatter"] == 0,
+          "dest_scatter (radix 2-256) == plain at tile_rows 1, 3, 8, 16, 64, 1/8/29 tiles, "
+          "0/1/8/9 columns of 1- to 16-byte rows, aligned and unaligned keys")
+
+
 def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
     """radix_hist and bucketize against their plain versions at every launch geometry.
 
@@ -905,7 +985,9 @@ def check_lookback_geometry(dev, rng, errs: dict) -> None:
 def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     """The kernels against their plain versions at the path's shapes.
 
-    radix_hist, bucketize, scatter_runs, bucketize_scatter and radix_dest:
+    radix_hist, bucketize, scatter_runs, bucketize_scatter, radix_dest and
+    dest_scatter (moving the keys and their index, or, in the compaction, the
+    filter's key column):
     the 2^24 keys of the sorts at radix_bits 1, 4 and 8 (bucketize,
     scatter_runs on the kernel's bucketized tiles, and bucketize_scatter at
     4), the filter's 100,000,000 keys at
@@ -957,6 +1039,14 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
                           rk.tile_destinations(keys, offsets, shift, kcfg, impl="reference"))
         errs["radix_dest"] = max(errs["radix_dest"], err)
         check(err == 0, f"radix_dest == plain, {where}")
+        # The columns the path moves: the filter's compaction its key column,
+        # a radix pass its keys and their index.
+        columns = ([flt["key"].data] if keys is compaction
+                   else [keys, iota_index(keys.numel(), kcfg, keys.device)])
+        err = max_dest_scatter_err(keys, hist, offsets, shift, kcfg, columns)
+        del columns
+        errs["dest_scatter"] = max(errs["dest_scatter"], err)
+        check(err == 0, f"dest_scatter == plain, {where}")
         if kcfg.radix == 16:
             idx = iota_index(keys.numel(), kcfg, keys.device)
             got = bucketize_tiles(keys, idx, shift, kcfg, impl="cuda")
@@ -1089,8 +1179,12 @@ def phase_main_path(dev, rng, cfg) -> dict:
           + ", ".join(f"{name} {fused[name]}" for name in OFF_FUSED) + " times")
     for name in RADIX_PATH:
         check(radix[name] > 0, f"{name} launched {radix[name]} times by the radix sorts")
+    check(radix["dest_scatter"] == radix["radix_hist"] == radix["exclusive_scan"],
+          f"the radix sorts launched K1, K5 and dest_scatter once a pass each "
+          f"({radix['radix_hist']} passes)")
     check(all(radix[name] == 0 for name in FUSED_PATH + OFF_PATH),
-          "the radix sorts launched no kernel of the fused sort's and none off the paths")
+          "the radix sorts launched no kernel of the fused sort's and none off the paths "
+          f"(radix_dest {radix['radix_dest']} times)")
     return {name: fused[name] + radix[name] for name in KERNELS}
 
 
@@ -1719,6 +1813,10 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             "radix_dest": (lambda: rk.tile_destinations(keys, offsets, 0, cfg, impl="cuda"),
                            lambda: rk.tile_destinations(keys, offsets, 0, cfg,
                                                         impl="reference"), None),
+            "dest_scatter": (
+                lambda: rk.dest_scatter(keys, hist, offsets, 0, cfg, [keys, idx], impl="cuda"),
+                lambda: rk.dest_scatter(keys, hist, offsets, 0, cfg, [keys, idx],
+                                        impl="reference"), None),
             "exclusive_scan": (lambda: exclusive_scan(counts, impl="cuda"),
                                lambda: exclusive_scan(counts, impl="reference"),
                                lambda: torch.cumsum(counts, 0, dtype=torch.int32)),
@@ -1795,33 +1893,53 @@ def median_measured(turns: list[float]) -> float:
 
 
 def phase_dest_scan_times(dev, rng, card: str) -> None:
-    """Phase 5, continued: radix_dest (radix 2, 16, 256), key_bits, sort_plan, exclusive_scan.
+    """Phase 5, continued: the radix pass's kernels, key_bits, sort_plan, exclusive_scan.
 
-    sort_plan on random keys, on keys of which 99% are one key (so every
-    lane adds to one counter of each pass) and on equal keys.
+    At radix 2, 16 and 256 on (key, index) pairs: dest_scatter, K4 then
+    ``scatter_by_destination`` (the stores it replaces, the same function),
+    K4 alone and K1, in alternating turns.  sort_plan on random keys, on keys of which 99% are one key (so
+    every lane adds to one counter of each pass) and on equal keys.
 
     At 1M, 2^24 and 100M keys (padded as the sorts pad them): device time
     per call from the profiler (20 back-to-back calls, median of 3 turns),
     the bound and the share of it; exclusive_scan of a vector of int32 0..99
     beside ``torch.cumsum`` of it, in alternating turns.
     """
-    log(f"radix_dest, key_bits and exclusive_scan at 1M, 2^24 and 100M ({card}): device us per "
-        f"call (profiler, 20 calls, median of 3 turns), bound, share of bound")
+    log(f"dest_scatter, K4 + scatter_by_destination, radix_dest, radix_hist, key_bits and "
+        f"exclusive_scan at 1M, 2^24 and 100M ({card}): device us per call (profiler, 20 calls, "
+        f"median of 3 turns in alternating order), bound, share of bound")
     for label, n in (("1M", N_HEADLINE), ("2^24", N_LARGE), ("100M", N_OPS)):
         keys = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), EngineConfig(),
                                device=dev).data
         padded = keys.numel()
+        idx = iota_index(n, EngineConfig(), dev)
         for bits in (1, 4, 8):
             kcfg = EngineConfig(radix_bits=bits)
-            offsets = rk.global_offsets(rk.tile_histograms(keys, 0, kcfg))
-            us = 1e3 * median_measured([profiled_device_ms(
-                lambda: rk.tile_destinations(keys, offsets, 0, kcfg), calls=20)[0]
-                for _ in range(3)])
-            bound_ms, by = bound_of(*stage_work(padded, kcfg)["radix_dest"])
-            share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
-            log(f"  radix_dest radix {kcfg.radix} @ {label} ({padded} keys): {us:.2f} us; "
-                f"bound {bound_ms * 1e3:.2f} us ({by}); share of bound {share}")
-            del offsets
+            hist = rk.tile_histograms(keys, 0, kcfg)
+            offsets = rk.global_offsets(hist)
+            fns = {
+                "dest_scatter": lambda: rk.dest_scatter(keys, hist, offsets, 0, kcfg,
+                                                        [keys, idx]),
+                "K4 + scatter_by_destination": lambda: scatter_by_destination(
+                    rk.tile_destinations(keys, offsets, 0, kcfg), [keys, idx]),
+                "radix_dest": lambda: rk.tile_destinations(keys, offsets, 0, kcfg),
+                "radix_hist": lambda: rk.tile_histograms(keys, 0, kcfg),
+            }
+            turns = {name: [] for name in fns}
+            for names in (list(fns), list(fns)[::-1], list(fns)):
+                for name in names:
+                    turns[name].append(1e3 * profiled_device_ms(fns[name], calls=20)[0])
+            work = stage_work(padded, kcfg)
+            for name, t in turns.items():
+                us = median_measured(t)
+                bound_ms, by = bound_of(*work["dest_scatter" if "scatter" in name else name])
+                share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
+                log(f"  {name} radix {kcfg.radix} @ {label} ({padded} keys): {us:.2f} us (turns "
+                    f"{', '.join(f'{x:.2f}' for x in t)}); bound {bound_ms * 1e3:.2f} us ({by}); "
+                    f"share of bound {share}")
+            del hist, offsets, fns
+            torch.cuda.empty_cache()
+        del idx
         us = 1e3 * median_measured([profiled_device_ms(lambda: key_bits(keys), calls=20)[0]
                                     for _ in range(3)])
         work = stage_work(padded, EngineConfig())
@@ -1983,7 +2101,7 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
 
 DIST_RANKS = 4
 DIST_TIMEOUT = 600.0
-DIST_KERNELS = ("radix_hist", "radix_dest", "exclusive_scan")  # every rank must launch these
+DIST_KERNELS = ("radix_hist", "dest_scatter", "exclusive_scan")  # every rank must launch these
 
 
 def _save_padded(tmp: str, name: str, arr: np.ndarray, fill, multiple: int) -> str:
@@ -2007,6 +2125,9 @@ def report_dist(label: str, shards: list, live_total: int, card: str, launches: 
         for name in DIST_KERNELS:
             check(x["launches"][name] > 0,
                   f"{label}: {name} launched {x['launches'][name]} times on shard {x['shard']}")
+        check(x["launches"]["radix_dest"] == 0,
+              f"{label}: radix_dest, on no path, launched {x['launches']['radix_dest']} times on "
+              f"shard {x['shard']}")
         for name, count in x["launches"].items():
             launches[name] = launches.get(name, 0) + count
     counts = shards[0]["counts"]

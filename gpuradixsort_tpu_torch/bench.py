@@ -185,7 +185,7 @@ def rows_match(rows_out: torch.Tensor, payload_np: np.ndarray, order: np.ndarray
     return np.array_equal(rows_out[: order.size].cpu().numpy(), payload_np[order])
 
 
-def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
+def stage_work(padded: int, cfg, words: int = 2) -> dict[str, tuple[int, int]]:
     """(bytes it must move, integer operations it must do) of each stage on ``padded`` keys.
 
     Each input is read once and each output written once; a table is one
@@ -198,7 +198,10 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
     and OR, the plan, every pass's digit counts and bases, and the cleared
     lines it sums the counts in and look-back scratch of every pass, and
     adds a counter a pass to each key; ``sort_args`` writes the argument
-    block from its launch's arguments;
+    block from its launch's arguments; ``dest_scatter`` reads two table
+    rows a tile and reads and writes ``words`` 4-byte words a row (by
+    default a radix pass's key and its index), its rank keys being the
+    first of them, read once;
     ``gather_rows`` moves a row of ``PAYLOAD_COLS`` int32 through a 4-byte
     index.
     """
@@ -217,6 +220,7 @@ def stage_work(padded: int, cfg) -> dict[str, tuple[int, int]]:
         "scatter_runs": (16 * padded + 2 * table, 2 * padded),
         "bucketize_scatter": (16 * padded + table, 6 * padded),
         "radix_dest": (8 * padded + table, 4 * padded),
+        "dest_scatter": (8 * words * padded + 2 * table, 4 * padded),
         "exclusive_scan": (8 * padded + 4, padded),
         "key_bits": (4 * padded + 8, 2 * padded),
         "gather_rows": ((4 + 2 * 4 * PAYLOAD_COLS) * padded, 0),

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "grs_scatter_runs": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "grs_bucketize_scatter": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _I, _P],
     "grs_radix_dest": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
+    "grs_radix_dest_scatter": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P],
     "grs_exclusive_scan": [_P, _P, _I64, _I, _P, _P],
     "grs_lookback_scatter": [_P, _P, _P, _I64, _I, _I, _P, _I, _P, _P, _I64, _P],
     "grs_key_bits": [_P, _I64, _P, _P, _I, _I, _P, _P],

@@ -7,6 +7,13 @@ its plain version.  ``global_offsets`` is one exclusive scan
 (``kernels/scan.py``, a CUDA kernel on a CUDA tensor) between two
 transposes, where the JAX package has plain jnp cumsums.
 
+``dest_scatter`` is K4 and the indexed stores the JAX package runs after it
+(``ops/permute.py::scatter_by_destination``) as one kernel of
+``csrc/radix_dest.cu``: it ranks each tile and writes every moved column's
+rows at their destinations, with no destination buffer.  The radix method's
+passes and every compaction run it; ``tile_destinations`` stays as the
+counterpart of the JAX package's ``_dest_kernel`` and runs on no path.
+
 Buffers are 1-D: a tile is a contiguous stretch of ``cfg.tile`` keys, which
 is what the JAX package's row-major ``(rows, 128)`` view makes of it.  Tables
 are ``(num_tiles, radix)`` int32; the JAX package pads them to 128 lanes, so
@@ -24,12 +31,15 @@ are the only host code that knows the plan's encoding.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import check_padded_rows, int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
+from gpuradixsort_tpu_torch.ops.permute import scatter_by_destination
 
 
 def digits_of(keys: torch.Tensor, shift: int, radix: int) -> torch.Tensor:
@@ -59,6 +69,16 @@ def check_keys(name: str, t: torch.Tensor, cfg: EngineConfig) -> int:
             f"{cfg.tile}; pad with core.table.pad_to_tile first"
         )
     return t.numel() // cfg.tile
+
+
+def check_table(name: str, t: torch.Tensor, keys: torch.Tensor, cfg: EngineConfig) -> None:
+    """Check a (num_tiles, radix) int32 table of the checked 1-D buffer ``keys``."""
+    shape = (keys.numel() // cfg.tile, cfg.radix)
+    if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous int32 of shape {shape}, got "
+                         f"{t.dtype} of shape {tuple(t.shape)}")
+    if t.device != keys.device:
+        raise ValueError(f"{name} must be on the keys' device {keys.device}, not {t.device}")
 
 
 def check_plan(plan: torch.Tensor, pass_index: int, like: torch.Tensor, buffers) -> None:
@@ -121,6 +141,8 @@ WARP = 32
 MAX_SHARED_BYTES = 232_448  # shared memory one block may use on the H100
 HIST_TILES_PER_BLOCK = 8
 DEST_TILES_PER_BLOCK = 2
+DEST_SCATTER_TILES_PER_BLOCK = 4
+MAX_MOVED_COLUMNS = 8  # columns one dest_scatter launch moves
 
 
 def hist_geometry(cfg: EngineConfig) -> tuple[int, int]:
@@ -143,6 +165,32 @@ def dest_geometry(cfg: EngineConfig) -> tuple[int, int]:
     """
     shared = DEST_TILES_PER_BLOCK * 4 * cfg.radix if cfg.radix > WARP else 0
     return WARP * DEST_TILES_PER_BLOCK, shared
+
+
+def dest_scatter_warp_bytes(radix: int, tile: int) -> int:
+    """Shared bytes of one dest_scatter warp (``csrc/radix_dest.cu``, the same function).
+
+    Above radix 32, its tables of running slots and deltas (2 x radix
+    int32); then the tile's destinations (int32) and rows (16 bits) by
+    position.  Rounded up to 16 bytes.
+    """
+    return -(-((8 * radix if radix > WARP else 0) + 6 * tile) // 16) * 16
+
+
+def dest_scatter_geometry(cfg: EngineConfig) -> tuple[int, int]:
+    """(threads, shared bytes) of a dest_scatter block.
+
+    One warp per tile, up to ``DEST_SCATTER_TILES_PER_BLOCK`` tiles a
+    block, as many as fit a block's shared memory.  A tile whose staging
+    alone exceeds it (about 38,000 keys) is refused.
+    """
+    per_warp = dest_scatter_warp_bytes(cfg.radix, cfg.tile)
+    warps = min(DEST_SCATTER_TILES_PER_BLOCK, MAX_SHARED_BYTES // per_warp)
+    if warps < 1:
+        raise ValueError(f"dest_scatter stages a tile in shared memory: {cfg.tile} keys at "
+                         f"radix {cfg.radix} take {per_warp} bytes, more than a block's "
+                         f"{MAX_SHARED_BYTES}")
+    return WARP * warps, warps * per_warp
 
 
 def _tile_histograms_ref(keys: torch.Tensor, shift: int, cfg: EngineConfig):
@@ -227,15 +275,7 @@ def tile_destinations(
     tile t with the same digit: a permutation of 0..N-1.
     """
     num_tiles = check_keys("keys", keys, cfg)
-    shape = (num_tiles, cfg.radix)
-    if (offsets.dtype != torch.int32 or tuple(offsets.shape) != shape
-            or not offsets.is_contiguous()):
-        raise ValueError(
-            f"offsets must be contiguous int32 of shape {shape}, got "
-            f"{offsets.dtype} of shape {tuple(offsets.shape)}"
-        )
-    if offsets.device != keys.device:
-        raise ValueError("keys and offsets must be on one device")
+    check_table("offsets", offsets, keys, cfg)
     if resolve_impl(keys, impl) == "reference":
         return _tile_destinations_ref(keys, offsets, shift, cfg)
     dest = torch.empty(keys.numel(), dtype=torch.int32, device=keys.device)
@@ -249,6 +289,71 @@ def tile_destinations(
 
 
 tile_destinations.launches = 0
+
+
+def _unit_bytes(*tensors: torch.Tensor, row_bytes: int) -> int:
+    """The widest unit, 16 bytes down to 1, that divides a row and every tensor's address."""
+    return next(u for u in (16, 8, 4, 2, 1)
+                if row_bytes % u == 0 and all(t.data_ptr() % u == 0 for t in tensors))
+
+
+def dest_scatter(
+    rank_keys: torch.Tensor,
+    hist: torch.Tensor,
+    offsets: torch.Tensor,
+    shift: int,
+    cfg: EngineConfig,
+    values,
+    impl: str | None = None,
+) -> list[torch.Tensor]:
+    """One stable radix pass's moves: out[dest[i]] = v[i] for every tensor v of ``values``.
+
+    dest is ``tile_destinations(rank_keys, offsets, shift, cfg)``, computed
+    inside the kernel and never stored.  rank_keys: (num_tiles * tile,)
+    uint32; hist: (num_tiles, radix) int32, K1's table of rank_keys
+    (``tile_histograms``); offsets: ``global_offsets(hist)``.  Each value
+    has rank_keys' rows (1-D, or 2-D and wider rows of any dtype), is
+    contiguous and lies on their device.  Returns the moved tensors, new.
+
+    On the card, one launch of ``csrc/radix_dest.cu`` moves up to
+    ``MAX_MOVED_COLUMNS`` columns; more run further launches on the next
+    group.  The plain version is ``_tile_destinations_ref`` then
+    ``scatter_by_destination``.
+    """
+    values = list(values)
+    num_tiles = check_keys("rank_keys", rank_keys, cfg)
+    check_table("hist", hist, rank_keys, cfg)
+    check_table("offsets", offsets, rank_keys, cfg)
+    for v in values:
+        if v.dim() < 1 or v.shape[0] != rank_keys.numel() or v.device != rank_keys.device:
+            raise ValueError(f"each moved column must have rank_keys' {rank_keys.numel()} rows "
+                             f"on {rank_keys.device}, got shape {tuple(v.shape)} on {v.device}")
+        if not v.is_contiguous():
+            raise ValueError("each moved column must be contiguous")
+    if resolve_impl(rank_keys, impl) == "reference":
+        dest = _tile_destinations_ref(rank_keys, offsets, shift, cfg)
+        return scatter_by_destination(dest, values)
+    threads, _ = dest_scatter_geometry(cfg)
+    out = [torch.empty_like(v) for v in values]
+    moved = []
+    for v, o in zip(values, out):
+        row_bytes = v[:1].nbytes if v.numel() else 0
+        if row_bytes:
+            unit = _unit_bytes(v, o, row_bytes=row_bytes)
+            moved.append((v.data_ptr(), o.data_ptr(), row_bytes // unit, unit))
+    for first in range(0, len(moved), MAX_MOVED_COLUMNS):
+        group = moved[first:first + MAX_MOVED_COLUMNS]
+        words = (ctypes.c_int64 * (4 * len(group)))(*(w for column in group for w in column))
+        launch(
+            "grs_radix_dest_scatter", rank_keys, rank_keys.data_ptr(), hist.data_ptr(),
+            offsets.data_ptr(), ctypes.addressof(words), len(group), num_tiles, cfg.tile,
+            threads, shift, cfg.radix,
+        )
+        dest_scatter.launches += 1
+    return out
+
+
+dest_scatter.launches = 0
 
 
 def global_offsets(hist: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,12 @@
 
 The PyTorch counterpart of ``gpuradixsort_tpu/ops/filter.py``.  The
 compaction is one binary radix pass on the negated predicate: the
-histogram kernel (K1), the offsets scan (K5), the destination kernel (K4)
-and one indexed store per column.  Selected rows land first, both groups
-in their original order.
+histogram kernel (K1), the offsets scan (K5) and ``dest_scatter``
+(``kernels/radix.py``), which ranks the digits and writes every column's
+rows at their destinations, where the JAX package runs its destination
+kernel and then one scatter per column; more than eight columns take a
+launch per group of eight.  Selected rows land first, both groups in their
+original order.
 
 The compacted table keeps its padded buffers; the number of selected rows
 stays on the device as a 0-d int32 tensor until ``Selection.to_table()``
@@ -21,7 +24,6 @@ import torch
 from gpuradixsort_tpu_torch.config import EngineConfig
 from gpuradixsort_tpu_torch.core.table import Column, Table
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
-from gpuradixsort_tpu_torch.ops.permute import scatter_by_destination
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +57,7 @@ def _compact_by_mask(
     digit = (1 - mask.to(torch.int32)).view(torch.uint32)
     hist = radix_kernels.tile_histograms(digit, 0, bit_cfg)
     offsets = radix_kernels.global_offsets(hist)
-    dest = radix_kernels.tile_destinations(digit, offsets, 0, bit_cfg)
-    out = scatter_by_destination(dest, values)
+    out = radix_kernels.dest_scatter(digit, hist, offsets, 0, bit_cfg, values)
     # Digit 1 starts right after every selected row.
     return out, offsets[0, 1]
 

@@ -6,6 +6,11 @@ scatter and gather in the JAX package.  The JAX package also applies a
 permutation as a key-value sort on the destinations (its ``strategy``
 argument), because the TPU has no fast random store; the GPU has one, so
 the port has one way and takes no strategy.
+
+On the card no operator path runs ``scatter_by_destination``: a radix pass
+and a compaction store their rows at their destinations inside one kernel,
+``kernels/radix.py::dest_scatter``, whose plain version, the CPU's route,
+is ``tile_destinations`` then this function.  ``gather_rows`` runs on both.
 """
 
 from __future__ import annotations

@@ -13,9 +13,12 @@ The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
   device, the plan is made on the card from the keys' AND and OR, and the
   passes read it: a skipped pass's kernel exits at once.
 - ``"radix"``: ``cfg.num_passes`` passes, each one histogram kernel, the
-  offsets scan, one destination kernel and one indexed store per column
-  (``permute.scatter_by_destination``).  Takes digits up to 8 bits, and has
-  no constant-digit skip, as in the JAX package.
+  offsets scan and one ``dest_scatter`` launch (``kernels/radix.py``), which
+  ranks each tile and writes the keys and every carried column at their
+  destinations: the JAX package's ``tile_destinations`` and the scatter
+  after it, with no destination buffer (the plain version runs both).
+  Takes digits up to 8 bits, and has no constant-digit skip, as in the JAX
+  package.
 - ``"auto"``: ``"radix"`` for 8-bit digits, which the fused bucketize does
   not take, else ``"fused"``.  A stable sort has one answer, so this gives
   the JAX package's result wherever its ``"auto"`` sorts.
@@ -68,7 +71,7 @@ from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
 from gpuradixsort_tpu_torch.kernels.key_bits import ARGS_WORDS, SortArgs, sort_args, sort_plan
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter_lookback
-from gpuradixsort_tpu_torch.ops.permute import gather_rows, scatter_by_destination
+from gpuradixsort_tpu_torch.ops.permute import gather_rows
 
 METHODS = ("auto", "fused", "torch", "radix")
 
@@ -110,8 +113,7 @@ def _radix_pass(keys: torch.Tensor, carried: tuple, shift: int,
     """
     hist = radix_kernels.tile_histograms(keys, shift, cfg)
     offsets = radix_kernels.global_offsets(hist)
-    dest = radix_kernels.tile_destinations(keys, offsets, shift, cfg)
-    out = scatter_by_destination(dest, [keys, *carried])
+    out = radix_kernels.dest_scatter(keys, hist, offsets, shift, cfg, [keys, *carried])
     return out[0], tuple(out[1:])
 
 
@@ -126,13 +128,13 @@ def _radix_passes(keys: torch.Tensor, *carried: torch.Tensor, cfg: EngineConfig)
 # shape recurs, longer ones eagerly.  On an H100 80GB HBM3 (700 W), by CUDA
 # events in chip_smoke.py's graph A/B (median of 16 in alternating rounds,
 # PERF.md section 5), graphed against eager, random keys: fused, whose
-# graph copies nothing, 0.2177 / 0.4652 ms at 1M keys, 0.7152 / 0.8039 at
-# 2^23, 1.3009 / 1.4326 at 2^24, 2.2809 / 2.3596 at 2^25; radix, whose
-# graph copies its inputs in and its outputs out, 0.6514 / 2.7648 at 1M,
-# 3.1864 / 3.4631 at 2^23, 6.0234 / 5.9579 at 2^24.  The fused graph led at
-# every length; from 2^24 on the radix graph's copies cost about what it
-# saves.  The limit stays at 2^24 until a benchmark cell with recurring
-# shapes settles the crossover.
+# graph copies nothing, 0.1994 / 0.4709 ms at 1M keys, 0.7692 / 0.9114 at
+# 2^23, 1.2885 / 1.2862 at 2^24, 2.2547 / 2.3349 at 2^25; radix, whose
+# graph copies its inputs in and its outputs out, 0.4055 / 2.0400 at 1M,
+# 1.0440 / 2.8833 at 2^23, 1.8746 / 3.3688 at 2^24 (its eager loop is paced
+# by the host: device busy 1.5429 ms of the 3.3688).  Both graphs led or
+# tied at every length.  The limit stays at 2^24 until a benchmark cell with
+# recurring shapes settles the crossover.
 GRAPH_MAX_PADDED = 1 << 24
 # A radix graph's inputs, the keys and every carried column, hold at most
 # GRAPH_MAX_PADDED rows of this many bytes (a key and its index), so that a
@@ -142,9 +144,9 @@ _GRAPH_ROW_BYTES = 8
 # the cache is full, shapes not in it run eagerly until clear_sort_graphs(),
 # so traffic over more recurring shapes than this captures no more than
 # this many times.  A graph holds its intermediates and, for the radix
-# method, its inputs and outputs: on an H100, in chip_smoke.py phase 5, 598
-# MiB for a radix graph carrying the index at 2^24, about 4.7 times its
-# inputs' bytes, so the byte limit above holds the cache to about 4.7 GiB;
+# method, its inputs and outputs: on an H100, in chip_smoke.py phase 5, 278
+# MiB for a radix graph carrying the index at 2^24, about 2.2 times its
+# inputs' bytes, so the byte limit above holds the cache to about 2.2 GiB;
 # a radix graph carrying wider rows than the index has not been measured.
 # A fused graph holds the scratch S and the plan's state: 130 MiB at 2^24
 # keys, about 8 bytes a padded key (chip_smoke.py's graph A/B).
@@ -155,7 +157,7 @@ _SEEN_ENTRIES = 1024
 # The wrappers the sorts call inside a graph: a replay adds its capture's
 # launches to them.  sort_args runs outside the graph and counts itself.
 _PASS_WRAPPERS = (radix_kernels.tile_histograms, bucketize_scatter_lookback, exclusive_scan,
-                  sort_plan, radix_kernels.tile_destinations)
+                  sort_plan, radix_kernels.dest_scatter)
 
 
 class _SortGraph:

@@ -151,6 +151,7 @@ KERNEL_WRAPPERS = {
     "sort_plan": key_bits.sort_plan,
     "sort_args": key_bits.sort_args,
     "radix_dest": radix.tile_destinations,
+    "dest_scatter": radix.dest_scatter,
     "exclusive_scan": scan.exclusive_scan,
 }
 

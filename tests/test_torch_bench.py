@@ -105,7 +105,9 @@ def test_stage_bytes_equal_hand_counts():
     # (128 of them and one for the AND, the OR and the finished blocks),
     # the look-back's words (4 partitions of 4,096 keys x 16 digits x 8
     # bytes, and a 4-byte ticket a pass); the look-back pass writes and
-    # reads its pass's status words; sort_args writes its five 8-byte words.
+    # reads its pass's status words; sort_args writes its five 8-byte words;
+    # dest_scatter reads two tables and moves a key, which it also ranks,
+    # and its index (2 x 8 bytes a row), or five 4-byte words a row.
     assert tbench.stage_work(padded, CFG) == {
         "sort_args": (40, 0),
         "sort_plan": (4 * 16384 + 8 + 32 + 1024 + 4 * 4128 + 512 + 4 * 8, 10 * 16384),
@@ -116,10 +118,13 @@ def test_stage_bytes_equal_hand_counts():
         "scatter_runs": (16 * 16384 + 2048, 2 * 16384),
         "bucketize_scatter": (16 * 16384 + 1024, 6 * 16384),
         "radix_dest": (8 * 16384 + 1024, 4 * 16384),
+        "dest_scatter": (16 * 16384 + 2048, 4 * 16384),
         "exclusive_scan": (8 * 16384 + 4, 16384),
         "key_bits": (4 * 16384 + 8, 2 * 16384),
         "gather_rows": ((4 + 64 + 64) * 16384, 0),
     }
+    assert tbench.stage_work(padded, CFG, words=5)["dest_scatter"] == (
+        40 * 16384 + 2048, 4 * 16384)
     assert tbench.stage_work(padded, EngineConfig(radix_bits=8))["scatter_runs"] == (
         16 * 16384 + 2 * 16384, 2 * 16384)
     assert bound_of(3_350_000_000, 0) == pytest.approx((1.0, "bytes"))

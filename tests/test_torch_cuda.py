@@ -8,6 +8,7 @@ imports no JAX, so it also runs on a machine with PyTorch and a card only:
 (``tests/conftest.py`` imports JAX for the JAX package's tests.)
 """
 
+import ctypes
 import json
 import pathlib
 import subprocess
@@ -264,6 +265,86 @@ def test_destinations_match_plain_at_every_geometry(tile_rows, card, gen):
                         ref = tradix.tile_destinations(keys, off, shift, cfg, impl="reference")
                         assert _same(tradix.tile_destinations(keys, off, shift, cfg), ref), where
     torch.cuda.synchronize()
+
+
+def _same_bytes(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """One dtype and shape, and the same bytes (any element type, NaN payloads too)."""
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)))
+
+
+def _moved_columns(gen, n: int, count: int, device) -> list:
+    """``count`` contiguous columns of n rows, cycling through the layouts a
+    dest_scatter launch moves: 4-byte words, 2-D rows of 16 (one 16-byte
+    unit) and 12 bytes (three 4-byte units), 2-, 1- and 8-byte elements."""
+    makers = (
+        lambda: gen.integers(0, 2**32, n, dtype=np.uint32),
+        lambda: gen.integers(-(2**31), 2**31, (n, 4)).astype(np.int32),
+        lambda: gen.standard_normal(n).astype(np.float32),
+        lambda: gen.integers(-(2**31), 2**31, (n, 3)).astype(np.int32),
+        lambda: gen.integers(-(2**15), 2**15, n).astype(np.int16),
+        lambda: gen.integers(0, 2, n).astype(bool),
+        lambda: gen.integers(-(2**62), 2**62, n, dtype=np.int64),
+        lambda: gen.integers(-(2**15), 2**15, (n, 3)).astype(np.int16),
+        lambda: gen.standard_normal((n, 2)).astype(np.float32),
+    )
+    return [torch.from_numpy(makers[i % len(makers)]()).to(device) for i in range(count)]
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16, 64, 300])
+def test_dest_scatter_matches_plain_at_every_geometry(tile_rows, card, gen):
+    # Radix 2-256 (registers up to 32, the warp's shared tables above); tile
+    # counts that fill no block, more than one, and part of the last; 0, 1,
+    # 8 and 9 moved columns (9: two launches) of every layout; rank keys at
+    # an offset of 4 bytes; staging past 48 KB a block (64), and one tile a
+    # block (300).
+    for bits in range(1, 9):
+        cfg = _any_radix_cfg(1 << bits, tile_rows)
+        for num_tiles in (1, 8, 8 * 3 + 5):
+            n = num_tiles * cfg.tile
+            buf = torch.from_numpy(gen.integers(0, 2**32, n + 1, dtype=np.uint32)).to(card)
+            for keys, shift in ((buf[:n], 0), (buf[1:], 28)):
+                hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
+                off = tradix.global_offsets(hist)
+                for count in (0, 1, 8, 9):
+                    cols = _moved_columns(gen, n, count, card)
+                    want = tradix.dest_scatter(keys, hist, off, shift, cfg, cols,
+                                               impl="reference")
+                    where = f"radix={cfg.radix} tiles={num_tiles} shift={shift} columns={count}"
+                    before = tradix.dest_scatter.launches
+                    got = tradix.dest_scatter(keys, hist, off, shift, cfg, cols)
+                    assert tradix.dest_scatter.launches - before == -(-count // 8), where
+                    assert len(got) == count and all(map(_same_bytes, got, want)), where
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_radix_sort_launches_dest_scatter_once_a_pass(bits, card, gen):
+    # The radix method's window: K1, K5 and dest_scatter once a pass (twice
+    # where more than eight columns move), K4 never, eager, at the capture
+    # and at a replay; every result equals the plain version.
+    cfg = EngineConfig(radix_bits=bits)
+    keys_np = gen.integers(0, 2**32, 3 * cfg.block - 5, dtype=np.uint32)
+    col = make_key_column(keys_np, cfg, device=card)
+    want = tsort.sort_pairs(keys_np, cfg, method="radix", device="cpu")
+    wrappers = (tradix.tile_histograms, tscan.exclusive_scan, tradix.dest_scatter,
+                tradix.tile_destinations)
+    passes = cfg.num_passes
+    tsort.clear_sort_graphs()
+    for call in ("first sighting", "capture", "replay"):
+        before = [w.launches for w in wrappers]
+        got = tsort.sort_pairs(col, cfg, method="radix")
+        assert [w.launches - b for w, b in zip(wrappers, before)] == [passes] * 3 + [0], call
+        assert all(_same(g.data.cpu(), w.data) for g, w in zip(got, want)), call
+    keys = col.data
+    carried = tuple(_moved_columns(gen, keys.numel(), 9, card))
+    want = tsort._sort_padded(keys.cpu(), tuple(c.cpu() for c in carried), cfg)
+    before = [w.launches for w in wrappers]
+    got = tsort._sort_padded(keys, carried, cfg)  # 10 columns: two launches a pass
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [passes, passes, 2 * passes, 0]
+    assert _same(got[0].cpu(), want[0]) and all(map(_same_bytes, (g.cpu() for g in got[1]),
+                                                    want[1]))
+    tsort.clear_sort_graphs()
 
 
 def _scatter_input(keys, shift, cfg):
@@ -762,26 +843,39 @@ def test_public_sorts_make_no_host_sync(method, card, gen):
 
 @pytest.mark.parametrize("bits", [4, 8])
 def test_radix_replay_matches_eager_and_plain(bits, card, gen):
-    # The radix method carrying the index and a 2-D column: its first
+    # The radix method carrying the index and a 2-D column, and carrying
+    # nine columns (ten moved: two dest_scatter launches a pass): its first
     # sighting (eager), its capture and two replays equal the plain version;
-    # one graph per carried layout.
+    # one graph per carried layout; every pass of every call launched
+    # dest_scatter and never K4.
     cfg = EngineConfig(radix_bits=bits)
     n = 4 * cfg.block
     tsort.clear_sort_graphs()
     extra = torch.from_numpy(gen.integers(-(2**31), 2**31, (n, 3)).astype(np.int32))
+    wide = tuple(torch.from_numpy(gen.integers(-(2**31), 2**31, n).astype(np.int32))
+                 for _ in range(8))
     for call in range(4):
         keys_np = gen.integers(0, 2**32, n, dtype=np.uint32)
         keys = torch.from_numpy(keys_np)
         idx = torch.arange(n, dtype=torch.int32).view(torch.uint32)
+        before = (tradix.dest_scatter.launches, tradix.tile_destinations.launches)
         want = tsort._sort_padded(keys, (idx, extra), cfg)
         got = tsort._sort_padded(keys.to(card), (idx.to(card), extra.to(card)), cfg)
         assert _same(got[0].cpu(), want[0]), call
         assert all(_same(g.cpu(), w) for g, w in zip(got[1], want[1])), call
         keys_only = tsort._sort_padded(keys.to(card), (), cfg)
         assert _same(keys_only[0].cpu(), want[0]) and keys_only[1] == ()
+        want = tsort._sort_padded(keys, (idx, *wide), cfg)
+        got = tsort._sort_padded(keys.to(card), (idx.to(card), *(c.to(card) for c in wide)),
+                                 cfg)
+        assert _same(got[0].cpu(), want[0]), call
+        assert all(_same(g.cpu(), w) for g, w in zip(got[1], want[1])), call
+        assert (tradix.dest_scatter.launches - before[0],
+                tradix.tile_destinations.launches - before[1]) == (4 * cfg.num_passes, 0), call
     assert {key[4] for key in tsort._SORT_GRAPHS} == {
-        ((torch.uint32, ()), (torch.int32, (3,))), ()}
-    assert [g.replays for g in tsort._SORT_GRAPHS.values()] == [3, 3]
+        ((torch.uint32, ()), (torch.int32, (3,))), (),
+        ((torch.uint32, ()), *((torch.int32, ()),) * 8)}
+    assert [g.replays for g in tsort._SORT_GRAPHS.values()] == [3, 3, 3]
     tsort.clear_sort_graphs()
 
 
@@ -1022,10 +1116,19 @@ def test_operators_on_card_match_cpu(card, gen):
     uvals = gen.integers(0, 2**32, n, dtype=np.uint32)
     fvals = gen.standard_normal(n).astype(np.float32)
     cpu, dev = _table_pair(card, "k", keys, v=vals, u=uvals, f=fvals)
-    before = (tradix.tile_destinations.launches, tscan.exclusive_scan.launches)
+    before = (tradix.dest_scatter.launches, tscan.exclusive_scan.launches)
+    k4 = tradix.tile_destinations.launches
 
     pred = lambda t: (int32_bits(t["k"].data) & 3) != 1  # noqa: E731
     a, b = tfilter.filter_table(cpu, pred, CFG), tfilter.filter_table(dev, pred, CFG)
+    assert int(a.count) == int(b.count)
+    _same_tables(a.table, b.table)
+    # Nine columns, one 2-D and one of bools: two dest_scatter launches.
+    wide = {f"c{i}": c.cpu().numpy() for i, c in enumerate(_moved_columns(gen, n, 8, "cpu"))}
+    wcpu, wdev = _table_pair(card, "k", keys, **wide)
+    launched = tradix.dest_scatter.launches
+    a, b = tfilter.filter_table(wcpu, pred, CFG), tfilter.filter_table(wdev, pred, CFG)
+    assert tradix.dest_scatter.launches - launched == 2
     assert int(a.count) == int(b.count)
     _same_tables(a.table, b.table)
 
@@ -1055,8 +1158,9 @@ def test_operators_on_card_match_cpu(card, gen):
         a = tsort.sort_pairs(keys, cfg, method="radix", device="cpu")
         b = tsort.sort_pairs(keys, cfg, method="radix", device=card)
         assert all(_same(y.data.cpu(), x.data) for x, y in zip(a, b))
-    after = (tradix.tile_destinations.launches, tscan.exclusive_scan.launches)
+    after = (tradix.dest_scatter.launches, tscan.exclusive_scan.launches)
     assert all(x > y for x, y in zip(after, before))
+    assert tradix.tile_destinations.launches == k4
 
 
 def test_torch_method_on_card(card, gen):
@@ -1087,6 +1191,24 @@ def test_rejected_launch_raises(card):
                           chunk, scratch.data_ptr())
 
 
+def test_rejected_dest_scatter_launch_raises(card):
+    # Nine column descriptors (a launch takes eight), a unit of 3 bytes, and
+    # a tile whose staging exceeds a block's shared memory: the entry point
+    # launches nothing and the wrapper's launch raises.
+    cfg = EngineConfig()
+    keys = torch.zeros(cfg.block, dtype=torch.int32, device=card).view(torch.uint32)
+    tables = torch.zeros((cfg.block // cfg.tile, cfg.radix), dtype=torch.int32, device=card)
+    out = torch.empty_like(keys)
+    good = (keys.data_ptr(), out.data_ptr(), 1, 4)
+    for columns, tile in (([good] * 9, cfg.tile), ([(*good[:3], 3)], cfg.tile),
+                          ([good], 312 * 128)):
+        words = (ctypes.c_int64 * (4 * len(columns)))(*(w for c in columns for w in c))
+        with pytest.raises(RuntimeError, match="grs_radix_dest_scatter"):
+            _build.launch("grs_radix_dest_scatter", keys, keys.data_ptr(), tables.data_ptr(),
+                          tables.data_ptr(), ctypes.addressof(words), len(columns),
+                          cfg.block // tile, tile, 32, 0, cfg.radix)
+
+
 def _dist_sort_calls(gen, n):
     keys = gen.integers(0, 2**32, n, dtype=np.uint32)
     return keys, [{"op": "sort", "inputs": {"keys": keys}, "kwargs": {"cfg": CFG, **kw},
@@ -1105,7 +1227,8 @@ def test_dist_sort_two_gloo_ranks_on_card(card, gen):
         for x in by_shard:
             assert x["transport"] == "gloo via host" and not x["overflow"]
             assert all(x["launches"][k] > 0
-                       for k in ("radix_hist", "radix_dest", "exclusive_scan"))
+                       for k in ("radix_hist", "dest_scatter", "exclusive_scan"))
+            assert x["launches"]["radix_dest"] == 0
 
 
 def test_dist_join_one_nccl_rank(card, gen):
@@ -1120,7 +1243,7 @@ def test_dist_join_one_nccl_rank(card, gen):
               "kwargs": {"cfg": CFG}, "gather": True}]
     (result,), = run_ranks(1, run_ops, (calls,), "nccl", "cuda:0", timeout=300.0)
     assert result["transport"] == "nccl" and not result["overflow"]
-    assert result["launches"]["radix_dest"] > 0
+    assert result["launches"]["dest_scatter"] > 0 and result["launches"]["radix_dest"] == 0
     for got, want in zip(result["gathered"], join_oracle(pk, pv, bk, bv)):
         np.testing.assert_array_equal(got, want)
 

@@ -22,6 +22,7 @@ from gpuradixsort_tpu.kernels import bucketize as jbucketize
 from gpuradixsort_tpu.kernels import radix as jradix
 from gpuradixsort_tpu.kernels import scan as jscan
 from gpuradixsort_tpu.kernels import scatter as jscatter
+from gpuradixsort_tpu.ops import permute as jpermute
 from gpuradixsort_tpu_torch.config import LANES, EngineConfig
 from gpuradixsort_tpu_torch.core.table import make_key_column
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
@@ -221,6 +222,116 @@ def test_tile_destinations_other_tile_sizes(tile_rows, rng):
         jradix.tile_destinations(jk, joff, 4, jcfg, impl="reference"))
 
 
+def _moved_columns(rng, n: int, count: int) -> list:
+    """``count`` columns of n rows, cycling through the layouts a dest_scatter
+    launch moves, in dtypes JAX keeps: 4-byte words, 2-D int32 rows of 4
+    and 3 words, float32, 2- and 1-byte elements and rows."""
+    makers = (
+        lambda: rng.integers(0, 2**32, n, dtype=np.uint32),
+        lambda: rng.integers(-(2**31), 2**31, (n, 4)).astype(np.int32),
+        lambda: rng.standard_normal(n).astype(np.float32),
+        lambda: rng.integers(-(2**31), 2**31, (n, 3)).astype(np.int32),
+        lambda: rng.integers(-(2**15), 2**15, n).astype(np.int16),
+        lambda: rng.integers(0, 2, n).astype(bool),
+        lambda: rng.integers(0, 256, (n, 5)).astype(np.uint8),
+        lambda: rng.integers(-(2**15), 2**15, (n, 3)).astype(np.int16),
+        lambda: rng.standard_normal((n, 2)).astype(np.float32),
+    )
+    return [makers[i % len(makers)]() for i in range(count)]
+
+
+def _jax_dest_scatter(keys, columns, shift, jcfg, impl="reference"):
+    """The JAX package's radix pass moves: tile_destinations, then its scatter."""
+    jk = jnp.asarray(keys).reshape(-1, LANES)
+    joff = jradix.global_offsets(jradix.tile_histograms(jk, shift, jcfg, impl="reference"))
+    jdest = jradix.tile_destinations(jk, joff, shift, jcfg, impl=impl)
+    return jpermute.scatter_by_destination(
+        jdest.reshape(-1), [jnp.asarray(c) for c in columns], strategy="xla_scatter")
+
+
+@pytest.mark.parametrize("count", [0, 1, 9])
+@pytest.mark.parametrize("tile_rows", [1, 3, 8])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_dest_scatter_matches_jax(bits, tile_rows, count, rng):
+    # 9 columns: more than one launch takes on the card.
+    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+    jcfg = JaxConfig(radix_bits=bits, tile_rows=tile_rows)
+    keys = rng.integers(0, 2**32, 2 * cfg.block, dtype=np.uint32)
+    columns = _moved_columns(rng, keys.size, count)
+    want = _jax_dest_scatter(keys, columns, 4, jcfg)
+    tk = torch.from_numpy(keys)
+    hist = tradix.tile_histograms(tk, 4, cfg)
+    got = tradix.dest_scatter(tk, hist, tradix.global_offsets(hist), 4, cfg,
+                              [torch.from_numpy(c) for c in columns])
+    assert len(got) == count
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+def test_dest_scatter_matches_pallas_interpret(rng):
+    # The Pallas body of K4, then the JAX package's scatter, at one small shape.
+    cfg, jcfg = EngineConfig(), JaxConfig()
+    keys = rng.integers(0, 2**32, cfg.block, dtype=np.uint32)
+    columns = _moved_columns(rng, keys.size, 2)
+    want = _jax_dest_scatter(keys, columns, 0, jcfg, impl="interpret")
+    tk = torch.from_numpy(keys)
+    hist = tradix.tile_histograms(tk, 0, cfg)
+    got = tradix.dest_scatter(tk, hist, tradix.global_offsets(hist), 0, cfg,
+                              [torch.from_numpy(c) for c in columns])
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+def test_dest_scatter_rejects_bad_input():
+    cfg = EngineConfig()
+    keys = torch.zeros(cfg.block, dtype=torch.int32).view(torch.uint32)
+    hist = tradix.tile_histograms(keys, 0, cfg)
+    offsets = tradix.global_offsets(hist)
+    col = torch.zeros(cfg.block, dtype=torch.int32)
+    for call, match in (
+        (lambda: tradix.dest_scatter(keys.view(torch.int32), hist, offsets, 0, cfg, [col]),
+         "uint32"),
+        (lambda: tradix.dest_scatter(keys, hist[:, :4].contiguous(), offsets, 0, cfg, [col]),
+         "hist"),
+        (lambda: tradix.dest_scatter(keys, hist, offsets.t().contiguous().t(), 0, cfg, [col]),
+         "offsets"),
+        (lambda: tradix.dest_scatter(keys, hist, offsets, 0, cfg, [col[1:]]), "rows"),
+        (lambda: tradix.dest_scatter(keys, hist, offsets, 0, cfg,
+                                     [torch.zeros((2, cfg.block), dtype=torch.int32).t()]),
+         "contiguous"),
+        (lambda: tradix.dest_scatter(keys, hist, offsets, 0, cfg, [col], impl="cuda"),
+         "CUDA tensor"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            call()
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16, 64, 300, 302, 512])
+def test_dest_scatter_geometry_fits_the_card(tile_rows):
+    # What grs_radix_dest_scatter accepts: one warp per tile, at most 8 tiles
+    # a block, a block's shared memory within 227 KB (above 48 KB the entry
+    # point opts in), a staged tile's rows in 16 bits.  A tile whose staging
+    # alone exceeds a block's shared memory is refused.
+    for bits in range(1, 9):
+        cfg = _geometry_cfg(1 << bits, tile_rows)
+        per_warp = (8 * cfg.radix if cfg.radix > 32 else 0) + 6 * cfg.tile
+        assert tradix.dest_scatter_warp_bytes(cfg.radix, cfg.tile) == per_warp  # 16-byte multiple
+        if per_warp > tradix.MAX_SHARED_BYTES:
+            with pytest.raises(ValueError, match="stages a tile"):
+                tradix.dest_scatter_geometry(cfg)
+            continue
+        threads, shared = tradix.dest_scatter_geometry(cfg)
+        warps = threads // 32
+        assert 1 <= warps <= tradix.DEST_SCATTER_TILES_PER_BLOCK
+        assert shared == warps * per_warp <= tradix.MAX_SHARED_BYTES
+        assert (warps == tradix.DEST_SCATTER_TILES_PER_BLOCK
+                or (warps + 1) * per_warp > tradix.MAX_SHARED_BYTES)
+        assert cfg.tile < 1 << 16  # row numbers fit 16 bits
+    # The default tile stages in 24 KB a block at radix <= 32, 32 KB above.
+    assert tradix.dest_scatter_geometry(EngineConfig()) == (128, 4 * 6144)
+    assert tradix.dest_scatter_geometry(EngineConfig(radix_bits=8)) == (128, 4 * 8192)
+
+
 @pytest.mark.parametrize("n", [1, 7, 128, 1023, 1025, 4096, 100_000,
                                tscan.CHUNK - 1, tscan.CHUNK, tscan.CHUNK + 1])
 def test_exclusive_scan_matches_jax(n, rng):
@@ -360,7 +471,8 @@ def test_bucketize_geometry_limits():
 def test_plain_path_launches_no_kernel(rng):
     cfg = EngineConfig()
     wrappers = (tradix.tile_histograms, tbucketize.bucketize_tiles, tscatter.scatter_runs,
-                tscatter.bucketize_scatter, tradix.tile_destinations, tscan.exclusive_scan)
+                tscatter.bucketize_scatter, tradix.tile_destinations, tscan.exclusive_scan,
+                tradix.dest_scatter)
     before = [w.launches for w in wrappers]
     keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
     hist = tradix.tile_histograms(keys, 0, cfg)
@@ -369,6 +481,7 @@ def test_plain_path_launches_no_kernel(rng):
     tscatter.scatter_runs(bk, bi, hist, offsets, cfg)
     tscatter.bucketize_scatter(keys, keys, hist, offsets, 0, cfg)
     tradix.tile_destinations(keys, offsets, 0, cfg)
+    tradix.dest_scatter(keys, hist, offsets, 0, cfg, [keys, bk])
     assert [w.launches for w in wrappers] == before
 
 
@@ -392,6 +505,7 @@ def test_check_keys_refuses_2_31_rows(rows, refused):
         lambda: tscatter.scatter_runs(keys, keys, tables, tables, cfg),
         lambda: tscatter.bucketize_scatter(keys, keys, tables, tables, 0, cfg),
         lambda: tradix.tile_destinations(keys, tables, 0, cfg),
+        lambda: tradix.dest_scatter(keys, tables, tables, 0, cfg, [keys]),
     ):
         with pytest.raises(ValueError, match=r"2\^31.*int32"):
             call()

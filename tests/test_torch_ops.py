@@ -25,6 +25,7 @@ from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch.config import EngineConfig
 from gpuradixsort_tpu_torch.core import table as ttable
 from gpuradixsort_tpu_torch.core.table import int32_bits
+from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.ops import aggregate as tagg
 from gpuradixsort_tpu_torch.ops import filter as tfilter
@@ -131,6 +132,63 @@ def test_filter_mask_forms(rng):
     assert int(as_int.count) == int(base.count) == int((keys < 500).sum())
     with pytest.raises(ValueError, match="predicate mask has shape"):
         tfilter.filter_table(tt, lambda t: torch.ones(10, dtype=torch.bool), CFG)
+
+
+@pytest.mark.parametrize("n", [1000, 5000])
+def test_filter_of_nine_columns_matches_jax(n, rng):
+    # The key and eight payload columns, two of them 2-D: more than one
+    # dest_scatter launch takes on the card.
+    keys = rng.integers(0, 1000, n, dtype=np.uint32)
+    cols = {
+        "rows4": rng.integers(-(2**31), 2**31, (n, 4)).astype(np.int32),
+        "f": rng.standard_normal(n).astype(np.float32),
+        "u": rng.integers(0, 2**32, n, dtype=np.uint32),
+        "h": rng.integers(-(2**15), 2**15, n).astype(np.int16),
+        "flag": rng.integers(0, 2, n).astype(bool),
+        "bytes5": rng.integers(0, 256, (n, 5)).astype(np.uint8),
+        "v": rng.integers(-100, 100, n).astype(np.int32),
+        "g": rng.standard_normal(n).astype(np.float32),
+    }
+    jt, tt = _tables("key", keys, **cols)
+    assert len(tt.names()) == 9
+    want = jfilter.filter_table(jt, lambda t: t["key"].data < 300, JCFG)
+    got = tfilter.filter_table(tt, lambda t: _wide(t["key"].data) < 300, CFG)
+    _same_selection(got, want)
+    out = got.to_table()
+    for name, c in cols.items():
+        np.testing.assert_array_equal(out[name].to_numpy(), c[keys < 300], err_msg=name)
+
+
+@pytest.mark.parametrize("path", ["radix pass", "compaction"])
+def test_radix_pass_and_compaction_move_rows_by_dest_scatter(path, rng, monkeypatch):
+    # Each pass of the radix method and each compaction is one dest_scatter
+    # call with every moved column; neither calls tile_destinations or the
+    # plain scatter itself.
+    calls = []
+    real = tradix.dest_scatter
+
+    def spy(rank_keys, hist, offsets, shift, cfg, values, **kwargs):
+        calls.append((shift, len(values)))
+        return real(rank_keys, hist, offsets, shift, cfg, values, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("not on an operator path")
+
+    monkeypatch.setattr(tradix, "dest_scatter", spy)
+    monkeypatch.setattr(tradix, "tile_destinations", refuse)
+    monkeypatch.setattr(tfilter, "scatter_by_destination", refuse, raising=False)
+    monkeypatch.setattr(tsort, "scatter_by_destination", refuse, raising=False)
+    keys = rng.integers(0, 1000, 3000, dtype=np.uint32)
+    if path == "radix pass":
+        s, p = tsort.sort_pairs(keys, CFG, method="radix", device="cpu")
+        np.testing.assert_array_equal(p.to_numpy(), np.argsort(keys, kind="stable"))
+        assert calls == [(4 * i, 2) for i in range(CFG.num_passes)]
+    else:
+        _, tt = _tables("key", keys, val=np.arange(3000, dtype=np.int32),
+                        rows=rng.integers(0, 9, (3000, 2)).astype(np.int32))
+        sel = tfilter.filter_table(tt, lambda t: _wide(t["key"].data) < 300, CFG).to_table()
+        np.testing.assert_array_equal(sel["val"].to_numpy(), np.flatnonzero(keys < 300))
+        assert calls == [(0, 3)]
 
 
 def test_scatter_by_destination_moves_2d_rows(rng):

@@ -174,6 +174,39 @@ def test_radix_sort_padded_carries_columns(bits, rng):
     np.testing.assert_array_equal(textra.numpy(), extra[np.argsort(keys, kind="stable")])
 
 
+def _nine_columns(rng, n):
+    """Nine columns of n rows in dtypes JAX keeps, two of them 2-D: more than
+    one dest_scatter launch takes."""
+    return (
+        np.arange(n, dtype=np.uint32),
+        rng.integers(-(2**31), 2**31, (n, 4)).astype(np.int32),
+        rng.standard_normal(n).astype(np.float32),
+        rng.integers(0, 2**32, n, dtype=np.uint32),
+        rng.integers(-(2**15), 2**15, n).astype(np.int16),
+        rng.integers(0, 2, n).astype(bool),
+        rng.integers(0, 256, (n, 5)).astype(np.uint8),
+        rng.integers(-(2**31), 2**31, n).astype(np.int32),
+        rng.standard_normal(n).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_radix_sort_padded_carries_nine_columns(bits, rng):
+    cfg, jcfg = tconfig.EngineConfig(radix_bits=bits), jconfig.EngineConfig(radix_bits=bits)
+    keys = rng.integers(0, 1 << 12, BLOCK, dtype=np.uint32)  # many equal keys
+    carried = _nine_columns(rng, BLOCK)
+    jkeys, jcarried = jsort._sort_padded(
+        jnp.asarray(keys), tuple(jnp.asarray(c) for c in carried), jcfg, None, len(carried))
+    tkeys, tcarried = tsort._sort_padded(
+        torch.from_numpy(keys), tuple(torch.from_numpy(c) for c in carried), cfg)
+    np.testing.assert_array_equal(tkeys.numpy(), np.asarray(jkeys))
+    order = np.argsort(keys, kind="stable")
+    for got, want, c in zip(tcarried, jcarried, carried):
+        assert got.dtype == getattr(torch, str(c.dtype))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(), c[order])
+
+
 def test_radix8_auto_matches_jax(rng):
     # The JAX package's "auto" is "radix" off the TPU; the port's must sort
     # 8-bit digits too, where the fused bucketize takes at most 16 buckets.
