@@ -59,7 +59,17 @@ in eight phases:
    pass by pass as the plan routes them, against their plain versions, at
    radix_bits 1, 2 and 4 on 4 blocks and at radix 16 on 3,173 partitions,
    at live lengths inside the last (ragged) partition, in earlier ones and
-   at the ends, the rows past the length stale;
+   at the ends, the rows past the length stale; segment_aggregate (the
+   group-by's aggregates: K1 at radix 2, K4 and the scatter after a
+   segmented scan) against its plain version, keys, counts, integers, min
+   and max equal, float sums and means within one float32 ulp, on one
+   partition, a ragged last partition and more partitions than the card
+   holds blocks at once, on random, equal, unique and live PAD_KEY keys and
+   keys whose runs end on a partition's or a thread's last row, with 14
+   aggregates (sum, min, max and mean of int32, uint32 and float32 columns
+   with NaNs, and counts: two launches), and at live lengths 0, 1, padded
+   and inside a group, each as an int and as a 0-d tensor on the card
+   (after phase 4 also on the group-by's sorted 100M buffer);
 3. the main path through the public entry points on CUDA tensors:
    ``sort_pairs`` of 1,000,000 shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
@@ -116,8 +126,15 @@ in eight phases:
    on a vector, and the look-back pass, the table pass whole, bucketize_scatter,
    bucketize and scatter_runs on a radix-16 pass, at 1M, 2^24 and
    100,000,000 keys, each with its bound and share of bound;
+   segment_aggregate (the group-by's five aggregates) at 1M and 2^24 rows
+   of about 100 a key, at 2^24 also on equal and on unique keys, and on the
+   group-by's sorted 100M buffer, beside its plain version (the
+   index_add_ / scatter_reduce_ route the group-by took before it), with
+   its bound and share of bound;
 6. times of the operator path: each operator and the radix sort beside the
    fused sort, by CUDA events (median of 3) with the profiler's busy share;
+   the group-by's profile must hold segment_aggregate and no index_add_,
+   scatter_reduce_ or cumsum kernel;
 7. the distributed path, counts set to 0 before each timed op in every
    rank and read after it: 4 gloo ranks on this one card (NCCL refuses two
    ranks on one GPU), every collective staged through pinned host memory,
@@ -128,7 +145,8 @@ in eight phases:
    ``dist_join_inner`` of the join_expand inputs.  Each op runs once
    untimed, then timed (wall after synchronize and a barrier, split by
    stage on every rank); every result is checked exactly against numpy,
-   and K1, K5 and dest_scatter must have launched on every rank, K4 never;
+   and K1, K5 and dest_scatter must have launched on every rank, K4 never,
+   and segment_aggregate on every rank of the group-by;
 8. the bench, ``python -m gpuradixsort_tpu_torch.bench --sizes 1000000``,
    in a child process: every method checked and timed at 1M keys, the
    per-stage table and the table sort; it must exit 0, and its JSON line
@@ -176,6 +194,8 @@ from gpuradixsort_tpu_torch.core.table import (
 )
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import radix as rk
+from gpuradixsort_tpu_torch.kernels.aggregate import PARTITION as AGG_PARTITION
+from gpuradixsort_tpu_torch.kernels.aggregate import segment_aggregate
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.key_bits import (
     ARGS_WORDS,
@@ -213,6 +233,7 @@ from gpuradixsort_tpu_torch.utils.timing import (
     profiled_device_ms,
 )
 from gpuradixsort_tpu_torch.utils.verify import (
+    aggregate_errors,
     device_is_sorted,
     is_permutation_sorted,
     join_oracle,
@@ -264,6 +285,11 @@ KERNELS = {
                      ("dest_scatter_kernel",)),
     "exclusive_scan": (exclusive_scan, "gpuradixsort_tpu_torch/csrc/scan.cu",
                        "gpuradixsort_tpu/kernels/scan.py:31", ("scan_kernel",)),
+    # The group-by's step after its sort: the segmented combine per aggregate
+    # and the compaction of the run ends (K1 at radix 2, K4, the scatter).
+    "segment_aggregate": (segment_aggregate, "gpuradixsort_tpu_torch/csrc/segment_agg.cu",
+                          "gpuradixsort_tpu/ops/aggregate.py:73-83 and "
+                          "gpuradixsort_tpu/ops/filter.py:49-66", ("segment_agg_kernel",)),
     # Glue with no Pallas kernel: the JAX package's per-pass skip predicate,
     # and the plan made from it, without the digit counts.
     "key_bits": (key_bits, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
@@ -275,6 +301,7 @@ KERNELS = {
 # path.  A radix pass runs K1, K5 and dest_scatter; K4 runs on no path.
 FUSED_PATH = ("sort_args", "sort_plan", "bucketize_scatter_lookback")
 RADIX_PATH = ("radix_hist", "dest_scatter", "exclusive_scan")
+AGG_PATH = ("segment_aggregate",)  # the group-by's, after its sort
 OFF_FUSED = tuple(name for name in KERNELS if name not in FUSED_PATH)
 OFF_PATH = ("bucketize", "scatter_runs", "bucketize_scatter", "key_bits", "radix_dest")
 
@@ -378,6 +405,7 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     check_key_bits(dev, rng, errs)
     check_plan_routing(dev, errs)
     check_live_route(dev, rng, errs)
+    check_segment_aggregate_shapes(dev, rng, errs)
     torch.cuda.synchronize()
 
 
@@ -982,6 +1010,94 @@ def check_lookback_geometry(dev, rng, errs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# segment_aggregate's shapes: one partition, a ragged last one, and more
+# partitions than the card holds blocks at once (132 SMs, 3 blocks each).
+AGG_SHAPES = (("one partition", AGG_PARTITION, AGG_PARTITION - 333),
+              ("a ragged last partition", 3 * AGG_PARTITION + 1235, 3 * AGG_PARTITION + 1218),
+              ("several waves of blocks", 8 * 132 * 3 * AGG_PARTITION + 4321,
+               8 * 132 * 3 * AGG_PARTITION - 777))
+AGG_PATTERNS = ("random", "all equal", "all unique", "live PAD_KEY run", "runs end on partitions",
+                "runs end on threads")
+
+
+def agg_keys(rng, pattern: str, padded: int, n_live: int) -> np.ndarray:
+    """padded sorted keys, the first n_live live and the rest PAD_KEY."""
+    row = np.arange(n_live, dtype=np.int64)
+    live = {
+        "random": lambda: rng.integers(0, max(n_live // 10, 1), n_live, dtype=np.uint32),
+        "all equal": lambda: np.full(n_live, 0xDEADBEEF, dtype=np.uint32),
+        "all unique": lambda: (row * 977 + 5).astype(np.uint32),
+        "live PAD_KEY run": lambda: np.where(rng.random(n_live) < 0.3, np.uint32(PAD_KEY),
+                                             rng.integers(0, 1000, n_live, dtype=np.uint32)),
+        "runs end on partitions": lambda: (row // AGG_PARTITION).astype(np.uint32),
+        "runs end on threads": lambda: (row // 16).astype(np.uint32),
+    }[pattern]()
+    keys = np.full(padded, PAD_KEY, dtype=np.uint32)
+    keys[:n_live] = np.sort(live)
+    return keys
+
+
+def agg_inputs(rng, padded: int, dev) -> list:
+    """sum, min, max and mean of an int32, a uint32 and a float32 column with NaNs, and
+    two counts: 14 aggregates, two launches."""
+    i32 = np.where(rng.random(padded) < 0.1, rng.integers(0, 1000, padded),
+                   rng.integers(-(2**31), 2**31, padded)).astype(np.int32)
+    u32 = rng.integers(0, 2**32, padded, dtype=np.uint32)
+    f32 = rng.standard_normal(padded).astype(np.float32)
+    f32[rng.random(padded) < 0.001] = np.nan
+    cols = {name: torch.from_numpy(v).to(dev) for name, v in (("i", i32), ("u", u32), ("f", f32))}
+    return [(f"{c}_{kind}", cols[c], kind) for c in cols
+            for kind in ("sum", "min", "max", "mean")] + [("n", None, "count"), ("n2", None, "count")]
+
+
+def check_segment_aggregate(keys: torch.Tensor, n_live, inputs, errs: dict, where: str) -> None:
+    """segment_aggregate against its plain version: keys, count, integers, min and max
+    equal (NaN where NaN), float sums and means within one float32 ulp (both add in
+    float64 and round once, in another order); its launches, one a group of 8 aggregates."""
+    want = segment_aggregate(keys, n_live, inputs, impl="reference")
+    before = segment_aggregate.launches
+    got = segment_aggregate(keys, n_live, inputs, impl="cuda")
+    torch.cuda.synchronize()
+    launches = segment_aggregate.launches - before
+    kinds = {name: kind for name, _, kind in inputs}
+    bad, ulps_max = [], 0
+    for name, (err, ulps) in aggregate_errors(got, want).items():
+        errs["segment_aggregate"] = max(errs["segment_aggregate"], err)
+        if kinds.get(name) in ("sum", "mean") and got[1][name].dtype == torch.float32:
+            ulps_max = max(ulps_max, ulps)
+            if ulps > 1:
+                bad.append(f"{name} {ulps} ulps")
+        elif err or ulps:
+            bad.append(f"{name} off by {err}")
+    check(not bad and launches == -(-len(inputs) // 8),
+          f"segment_aggregate == plain, {where}: {int(want[2])} groups, {len(inputs)} "
+          f"aggregates in {launches} launches, float sums and means within {ulps_max} ulp"
+          + (f"; {', '.join(bad)}" if bad else ""))
+
+
+def check_segment_aggregate_shapes(dev, rng, errs: dict) -> None:
+    """segment_aggregate at AGG_SHAPES on every AGG_PATTERNS' keys, and at live lengths
+    0, 1, padded and inside a group, each as an int and as a 0-d tensor on the card."""
+    for label, padded, n_live in AGG_SHAPES:
+        inputs = agg_inputs(rng, padded, dev)
+        for pattern in AGG_PATTERNS:
+            keys = torch.from_numpy(agg_keys(rng, pattern, padded, n_live)).to(dev)
+            check_segment_aggregate(keys, n_live, inputs, errs,
+                                    f"{label} ({padded} rows, {n_live} live), {pattern} keys")
+        del inputs, keys
+    padded = AGG_SHAPES[1][1]
+    keys_np = np.sort(rng.integers(0, 50, padded, dtype=np.uint32))
+    keys = torch.from_numpy(keys_np).to(dev)
+    inputs = agg_inputs(rng, padded, dev)[:8]
+    inside = int(np.searchsorted(keys_np, keys_np[padded // 2])) + 3
+    for n in (0, 1, padded, inside):
+        for live, how in ((n, "an int"), (torch.tensor(n, dtype=torch.int32, device=dev),
+                                          "a 0-d tensor on the card")):
+            check_segment_aggregate(keys, live, inputs, errs,
+                                    f"{padded} rows, {n} live as {how}")
+    torch.cuda.empty_cache()
+
+
 def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     """The kernels against their plain versions at the path's shapes.
 
@@ -1071,6 +1187,19 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
             del idx, want, state
         del hist, offsets
         torch.cuda.empty_cache()
+    # segment_aggregate on the group-by's sorted 100M buffer, as the group-by
+    # calls it: its live length as an int and as the 0-d tensor on the card.
+    group = tables["group"]
+    ordered = sort_table(group, "key", cfg)
+    inputs = agg_path_inputs(ordered["val"].data)
+    for live, how in ((group.length, "an int"),
+                      (torch.tensor(group.length, dtype=torch.int32, device=keys16m.device),
+                       "a 0-d tensor on the card")):
+        check_segment_aggregate(ordered["key"].data, live, inputs, errs,
+                                f"the group-by's sorted buffer, {ordered['key'].padded_length} "
+                                f"rows, {group.length} live as {how}, {len(AGGS)} aggregates of "
+                                f"one int32 column")
+    del ordered, inputs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1182,8 +1311,9 @@ def phase_main_path(dev, rng, cfg) -> dict:
     check(radix["dest_scatter"] == radix["radix_hist"] == radix["exclusive_scan"],
           f"the radix sorts launched K1, K5 and dest_scatter once a pass each "
           f"({radix['radix_hist']} passes)")
-    check(all(radix[name] == 0 for name in FUSED_PATH + OFF_PATH),
-          "the radix sorts launched no kernel of the fused sort's and none off the paths "
+    check(all(radix[name] == 0 for name in FUSED_PATH + OFF_PATH + AGG_PATH),
+          "the radix sorts launched no kernel of the fused sort's, nor segment_aggregate, "
+          "and none off the paths "
           f"(radix_dest {radix['radix_dest']} times)")
     return {name: fused[name] + radix[name] for name in KERNELS}
 
@@ -1242,6 +1372,11 @@ N_GROUPS = 1_000_000
 N_BUILD = 10_000_000  # the join's build side, and join_expand's probe and build
 N_LARGE = 1 << 24  # the radix method's larger sort
 HALF = 1 << 31
+
+
+def agg_path_inputs(val: torch.Tensor) -> list:
+    """segment_aggregate's inputs for AGGS over the column ``val``, as the group-by makes them."""
+    return [(name, None if kind == "count" else val, kind) for name, (_, kind) in AGGS.items()]
 
 
 def keep_low_half(t: Table) -> torch.Tensor:
@@ -1785,6 +1920,12 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         block = sort_args(args)
         state = sort_plan(keys, cfg, skipped, block=block)
 
+        # The group-by's step: AGGS over a 0..99 int32 column, about 100 rows a key.
+        gkeys = make_key_column(np.sort(rng.integers(0, n // 100, n, dtype=np.uint32)), cfg,
+                                device=dev).data
+        ginputs = agg_path_inputs(make_column(rng.integers(0, 100, n, dtype=np.int32), cfg,
+                                              device=dev).data)
+
         def lookback(impl: str):
             def run():  # a pass index serves one launch: clear its scratch first
                 state.lookback.zero_()
@@ -1822,6 +1963,10 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                                lambda: torch.cumsum(counts, 0, dtype=torch.int32)),
             "key_bits": (lambda: key_bits(keys, impl="cuda"),
                          lambda: key_bits(keys, impl="reference"), None),
+            # No one PyTorch call computes a group-by's aggregates.
+            "segment_aggregate": (
+                lambda: segment_aggregate(gkeys, n, ginputs, impl="cuda"),
+                lambda: segment_aggregate(gkeys, n, ginputs, impl="reference"), None),
         }
         work = stage_work(padded, cfg)
         st = StageTimes()
@@ -2045,6 +2190,73 @@ def phase_scatter_times(dev, rng, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# Kernels of the route the group-by took before segment_aggregate: index_add_
+# and index_copy_, scatter_reduce_, and the int64 cumsum of the segment ids.
+# (index_select's gather runs the scatter_gather kernel too, as <false, ...>.)
+OLD_AGG_ROWS = re.compile(r"indexFunc|index_add|index_copy|scatter_gather_internal_kernel<true|"
+                          r"scatter_reduce|Reduce(Minimum|Maximum|Add)|DeviceScan|"
+                          r"scan_innermost|cumsum", re.IGNORECASE)
+
+
+def phase_aggregate_times(tables: dict, rng, cfg, card: str) -> None:
+    """Phase 5, continued: segment_aggregate at 1M, 2^24 and 100M rows.
+
+    The group-by's step after its sort, AGGS over an int32 column of 0..99:
+    at 1M and 2^24 rows on sorted keys of about 100 rows each, at 2^24 also
+    on keys all equal and all unique, and at 100M on the group-by's own
+    sorted buffer (1M keys).  The kernel's call (its memsets and its kernel,
+    the kernel's own row also apart) beside the plain version, which is the
+    route the group-by took before the kernel (int64 segment ids by a
+    cumsum, index_add_ and scatter_reduce_): device us per call from the
+    profiler (median of 3 turns, the sides in alternating order), the bound
+    (stage_work's bytes at 3.35 TB/s) and the share of it.
+    """
+    dev = tables["group"]["key"].data.device
+    cases = []
+    for label, n, pattern, draw in (
+            ("1M", N_HEADLINE, "~100 rows a key", lambda n: rng.integers(0, n // 100, n)),
+            ("2^24", N_LARGE, "~100 rows a key", lambda n: rng.integers(0, n // 100, n)),
+            ("2^24", N_LARGE, "all keys equal", lambda n: np.full(n, 7)),
+            ("2^24", N_LARGE, "all keys unique", lambda n: np.arange(n))):
+        keys = make_key_column(np.sort(draw(n)).astype(np.uint32), cfg, device=dev).data
+        val = make_column(rng.integers(0, 100, n, dtype=np.int32), cfg, device=dev).data
+        cases.append((f"{label}, {pattern}", keys, n, agg_path_inputs(val)))
+    ordered = sort_table(tables["group"], "key", cfg)
+    cases.append(("100M, the group-by's sorted buffer (1M keys)", ordered["key"].data,
+                  tables["group"].length, agg_path_inputs(ordered["val"].data)))
+    log(f"segment_aggregate ({card}), {len(AGGS)} aggregates of one int32 column: device us per "
+        f"call (profiler, median of 3 turns): the kernel's call (memsets and kernel), its kernel "
+        f"alone, the plain version (index_add_ / scatter_reduce_, the route before it); bound, "
+        f"share of bound")
+    for where, keys, n, inputs in cases:
+        calls = max(2, min(20, 200_000_000 // keys.numel()))
+        fns = {"kernel": lambda: segment_aggregate(keys, n, inputs, impl="cuda"),
+               "plain": lambda: segment_aggregate(keys, n, inputs, impl="reference")}
+        turns = {"kernel": [], "kernel alone": [], "plain": []}
+        old_rows = set()
+        for side in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+            busy, rows = profiled_device_ms(fns[side], calls=calls)
+            turns[side].append(1e3 * busy)
+            if side == "kernel":
+                turns["kernel alone"].append(
+                    1e3 * port_kernel_split(rows).get("segment_aggregate", 0.0))
+            else:
+                old_rows.update(row[:60] for row in rows if OLD_AGG_ROWS.search(row))
+        # So that phase 6's check of the group-by's profile can see the old route.
+        check(bool(old_rows), f"the plain version's profile at {where} shows the kernels of the "
+              f"route before segment_aggregate: {'; '.join(sorted(old_rows))}")
+        bound_ms, by = bound_of(*stage_work(keys.numel(), cfg)["segment_aggregate"])
+        us = {side: median_measured(t) for side, t in turns.items()}
+        share = f"{bound_ms * 1e3 / us['kernel']:.3f}" if us["kernel"] else "not measured"
+        log(f"  {where} ({keys.numel()} rows): kernel's call {us['kernel']:.2f} us (turns "
+            f"{', '.join(f'{x:.2f}' for x in turns['kernel'])}), kernel alone "
+            f"{us['kernel alone']:.2f}, plain {us['plain']:.2f} (turns "
+            f"{', '.join(f'{x:.2f}' for x in turns['plain'])}); bound {bound_ms * 1e3:.2f} us "
+            f"({by}); share of bound {share}")
+    del cases, ordered
+    torch.cuda.empty_cache()
+
+
 def phase_operator_times(tables: dict, cfg, card: str) -> None:
     """Phase 6: each operator by CUDA events (median of 3), with the busy share.
 
@@ -2086,6 +2298,14 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
             continue
         log(f"  {label}: {ms:.3f} ms; device busy {busy:.3f} ms, busy share {busy / ms:.3f} "
             f"({split or 'no kernel of the port'})")
+        if label.startswith("group_by_aggregate"):
+            log(f"    the group-by's device time outside the port's kernels, ms a call: "
+                f"{glue_split(rows)}")
+            old = [row for row in rows if OLD_AGG_ROWS.search(row)]
+            check("segment_aggregate" in ours and not old,
+                  f"the group-by's profile holds segment_aggregate ({ours.get('segment_aggregate')}"
+                  f" ms) and no index_add_, scatter_reduce_ or cumsum kernel"
+                  + (f": {'; '.join(old)}" if old else ""))
     sorts = sort_plan.launches - sorts
     graphs = {f"{key[3]} {key[1]}": g.replays for key, g in sort_ops._SORT_GRAPHS.items()}
     torch.cuda.empty_cache()
@@ -2102,6 +2322,7 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
 DIST_RANKS = 4
 DIST_TIMEOUT = 600.0
 DIST_KERNELS = ("radix_hist", "dest_scatter", "exclusive_scan")  # every rank must launch these
+DIST_AGG_KERNELS = DIST_KERNELS + AGG_PATH  # and every rank's group-by these
 
 
 def _save_padded(tmp: str, name: str, arr: np.ndarray, fill, multiple: int) -> str:
@@ -2118,11 +2339,15 @@ def _by_shard(ranks: list, i: int) -> list:
     return sorted((r[i] for r in ranks), key=lambda x: x["shard"])
 
 
-def report_dist(label: str, shards: list, live_total: int, card: str, launches: dict) -> None:
-    """Per-rank checks and times of one distributed op; adds its launches to ``launches``."""
+def report_dist(label: str, shards: list, live_total: int, card: str, launches: dict,
+                kernels: tuple = DIST_KERNELS) -> None:
+    """Per-rank checks and times of one distributed op; adds its launches to ``launches``.
+
+    Every rank must have launched each of ``kernels``.
+    """
     for x in shards:
         check(not x["overflow"], f"{label}: shard {x['shard']} no overflow")
-        for name in DIST_KERNELS:
+        for name in kernels:
             check(x["launches"][name] > 0,
                   f"{label}: {name} launched {x['launches'][name]} times on shard {x['shard']}")
         check(x["launches"]["radix_dest"] == 0,
@@ -2199,7 +2424,7 @@ def phase_distributed(d: dict, cfg, card: str) -> dict:
             check_sorted(shards[0]["gathered"], d["fkeys"], sort_order.result(), label)
         shards = _by_shard(ranks, 2)
         label = "dist_group_by_aggregate, 100M rows, 1M keys"
-        report_dist(label, shards, groups["key"].size, card, launches)
+        report_dist(label, shards, groups["key"].size, card, launches, DIST_AGG_KERNELS)
         gkeys, gvals = shards[0]["gathered"]
         check_groups({"key": gkeys, **gvals}, groups, label)
         shards = _by_shard(ranks, 3)
@@ -2303,6 +2528,7 @@ def main() -> int:
     times = phase_times(dev, rng, cfg, card)
     phase_dest_scan_times(dev, rng, card)
     phase_scatter_times(dev, rng, card)
+    phase_aggregate_times(tables, rng, cfg, card)
     phase_operator_times(tables, cfg, card)
     del tables
     torch.cuda.empty_cache()

@@ -185,7 +185,8 @@ def rows_match(rows_out: torch.Tensor, payload_np: np.ndarray, order: np.ndarray
     return np.array_equal(rows_out[: order.size].cpu().numpy(), payload_np[order])
 
 
-def stage_work(padded: int, cfg, words: int = 2) -> dict[str, tuple[int, int]]:
+def stage_work(padded: int, cfg, words: int = 2, agg_columns: int = 1,
+               agg_outputs: int = 6) -> dict[str, tuple[int, int]]:
     """(bytes it must move, integer operations it must do) of each stage on ``padded`` keys.
 
     Each input is read once and each output written once; a table is one
@@ -203,7 +204,11 @@ def stage_work(padded: int, cfg, words: int = 2) -> dict[str, tuple[int, int]]:
     default a radix pass's key and its index), its rank keys being the
     first of them, read once;
     ``gather_rows`` moves a row of ``PAYLOAD_COLS`` int32 through a 4-byte
-    index.
+    index; ``segment_aggregate`` reads the keys and ``agg_columns`` distinct
+    4-byte columns and writes ``agg_outputs`` 4-byte outputs (the group keys
+    among them) whole, a zeroing memset and the groups' rows together, with
+    one comparison a row and one combine a row an aggregate (by default the
+    group-by of ``chip_smoke.py``: one column, five aggregates).
     """
     tiles = padded // cfg.tile
     table = 4 * cfg.radix * tiles
@@ -224,6 +229,8 @@ def stage_work(padded: int, cfg, words: int = 2) -> dict[str, tuple[int, int]]:
         "exclusive_scan": (8 * padded + 4, padded),
         "key_bits": (4 * padded + 8, 2 * padded),
         "gather_rows": ((4 + 2 * 4 * PAYLOAD_COLS) * padded, 0),
+        "segment_aggregate": (4 * (1 + agg_columns + agg_outputs) * padded,
+                              agg_outputs * padded),
     }
 
 

@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from gpuradixsort_tpu_torch.config import default_device
-from gpuradixsort_tpu_torch.kernels import bucketize, key_bits, radix, scan, scatter
+from gpuradixsort_tpu_torch.kernels import aggregate, bucketize, key_bits, radix, scan, scatter
 from gpuradixsort_tpu_torch.parallel import mesh as M
 from gpuradixsort_tpu_torch.parallel.dist_ops import (
     dist_group_by_aggregate,
@@ -153,6 +153,7 @@ KERNEL_WRAPPERS = {
     "radix_dest": radix.tile_destinations,
     "dest_scatter": radix.dest_scatter,
     "exclusive_scan": scan.exclusive_scan,
+    "segment_aggregate": aggregate.segment_aggregate,
 }
 
 

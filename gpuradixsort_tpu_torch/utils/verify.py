@@ -78,3 +78,48 @@ def mask_keys(mask: int, n: int, cfg, gen: np.random.Generator) -> np.ndarray:
             vals[:2] = (0, cfg.radix - 1)  # two values at least
             keys = (keys & ~(digit << shift)) | (vals << shift)
     return keys
+
+
+def _ordered_bits(t: torch.Tensor) -> torch.Tensor:
+    """float32 bits as int64 on one line: a step of 1 is one ulp, -0.0 and +0.0 meet."""
+    bits = t.view(torch.int32).to(torch.int64)
+    return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+def aggregate_errors(got, want) -> dict[str, tuple[float, int]]:
+    """How far the group-by result ``got`` lies from ``want``, output by output.
+
+    Each is ``(group_keys, {name: values}, count)`` as ``segment_aggregate``
+    returns it.  Returns {name: (max abs error, float32 ulps)} for every
+    output, "keys" and "count" among them.  Integer outputs compare their
+    values (uint32 unsigned) and count no ulps.  Float outputs compare
+    their numbers, and a NaN must stand where the other holds one: a NaN
+    against a number counts as an infinite error and 2^32 ulps.
+    """
+    pairs = {"keys": (got[0], want[0]), "count": (got[2], want[2]),
+             **{name: (got[1][name], v) for name, v in want[1].items()}}
+    errs = {}
+    for name, (g, w) in pairs.items():
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise ValueError(f"{name}: {g.dtype} {tuple(g.shape)} against {w.dtype} "
+                             f"{tuple(w.shape)}")
+        g, w = g.cpu(), w.cpu()
+        if g.dtype != torch.float32:
+            wide = [int32_bits(t).to(torch.int64) for t in (g, w)]
+            if g.dtype == torch.uint32:
+                wide = [t & 0xFFFFFFFF for t in wide]
+            err = int((wide[0] - wide[1]).abs().max()) if g.numel() else 0
+            errs[name] = (float(err), 0)
+            continue
+        nan = torch.isnan(g)
+        if not torch.equal(nan, torch.isnan(w)):
+            errs[name] = (float("inf"), 2**32)
+            continue
+        g, w = g[~nan], w[~nan]
+        if not g.numel():
+            errs[name] = (0.0, 0)
+            continue
+        abs_err = float((g.to(torch.float64) - w.to(torch.float64)).abs().max())
+        ulps = int((_ordered_bits(g) - _ordered_bits(w)).abs().max())
+        errs[name] = (abs_err, ulps)
+    return errs

@@ -107,7 +107,9 @@ def test_stage_bytes_equal_hand_counts():
     # bytes, and a 4-byte ticket a pass); the look-back pass writes and
     # reads its pass's status words; sort_args writes its five 8-byte words;
     # dest_scatter reads two tables and moves a key, which it also ranks,
-    # and its index (2 x 8 bytes a row), or five 4-byte words a row.
+    # and its index (2 x 8 bytes a row), or five 4-byte words a row;
+    # segment_aggregate reads the keys and one column and writes six outputs
+    # (4 bytes a row each), or reads three columns and writes nine outputs.
     assert tbench.stage_work(padded, CFG) == {
         "sort_args": (40, 0),
         "sort_plan": (4 * 16384 + 8 + 32 + 1024 + 4 * 4128 + 512 + 4 * 8, 10 * 16384),
@@ -122,9 +124,12 @@ def test_stage_bytes_equal_hand_counts():
         "exclusive_scan": (8 * 16384 + 4, 16384),
         "key_bits": (4 * 16384 + 8, 2 * 16384),
         "gather_rows": ((4 + 64 + 64) * 16384, 0),
+        "segment_aggregate": (32 * 16384, 6 * 16384),
     }
     assert tbench.stage_work(padded, CFG, words=5)["dest_scatter"] == (
         40 * 16384 + 2048, 4 * 16384)
+    assert tbench.stage_work(padded, CFG, agg_columns=3, agg_outputs=9)["segment_aggregate"] == (
+        52 * 16384, 9 * 16384)
     assert tbench.stage_work(padded, EngineConfig(radix_bits=8))["scatter_runs"] == (
         16 * 16384 + 2 * 16384, 2 * 16384)
     assert bound_of(3_350_000_000, 0) == pytest.approx((1.0, "bytes"))

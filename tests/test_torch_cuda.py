@@ -29,6 +29,7 @@ from gpuradixsort_tpu_torch.core.table import (
     make_key_column,
 )
 from gpuradixsort_tpu_torch.kernels import _build
+from gpuradixsort_tpu_torch.kernels import aggregate as tkagg
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
 from gpuradixsort_tpu_torch.kernels import key_bits as tkey_bits
 from gpuradixsort_tpu_torch.kernels import radix as tradix
@@ -40,7 +41,7 @@ from gpuradixsort_tpu_torch.ops import join as tjoin
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.parallel.launch import run_ops, run_ranks
 from gpuradixsort_tpu_torch.utils.timing import card_line, profiled_device_ms
-from gpuradixsort_tpu_torch.utils.verify import join_oracle, mask_keys
+from gpuradixsort_tpu_torch.utils.verify import aggregate_errors, join_oracle, mask_keys
 
 pytestmark = pytest.mark.cuda
 
@@ -1134,7 +1135,9 @@ def test_operators_on_card_match_cpu(card, gen):
 
     aggs = {"s": ("v", "sum"), "c": ("v", "count"), "lo": ("u", "min"), "hi": ("u", "max"),
             "fl": ("f", "min"), "m": ("v", "mean"), "fs": ("f", "sum")}
+    launched = tkagg.segment_aggregate.launches
     a, b = tagg.group_by_aggregate(cpu, "k", aggs, CFG), tagg.group_by_aggregate(dev, "k", aggs, CFG)
+    assert tkagg.segment_aggregate.launches == launched + 1  # the card's group-by, one launch
     assert int(a.count) == int(b.count)
     _same_tables(a.table, b.table, floats=("m", "fs"))
 
@@ -1264,3 +1267,116 @@ def test_bench_at_1m_checks_every_result(card, tmp_path):
     assert line["value"] > 0 and line["vs_baseline"] > 0
     durations = (tmp_path / "durations_cuda.txt").read_text().splitlines()
     assert durations[0] == card_line() and len(durations) == 3 + len(tbench.STAGES)
+
+
+# segment_aggregate: the group-by's kernel against its plain version.  Keys,
+# the count, integers, min and max must be equal (NaN where NaN); float sums
+# and means within one float32 ulp: both add in float64 and round once, in
+# another order.
+AGG_PATTERNS = ("random", "all_equal", "all_unique", "pad_run", "partition_runs", "thread_runs")
+AGG_SHAPES = {"one_partition": (tkagg.PARTITION, tkagg.PARTITION - 333),
+              "ragged_last_partition": (3 * tkagg.PARTITION + 1235, 3 * tkagg.PARTITION + 1218),
+              "several_waves": (1 << 22, (1 << 22) - 5000)}
+
+
+def _agg_keys(gen, pattern: str, padded: int, n_live: int) -> np.ndarray:
+    """padded sorted keys, the first n_live live, the rest PAD_KEY."""
+    row = np.arange(n_live, dtype=np.int64)
+    live = {
+        "random": lambda: gen.integers(0, max(n_live // 10, 1), n_live, dtype=np.uint32),
+        "all_equal": lambda: np.full(n_live, 0xDEADBEEF, dtype=np.uint32),
+        "all_unique": lambda: (row * 977 + 5).astype(np.uint32),
+        "pad_run": lambda: np.where(gen.random(n_live) < 0.3, np.uint32(PAD_KEY),
+                                    gen.integers(0, 1000, n_live, dtype=np.uint32)),
+        # Every run ends on the last row of a partition, or of a thread's rows.
+        "partition_runs": lambda: (row // tkagg.PARTITION).astype(np.uint32),
+        "thread_runs": lambda: (row // 16).astype(np.uint32),
+    }[pattern]()
+    keys = np.full(padded, PAD_KEY, dtype=np.uint32)
+    keys[:n_live] = np.sort(live)
+    return keys
+
+
+def _agg_inputs(gen, padded: int, dev) -> list:
+    """Every kind on an int32, a uint32 and a float32 column with NaNs, and a count: 14
+    aggregates, two launches."""
+    i32 = np.where(gen.random(padded) < 0.1, gen.integers(0, 1000, padded),
+                   gen.integers(-(2**31), 2**31, padded)).astype(np.int32)
+    u32 = gen.integers(0, 2**32, padded, dtype=np.uint32)
+    f32 = gen.standard_normal(padded).astype(np.float32)
+    f32[gen.random(padded) < 0.001] = np.nan
+    cols = {name: torch.from_numpy(v).to(dev) for name, v in (("i", i32), ("u", u32), ("f", f32))}
+    return [(f"{c}_{kind}", cols[c], kind) for c in cols
+            for kind in ("sum", "min", "max", "mean")] + [("n", None, "count"), ("n2", None, "count")]
+
+
+def _assert_agg_close(got, want, inputs) -> None:
+    kinds = {name: kind for name, _, kind in inputs}
+    for name, (err, ulps) in aggregate_errors(got, want).items():
+        if kinds.get(name) in ("sum", "mean") and got[1][name].dtype == torch.float32:
+            assert ulps <= 1, (name, err, ulps)
+        else:
+            assert err == 0 and ulps == 0, (name, err, ulps)
+
+
+def _agg_matches_plain(keys: torch.Tensor, n_live, inputs) -> int:
+    """segment_aggregate on the card against its plain version; returns its launches."""
+    want = tkagg.segment_aggregate(keys, n_live, inputs, impl="reference")
+    before = tkagg.segment_aggregate.launches
+    got = tkagg.segment_aggregate(keys, n_live, inputs, impl="cuda")
+    torch.cuda.synchronize()
+    _assert_agg_close(got, want, inputs)
+    return tkagg.segment_aggregate.launches - before
+
+
+@pytest.mark.parametrize("pattern", AGG_PATTERNS)
+@pytest.mark.parametrize("shape", list(AGG_SHAPES))
+def test_segment_aggregate_matches_plain(shape, pattern, card, gen):
+    padded, n_live = AGG_SHAPES[shape]
+    keys = torch.from_numpy(_agg_keys(gen, pattern, padded, n_live)).to(card)
+    inputs = _agg_inputs(gen, padded, card)
+    assert _agg_matches_plain(keys, n_live, inputs) == 2  # 14 aggregates: 8, then 6
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+@pytest.mark.parametrize("n_live", ["zero", "one", "padded", "inside_a_group"])
+def test_segment_aggregate_live_lengths_on_card(n_live, on_card, card, gen):
+    padded = 3 * tkagg.PARTITION + 1235
+    keys_np = np.sort(gen.integers(0, 50, padded, dtype=np.uint32))
+    n = {"zero": 0, "one": 1, "padded": padded,
+         "inside_a_group": int(np.searchsorted(keys_np, keys_np[padded // 2])) + 3}[n_live]
+    live = torch.tensor(n, dtype=torch.int32, device=card) if on_card else n
+    inputs = _agg_inputs(gen, padded, card)[:8]
+    assert _agg_matches_plain(torch.from_numpy(keys_np).to(card), live, inputs) == 1
+
+
+def test_segment_aggregate_reads_its_live_length_on_the_card(card, gen):
+    # A 0-d n_live on the card: neither the kernel's route nor the group-by
+    # step after a compaction synchronises with the host.
+    padded = 2 * tkagg.PARTITION + 99
+    keys = torch.from_numpy(_agg_keys(gen, "random", padded, padded - 700)).to(card)
+    inputs = _agg_inputs(gen, padded, card)[:8]
+    live = torch.tensor(padded - 700, dtype=torch.int32, device=card)
+    _build.library()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tagg.aggregate_sorted_flat(keys, live, inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_agg_close(got, tkagg.segment_aggregate(keys, padded - 700, inputs, impl="reference"),
+                      inputs)
+
+
+def test_segment_aggregate_plain_version_propagates_nan(card):
+    # The plain version's float min and max on the card: a NaN wins, as in
+    # jnp.minimum / jnp.maximum and on the CPU.
+    keys = torch.tensor([1, 1, 1, 2, 2, 3], dtype=torch.int32).view(torch.uint32)
+    vals = torch.tensor([0.5, float("nan"), -1.0, 2.0, 3.0, float("nan")])
+    inputs = [("lo", vals, "min"), ("hi", vals, "max"), ("s", vals, "sum")]
+    cpu = tkagg.segment_aggregate(keys, 6, inputs)
+    on_card = [(n, v.to(card), k) for n, v, k in inputs]
+    for impl in ("reference", "cuda"):
+        got = tkagg.segment_aggregate(keys.to(card), 6, on_card, impl=impl)
+        assert all(e == (0.0, 0) for e in aggregate_errors(got, cpu).values()), impl
+    assert torch.isnan(cpu[1]["lo"][[0, 2]]).all() and cpu[1]["hi"][1] == 3.0
