@@ -68,8 +68,11 @@ in eight phases:
    keys whose runs end on a partition's or a thread's last row, with 14
    aggregates (sum, min, max and mean of int32, uint32 and float32 columns
    with NaNs, and counts: two launches), and at live lengths 0, 1, padded
-   and inside a group, each as an int and as a 0-d tensor on the card
-   (after phase 4 also on the group-by's sorted 100M buffer);
+   and inside a group, each as an int and as a 0-d tensor on the card, each
+   with its columns in key order and read through a permutation whose pad
+   rows are -1 (after phase 4 also on the group-by's sorted 100M buffer,
+   its column read through the group-by's own permutation and gathered by
+   sort_table);
 3. the main path through the public entry points on CUDA tensors:
    ``sort_pairs`` of 1,000,000 shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
@@ -128,13 +131,14 @@ in eight phases:
    100,000,000 keys, each with its bound and share of bound;
    segment_aggregate (the group-by's five aggregates) at 1M and 2^24 rows
    of about 100 a key, at 2^24 also on equal and on unique keys, and on the
-   group-by's sorted 100M buffer, beside its plain version (the
-   index_add_ / scatter_reduce_ route the group-by took before it), with
-   its bound and share of bound;
+   group-by's sorted 100M buffer, its column in key order and read through
+   a permutation, beside its plain version (the index_add_ /
+   scatter_reduce_ route the group-by took before it; through rows after
+   gather_rows), with its bound, share of bound and the gather's sectors;
 6. times of the operator path: each operator and the radix sort beside the
    fused sort, by CUDA events (median of 3) with the profiler's busy share;
-   the group-by's profile must hold segment_aggregate and no index_add_,
-   scatter_reduce_ or cumsum kernel;
+   the group-by's profile must hold segment_aggregate and no gather by
+   index_select, index_add_, scatter_reduce_ or cumsum kernel;
 7. the distributed path, counts set to 0 before each timed op in every
    rank and read after it: 4 gloo ranks on this one card (NCCL refuses two
    ranks on one GPU), every collective staged through pinned host memory,
@@ -181,7 +185,12 @@ from unittest import mock
 import numpy as np
 import torch
 
-from gpuradixsort_tpu_torch.bench import DURATIONS_FILE, chain_for, stage_work
+from gpuradixsort_tpu_torch.bench import (
+    DURATIONS_FILE,
+    chain_for,
+    gather_sector_bytes,
+    stage_work,
+)
 from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import (
     Column,
@@ -1050,13 +1059,15 @@ def agg_inputs(rng, padded: int, dev) -> list:
             for kind in ("sum", "min", "max", "mean")] + [("n", None, "count"), ("n2", None, "count")]
 
 
-def check_segment_aggregate(keys: torch.Tensor, n_live, inputs, errs: dict, where: str) -> None:
+def check_segment_aggregate(keys: torch.Tensor, n_live, inputs, errs: dict, where: str,
+                            rows=None) -> None:
     """segment_aggregate against its plain version: keys, count, integers, min and max
     equal (NaN where NaN), float sums and means within one float32 ulp (both add in
-    float64 and round once, in another order); its launches, one a group of 8 aggregates."""
-    want = segment_aggregate(keys, n_live, inputs, impl="reference")
+    float64 and round once, in another order); its launches, one a group of 8 aggregates.
+    With ``rows`` the columns are read through them (the plain version gathers)."""
+    want = segment_aggregate(keys, n_live, inputs, rows, impl="reference")
     before = segment_aggregate.launches
-    got = segment_aggregate(keys, n_live, inputs, impl="cuda")
+    got = segment_aggregate(keys, n_live, inputs, rows, impl="cuda")
     torch.cuda.synchronize()
     launches = segment_aggregate.launches - before
     kinds = {name: kind for name, _, kind in inputs}
@@ -1070,31 +1081,46 @@ def check_segment_aggregate(keys: torch.Tensor, n_live, inputs, errs: dict, wher
         elif err or ulps:
             bad.append(f"{name} off by {err}")
     check(not bad and launches == -(-len(inputs) // 8),
-          f"segment_aggregate == plain, {where}: {int(want[2])} groups, {len(inputs)} "
+          f"segment_aggregate == plain, {where}{', through rows' if rows is not None else ''}: "
+          f"{int(want[2])} groups, {len(inputs)} "
           f"aggregates in {launches} launches, float sums and means within {ulps_max} ulp"
           + (f"; {', '.join(bad)}" if bad else ""))
 
 
+def agg_rows(rng, padded: int, n_live: int, dev) -> torch.Tensor:
+    """A sort's permutation as the group-by hands it to segment_aggregate: int32, -1 on
+    the pad rows."""
+    rows = rng.permutation(padded).astype(np.int32)
+    rows[n_live:] = -1
+    return torch.from_numpy(rows).to(dev)
+
+
 def check_segment_aggregate_shapes(dev, rng, errs: dict) -> None:
-    """segment_aggregate at AGG_SHAPES on every AGG_PATTERNS' keys, and at live lengths
-    0, 1, padded and inside a group, each as an int and as a 0-d tensor on the card."""
+    """segment_aggregate at AGG_SHAPES on every AGG_PATTERNS' keys, its columns read
+    directly and through a permutation, and at live lengths 0, 1, padded and inside a
+    group, each as an int and as a 0-d tensor on the card."""
     for label, padded, n_live in AGG_SHAPES:
         inputs = agg_inputs(rng, padded, dev)
+        rows = agg_rows(rng, padded, n_live, dev)
         for pattern in AGG_PATTERNS:
             keys = torch.from_numpy(agg_keys(rng, pattern, padded, n_live)).to(dev)
-            check_segment_aggregate(keys, n_live, inputs, errs,
-                                    f"{label} ({padded} rows, {n_live} live), {pattern} keys")
-        del inputs, keys
+            for through in (None, rows):
+                check_segment_aggregate(keys, n_live, inputs, errs,
+                                        f"{label} ({padded} rows, {n_live} live), {pattern} keys",
+                                        through)
+        del inputs, keys, rows
     padded = AGG_SHAPES[1][1]
     keys_np = np.sort(rng.integers(0, 50, padded, dtype=np.uint32))
     keys = torch.from_numpy(keys_np).to(dev)
     inputs = agg_inputs(rng, padded, dev)[:8]
     inside = int(np.searchsorted(keys_np, keys_np[padded // 2])) + 3
     for n in (0, 1, padded, inside):
+        rows = agg_rows(rng, padded, n, dev)
         for live, how in ((n, "an int"), (torch.tensor(n, dtype=torch.int32, device=dev),
                                           "a 0-d tensor on the card")):
-            check_segment_aggregate(keys, live, inputs, errs,
-                                    f"{padded} rows, {n} live as {how}")
+            for through in (None, rows):
+                check_segment_aggregate(keys, live, inputs, errs,
+                                        f"{padded} rows, {n} live as {how}", through)
     torch.cuda.empty_cache()
 
 
@@ -1188,18 +1214,25 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
         del hist, offsets
         torch.cuda.empty_cache()
     # segment_aggregate on the group-by's sorted 100M buffer, as the group-by
-    # calls it: its live length as an int and as the 0-d tensor on the card.
+    # calls it (its column read through the sort's permutation) and on the
+    # column gathered by sort_table: its live length as an int and as the
+    # 0-d tensor on the card.
     group = tables["group"]
+    sorted_keys, perm = sort_pairs(group["key"], cfg)
     ordered = sort_table(group, "key", cfg)
-    inputs = agg_path_inputs(ordered["val"].data)
+    check(torch.equal(int32_bits(sorted_keys.data), int32_bits(ordered["key"].data)),
+          "sort_pairs and sort_table sort the group-by's keys alike")
+    forms = ((agg_path_inputs(group["val"].data), int32_bits(perm.data)),
+             (agg_path_inputs(ordered["val"].data), None))
     for live, how in ((group.length, "an int"),
                       (torch.tensor(group.length, dtype=torch.int32, device=keys16m.device),
                        "a 0-d tensor on the card")):
-        check_segment_aggregate(ordered["key"].data, live, inputs, errs,
-                                f"the group-by's sorted buffer, {ordered['key'].padded_length} "
-                                f"rows, {group.length} live as {how}, {len(AGGS)} aggregates of "
-                                f"one int32 column")
-    del ordered, inputs
+        for inputs, rows in forms:
+            check_segment_aggregate(sorted_keys.data, live, inputs, errs,
+                                    f"the group-by's sorted buffer, {sorted_keys.padded_length} "
+                                    f"rows, {group.length} live as {how}, {len(AGGS)} aggregates "
+                                    f"of one int32 column", rows)
+    del ordered, forms, sorted_keys, perm
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1920,11 +1953,13 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         block = sort_args(args)
         state = sort_plan(keys, cfg, skipped, block=block)
 
-        # The group-by's step: AGGS over a 0..99 int32 column, about 100 rows a key.
+        # The group-by's step as the group-by takes it: AGGS over a 0..99
+        # int32 column read through a permutation, about 100 rows a key.
         gkeys = make_key_column(np.sort(rng.integers(0, n // 100, n, dtype=np.uint32)), cfg,
                                 device=dev).data
         ginputs = agg_path_inputs(make_column(rng.integers(0, 100, n, dtype=np.int32), cfg,
                                               device=dev).data)
+        grows = agg_rows(rng, gkeys.numel(), n, dev)
 
         def lookback(impl: str):
             def run():  # a pass index serves one launch: clear its scratch first
@@ -1965,10 +2000,12 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                          lambda: key_bits(keys, impl="reference"), None),
             # No one PyTorch call computes a group-by's aggregates.
             "segment_aggregate": (
-                lambda: segment_aggregate(gkeys, n, ginputs, impl="cuda"),
-                lambda: segment_aggregate(gkeys, n, ginputs, impl="reference"), None),
+                lambda: segment_aggregate(gkeys, n, ginputs, grows, impl="cuda"),
+                lambda: segment_aggregate(gkeys, n, ginputs, grows, impl="reference"), None),
         }
         work = stage_work(padded, cfg)
+        work["segment_aggregate"] = stage_work(gkeys.numel(), cfg, agg_rows=True)[
+            "segment_aggregate"]
         st = StageTimes()
         log(f"one pass at {label} keys, shift 0, radix 16 ({card}): device time "
             f"(profiler) and per-call time of 20 back-to-back calls (CUDA events); "
@@ -2196,20 +2233,29 @@ def phase_scatter_times(dev, rng, card: str) -> None:
 OLD_AGG_ROWS = re.compile(r"indexFunc|index_add|index_copy|scatter_gather_internal_kernel<true|"
                           r"scatter_reduce|Reduce(Minimum|Maximum|Add)|DeviceScan|"
                           r"scan_innermost|cumsum", re.IGNORECASE)
+# The gather of a column through the sort's permutation (gather_rows, that
+# is index_select): the scatter_gather kernel's gather instance, <false, ...>,
+# or index_select's own kernels where PyTorch takes those.
+GATHER_ROWS = re.compile(r"scatter_gather_internal_kernel<false|indexSelect")
 
 
 def phase_aggregate_times(tables: dict, rng, cfg, card: str) -> None:
-    """Phase 5, continued: segment_aggregate at 1M, 2^24 and 100M rows.
+    """Phase 5, continued: segment_aggregate at 1M, 2^24 and 100M rows, in both forms.
 
     The group-by's step after its sort, AGGS over an int32 column of 0..99:
     at 1M and 2^24 rows on sorted keys of about 100 rows each, at 2^24 also
     on keys all equal and all unique, and at 100M on the group-by's own
-    sorted buffer (1M keys).  The kernel's call (its memsets and its kernel,
-    the kernel's own row also apart) beside the plain version, which is the
-    route the group-by took before the kernel (int64 segment ids by a
-    cumsum, index_add_ and scatter_reduce_): device us per call from the
-    profiler (median of 3 turns, the sides in alternating order), the bound
-    (stage_work's bytes at 3.35 TB/s) and the share of it.
+    sorted buffer (1M keys).  Each in both forms: the column in key order
+    (the distributed group-by's), and the unsorted column read through a
+    permutation (the group-by's: a random one, at 100M the group-by's own
+    sort's).  The kernel's call (its memsets and its kernel, the kernel's own
+    row also apart) beside the plain version, which is the route the
+    group-by took before the kernel (int64 segment ids by a cumsum,
+    index_add_ and scatter_reduce_; through rows, after gather_rows): device
+    us per call from the profiler (median of 3 turns, the sides in
+    alternating order), the bound (stage_work's bytes at 3.35 TB/s, the
+    permutation's 4 bytes a row counted once) and the share of it, and the
+    gather's 32-byte sectors at the same rate beside it, as a note.
     """
     dev = tables["group"]["key"].data.device
     cases = []
@@ -2220,40 +2266,68 @@ def phase_aggregate_times(tables: dict, rng, cfg, card: str) -> None:
             ("2^24", N_LARGE, "all keys unique", lambda n: np.arange(n))):
         keys = make_key_column(np.sort(draw(n)).astype(np.uint32), cfg, device=dev).data
         val = make_column(rng.integers(0, 100, n, dtype=np.int32), cfg, device=dev).data
-        cases.append((f"{label}, {pattern}", keys, n, agg_path_inputs(val)))
-    ordered = sort_table(tables["group"], "key", cfg)
-    cases.append(("100M, the group-by's sorted buffer (1M keys)", ordered["key"].data,
-                  tables["group"].length, agg_path_inputs(ordered["val"].data)))
+        cases.append((f"{label}, {pattern}", keys, n, agg_path_inputs(val),
+                      agg_rows(rng, keys.numel(), n, dev)))
+    group = tables["group"]
+    sorted_keys, perm = sort_pairs(group["key"], cfg)
+    ordered = sort_table(group, "key", cfg)
+    cases.append(("100M, the group-by's sorted buffer (1M keys)", sorted_keys.data, group.length,
+                  (agg_path_inputs(ordered["val"].data), agg_path_inputs(group["val"].data)),
+                  int32_bits(perm.data)))
     log(f"segment_aggregate ({card}), {len(AGGS)} aggregates of one int32 column: device us per "
         f"call (profiler, median of 3 turns): the kernel's call (memsets and kernel), its kernel "
-        f"alone, the plain version (index_add_ / scatter_reduce_, the route before it); bound, "
-        f"share of bound")
-    for where, keys, n, inputs in cases:
+        f"alone, the plain version (index_add_ / scatter_reduce_, the route before it; through "
+        f"rows after gather_rows), each with the column in key order and read through rows; "
+        f"bound, share of bound; the gather's 32-byte sectors")
+    for where, keys, n, inputs, rows in cases:
+        direct, through = inputs if isinstance(inputs, tuple) else (inputs, inputs)
         calls = max(2, min(20, 200_000_000 // keys.numel()))
-        fns = {"kernel": lambda: segment_aggregate(keys, n, inputs, impl="cuda"),
-               "plain": lambda: segment_aggregate(keys, n, inputs, impl="reference")}
-        turns = {"kernel": [], "kernel alone": [], "plain": []}
-        old_rows = set()
-        for side in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
-            busy, rows = profiled_device_ms(fns[side], calls=calls)
-            turns[side].append(1e3 * busy)
-            if side == "kernel":
-                turns["kernel alone"].append(
-                    1e3 * port_kernel_split(rows).get("segment_aggregate", 0.0))
-            else:
-                old_rows.update(row[:60] for row in rows if OLD_AGG_ROWS.search(row))
-        # So that phase 6's check of the group-by's profile can see the old route.
+        fns = {"kernel": lambda: segment_aggregate(keys, n, direct, impl="cuda"),
+               "kernel through rows": lambda: segment_aggregate(keys, n, through, rows,
+                                                                impl="cuda"),
+               "plain": lambda: segment_aggregate(keys, n, direct, impl="reference"),
+               "plain through rows": lambda: segment_aggregate(keys, n, through, rows,
+                                                               impl="reference")}
+        turns = {side: [] for side in fns}
+        alone = {"kernel": [], "kernel through rows": []}
+        old_rows, gather, own_gather = set(), set(), set()
+        order = list(fns)
+        for sides in (order, order[::-1], order):
+            for side in sides:
+                busy, prof = profiled_device_ms(fns[side], calls=calls)
+                turns[side].append(1e3 * busy)
+                if side in alone:
+                    alone[side].append(1e3 * port_kernel_split(prof).get("segment_aggregate", 0.0))
+                    own_gather.update(row[:90] for row in prof if GATHER_ROWS.search(row))
+                elif side == "plain":
+                    old_rows.update(row[:60] for row in prof if OLD_AGG_ROWS.search(row))
+                else:
+                    gather.update(row[:90] for row in prof if GATHER_ROWS.search(row))
+        # So that phase 6's checks of the group-by's profile can see the old route.
         check(bool(old_rows), f"the plain version's profile at {where} shows the kernels of the "
               f"route before segment_aggregate: {'; '.join(sorted(old_rows))}")
-        bound_ms, by = bound_of(*stage_work(keys.numel(), cfg)["segment_aggregate"])
+        check(bool(gather) and not own_gather, f"the plain version's profile through rows at "
+              f"{where} shows gather_rows' gather ({'; '.join(sorted(gather))}), the kernel's "
+              f"none" + (f": {'; '.join(sorted(own_gather))}" if own_gather else ""))
         us = {side: median_measured(t) for side, t in turns.items()}
-        share = f"{bound_ms * 1e3 / us['kernel']:.3f}" if us["kernel"] else "not measured"
-        log(f"  {where} ({keys.numel()} rows): kernel's call {us['kernel']:.2f} us (turns "
-            f"{', '.join(f'{x:.2f}' for x in turns['kernel'])}), kernel alone "
-            f"{us['kernel alone']:.2f}, plain {us['plain']:.2f} (turns "
-            f"{', '.join(f'{x:.2f}' for x in turns['plain'])}); bound {bound_ms * 1e3:.2f} us "
-            f"({by}); share of bound {share}")
-    del cases, ordered
+        us.update({f"{side} alone": median_measured(t) for side, t in alone.items()})
+        for form, side, agg_rows_read in (("in key order", "kernel", False),
+                                          ("through rows", "kernel through rows", True)):
+            bound_ms, by = bound_of(*stage_work(keys.numel(), cfg, agg_rows=agg_rows_read)[
+                "segment_aggregate"])
+            plain = "plain" if side == "kernel" else "plain through rows"
+            share = f"{bound_ms * 1e3 / us[side]:.3f}" if us[side] else "not measured"
+            sectors = ""
+            if agg_rows_read:
+                sector_us = gather_sector_bytes(n) / (HBM_PEAK_TBS * 1e12) * 1e6
+                sectors = (f"; the gather's 32-byte sectors alone {sector_us:.2f} us at 3.35 TB/s "
+                           f"(a note, not the bound)")
+            log(f"  {where} ({keys.numel()} rows), {form}: kernel's call {us[side]:.2f} us (turns "
+                f"{', '.join(f'{x:.2f}' for x in turns[side])}), kernel alone "
+                f"{us[side + ' alone']:.2f}, plain {us[plain]:.2f} (turns "
+                f"{', '.join(f'{x:.2f}' for x in turns[plain])}); bound {bound_ms * 1e3:.2f} us "
+                f"({by}); share of bound {share}{sectors}")
+    del cases, ordered, sorted_keys, perm
     torch.cuda.empty_cache()
 
 
@@ -2301,10 +2375,10 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
         if label.startswith("group_by_aggregate"):
             log(f"    the group-by's device time outside the port's kernels, ms a call: "
                 f"{glue_split(rows)}")
-            old = [row for row in rows if OLD_AGG_ROWS.search(row)]
+            old = [row for row in rows if OLD_AGG_ROWS.search(row) or GATHER_ROWS.search(row)]
             check("segment_aggregate" in ours and not old,
                   f"the group-by's profile holds segment_aggregate ({ours.get('segment_aggregate')}"
-                  f" ms) and no index_add_, scatter_reduce_ or cumsum kernel"
+                  f" ms) and no index_select gather, index_add_, scatter_reduce_ or cumsum kernel"
                   + (f": {'; '.join(old)}" if old else ""))
     sorts = sort_plan.launches - sorts
     graphs = {f"{key[3]} {key[1]}": g.replays for key, g in sort_ops._SORT_GRAPHS.items()}

@@ -186,7 +186,7 @@ def rows_match(rows_out: torch.Tensor, payload_np: np.ndarray, order: np.ndarray
 
 
 def stage_work(padded: int, cfg, words: int = 2, agg_columns: int = 1,
-               agg_outputs: int = 6) -> dict[str, tuple[int, int]]:
+               agg_outputs: int = 6, agg_rows: bool = False) -> dict[str, tuple[int, int]]:
     """(bytes it must move, integer operations it must do) of each stage on ``padded`` keys.
 
     Each input is read once and each output written once; a table is one
@@ -208,7 +208,10 @@ def stage_work(padded: int, cfg, words: int = 2, agg_columns: int = 1,
     4-byte columns and writes ``agg_outputs`` 4-byte outputs (the group keys
     among them) whole, a zeroing memset and the groups' rows together, with
     one comparison a row and one combine a row an aggregate (by default the
-    group-by of ``chip_smoke.py``: one column, five aggregates).
+    group-by of ``chip_smoke.py``: one column, five aggregates); with
+    ``agg_rows`` it also reads the sort's 4-byte permutation, through which
+    it reads the columns (each input byte counted once: the columns' 32-byte
+    sectors at random rows are ``gather_sector_bytes``, a note, not the bound).
     """
     tiles = padded // cfg.tile
     table = 4 * cfg.radix * tiles
@@ -229,9 +232,19 @@ def stage_work(padded: int, cfg, words: int = 2, agg_columns: int = 1,
         "exclusive_scan": (8 * padded + 4, padded),
         "key_bits": (4 * padded + 8, 2 * padded),
         "gather_rows": ((4 + 2 * 4 * PAYLOAD_COLS) * padded, 0),
-        "segment_aggregate": (4 * (1 + agg_columns + agg_outputs) * padded,
+        "segment_aggregate": (4 * (1 + agg_columns + agg_outputs + agg_rows) * padded,
                               agg_outputs * padded),
     }
+
+
+def gather_sector_bytes(live: int, columns: int = 1) -> int:
+    """The device bytes a read of ``columns`` 4-byte columns at ``live`` random rows moves.
+
+    One 32-byte sector a row and column, where the column is too large for
+    the L2 cache to hold a sector for a later row: what a gather through a
+    sort's permutation costs beyond the 4 bytes ``stage_work`` counts.
+    """
+    return 32 * live * columns
 
 
 # The stage table's rows: its label (bench.py's, the scatter named for the

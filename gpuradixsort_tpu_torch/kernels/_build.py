@@ -49,7 +49,7 @@ _SIGNATURES = {
     "grs_key_bits": [_P, _I64, _P, _P, _I, _I, _P, _P],
     "grs_sort_plan": [_P, _I64, _P, _P, _I, _I, _P, _P, _I64, _P],
     "grs_sort_args": [_P, _P, _P, _P, _P, _I64, _I64, _P],
-    "grs_segment_aggregate": [_P, _I64, _P, _I64, _P, _I, _P, _P, _P, _I64, _P],
+    "grs_segment_aggregate": [_P, _I64, _P, _I64, _P, _P, _I, _P, _P, _P, _I64, _P],
 }
 
 

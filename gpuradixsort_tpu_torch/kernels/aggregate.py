@@ -10,6 +10,12 @@ and a scatter).  On a CUDA tensor ``segment_aggregate`` launches
 at its slot, with no atomics; on a CPU tensor it runs the plain version,
 ``_segment_aggregate_ref``.
 
+The group-by hands it the columns unsorted, with the sort's permutation
+(``rows``): sorted row ``i`` of a column is ``col[rows[i]]``, clamped as
+``ops/permute.py::gather_rows`` clamps it, so no sorted copy of a column is
+written and read back.  The JAX package gathers first (``sort_table``) and
+aggregates the gathered columns, which computes the same.
+
 The plain version reduces each segment once (``index_add_`` /
 ``scatter_reduce_`` over segment ids from a cumsum of the run starts) into
 slot ``segment id``, which is already the compacted order.  Integer sums are
@@ -33,6 +39,7 @@ import torch
 from gpuradixsort_tpu_torch.config import resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits, wrap_int32
 from gpuradixsort_tpu_torch.kernels._build import launch
+from gpuradixsort_tpu_torch.ops.permute import gather_rows
 
 SUPPORTED = ("sum", "count", "min", "max", "mean")
 
@@ -40,7 +47,7 @@ _INT32_TYPES = (torch.int32, torch.uint32)
 _VALUE_TYPES = (torch.int32, torch.uint32, torch.float32)
 
 # Launch geometry and limits of csrc/segment_agg.cu, which checks them again.
-PARTITION = 4096  # rows a block
+PARTITION = 8 * 512  # rows a block: 8 walking warps of 32 threads, 16 rows a thread
 MAX_AGGREGATES = 8  # aggregates a launch (so also distinct columns); more run further launches
 
 # The kernel's accumulators (csrc/segment_agg.cu's AccKind).
@@ -151,10 +158,15 @@ def _segment_aggregate_ref(keys: torch.Tensor, n_live, inputs):
     return zero_past_count(group_keys), out, count
 
 
-def _check_inputs(keys: torch.Tensor, inputs) -> None:
+def _check_inputs(keys: torch.Tensor, inputs, rows: torch.Tensor | None) -> None:
     if keys.dtype != torch.uint32 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError(f"keys must be a contiguous 1-D torch.uint32 tensor, got {keys.dtype} "
                          f"of shape {tuple(keys.shape)}")
+    if rows is not None and (rows.dtype != torch.int32 or rows.shape != keys.shape
+                             or rows.device != keys.device or not rows.is_contiguous()):
+        raise ValueError(f"rows must be a contiguous torch.int32 tensor of the keys' "
+                         f"{keys.numel()} rows on {keys.device}, got {rows.dtype} of shape "
+                         f"{tuple(rows.shape)} on {rows.device}")
     for out_name, v, kind in inputs:
         if kind not in SUPPORTED:
             raise ValueError(f"unsupported aggregation {kind!r} for {out_name}")
@@ -164,10 +176,15 @@ def _check_inputs(keys: torch.Tensor, inputs) -> None:
             raise ValueError(f"aggregation {out_name!r} ({kind}) needs a column")
         if v.dtype not in _VALUE_TYPES:
             raise TypeError(f"aggregation takes int32, uint32 or float32 columns, got {v.dtype}")
-        if v.shape != keys.shape or v.device != keys.device or not v.is_contiguous():
-            raise ValueError(f"column of {out_name!r} must be contiguous, of the keys' "
-                             f"{keys.numel()} rows on {keys.device}, got shape {tuple(v.shape)} "
-                             f"on {v.device}")
+        if rows is None:
+            if v.shape != keys.shape or v.device != keys.device or not v.is_contiguous():
+                raise ValueError(f"column of {out_name!r} must be contiguous, of the keys' "
+                                 f"{keys.numel()} rows on {keys.device}, got shape "
+                                 f"{tuple(v.shape)} on {v.device}")
+        elif v.dim() != 1 or v.numel() == 0 or v.device != keys.device or not v.is_contiguous():
+            raise ValueError(f"column of {out_name!r} read through rows must be contiguous, 1-D, "
+                             f"of at least one row, on {keys.device}, got shape "
+                             f"{tuple(v.shape)} on {v.device}")
 
 
 def launch_plan(inputs) -> list[dict]:
@@ -219,6 +236,7 @@ def segment_aggregate(
     keys: torch.Tensor,
     n_live,
     inputs: Sequence[tuple[str, torch.Tensor | None, str]],
+    rows: torch.Tensor | None = None,
     impl: str | None = None,
 ):
     """Aggregate a key-sorted padded buffer per run of equal keys.
@@ -227,7 +245,13 @@ def segment_aggregate(
     ``n_live``: an int or a 0-d integer tensor (on the card for the kernel,
     which reads it there, so no host sync).  ``inputs``: (out_name, values
     or None, kind) with kind one of ``SUPPORTED``; values are int32, uint32
-    or float32 of the keys' length, and None is only valid for "count".
+    or float32, and None is only valid for "count".  Without ``rows`` each
+    column has the keys' length and row ``i`` is its element ``i``.
+    ``rows``: the sort's permutation, a contiguous int32 tensor of the keys'
+    length on their device; sorted row ``i`` of a column is then
+    ``col[rows[i]]``, ``rows[i]`` clamped to the column's own length (a pad
+    row's -1 to row 0, as ``gather_rows`` and the JAX package's gather
+    clamp); rows at or past ``n_live`` read neither ``rows`` nor a column.
     Returns ``(group_keys, {name: values}, count)``, compacted to the front,
     one row per group in key order, rows >= count zero; count is a 0-d
     int32 tensor.  sum, min and max keep the column's dtype, count is int32
@@ -238,8 +262,15 @@ def segment_aggregate(
     and the count written by the first.
     """
     inputs = list(inputs)
-    _check_inputs(keys, inputs)
+    _check_inputs(keys, inputs, rows)
     if resolve_impl(keys, impl) == "reference":
+        if rows is not None:  # each distinct column gathered once
+            gathered = {}
+            for _, v, _ in inputs:
+                if v is not None and id(v) not in gathered:
+                    gathered[id(v)] = gather_rows(v, rows)
+            inputs = [(name, None if v is None else gathered[id(v)], kind)
+                      for name, v, kind in inputs]
         return _segment_aggregate_ref(keys, n_live, inputs)
     padded = keys.numel()
     dev = keys.device
@@ -265,14 +296,15 @@ def segment_aggregate(
         results = [(name, torch.empty(padded, dtype=dtype, device=dev), acc, cnt)
                    for name, dtype, acc, cnt in plan["outputs"]]
         words = [len(plan["columns"]), len(plan["accs"]), len(results)]
-        words += [c.data_ptr() for c in plan["columns"]]
+        words += [w for c in plan["columns"] for w in (c.data_ptr(), c.numel())]
         words += [w for acc in plan["accs"] for w in acc]
         words += [w for _, t, acc, cnt in results for w in (t.data_ptr(), acc, cnt)]
         spec = (ctypes.c_int64 * len(words))(*words)
         nwords = scratch_words(padded, len(plan["accs"]))
         scratch = torch.empty(nwords, dtype=torch.int64, device=dev)
         launch("grs_segment_aggregate", keys, keys.data_ptr(), padded, live_ptr, live_value,
-               ctypes.addressof(spec), len(words), group_keys.data_ptr() if i == 0 else None,
+               None if rows is None else rows.data_ptr(), ctypes.addressof(spec), len(words),
+               group_keys.data_ptr() if i == 0 else None,
                count.data_ptr() if i == 0 else None, scratch.data_ptr(), nwords)
         segment_aggregate.launches += 1
         out.update((name, t) for name, t, _, _ in results)

@@ -14,6 +14,11 @@ every float aggregate of their group must return.
 
 One padded length (one block of the default config) serves every case, so
 the JAX package compiles its compaction once a dtype.
+
+With ``rows`` the port reads unsorted columns through the sort's
+permutation; the JAX package is fed the same columns gathered by its own
+``sort_table`` (or, where the rows are not a sort's, by its ``gather_rows``
+with the same clamp).
 """
 
 import jax.numpy as jnp
@@ -22,7 +27,10 @@ import pytest
 import torch
 
 from gpuradixsort_tpu.config import EngineConfig as JaxConfig
+from gpuradixsort_tpu.core import table as jtable
 from gpuradixsort_tpu.ops import aggregate as jagg
+from gpuradixsort_tpu.ops import permute as jpermute
+from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch.kernels import aggregate as tkagg
 from gpuradixsort_tpu_torch.ops import aggregate as tagg
 
@@ -205,3 +213,76 @@ def test_segment_aggregate_rejects_bad_inputs():
     launched = tkagg.segment_aggregate.launches
     tkagg.segment_aggregate(keys, 16, [("x", v, "sum")])  # the CPU: the plain version
     assert tkagg.segment_aggregate.launches == launched
+
+
+@pytest.mark.parametrize("pattern", ["random", "all_equal", "all_unique", "pad_run"])
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "float32"])
+def test_segment_aggregate_with_rows_matches_jax(dtype, pattern, rng):
+    # The table's keys unsorted; the JAX package sorts the table and
+    # aggregates the gathered column, the port reads the unsorted column
+    # through the JAX package's permutation (PAD_INDEX, -1 as int32, on the
+    # pad rows).
+    keys = rng.permutation(_keys(pattern, rng)[:N_LIVE])
+    vals = _values(dtype, rng)[:N_LIVE]
+    jt = jtable.table_from_arrays(JCFG, v=vals).with_column("k", jtable.make_key_column(keys, JCFG))
+    ordered = jsort.sort_table(jt, "k", JCFG)
+    jin = [(k, None if k == "count" else ordered["v"].data, k) for k in KINDS]
+    want = jagg.aggregate_sorted_flat(ordered["k"].data, N_LIVE, jin, JCFG)
+    sorted_keys, perm = jsort.sort_pairs(jt["k"], JCFG)
+    np.testing.assert_array_equal(np.asarray(sorted_keys.data), np.asarray(ordered["k"].data))
+    rows = torch.from_numpy(np.asarray(perm.data).view(np.int32).copy())
+    assert (rows[N_LIVE:] == -1).all() and rows.numel() == PADDED
+    tkeys = torch.from_numpy(np.asarray(sorted_keys.data).copy())
+    tv = torch.from_numpy(np.asarray(jt["v"].data).copy())  # unsorted, the table's padded column
+    tin = [(k, None if k == "count" else tv, k) for k in KINDS]
+    groups = _groups(np.asarray(sorted_keys.data), N_LIVE)
+    _check(tkagg.segment_aggregate(tkeys, N_LIVE, tin, rows=rows, impl="reference"), want, groups)
+    _check(tagg.aggregate_sorted_flat(tkeys, N_LIVE, tin, rows), want, groups)
+
+
+@pytest.mark.parametrize("n_live", ["padded", "pads_at_minus_one", "inside_a_group"])
+def test_segment_aggregate_with_rows_past_n_live(n_live, rng):
+    # Rows that are not a sort's: random rows of a column twice the keys'
+    # length, -1 past the live length (pad rows); the JAX package's gather
+    # clamps as the port's does.
+    keys = np.sort(rng.integers(0, 40, PADDED, dtype=np.uint32))
+    n = {"padded": PADDED, "pads_at_minus_one": N_LIVE,
+         "inside_a_group": int(np.searchsorted(keys, keys[PADDED // 2])) + 3}[n_live]
+    assert n_live != "inside_a_group" or keys[n - 1] == keys[n]  # the group runs past n
+    col = _values("int32", rng)
+    col = np.concatenate([col, _values("int32", rng)])
+    rows = rng.integers(0, col.size, PADDED).astype(np.int32)
+    rows[n:] = -1
+    gathered = jpermute.gather_rows(jnp.asarray(col), jnp.clip(jnp.asarray(rows), 0, col.size - 1))
+    jin = [(k, None if k == "count" else gathered, k) for k in KINDS]
+    want = jagg.aggregate_sorted_flat(jnp.asarray(keys), n, jin, JCFG)
+    tin = [(k, None if k == "count" else torch.from_numpy(col), k) for k in KINDS]
+    tkeys, trows = torch.from_numpy(keys), torch.from_numpy(rows)
+    groups = _groups(keys, n)
+    for live in (n, torch.tensor(n, dtype=torch.int32)):
+        _check(tkagg.segment_aggregate(tkeys, live, tin, rows=trows, impl="reference"), want,
+               groups)
+        _check(tagg.aggregate_sorted_flat(tkeys, live, tin, trows), want, groups)
+
+
+def test_segment_aggregate_refuses_bad_rows():
+    keys = torch.zeros(16, dtype=torch.int32).view(torch.uint32)
+    v = torch.zeros(16, dtype=torch.int32)
+    rows = torch.arange(16, dtype=torch.int32)
+    bad = {"int64": rows.to(torch.int64), "uint32": rows.view(torch.uint32),
+           "short": rows[:8], "long": torch.arange(17, dtype=torch.int32),
+           "2-D": rows.view(4, 4), "strided": torch.arange(32, dtype=torch.int32)[::2],
+           "another device": rows.to("meta")}
+    for what, r in bad.items():
+        with pytest.raises(ValueError, match="rows must be a contiguous torch.int32"):
+            tkagg.segment_aggregate(keys, 16, [("x", v, "sum")], rows=r)
+    with pytest.raises(ValueError, match="at least one row"):
+        tkagg.segment_aggregate(keys, 16, [("x", v[:0], "sum")], rows=rows)
+    with pytest.raises(ValueError, match="read through rows"):
+        tkagg.segment_aggregate(keys, 16, [("x", v.view(4, 4), "sum")], rows=rows)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        tkagg.segment_aggregate(keys, 16, [("x", v, "sum")], rows=rows, impl="cuda")
+    # A column of another length than the keys is read through rows.
+    got = tkagg.segment_aggregate(keys, 16, [("x", torch.arange(3, dtype=torch.int32), "sum")],
+                                  rows=rows % 3)
+    assert int(got[2]) == 1 and int(got[1]["x"][0]) == sum(i % 3 for i in range(16))

@@ -136,6 +136,19 @@ def test_stage_bytes_equal_hand_counts():
     assert bound_of(0, 67_000_000_000) == pytest.approx((1.0, "operations"))
 
 
+def test_stage_work_reads_the_permutation_once():
+    # Through the sort's permutation segment_aggregate also reads its 4-byte
+    # rows: 36 bytes a row for the smoke's group-by; the columns' random
+    # reads move a 32-byte sector a row, counted apart.
+    padded = 16384
+    assert tbench.stage_work(padded, CFG, agg_rows=True)["segment_aggregate"] == (
+        36 * 16384, 6 * 16384)
+    assert tbench.stage_work(padded, CFG, agg_columns=3, agg_outputs=9,
+                             agg_rows=True)["segment_aggregate"] == (56 * 16384, 9 * 16384)
+    assert tbench.gather_sector_bytes(1000) == 32_000
+    assert tbench.gather_sector_bytes(1000, columns=3) == 96_000
+
+
 def test_stage_table_untimed_on_cpu(inputs):
     _, keys, _, _ = inputs
     rows = tbench.stage_table(keys, CFG, timed=False)

@@ -1319,11 +1319,11 @@ def _assert_agg_close(got, want, inputs) -> None:
             assert err == 0 and ulps == 0, (name, err, ulps)
 
 
-def _agg_matches_plain(keys: torch.Tensor, n_live, inputs) -> int:
+def _agg_matches_plain(keys: torch.Tensor, n_live, inputs, rows=None) -> int:
     """segment_aggregate on the card against its plain version; returns its launches."""
-    want = tkagg.segment_aggregate(keys, n_live, inputs, impl="reference")
+    want = tkagg.segment_aggregate(keys, n_live, inputs, rows, impl="reference")
     before = tkagg.segment_aggregate.launches
-    got = tkagg.segment_aggregate(keys, n_live, inputs, impl="cuda")
+    got = tkagg.segment_aggregate(keys, n_live, inputs, rows, impl="cuda")
     torch.cuda.synchronize()
     _assert_agg_close(got, want, inputs)
     return tkagg.segment_aggregate.launches - before
@@ -1336,6 +1336,36 @@ def test_segment_aggregate_matches_plain(shape, pattern, card, gen):
     keys = torch.from_numpy(_agg_keys(gen, pattern, padded, n_live)).to(card)
     inputs = _agg_inputs(gen, padded, card)
     assert _agg_matches_plain(keys, n_live, inputs) == 2  # 14 aggregates: 8, then 6
+
+
+def _agg_rows(gen, padded: int, n_live: int, dev) -> torch.Tensor:
+    """A sort's permutation as the group-by hands it on: int32, -1 on the pad rows."""
+    rows = gen.permutation(padded).astype(np.int32)
+    rows[n_live:] = -1
+    return torch.from_numpy(rows).to(dev)
+
+
+@pytest.mark.parametrize("pattern", AGG_PATTERNS)
+@pytest.mark.parametrize("shape", list(AGG_SHAPES))
+def test_segment_aggregate_with_rows_matches_plain(shape, pattern, card, gen):
+    padded, n_live = AGG_SHAPES[shape]
+    keys = torch.from_numpy(_agg_keys(gen, pattern, padded, n_live)).to(card)
+    inputs = _agg_inputs(gen, padded, card)
+    rows = _agg_rows(gen, padded, n_live, card)
+    assert _agg_matches_plain(keys, n_live, inputs, rows) == 2
+
+
+def test_segment_aggregate_with_rows_of_other_lengths(card, gen):
+    # Columns longer and shorter than the keys, read through rows that are
+    # no permutation, some out of the columns' range (clamped) and -1.
+    padded = 3 * tkagg.PARTITION + 1235
+    keys = torch.from_numpy(_agg_keys(gen, "random", padded, padded - 17)).to(card)
+    cols = [torch.from_numpy(gen.integers(-(2**31), 2**31, m).astype(np.int32)).to(card)
+            for m in (2 * padded + 5, 1000)]
+    inputs = [(f"{i}_{kind}", c, kind) for i, c in enumerate(cols)
+              for kind in ("sum", "min", "max", "mean")]
+    rows = torch.from_numpy(gen.integers(-3, 2 * padded + 9, padded).astype(np.int32)).to(card)
+    assert _agg_matches_plain(keys, padded - 17, inputs, rows) == 1
 
 
 @pytest.mark.parametrize("on_card", [False, True])
@@ -1366,6 +1396,49 @@ def test_segment_aggregate_reads_its_live_length_on_the_card(card, gen):
         torch.cuda.set_sync_debug_mode("default")
     _assert_agg_close(got, tkagg.segment_aggregate(keys, padded - 700, inputs, impl="reference"),
                       inputs)
+
+
+def test_segment_aggregate_with_rows_makes_no_host_sync(card, gen):
+    # The group-by's step reads its columns through the sort's permutation,
+    # its live length a 0-d tensor on the card: no host sync.
+    padded = 2 * tkagg.PARTITION + 99
+    keys = torch.from_numpy(_agg_keys(gen, "random", padded, padded - 700)).to(card)
+    inputs = _agg_inputs(gen, padded, card)[:8]
+    rows = _agg_rows(gen, padded, padded - 700, card)
+    live = torch.tensor(padded - 700, dtype=torch.int32, device=card)
+    _build.library()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tagg.aggregate_sorted_flat(keys, live, inputs, rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_agg_close(got, tkagg.segment_aggregate(keys, padded - 700, inputs, rows,
+                                                   impl="reference"), inputs)
+
+
+def test_group_by_on_card_launches_one_kernel_and_gathers_nothing(card, gen, monkeypatch):
+    # The card's group-by reads its value columns through the permutation:
+    # one segment_aggregate launch, and no gather_rows on its path.
+    n = 5 * tkagg.PARTITION + 77
+    keys = gen.integers(0, 3000, n, dtype=np.uint32)
+    cpu, dev = _table_pair(card, "k", keys, v=gen.integers(-(2**31), 2**31, n).astype(np.int32),
+                           f=gen.standard_normal(n).astype(np.float32))
+    aggs = {"s": ("v", "sum"), "c": ("v", "count"), "lo": ("v", "min"), "hi": ("f", "max"),
+            "m": ("f", "mean")}
+    want = tagg.group_by_aggregate(cpu, "k", aggs, CFG)
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the card's group-by gathered a column")
+
+    monkeypatch.setattr(tkagg, "gather_rows", no_gather)
+    monkeypatch.setattr(tsort, "gather_rows", no_gather)
+    for method in ("fused", "radix"):
+        launched = tkagg.segment_aggregate.launches
+        got = tagg.group_by_aggregate(dev, "k", aggs, CFG, method)
+        assert tkagg.segment_aggregate.launches == launched + 1, method
+        assert int(got.count) == int(want.count)
+        _same_tables(want.table, got.table, floats=("m",))
 
 
 def test_segment_aggregate_plain_version_propagates_nan(card):
