@@ -30,9 +30,10 @@ in eight phases:
    8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off; dest_scatter (K4
    and the indexed stores after it) at radix_bits 1, 2, 4 and 8 on the same
    keys moving the keys and their index, and at radix 2-256, tile_rows 1,
-   3, 8, 16 and 64, on 1, 8 and 29 tiles, moving 0, 1, 8 and 9 columns of
-   1- to 16-byte rows (2-D among them; 9 take two launches), rank keys also
-   4 bytes off; scatter_runs at
+   3, 8, 16 and 64, on 1, 8 and 29 tiles and on P - 1, P, P + 1 and 3P + 1
+   tiles of its largest partition P (ragged, whole, one tile after whole
+   ones), moving 0, 1, 8 and 9 columns of 1- to 16-byte rows (2-D among
+   them; 9 take two launches), rank keys also 4 bytes off; scatter_runs at
    radix 2, 4, 16, 32, 64 and 256, tile_rows 1, 3, 8 and 16, on 1 and 9
    tiles and (radix 16) on more tiles than the card holds warps at once,
    inputs also 4 bytes off, and with moved offsets; exclusive_scan at
@@ -124,7 +125,9 @@ in eight phases:
    exclusive_scan and global_offsets beside ``torch.cumsum``; the 1M x 64
    B table sort; at radix 2, 16 and 256 on (key, index) pairs, dest_scatter
    beside K4 then scatter_by_destination (the stores it replaces), K4 alone
-   and K1, in alternating turns; key_bits, sort_plan
+   and K1, in alternating turns, each dest_scatter line with its partition
+   (tiles, threads) and its registers (``cuobjdump -res-usage`` of the
+   build); key_bits, sort_plan
    (random, skewed and equal keys), exclusive_scan beside ``torch.cumsum``
    on a vector, and the look-back pass, the table pass whole, bucketize_scatter,
    bucketize and scatter_runs on a radix-16 pass, at 1M, 2^24 and
@@ -150,7 +153,9 @@ in eight phases:
    untimed, then timed (wall after synchronize and a barrier, split by
    stage on every rank); every result is checked exactly against numpy,
    and K1, K5 and dest_scatter must have launched on every rank, K4 never,
-   and segment_aggregate on every rank of the group-by;
+   and segment_aggregate on every rank of the group-by; each gloo op runs
+   once more under each rank's profiler, which prints the rank's device
+   time of dest_scatter and segment_aggregate where it records them;
 8. the bench, ``python -m gpuradixsort_tpu_torch.bench --sizes 1000000``,
    in a child process: every method checked and timed at 1M keys, the
    per-stage table and the table sort; it must exit 0, and its JSON line
@@ -169,6 +174,7 @@ import contextlib
 import json
 import multiprocessing
 import os
+import pathlib
 import re
 import signal
 import subprocess
@@ -857,16 +863,27 @@ def moved_columns(rng, n: int, count: int, dev) -> list:
 def check_dest_scatter_geometry(dev, rng, errs: dict) -> None:
     """dest_scatter against its plain version at every launch geometry.
 
-    Radix 2-256 (registers up to 32, a warp's shared tables above), tile_rows
-    1, 3, 8, 16 and 64 (staging past 48 KB a block, opted in), 1, 8 and 29
-    tiles (the last block of 4 part-filled), 0, 1, 8 and 9 moved columns
-    (9: two launches) of every layout, 2-D rows among them, rank keys
-    aligned and 4 bytes off a 16-byte boundary.
+    Radix 2-256 (registers up to 32, the tile's row of shared bases above),
+    tile_rows 1, 3, 8, 16 and 64 (staging past 48 KB a block, opted in), 1,
+    8 and 29 tiles at the launch's own geometry and, at the largest
+    partition P the tile allows (whatever its runs), P - 1, P, P + 1 and 3P
+    + 1 tiles (a ragged last partition, a whole one, one tile after whole
+    ones), 0, 1, 8 and 9 moved columns (9: two launches) of
+    every layout, 2-D rows among them, rank keys aligned and 4 bytes off a
+    16-byte boundary.
     """
+    def largest(on: bool):  # the largest partition the tile allows, whatever its runs
+        if not on:
+            return contextlib.nullcontext()
+        return mock.patch.multiple(rk, DEST_SCATTER_RUN_ROWS=1 << 30, DEST_SCATTER_MIN_BLOCKS=1)
+
     for tile_rows in (1, 3, 8, 16, 64):
         for bits in range(1, 9):
             cfg = any_radix_cfg(1 << bits, tile_rows)
-            for num_tiles in (1, 8, 29):
+            with largest(True):
+                per_block = rk.dest_scatter_tiles(cfg, 1)
+            edges = [t for t in (per_block - 1, per_block, per_block + 1, 3 * per_block + 1) if t]
+            for num_tiles, on in [(t, False) for t in (1, 8, 29)] + [(t, True) for t in edges]:
                 n = num_tiles * cfg.tile
                 buf = torch.from_numpy(rng.integers(0, 2**32, n + 1, dtype=np.uint32)).to(dev)
                 for keys, shift in ((buf[:n], 0), (buf[1:], 28)):
@@ -874,11 +891,13 @@ def check_dest_scatter_geometry(dev, rng, errs: dict) -> None:
                     offsets = rk.global_offsets(hist)
                     for count in (0, 1, 8, 9):
                         columns = moved_columns(rng, n, count, dev)
-                        errs["dest_scatter"] = max(errs["dest_scatter"], max_dest_scatter_err(
-                            keys, hist, offsets, shift, cfg, columns))
+                        with largest(on):
+                            err = max_dest_scatter_err(keys, hist, offsets, shift, cfg, columns)
+                        errs["dest_scatter"] = max(errs["dest_scatter"], err)
     check(errs["dest_scatter"] == 0,
           "dest_scatter (radix 2-256) == plain at tile_rows 1, 3, 8, 16, 64, 1/8/29 tiles, "
-          "0/1/8/9 columns of 1- to 16-byte rows, aligned and unaligned keys")
+          "P - 1, P, P + 1 and 3P + 1 tiles of the largest partition P, 0/1/8/9 columns of "
+          "1- to 16-byte rows, aligned and unaligned keys")
 
 
 def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
@@ -2069,6 +2088,22 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
     return times
 
 
+def dest_scatter_registers() -> dict:
+    """Registers a thread of each radix's dest_scatter_kernel in the built library, by radix.
+
+    Read with ``cuobjdump -res-usage`` (the toolkit's, beside nvcc); empty
+    where it is missing or prints no such kernel.
+    """
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    try:
+        out = subprocess.run([str(tool), "-res-usage", str(_build.build())], capture_output=True,
+                             text=True, timeout=120).stdout
+    except OSError:
+        return {}
+    return {1 << int(bits): int(reg) for bits, reg in re.findall(
+        r"dest_scatter_kernelILi(\d)E\S*\s+REG:(\d+)", out)}
+
+
 def median_measured(turns: list[float]) -> float:
     """The median of the turns in which the profiler recorded device time, else 0."""
     return float(np.median([t for t in turns if t] or [0.0]))
@@ -2090,6 +2125,7 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
     log(f"dest_scatter, K4 + scatter_by_destination, radix_dest, radix_hist, key_bits and "
         f"exclusive_scan at 1M, 2^24 and 100M ({card}): device us per call (profiler, 20 calls, "
         f"median of 3 turns in alternating order), bound, share of bound")
+    regs = dest_scatter_registers()
     for label, n in (("1M", N_HEADLINE), ("2^24", N_LARGE), ("100M", N_OPS)):
         keys = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), EngineConfig(),
                                device=dev).data
@@ -2112,13 +2148,19 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
                 for name in names:
                     turns[name].append(1e3 * profiled_device_ms(fns[name], calls=20)[0])
             work = stage_work(padded, kcfg)
+            threads, per_block, _ = rk.dest_scatter_geometry(kcfg, padded // kcfg.tile)
+            tables = 4 * kcfg.radix * (padded // kcfg.tile)
+            geometry = (f"; a partition of {per_block} tiles, {threads} threads, "
+                        f"{regs.get(kcfg.radix, 'not read')} registers; it reads "
+                        f"{tables * (1 + 1 / per_block) / 1e6:.2f} MB of tables, the bound "
+                        f"counts {2 * tables / 1e6:.2f}")
             for name, t in turns.items():
                 us = median_measured(t)
                 bound_ms, by = bound_of(*work["dest_scatter" if "scatter" in name else name])
                 share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
                 log(f"  {name} radix {kcfg.radix} @ {label} ({padded} keys): {us:.2f} us (turns "
                     f"{', '.join(f'{x:.2f}' for x in t)}); bound {bound_ms * 1e3:.2f} us ({by}); "
-                    f"share of bound {share}")
+                    f"share of bound {share}" + (geometry if name == "dest_scatter" else ""))
             del hist, offsets, fns
             torch.cuda.empty_cache()
         del idx
@@ -2397,6 +2439,8 @@ DIST_RANKS = 4
 DIST_TIMEOUT = 600.0
 DIST_KERNELS = ("radix_hist", "dest_scatter", "exclusive_scan")  # every rank must launch these
 DIST_AGG_KERNELS = DIST_KERNELS + AGG_PATH  # and every rank's group-by these
+# The kernels whose device time each gloo rank reads from its own profiler.
+DIST_PROFILED = ("dest_scatter_kernel", "segment_agg_kernel")
 
 
 def _save_padded(tmp: str, name: str, arr: np.ndarray, fill, multiple: int) -> str:
@@ -2441,6 +2485,19 @@ def report_dist(label: str, shards: list, live_total: int, card: str, launches: 
             f"shard {x['shard']} " + ", ".join(f"{k} {v * 1e3:.1f} ms"
                                                for k, v in x["split_s"].items())
             for x in shards))
+    if any("device_ms" in x for x in shards):
+        log(f"device time dist {label} ({card}; one profiled run after the timed one, the ranks "
+            f"sharing the card): " + "; ".join(
+                f"shard {x['shard']} " + (", ".join(
+                    f"{_instance(row)} {ms * 1e3:.2f} us" for row, ms in sorted(
+                        x["device_ms"].items())) or "not recorded by its profiler")
+                for x in shards))
+
+
+def _instance(row: str) -> str:
+    """A profiler row's kernel of DIST_PROFILED with its template argument, e.g. a radix's."""
+    return next((m.group(0) for name in DIST_PROFILED
+                 if (m := re.search(rf"{name}(<\d+>)?", row))), row[:60])
 
 
 def check_sorted(gathered, keys: np.ndarray, order: np.ndarray, label: str) -> None:
@@ -2475,16 +2532,16 @@ def phase_distributed(d: dict, cfg, card: str) -> dict:
         sort_kw = {"cfg": cfg, "n_live": N_OPS}
         calls = [
             {"op": "sort", "inputs": {"keys": f["fkeys"]}, "kwargs": sort_kw,
-             "warmup": True, "shards": False, "gather": True},
+             "warmup": True, "shards": False, "gather": True, "profile": DIST_PROFILED},
             {"op": "sort", "inputs": {"keys": f["fkeys"]}, "kwargs": {**sort_kw, "overlap": True},
-             "warmup": True, "shards": False, "gather": True},
+             "warmup": True, "shards": False, "gather": True, "profile": DIST_PROFILED},
             {"op": "aggregate", "inputs": {"keys": f["gkeys"], "values": {"val": f["gvals"]}},
              "kwargs": {"aggs": AGGS, "cfg": cfg, "n_live": N_OPS},
-             "warmup": True, "shards": False, "gather": True},
+             "warmup": True, "shards": False, "gather": True, "profile": DIST_PROFILED},
             {"op": "join", "inputs": {"probe_keys": f["pkeys"], "probe_values": f["pval"],
                                       "build_keys": f["bkeys"], "build_values": f["bpay"]},
              "kwargs": {"cfg": cfg, "n_probe": N_OPS, "n_build": N_BUILD},
-             "warmup": True, "shards": False, "gather": True},
+             "warmup": True, "shards": False, "gather": True, "profile": DIST_PROFILED},
         ]
         t0 = time.perf_counter()
         ranks = run_ranks(DIST_RANKS, run_ops, (calls,), "gloo", "cuda:0", DIST_TIMEOUT)

@@ -9,8 +9,9 @@ transposes, where the JAX package has plain jnp cumsums.
 
 ``dest_scatter`` is K4 and the indexed stores the JAX package runs after it
 (``ops/permute.py::scatter_by_destination``) as one kernel of
-``csrc/radix_dest.cu``: it ranks each tile and writes every moved column's
-rows at their destinations, with no destination buffer.  The radix method's
+``csrc/radix_dest.cu``: a block ranks a partition of consecutive tiles and
+writes every moved column's rows at their destinations, each digit's rows
+of the partition as one run, with no destination buffer.  The radix method's
 passes and every compaction run it; ``tile_destinations`` stays as the
 counterpart of the JAX package's ``_dest_kernel`` and runs on no path.
 
@@ -141,7 +142,11 @@ WARP = 32
 MAX_SHARED_BYTES = 232_448  # shared memory one block may use on the H100
 HIST_TILES_PER_BLOCK = 8
 DEST_TILES_PER_BLOCK = 2
-DEST_SCATTER_TILES_PER_BLOCK = 4
+DEST_SCATTER_TILES_PER_BLOCK = 8  # tiles of a dest_scatter partition, at most: a warp each
+DEST_SCATTER_BLOCK_WARPS = 4  # a dest_scatter block's warps, where its partitions are one tile
+DEST_SCATTER_RUN_ROWS = 32  # rows of a digit a partition should place as one run
+DEST_SCATTER_MIN_BLOCKS = 132  # partitions a launch keeps where it can: one an H100 SM
+MAX_PARTITION_ROWS = 1 << 16  # a dest_scatter partition's rows are staged in 16 bits
 MAX_MOVED_COLUMNS = 8  # columns one dest_scatter launch moves
 
 
@@ -167,30 +172,54 @@ def dest_geometry(cfg: EngineConfig) -> tuple[int, int]:
     return WARP * DEST_TILES_PER_BLOCK, shared
 
 
-def dest_scatter_warp_bytes(radix: int, tile: int) -> int:
-    """Shared bytes of one dest_scatter warp (``csrc/radix_dest.cu``, the same function).
+def dest_scatter_partition_bytes(radix: int, tile: int, per_block: int) -> int:
+    """Shared bytes of one dest_scatter partition (``csrc/radix_dest.cu``, the same function).
 
-    Above radix 32, its tables of running slots and deltas (2 x radix
-    int32); then the tile's destinations (int32) and rows (16 bits) by
-    position.  Rounded up to 16 bytes.
+    The position bases of each (tile, digit) of its ``per_block`` tiles and
+    the delta of each digit (int32), then the partition's destinations
+    (int32) and rows (16 bits) by position.  Rounded up to 16 bytes.
     """
-    return -(-((8 * radix if radix > WARP else 0) + 6 * tile) // 16) * 16
+    return -(-(4 * (per_block + 1) * radix + 6 * per_block * tile) // 16) * 16
 
 
-def dest_scatter_geometry(cfg: EngineConfig) -> tuple[int, int]:
-    """(threads, shared bytes) of a dest_scatter block.
+def dest_scatter_tiles(cfg: EngineConfig, num_tiles: int) -> int:
+    """The tiles of one dest_scatter partition: 1, 2, 4 or 8.
 
-    One warp per tile, up to ``DEST_SCATTER_TILES_PER_BLOCK`` tiles a
-    block, as many as fit a block's shared memory.  A tile whose staging
-    alone exceeds it (about 38,000 keys) is refused.
+    The fewest whose digit runs, ``per_block * tile / radix`` rows, reach
+    ``DEST_SCATTER_RUN_ROWS``: 1 for the default tile up to radix 32, 8 at
+    radix 256.  Fewer where the launch would keep less than
+    ``DEST_SCATTER_MIN_BLOCKS`` partitions, the partition's rows would not
+    fit 16 bits or its staging a block's shared memory; down to one.
     """
-    per_warp = dest_scatter_warp_bytes(cfg.radix, cfg.tile)
-    warps = min(DEST_SCATTER_TILES_PER_BLOCK, MAX_SHARED_BYTES // per_warp)
-    if warps < 1:
+    per_block = 1
+    while per_block < DEST_SCATTER_TILES_PER_BLOCK and per_block * cfg.tile < (
+            DEST_SCATTER_RUN_ROWS * cfg.radix):
+        per_block *= 2
+    while per_block > 1 and (
+            -(-num_tiles // per_block) < DEST_SCATTER_MIN_BLOCKS
+            or per_block * cfg.tile > MAX_PARTITION_ROWS
+            or dest_scatter_partition_bytes(cfg.radix, cfg.tile, per_block) > MAX_SHARED_BYTES):
+        per_block //= 2
+    return per_block
+
+
+def dest_scatter_geometry(cfg: EngineConfig, num_tiles: int) -> tuple[int, int, int]:
+    """(threads, tiles a partition, shared bytes) of a dest_scatter block.
+
+    A partition is ``dest_scatter_tiles`` consecutive tiles (the last may
+    be ragged), one warp a tile.  A block is one partition, or, where a
+    partition is one tile, as many as make ``DEST_SCATTER_BLOCK_WARPS``
+    warps and fit its shared memory.  A tile whose staging alone exceeds a
+    block's shared memory (about 38,000 keys) is refused.
+    """
+    per_block = dest_scatter_tiles(cfg, num_tiles)
+    part = dest_scatter_partition_bytes(cfg.radix, cfg.tile, per_block)
+    if part > MAX_SHARED_BYTES:
         raise ValueError(f"dest_scatter stages a tile in shared memory: {cfg.tile} keys at "
-                         f"radix {cfg.radix} take {per_warp} bytes, more than a block's "
+                         f"radix {cfg.radix} take {part} bytes, more than a block's "
                          f"{MAX_SHARED_BYTES}")
-    return WARP * warps, warps * per_warp
+    partitions = min(DEST_SCATTER_BLOCK_WARPS, MAX_SHARED_BYTES // part) if per_block == 1 else 1
+    return WARP * per_block * partitions, per_block, partitions * part
 
 
 def _tile_histograms_ref(keys: torch.Tensor, shift: int, cfg: EngineConfig):
@@ -311,9 +340,11 @@ def dest_scatter(
     dest is ``tile_destinations(rank_keys, offsets, shift, cfg)``, computed
     inside the kernel and never stored.  rank_keys: (num_tiles * tile,)
     uint32; hist: (num_tiles, radix) int32, K1's table of rank_keys
-    (``tile_histograms``); offsets: ``global_offsets(hist)``.  Each value
-    has rank_keys' rows (1-D, or 2-D and wider rows of any dtype), is
-    contiguous and lies on their device.  Returns the moved tensors, new.
+    (``tile_histograms``); offsets: ``global_offsets(hist)``, of which the
+    kernel reads only each partition's first row (the rest follows from
+    hist).  Each value has rank_keys' rows (1-D, or 2-D and wider rows of
+    any dtype), is contiguous and lies on their device.  Returns the moved
+    tensors, new.
 
     On the card, one launch of ``csrc/radix_dest.cu`` moves up to
     ``MAX_MOVED_COLUMNS`` columns; more run further launches on the next
@@ -333,7 +364,7 @@ def dest_scatter(
     if resolve_impl(rank_keys, impl) == "reference":
         dest = _tile_destinations_ref(rank_keys, offsets, shift, cfg)
         return scatter_by_destination(dest, values)
-    threads, _ = dest_scatter_geometry(cfg)
+    threads, per_block, _ = dest_scatter_geometry(cfg, num_tiles)
     out = [torch.empty_like(v) for v in values]
     moved = []
     for v, o in zip(values, out):
@@ -347,7 +378,7 @@ def dest_scatter(
         launch(
             "grs_radix_dest_scatter", rank_keys, rank_keys.data_ptr(), hist.data_ptr(),
             offsets.data_ptr(), ctypes.addressof(words), len(group), num_tiles, cfg.tile,
-            threads, shift, cfg.radix,
+            threads, per_block, shift, cfg.radix,
         )
         dest_scatter.launches += 1
     return out

@@ -39,7 +39,7 @@ from gpuradixsort_tpu_torch.parallel.dist_ops import (
 )
 from gpuradixsort_tpu_torch.parallel.dist_sort import dist_sort_pairs, gather_sorted
 from gpuradixsort_tpu_torch.parallel.multihost import flatten_pod_mesh, make_pod_mesh
-from gpuradixsort_tpu_torch.utils.timing import StageClock
+from gpuradixsort_tpu_torch.utils.timing import StageClock, profiled_device_ms
 
 
 def _rank_env(rank: int, world: int, nodes) -> dict:
@@ -197,6 +197,10 @@ def _run_call(mesh, call: dict) -> dict:
            "counts": counts,
            "overflow": bool(res.overflow), "wall_s": wall, "split_s": dict(clock.seconds),
            "launches": launches}
+    if call.get("profile"):
+        _, rows = profiled_device_ms(lambda: _run_op(mesh, op, shard, values, kwargs), calls=1)
+        out["device_ms"] = {row: ms for row, ms in rows.items()
+                            if any(name in row for name in call["profile"])}
     if call.get("shards", True):
         out["live"] = {name: t[:counts[mesh.shard]].cpu().numpy() for name, t in cols.items()}
     if call.get("gather", False):
@@ -217,7 +221,11 @@ def run_ops(mesh, calls: list[dict], pod: bool = False) -> list[dict]:
     global host arrays (or paths of .npy files): ``keys`` (and ``values``, a
     dict) for sort and aggregate; ``probe_keys``, ``probe_values``,
     ``build_keys``, ``build_values`` for join.  ``kwargs`` go to the
-    operator; ``warmup`` runs the op once untimed first.  Each result holds
+    operator; ``warmup`` runs the op once untimed first; ``profile``, a
+    list of names, runs it once more after the timed run under
+    torch.profiler (a CUDA rank only) and adds ``device_ms``: the device ms
+    of each profiler row whose name holds one of them, empty where the
+    rank's profiler recorded none.  Each result holds
     this shard's index, the shard order, the transport, the counts and
     overflow flag, the timed run's wall time and its split by stage (every
     stage waits for the device and all ranks), its kernel launches on this

@@ -293,15 +293,22 @@ def _moved_columns(gen, n: int, count: int, device) -> list:
 
 
 @pytest.mark.parametrize("tile_rows", [1, 3, 8, 16, 64, 300])
-def test_dest_scatter_matches_plain_at_every_geometry(tile_rows, card, gen):
-    # Radix 2-256 (registers up to 32, the warp's shared tables above); tile
-    # counts that fill no block, more than one, and part of the last; 0, 1,
-    # 8 and 9 moved columns (9: two launches) of every layout; rank keys at
-    # an offset of 4 bytes; staging past 48 KB a block (64), and one tile a
-    # block (300).
+def test_dest_scatter_matches_plain_at_every_geometry(tile_rows, card, gen, monkeypatch):
+    # Radix 2-256 (registers up to 32, the tile's row of shared bases
+    # above); tile counts at the launch's own geometry (1, 8 and 29 tiles)
+    # and, at the largest partition P the tile allows (whatever its runs),
+    # P - 1, P, P + 1 and 3P + 1 tiles (a ragged last partition, a whole
+    # one, one tile after whole ones); 0, 1, 8 and 9 moved columns (9: two
+    # launches) of every layout; rank keys at an offset of 4 bytes; staging
+    # past 48 KB a block (16, 64), and one tile a partition (300).
     for bits in range(1, 9):
         cfg = _any_radix_cfg(1 << bits, tile_rows)
-        for num_tiles in (1, 8, 8 * 3 + 5):
+        with monkeypatch.context() as m:
+            m.setattr(tradix, "DEST_SCATTER_RUN_ROWS", 1 << 30)
+            m.setattr(tradix, "DEST_SCATTER_MIN_BLOCKS", 1)
+            per_block = tradix.dest_scatter_tiles(cfg, 1)
+        edges = [t for t in (per_block - 1, per_block, per_block + 1, 3 * per_block + 1) if t]
+        for num_tiles, largest in [(t, False) for t in (1, 8, 29)] + [(t, True) for t in edges]:
             n = num_tiles * cfg.tile
             buf = torch.from_numpy(gen.integers(0, 2**32, n + 1, dtype=np.uint32)).to(card)
             for keys, shift in ((buf[:n], 0), (buf[1:], 28)):
@@ -311,9 +318,15 @@ def test_dest_scatter_matches_plain_at_every_geometry(tile_rows, card, gen):
                     cols = _moved_columns(gen, n, count, card)
                     want = tradix.dest_scatter(keys, hist, off, shift, cfg, cols,
                                                impl="reference")
-                    where = f"radix={cfg.radix} tiles={num_tiles} shift={shift} columns={count}"
-                    before = tradix.dest_scatter.launches
-                    got = tradix.dest_scatter(keys, hist, off, shift, cfg, cols)
+                    with monkeypatch.context() as m:
+                        if largest:
+                            m.setattr(tradix, "DEST_SCATTER_RUN_ROWS", 1 << 30)
+                            m.setattr(tradix, "DEST_SCATTER_MIN_BLOCKS", 1)
+                        where = (f"radix={cfg.radix} tiles={num_tiles} geometry="
+                                 f"{tradix.dest_scatter_geometry(cfg, num_tiles)} shift={shift} "
+                                 f"columns={count}")
+                        before = tradix.dest_scatter.launches
+                        got = tradix.dest_scatter(keys, hist, off, shift, cfg, cols)
                     assert tradix.dest_scatter.launches - before == -(-count // 8), where
                     assert len(got) == count and all(map(_same_bytes, got, want)), where
     torch.cuda.synchronize()
@@ -1195,21 +1208,26 @@ def test_rejected_launch_raises(card):
 
 
 def test_rejected_dest_scatter_launch_raises(card):
-    # Nine column descriptors (a launch takes eight), a unit of 3 bytes, and
-    # a tile whose staging exceeds a block's shared memory: the entry point
-    # launches nothing and the wrapper's launch raises.
+    # Nine column descriptors (a launch takes eight), a unit of 3 bytes, a
+    # tile whose staging exceeds a block's shared memory, a block of two
+    # warps for a partition of 4 tiles (one warp a tile), a partition of 16
+    # tiles (at most 8) and one of 5 tiles of 2^14 rows (more than 2^16
+    # rows): the entry point launches nothing and the wrapper's launch
+    # raises.
     cfg = EngineConfig()
     keys = torch.zeros(cfg.block, dtype=torch.int32, device=card).view(torch.uint32)
     tables = torch.zeros((cfg.block // cfg.tile, cfg.radix), dtype=torch.int32, device=card)
     out = torch.empty_like(keys)
     good = (keys.data_ptr(), out.data_ptr(), 1, 4)
-    for columns, tile in (([good] * 9, cfg.tile), ([(*good[:3], 3)], cfg.tile),
-                          ([good], 312 * 128)):
+    for columns, tile, threads, per_block in (
+            ([good] * 9, cfg.tile, 32, 1), ([(*good[:3], 3)], cfg.tile, 32, 1),
+            ([good], 312 * 128, 32, 1), ([good], cfg.tile, 64, 4), ([good], cfg.tile, 512, 16),
+            ([good], 128 * 128, 160, 5)):
         words = (ctypes.c_int64 * (4 * len(columns)))(*(w for c in columns for w in c))
         with pytest.raises(RuntimeError, match="grs_radix_dest_scatter"):
             _build.launch("grs_radix_dest_scatter", keys, keys.data_ptr(), tables.data_ptr(),
                           tables.data_ptr(), ctypes.addressof(words), len(columns),
-                          cfg.block // tile, tile, 32, 0, cfg.radix)
+                          cfg.block // tile, tile, threads, per_block, 0, cfg.radix)
 
 
 def _dist_sort_calls(gen, n):

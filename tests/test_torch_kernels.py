@@ -11,6 +11,7 @@ so the comparisons take its first ``radix`` columns.
 import pathlib
 import re
 import types
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -308,28 +309,179 @@ def test_dest_scatter_rejects_bad_input():
 
 @pytest.mark.parametrize("tile_rows", [1, 3, 8, 16, 64, 300, 302, 512])
 def test_dest_scatter_geometry_fits_the_card(tile_rows):
-    # What grs_radix_dest_scatter accepts: one warp per tile, at most 8 tiles
-    # a block, a block's shared memory within 227 KB (above 48 KB the entry
-    # point opts in), a staged tile's rows in 16 bits.  A tile whose staging
-    # alone exceeds a block's shared memory is refused.
+    # What grs_radix_dest_scatter accepts: a partition of 1, 2, 4 or 8
+    # tiles, one warp each, whose rows fit 16 bits; a block of one partition,
+    # or of up to 4 partitions of one tile, its shared memory within 227 KB
+    # (above 48 KB the entry point opts in).  The partition is the fewest tiles
+    # whose digit runs reach DEST_SCATTER_RUN_ROWS rows, fewer where the
+    # launch's partitions or the card's limits call for it; a tile whose
+    # staging alone exceeds a block's shared memory is refused.
     for bits in range(1, 9):
         cfg = _geometry_cfg(1 << bits, tile_rows)
-        per_warp = (8 * cfg.radix if cfg.radix > 32 else 0) + 6 * cfg.tile
-        assert tradix.dest_scatter_warp_bytes(cfg.radix, cfg.tile) == per_warp  # 16-byte multiple
-        if per_warp > tradix.MAX_SHARED_BYTES:
-            with pytest.raises(ValueError, match="stages a tile"):
-                tradix.dest_scatter_geometry(cfg)
-            continue
-        threads, shared = tradix.dest_scatter_geometry(cfg)
-        warps = threads // 32
-        assert 1 <= warps <= tradix.DEST_SCATTER_TILES_PER_BLOCK
-        assert shared == warps * per_warp <= tradix.MAX_SHARED_BYTES
-        assert (warps == tradix.DEST_SCATTER_TILES_PER_BLOCK
-                or (warps + 1) * per_warp > tradix.MAX_SHARED_BYTES)
-        assert cfg.tile < 1 << 16  # row numbers fit 16 bits
-    # The default tile stages in 24 KB a block at radix <= 32, 32 KB above.
-    assert tradix.dest_scatter_geometry(EngineConfig()) == (128, 4 * 6144)
-    assert tradix.dest_scatter_geometry(EngineConfig(radix_bits=8)) == (128, 4 * 8192)
+        one = -(-(8 * cfg.radix + 6 * cfg.tile) // 16) * 16
+        assert tradix.dest_scatter_partition_bytes(cfg.radix, cfg.tile, 1) == one
+        for num_tiles in (1, 7, 8, 9, 132, 984, 16_384, 97_664):
+            if one > tradix.MAX_SHARED_BYTES:
+                with pytest.raises(ValueError, match="stages a tile"):
+                    tradix.dest_scatter_geometry(cfg, num_tiles)
+                continue
+            threads, per_block, shared = tradix.dest_scatter_geometry(cfg, num_tiles)
+            assert per_block in (1, 2, 4, 8)
+            assert per_block * cfg.tile <= tradix.MAX_PARTITION_ROWS
+            part = tradix.dest_scatter_partition_bytes(cfg.radix, cfg.tile, per_block)
+            partitions = threads // (32 * per_block)
+            assert threads == 32 * per_block * partitions and 32 <= threads <= 256
+            assert shared == partitions * part <= tradix.MAX_SHARED_BYTES and shared % 16 == 0
+            assert partitions == (min(4, tradix.MAX_SHARED_BYTES // part) if per_block == 1
+                                  else 1)
+            runs_long = per_block * cfg.tile >= tradix.DEST_SCATTER_RUN_ROWS * cfg.radix
+            if per_block > 1:  # no fewer tiles make the runs long enough
+                assert (per_block // 2) * cfg.tile < tradix.DEST_SCATTER_RUN_ROWS * cfg.radix
+                assert -(-num_tiles // per_block) >= tradix.DEST_SCATTER_MIN_BLOCKS
+            if per_block < 8 and not runs_long:  # more tiles are refused by a limit
+                twice = 2 * per_block
+                assert (-(-num_tiles // twice) < tradix.DEST_SCATTER_MIN_BLOCKS
+                        or twice * cfg.tile > tradix.MAX_PARTITION_ROWS
+                        or tradix.dest_scatter_partition_bytes(cfg.radix, cfg.tile, twice)
+                        > tradix.MAX_SHARED_BYTES)
+    # The default tile at 1M, 2^24 and 100M keys.
+    for bits, num_tiles, want in DEFAULT_DEST_SCATTER_GEOMETRY:
+        assert tradix.dest_scatter_geometry(_geometry_cfg(1 << bits, 8), num_tiles) == want
+
+
+# (radix bits, tiles, (threads, tiles a partition, shared bytes)) of the
+# default 1,024-key tile at 1M (984 tiles), 2^24 and 100M keys.
+DEFAULT_DEST_SCATTER_GEOMETRY = [
+    (1, 984, (128, 1, 24640)), (1, 16_384, (128, 1, 24640)), (1, 97_664, (128, 1, 24640)),
+    (4, 984, (128, 1, 25088)), (4, 16_384, (128, 1, 25088)), (4, 97_664, (128, 1, 25088)),
+    (8, 984, (128, 4, 29696)), (8, 16_384, (256, 8, 58368)), (8, 97_664, (256, 8, 58368)),
+    (6, 16_384, (64, 2, 13056)),
+]
+
+
+def _one_warp_design_took(radix: int, tile: int) -> bool:
+    """Whether the earlier one-warp-a-tile dest_scatter took a tile: its warp's staging,
+    2 x radix int32 above radix 32 and 6 bytes a key, within a block's shared memory."""
+    return -(-((8 * radix if radix > 32 else 0) + 6 * tile) // 16) * 16 <= tradix.MAX_SHARED_BYTES
+
+
+def test_dest_scatter_geometry_takes_every_tile_the_one_warp_design_took():
+    # Every (radix, tile_rows) the one-warp-a-tile kernel took, tile_rows 1
+    # to 300 at every radix, 301 up to radix 128 and 302 up to radix 64,
+    # still gets a geometry, with one tile a partition where no more fit;
+    # the rest are refused as before.
+    for tile_rows in range(1, 401):
+        for bits in range(1, 9):
+            cfg = _geometry_cfg(1 << bits, tile_rows)
+            took = _one_warp_design_took(cfg.radix, cfg.tile)
+            assert took == (tile_rows <= 300 or (tile_rows == 301 and bits <= 7)
+                            or (tile_rows == 302 and bits <= 6))
+            for num_tiles in (1, 97_664):
+                if took:
+                    assert tradix.dest_scatter_geometry(cfg, num_tiles)[1] >= 1
+                else:
+                    with pytest.raises(ValueError, match="stages a tile"):
+                        tradix.dest_scatter_geometry(cfg, num_tiles)
+
+
+def _partition_order(keys, hist, offsets, shift: int, radix: int, tile: int, t0: int,
+                     per_block: int):
+    """A plain model of one dest_scatter partition, merged as ``csrc/radix_dest.cu`` merges it.
+
+    The partition is tiles t0 .. t0 + per_block - 1 of the numpy buffer
+    ``keys`` (fewer where the buffer ends).  Positions run digit-major, then
+    tile-major, then in element order.  Returns (src, dst): for each
+    position, the partition row it takes and its destination, from K1's
+    rows of the partition (``hist``) and the offsets' first row only:
+    ``offsets[t0, d] + p - start[d]``, start[d] the partition's start of
+    digit d.
+    """
+    live = min(per_block, keys.size // tile - t0)
+    h = hist[t0:t0 + live].astype(np.int64)
+    earlier = np.cumsum(h, axis=0) - h  # each digit's count in the partition's earlier tiles
+    totals = h.sum(axis=0)
+    start = np.cumsum(totals) - totals
+    digits = ((keys[t0 * tile:(t0 + live) * tile] >> np.uint32(shift))
+              & np.uint32(radix - 1)).astype(np.int64)
+    rows = np.arange(live * tile)
+    rank = np.empty(rows.size, dtype=np.int64)  # earlier rows of the tile with the digit
+    for t in range(live):
+        d = digits[t * tile:(t + 1) * tile]
+        order = np.argsort(d, kind="stable")
+        rank[t * tile + order] = np.arange(tile) - np.searchsorted(d[order], d[order])
+    pos = start[digits] + earlier[rows // tile, digits] + rank
+    src = np.empty_like(rows)
+    src[pos] = rows
+    dst = np.empty_like(rows)
+    dst[pos] = offsets[t0, digits].astype(np.int64) + pos - start[digits]
+    return src, dst
+
+
+def _jax_destinations(keys, shift: int, jcfg, impl: str = "reference") -> np.ndarray:
+    """The JAX package's tile_destinations of ``keys``, padded with PAD_KEY to its grid
+    step (pad keys take the last digit after every real key, so the real rows' destinations
+    are those of the unpadded buffer)."""
+    step = jcfg.tile * 8
+    padded = np.concatenate([keys, np.full(-keys.size % step, 0xFFFFFFFF, dtype=np.uint32)])
+    jk = jnp.asarray(padded).reshape(-1, LANES)
+    joff = jradix.global_offsets(jradix.tile_histograms(jk, shift, jcfg, impl="reference"))
+    return np.asarray(jradix.tile_destinations(jk, joff, shift, jcfg, impl=impl)).reshape(-1)[
+        :keys.size]
+
+
+def _check_partitions(keys, shift: int, cfg, per_block: int, want: np.ndarray) -> None:
+    """Every partition of the model against ``want``, the destinations of every key."""
+    tk = torch.from_numpy(keys)
+    hist = tradix.tile_histograms(tk, shift, cfg)
+    offsets = tradix.global_offsets(hist).numpy()
+    hist = hist.numpy()
+    np.testing.assert_array_equal(
+        tradix.tile_destinations(tk, torch.from_numpy(offsets), shift, cfg).numpy(), want)
+    num_tiles = keys.size // cfg.tile
+    for t0 in range(0, num_tiles, per_block):
+        src, dst = _partition_order(keys, hist, offsets, shift, cfg.radix, cfg.tile, t0,
+                                    per_block)
+        first = t0 * cfg.tile
+        np.testing.assert_array_equal(dst, want[first + src])
+        digits = (keys[first + src] >> np.uint32(shift)) & np.uint32(cfg.radix - 1)
+        assert np.all(np.diff(digits.astype(np.int64)) >= 0)  # digit-major
+        cut = np.flatnonzero(np.diff(digits.astype(np.int64))) + 1
+        for s_run, d_run in zip(np.split(src, cut), np.split(dst, cut)):
+            assert np.all(np.diff(s_run) > 0)  # stable: tile-major, then element order
+            np.testing.assert_array_equal(d_run, d_run[0] + np.arange(d_run.size))  # one run
+
+
+def _largest_partition(cfg) -> int:
+    """The most tiles a dest_scatter partition of ``cfg`` can take, whatever the runs."""
+    with mock.patch.multiple(tradix, DEST_SCATTER_RUN_ROWS=1 << 30, DEST_SCATTER_MIN_BLOCKS=1):
+        return tradix.dest_scatter_tiles(cfg, 1)
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 8])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_partition_order_matches_tile_destinations(bits, tile_rows, rng):
+    # The kernel's merged order of a partition of P tiles against K4's
+    # destinations (the port's plain version and the JAX package's
+    # reference): P - 1, P, P + 1 and 3P + 1 tiles, so that the last
+    # partition is ragged, whole, one tile, and one tile after whole ones.
+    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
+    jcfg = JaxConfig(radix_bits=bits, tile_rows=tile_rows)
+    per_block = _largest_partition(cfg)
+    assert per_block == tradix.DEST_SCATTER_TILES_PER_BLOCK
+    for num_tiles in (per_block - 1, per_block, per_block + 1, 3 * per_block + 1):
+        keys = rng.integers(0, 2**32, num_tiles * cfg.tile, dtype=np.uint32)
+        keys[: keys.size // 3] &= np.uint32(0xFF0F)  # a skewed stretch: long and empty runs
+        want = _jax_destinations(keys, 4, jcfg)
+        _check_partitions(keys, 4, cfg, per_block, want)
+
+
+def test_partition_order_matches_pallas_interpret(rng):
+    # The same against the Pallas body of K4, at one small shape: P + 1
+    # tiles of 128 keys at radix 16.
+    cfg, jcfg = EngineConfig(tile_rows=1), JaxConfig(tile_rows=1)
+    per_block = _largest_partition(cfg)
+    keys = rng.integers(0, 2**32, (per_block + 1) * cfg.tile, dtype=np.uint32)
+    _check_partitions(keys, 0, cfg, per_block, _jax_destinations(keys, 0, jcfg, "interpret"))
 
 
 @pytest.mark.parametrize("n", [1, 7, 128, 1023, 1025, 4096, 100_000,
