@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from gpuradixsort_tpu_torch.config import PAD_KEY, TILES_PER_STEP, EngineConfig, default_device
+from gpuradixsort_tpu_torch.utils import trace
 
 # JAX runs with 64-bit types disabled, so it narrows 64-bit host data.
 _NARROW = {
@@ -125,8 +126,9 @@ class Column:
         return self.data[: self.length]
 
     def to_numpy(self) -> np.ndarray:
-        """The live prefix on the host, in the dtype the JAX package gives."""
-        return self.valid().cpu().numpy()
+        """The live prefix on the host, in the dtype the JAX package gives (``grs.column.sync``)."""
+        with trace.span("grs.column.sync"):
+            return self.valid().cpu().numpy()
 
 
 def make_column(

@@ -30,6 +30,7 @@ from gpuradixsort_tpu_torch.core.table import Column, Table, int32_bits
 from gpuradixsort_tpu_torch.kernels.aggregate import SUPPORTED, segment_aggregate
 from gpuradixsort_tpu_torch.ops.filter import Selection
 from gpuradixsort_tpu_torch.ops.sort import sort_pairs
+from gpuradixsort_tpu_torch.utils import trace
 
 def aggregate_sorted_flat(
     keys: torch.Tensor,
@@ -49,8 +50,12 @@ def aggregate_sorted_flat(
     one row per group, rows >= count zero.  count is a 0-d int32 tensor.
     On the card this is ``segment_aggregate``'s kernel and makes no host
     sync.  The JAX package's ``cfg`` sets the tiles of its compaction; there
-    is no compaction here, so the port takes none.
+    is no compaction here, so the port takes none.  Counts the live and
+    padded rows at the ``aggregate`` site (``trace.rows``) where ``n_live``
+    is an int; a tensor's count is left out, since reading it is a sync.
     """
+    if not isinstance(n_live, torch.Tensor):
+        trace.rows("aggregate", n_live, keys.numel())
     return segment_aggregate(keys, n_live, inputs, rows)
 
 
@@ -76,15 +81,17 @@ def group_by_aggregate(
         if kind != "count" and col not in table.columns:
             raise KeyError(f"aggregation input column {col!r} not in table")
 
-    sorted_keys, perm = sort_pairs(table[key], cfg, method)
-    inputs = [
-        (out_name, None if kind == "count" else table[col].data, kind)
-        for out_name, (col, kind) in aggs.items()
-    ]
-    group_keys, out, count = aggregate_sorted_flat(sorted_keys.data, table.length, inputs,
-                                                   int32_bits(perm.data))
-    n = table.length
-    result: dict[str, Column] = {key: Column(group_keys, n)}
-    for out_name, vals in out.items():
-        result[out_name] = Column(vals, n)
-    return Selection(Table(result), count)
+    with trace.span("grs.group_by"):
+        sorted_keys, perm = sort_pairs(table[key], cfg, method)
+        inputs = [
+            (out_name, None if kind == "count" else table[col].data, kind)
+            for out_name, (col, kind) in aggs.items()
+        ]
+        with trace.span("grs.group_by.aggregate"):
+            group_keys, out, count = aggregate_sorted_flat(sorted_keys.data, table.length,
+                                                           inputs, int32_bits(perm.data))
+        n = table.length
+        result: dict[str, Column] = {key: Column(group_keys, n)}
+        for out_name, vals in out.items():
+            result[out_name] = Column(vals, n)
+        return Selection(Table(result), count, "grs.group_by")

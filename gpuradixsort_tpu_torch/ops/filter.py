@@ -11,7 +11,8 @@ original order.
 
 The compacted table keeps its padded buffers; the number of selected rows
 stays on the device as a 0-d int32 tensor until ``Selection.to_table()``
-reads it, the one host sync.
+reads it, the one host sync (the span ``<op>.sync``, named by the operator
+that made the selection: ``grs.filter.sync`` here).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from gpuradixsort_tpu_torch.config import EngineConfig
 from gpuradixsort_tpu_torch.core.table import Column, Table
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
+from gpuradixsort_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,10 +34,12 @@ class Selection:
 
     table: Table
     count: torch.Tensor  # 0-d int32: number of selected rows
+    op: str = "grs.filter"  # the span of the operator that made it
 
     def to_table(self) -> Table:
         """Read the count back to the host and return a tight Table."""
-        n = int(self.count)
+        with trace.span(f"{self.op}.sync"):
+            n = int(self.count)
         return Table(
             {
                 name: Column(col.data, min(n, col.length))
@@ -72,19 +76,21 @@ def filter_table(
     ``predicate`` receives the table and returns a boolean or 0/1 integer
     mask over the padded row space; pad rows are masked out here.
     """
-    cfg = cfg or EngineConfig()
-    mask = predicate(table).to(torch.int32)
-    n = table.length
-    padded = next(iter(table.columns.values())).padded_length
-    if tuple(mask.shape) != (padded,):
-        raise ValueError(
-            f"predicate mask has shape {tuple(mask.shape)}, expected ({padded},)"
+    with trace.span("grs.filter"):
+        cfg = cfg or EngineConfig()
+        mask = predicate(table).to(torch.int32)
+        n = table.length
+        padded = next(iter(table.columns.values())).padded_length
+        if tuple(mask.shape) != (padded,):
+            raise ValueError(
+                f"predicate mask has shape {tuple(mask.shape)}, expected ({padded},)"
+            )
+        # Pad rows never survive the filter.
+        mask = mask * (torch.arange(padded, device=mask.device) < n)
+        names = table.names()
+        trace.rows("compact", n, padded)
+        out, count = _compact_by_mask(mask, [table[name].data for name in names], cfg)
+        out_table = Table(
+            {name: Column(data, table[name].length) for name, data in zip(names, out)}
         )
-    # Pad rows never survive the filter.
-    mask = mask * (torch.arange(padded, device=mask.device) < n)
-    names = table.names()
-    out, count = _compact_by_mask(mask, [table[name].data for name in names], cfg)
-    out_table = Table(
-        {name: Column(data, table[name].length) for name, data in zip(names, out)}
-    )
-    return Selection(out_table, count)
+        return Selection(out_table, count)

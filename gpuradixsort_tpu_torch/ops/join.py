@@ -12,7 +12,12 @@ uint32, so both sides are widened to int64.
   lengths (K5 on a CUDA tensor) gives each probe row its first output slot,
   and the rows land in a buffer of fixed ``capacity`` with a live count.
 
-Only ``validate_unique`` and ``to_table`` read a value back to the host.
+Only ``validate_unique`` and ``to_table`` read a value back to the host,
+each inside the span ``grs.join.sync``.  A call is the span ``grs.join``,
+its phases ``grs.join.build`` (the build side's sort) and ``grs.join.probe``
+(the searches and the gathers).  The probe's searches and ``join``'s gather
+of the build payloads count their rows (``trace.rows``); ``join_expand``'s
+gathers do not, since their live count stays on the device.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.ops.filter import Selection, filter_table
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.ops.sort import sort_table
+from gpuradixsort_tpu_torch.utils import trace
 
 JOIN_TYPES = ("inner", "semi", "anti")
 
@@ -78,31 +84,41 @@ def join(
     if how not in JOIN_TYPES:
         raise ValueError(f"unknown join type: {how}")
 
-    build_sorted = sort_table(build, key, cfg)
-    nb = build.length
-    bkeys = _wide(build_sorted[key].data)  # padded; the live prefix is sorted
-    if validate_unique and nb > 1 and bool((bkeys[1:nb] == bkeys[: nb - 1]).any()):
-        raise ValueError(
-            "build side has duplicate keys; use join_expand for one-to-many joins"
-        )
+    with trace.span("grs.join"):
+        with trace.span("grs.join.build"):
+            build_sorted = sort_table(build, key, cfg)
+        nb = build.length
+        with trace.span("grs.join.probe"):
+            bkeys = _wide(build_sorted[key].data)  # padded; the live prefix is sorted
+            if validate_unique and nb > 1:
+                with trace.span("grs.join.sync"):
+                    duplicate = bool((bkeys[1:nb] == bkeys[: nb - 1]).any())
+                if duplicate:
+                    raise ValueError(
+                        "build side has duplicate keys; use join_expand for one-to-many joins"
+                    )
 
-    pkeys = _wide(probe[key].data)  # padded; pad rows are dropped by the filter
-    pos = torch.searchsorted(bkeys[:nb], pkeys, side="left")
-    safe_pos = pos.clamp(0, max(nb - 1, 0))
-    matched = (pos < nb) & (bkeys[safe_pos] == pkeys)
+            pkeys = _wide(probe[key].data)  # padded; pad rows are dropped by the filter
+            trace.rows("probe", probe.length, pkeys.numel())
+            pos = torch.searchsorted(bkeys[:nb], pkeys, side="left")
+            safe_pos = pos.clamp(0, max(nb - 1, 0))
+            matched = (pos < nb) & (bkeys[safe_pos] == pkeys)
 
-    if how == "inner":
-        cols = dict(probe.columns)
-        for name in build_sorted.names():
-            if name != key:
-                gathered = gather_rows(build_sorted[name].data, safe_pos)
-                cols[build_prefix + name] = Column(gathered, probe.length)
-        joined = Table(cols)
-        keep = matched
-    else:
-        joined = probe
-        keep = matched if how == "semi" else ~matched
-    return filter_table(joined, lambda _t: keep, cfg)
+            if how == "inner":
+                cols = dict(probe.columns)
+                payloads = [name for name in build_sorted.names() if name != key]
+                if payloads:
+                    trace.rows("gather", probe.length, safe_pos.numel())
+                for name in payloads:
+                    gathered = gather_rows(build_sorted[name].data, safe_pos)
+                    cols[build_prefix + name] = Column(gathered, probe.length)
+                joined = Table(cols)
+                keep = matched
+            else:
+                joined = probe
+                keep = matched if how == "semi" else ~matched
+        selection = filter_table(joined, lambda _t: keep, cfg)
+        return dataclasses.replace(selection, op="grs.join")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,11 +135,12 @@ class ExpandedJoin:
     overflow: torch.Tensor  # 0-d bool
 
     def to_table(self) -> Table:
-        if bool(self.overflow):
+        with trace.span("grs.join.sync"):
+            overflow, n = bool(self.overflow), int(self.count)
+        if overflow:
             raise RuntimeError(
                 "join_expand output exceeded capacity; retry with a larger capacity"
             )
-        n = int(self.count)
         return Table({name: Column(col.data, n) for name, col in self.table.columns.items()})
 
 
@@ -147,38 +164,42 @@ def join_expand(
     ``overflow`` is False.
     """
     cfg = cfg or EngineConfig()
-    build_sorted = sort_table(build, key, cfg)
-    nb = build.length
-    bkeys = _wide(build_sorted[key].valid())
+    with trace.span("grs.join"):
+        with trace.span("grs.join.build"):
+            build_sorted = sort_table(build, key, cfg)
+        nb = build.length
+        with trace.span("grs.join.probe"):
+            bkeys = _wide(build_sorted[key].valid())
 
-    pkeys = _wide(probe[key].data)
-    padded = probe[key].padded_length
-    dev = pkeys.device
-    live = torch.arange(padded, device=dev) < probe.length
+            pkeys = _wide(probe[key].data)
+            padded = probe[key].padded_length
+            dev = pkeys.device
+            live = torch.arange(padded, device=dev) < probe.length
 
-    lo = torch.searchsorted(bkeys, pkeys, side="left").to(torch.int32)
-    hi = torch.searchsorted(bkeys, pkeys, side="right").to(torch.int32)
-    cnt = torch.where(live, hi - lo, 0)
-    offsets, total = exclusive_scan(cnt)  # first output slot of each probe row
+            trace.rows("probe", 2 * probe.length, 2 * padded)  # two searches
+            lo = torch.searchsorted(bkeys, pkeys, side="left").to(torch.int32)
+            hi = torch.searchsorted(bkeys, pkeys, side="right").to(torch.int32)
+            cnt = torch.where(live, hi - lo, 0)
+            offsets, total = exclusive_scan(cnt)  # first output slot of each probe row
 
-    capacity = round_up(padded if capacity is None else capacity, cfg.block)
-    overflow = matches_exceed(cnt, capacity)
+            capacity = round_up(padded if capacity is None else capacity, cfg.block)
+            overflow = matches_exceed(cnt, capacity)
 
-    # Slot j belongs to the probe row whose slot range holds j; its ordinal
-    # in that range picks the build row from the run.
-    slots = torch.arange(capacity, device=dev)
-    ends = (offsets + cnt).to(torch.int64)
-    prow = torch.searchsorted(ends, slots, side="right").clamp(0, padded - 1)
-    brow = lo.to(torch.int64)[prow] + slots - offsets.to(torch.int64)[prow]
-    valid = slots < total.clamp(max=capacity)
-    safe_brow = brow.clamp(0, max(nb - 1, 0))
+            # Slot j belongs to the probe row whose slot range holds j; its ordinal
+            # in that range picks the build row from the run.
+            slots = torch.arange(capacity, device=dev)
+            ends = (offsets + cnt).to(torch.int64)
+            prow = torch.searchsorted(ends, slots, side="right").clamp(0, padded - 1)
+            brow = lo.to(torch.int64)[prow] + slots - offsets.to(torch.int64)[prow]
+            valid = slots < total.clamp(max=capacity)
+            safe_brow = brow.clamp(0, max(nb - 1, 0))
 
-    cols: dict[str, Column] = {}
-    for name in probe.names():
-        g = gather_rows(probe[name].data, prow)
-        cols[name] = Column(_zero_invalid(g, valid), capacity)
-    for name in build_sorted.names():
-        if name != key:
-            g = gather_rows(build_sorted[name].data, safe_brow)
-            cols[build_prefix + name] = Column(_zero_invalid(g, valid), capacity)
-    return ExpandedJoin(Table(cols), total, overflow)
+            cols: dict[str, Column] = {}
+            for name in probe.names():
+                g = gather_rows(probe[name].data, prow)
+                cols[name] = Column(_zero_invalid(g, valid), capacity)
+            for name in build_sorted.names():
+                if name != key:
+                    g = gather_rows(build_sorted[name].data, safe_brow)
+                    cols[build_prefix + name] = Column(_zero_invalid(g, valid), capacity)
+        return ExpandedJoin(Table(cols), total, overflow)

@@ -72,6 +72,7 @@ from gpuradixsort_tpu_torch.kernels.key_bits import ARGS_WORDS, SortArgs, sort_a
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter_lookback
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
+from gpuradixsort_tpu_torch.utils import trace
 
 METHODS = ("auto", "fused", "torch", "radix")
 
@@ -302,6 +303,7 @@ def _graph_of(method: str, inputs: tuple, cfg: EngineConfig, make):
             return None
         with torch.cuda.device(keys.device):
             graph = make()
+        trace.graph_captured()
         _SORT_GRAPHS[key] = graph
         del _SEEN[key]
     return graph
@@ -321,10 +323,11 @@ def _skip_counter(device: torch.device) -> torch.Tensor:
 def skipped_passes() -> int:
     """Passes every fused sort so far skipped, on every device: constant digits.
 
-    Reads the counters back, a host sync: call it after the sorts, not
-    between them.
+    Reads the counters back, a host sync (the span ``grs.sort.sync``): call
+    it after the sorts, not between them.
     """
-    return sum(int(c.item()) for c in _SKIPPED.values())
+    with trace.span("grs.sort.sync"):
+        return sum(int(c.item()) for c in _SKIPPED.values())
 
 
 def _fused_sort(keys: torch.Tensor, idx: torch.Tensor | None, length: int,
@@ -422,8 +425,9 @@ def _sort_column(col: Column, cfg: EngineConfig, method: str):
 
     The fused sort takes the buffer and its length as they are; the radix
     and torch methods sort the re-padded buffer (``_repadded``) with the
-    index column.
+    index column.  Counts the sort's rows (``trace.rows``).
     """
+    trace.rows("sort", col.length, col.padded_length)
     if method == "fused":
         return _fused_sort_live(col.data, col.length, cfg)
     col = _repadded(col)
@@ -443,14 +447,16 @@ def sort_keys(
     ``device``, by default the CUDA card; without a card they raise unless
     ``device="cpu"``.
     """
-    cfg = cfg or EngineConfig()
-    method = _resolve_method(method, cfg)
-    col = _key_column(keys, cfg, device)
-    if method == "radix":  # no index column to carry
-        sorted_keys, _ = _sort_padded(_repadded(col).data, (), cfg)
-    else:
-        sorted_keys, _ = _sort_column(col, cfg, method)
-    return Column(sorted_keys, col.length)
+    with trace.span("grs.sort"):
+        cfg = cfg or EngineConfig()
+        method = _resolve_method(method, cfg)
+        col = _key_column(keys, cfg, device)
+        if method == "radix":  # no index column to carry
+            trace.rows("sort", col.length, col.padded_length)
+            sorted_keys, _ = _sort_padded(_repadded(col).data, (), cfg)
+        else:
+            sorted_keys, _ = _sort_column(col, cfg, method)
+        return Column(sorted_keys, col.length)
 
 
 def sort_pairs(
@@ -463,7 +469,12 @@ def sort_pairs(
     original order and live rows before pad rows, even where a live key
     equals PAD_KEY.  ``keys`` and ``device`` are as in ``sort_keys``.
     """
-    cfg = cfg or EngineConfig()
+    with trace.span("grs.sort"):
+        return _sort_pairs(keys, cfg or EngineConfig(), method, device)
+
+
+def _sort_pairs(keys, cfg: EngineConfig, method: str, device=None) -> tuple[Column, Column]:
+    """``sort_pairs`` inside its caller's span."""
     method = _resolve_method(method, cfg)
     col = _key_column(keys, cfg, device)
     sorted_keys, perm = _sort_column(col, cfg, method)
@@ -480,15 +491,17 @@ def sort_table(
     pad row's PAD_INDEX becomes -1 and is clipped to row 0; pad rows lie past
     ``length``.
     """
-    cfg = cfg or EngineConfig()
-    sorted_keys, perm = sort_pairs(table[key], cfg, method)
-    src = int32_bits(perm.data)
-    out = {key: sorted_keys}
-    for name in table.names():
-        if name != key:
+    with trace.span("grs.sort"):
+        sorted_keys, perm = _sort_pairs(table[key], cfg or EngineConfig(), method)
+        src = int32_bits(perm.data)
+        out = {key: sorted_keys}
+        payloads = [name for name in table.names() if name != key]
+        if payloads:
+            trace.rows("gather", perm.length, perm.padded_length)
+        for name in payloads:
             col = table[name]
             out[name] = Column(gather_rows(col.data, src), col.length)
-    return Table(out)
+        return Table(out)
 
 
 def _key_column(keys, cfg: EngineConfig, device=None) -> Column:

@@ -29,7 +29,6 @@ import torch
 import torch.distributed as dist
 
 from gpuradixsort_tpu_torch.config import default_device
-from gpuradixsort_tpu_torch.kernels import aggregate, bucketize, key_bits, radix, scan, scatter
 from gpuradixsort_tpu_torch.parallel import mesh as M
 from gpuradixsort_tpu_torch.parallel.dist_ops import (
     dist_group_by_aggregate,
@@ -40,6 +39,7 @@ from gpuradixsort_tpu_torch.parallel.dist_ops import (
 from gpuradixsort_tpu_torch.parallel.dist_sort import dist_sort_pairs, gather_sorted
 from gpuradixsort_tpu_torch.parallel.multihost import flatten_pod_mesh, make_pod_mesh
 from gpuradixsort_tpu_torch.utils.timing import StageClock, profiled_device_ms
+from gpuradixsort_tpu_torch.utils.trace import kernel_wrappers
 
 
 def _rank_env(rank: int, world: int, nodes) -> dict:
@@ -142,19 +142,7 @@ def run_ranks(world: int, fn, args=(), backend: str = "gloo", device: str | None
 
 # -- the per-rank op runner ----------------------------------------------------
 
-KERNEL_WRAPPERS = {
-    "radix_hist": radix.tile_histograms,
-    "bucketize": bucketize.bucketize_tiles,
-    "scatter_runs": scatter.scatter_runs,
-    "bucketize_scatter": scatter.bucketize_scatter,
-    "bucketize_scatter_lookback": scatter.bucketize_scatter_lookback,
-    "sort_plan": key_bits.sort_plan,
-    "sort_args": key_bits.sort_args,
-    "radix_dest": radix.tile_destinations,
-    "dest_scatter": radix.dest_scatter,
-    "exclusive_scan": scan.exclusive_scan,
-    "segment_aggregate": aggregate.segment_aggregate,
-}
+KERNEL_WRAPPERS = kernel_wrappers()
 
 
 def _host(x):
