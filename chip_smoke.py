@@ -540,7 +540,7 @@ def numpy_digit_counts(keys: np.ndarray, cfg) -> np.ndarray:
 def check_sort_plan(keys: torch.Tensor, cfg, errs: dict, where: str, host=None,
                     length=None) -> None:
     """sort_plan's plan, counts and bases at a live ``length`` (all keys by default)
-    against its plain version; with ``host`` (the re-padded keys on the host) its counts
+    against its plain version; with ``host`` (the live keys on the host) its counts
     also against numpy."""
     counters = [torch.zeros(1, dtype=torch.int64, device=keys.device) for _ in range(2)]
     got = sort_plan(keys, cfg, counters[0], impl="cuda", length=length)
@@ -1173,7 +1173,7 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
         check(err == 0, f"key_bits == plain == numpy, {where}, {keys.numel()} padded rows")
         del keys
         check_sort_plan(col.data, cfg, errs, f"{where}, {col.padded_length} padded rows, "
-                        f"{col.length} live", host=host_keys, length=col.length)
+                        f"{col.length} live", host=host_keys[:col.length], length=col.length)
         del host_keys
     del columns
     keys16m = tables["r16m"].data
@@ -1287,7 +1287,7 @@ def phase_main_path(dev, rng, cfg) -> dict:
     # the counts are set to 0 before and read after it.
     cols = {name: make_key_column(keys_np, cfg, device=dev) for name, keys_np in sets.items()}
     cols[stale_name] = Column(torch.from_numpy(stale).to(dev), N_HEADLINE)
-    want = {name: cfg.num_passes - bin(pass_mask(sort_ops._repadded(col).data, cfg)).count("1")
+    want = {name: cfg.num_passes - bin(pass_mask(col.data[:col.length], cfg)).count("1")
             for name, col in cols.items()}
     results, syncs, replays, windows = {}, {}, {}, {}
     table_out = {}

@@ -82,14 +82,24 @@
 // the sort's argument block (warp.cuh's SortArgs, written before each sort
 // by key_bits.cu's grs_sort_args) says; only the scratch S is a parameter.
 // So one graph serves every call of a shape: the caller's keys are read
-// where they lie and R is the caller's own.  Where a pass reads the input,
-// its rows at or past the block's live length are pad rows, read as
-// PAD_KEY with index PAD_INDEX, and where the block names no index the
-// pass makes it, element e's index e: the JAX package's jnp.where
+// where they lie and R is the caller's own.  In every buffer of the sort
+// the rows at or past the block's live length are pad rows, (PAD_KEY,
+// PAD_INDEX), whatever they hold, and where the block names no index the
+// pass makes the input's, element e's index e: the JAX package's jnp.where
 // re-padding and jnp.arange index (gpuradixsort_tpu/ops/sort.py:193-194,
-// :246-247), with no pass over the buffer.  Pad rows are real rows,
-// counted, ranked and placed; rows past the ragged partition's end are not
-// (see lookback_scatter_kernel).
+// :246-247), with no pass over the buffer.  Pads are PAD_KEY in every
+// digit and start at the tail, so a stable pass leaves them where they
+// are: a pass walks only the live partitions, those that hold a row below
+// the length, reads and places only the live rows, and key_bits.cu's bases
+// count only the live keys.  R's rows from the length on are written once
+// a sort, as pads, by the last pass that runs, and only by the blocks whose
+// ticket lies past the live partitions (in every other pass they exit at
+// once): the first of them writes the straddling partition's tail, and all
+// of them fill the rows from the next partition boundary on at write
+// bandwidth.  So a partition's block does what it did with every row live.
+// The grid covers the live partitions of the host's length (an eager
+// launch) or of the padded length (a launch that a graph replays at any
+// length), and one block more, up to kFillBlocks more where pads follow.
 
 // Buffers: a launch reads (keys, idx) from buffer `source` and writes buffer
 // `destination` of {input, out, scratch}.  Without a plan it reads the input
@@ -99,6 +109,7 @@
 // the buffer it reads: one tile's stores would land on another tile's keys
 // before that tile had read them.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -125,6 +136,7 @@ constexpr int kPartItems = 16;                          // keys a lane
 constexpr int kPartition = kPartThreads * kPartItems;  // keys a block
 constexpr int kPartBlocks = 3;                          // blocks an SM (launch bounds)
 constexpr int kLookLoads = 2;                           // status loads a lane a round
+constexpr int64_t kFillBlocks = kPartBlocks * 132;     // an eager launch's pad fill: one wave
 
 // The sort's buffers: 0 the input, 1 the result (or an unplanned launch's
 // output), 2 the scratch.  The input is only read.
@@ -248,18 +260,58 @@ __device__ uint32_t look_back(const LookBack& lb, int pass, int64_t part, int la
   return prefix;
 }
 
+// Whether no pass after `pass` runs: the pass that writes R's pad rows.
+// Without a plan a launch is a pass of its own.
+__device__ __forceinline__ bool last_pass(const int32_t* plan, int pass, int num_passes) {
+  if (plan == nullptr) return true;
+  for (int q = pass + 1; q < num_passes; ++q)
+    if (plan[q] >= 0) return false;
+  return true;
+}
+
+// Rows [start, end) of (keys, idx) set to (PAD_KEY, PAD_INDEX), by thread
+// `thread` of `threads`: where both lie alike about 16-byte boundaries, the
+// rows before the first one, then 16-byte quads, every threads-th, then
+// the rest, every threads-th row.
+__device__ void fill_pads(uint32_t* keys, uint32_t* idx, int64_t start, int64_t end,
+                          int64_t thread, int64_t threads) {
+  const auto k = reinterpret_cast<uintptr_t>(keys + start);
+  if (k % 16 == reinterpret_cast<uintptr_t>(idx + start) % 16) {
+    const int64_t head = min(static_cast<int64_t>((16 - k % 16) % 16 / 4), end - start);
+    if (thread < head) {
+      keys[start + thread] = grs::kPadKey;
+      idx[start + thread] = grs::kPadIndex;
+    }
+    start += head;
+    const uint4 pad_keys = make_uint4(grs::kPadKey, grs::kPadKey, grs::kPadKey, grs::kPadKey);
+    const uint4 pad_idx =
+        make_uint4(grs::kPadIndex, grs::kPadIndex, grs::kPadIndex, grs::kPadIndex);
+    uint4* kq = reinterpret_cast<uint4*>(keys + start);
+    uint4* iq = reinterpret_cast<uint4*>(idx + start);
+    const int64_t quads = (end - start) / 4;
+    for (int64_t q = thread; q < quads; q += threads) {
+      kq[q] = pad_keys;
+      iq[q] = pad_idx;
+    }
+    start += 4 * quads;
+  }
+  for (int64_t i = start + thread; i < end; i += threads) {
+    keys[i] = grs::kPadKey;
+    idx[i] = grs::kPadIndex;
+  }
+}
+
 // One pass of the look-back route over one partition (see the header).
-// Keys past the buffer's end load as all-ones, so they rank last, in the
-// last digit, behind every key of the partition; that digit's published
-// count leaves them out, and the place step stores no slot past the valid
-// keys.  Pad rows of the input, from the live length to n, also load as
-// all-ones (PAD_KEY); they come before the rows past the end in element
-// order, so they rank before them, and are counted and placed.
+// Rows at or past the live length load as all-ones, so they rank last, in
+// the last digit, behind every live key of the partition; that digit's
+// published count leaves them out, and the place step stores no slot past
+// the live keys.  A block whose ticket lies past the live partitions writes
+// R's pad rows in the last pass that runs, and in another exits at once.
 template <int kBits>
 __global__ void __launch_bounds__(kPartThreads, kPartBlocks)
     lookback_scatter_kernel(const grs::SortArgs* __restrict__ args, Pair scratch,
-                            const int32_t* __restrict__ plan, int pass, int n, int shift,
-                            LookBack lb) {
+                            const int32_t* __restrict__ plan, int pass, int num_passes, int n,
+                            int shift, LookBack lb) {
   constexpr int kRadix = 1 << kBits;
   constexpr uint32_t kMask = kRadix - 1u;
   __shared__ uint32_t sk[kPartition], sv[kPartition];  // the staged partition
@@ -283,16 +335,32 @@ __global__ void __launch_bounds__(kPartThreads, kPartBlocks)
   }
   __syncthreads();
   const int64_t part = ticket;
+  const int64_t live_parts = (sort_args.length + kPartition - 1) / kPartition;
+  if (part >= live_parts) {  // the whole block, after its one barrier
+    if (last_pass(plan, pass, num_passes)) {
+      // From the boundary on, 16-byte stores that fill whole sectors.
+      const int64_t boundary = min(live_parts * kPartition, static_cast<int64_t>(n));
+      if (part == live_parts) {
+        fill_pads(sort_args.out_keys, sort_args.out_idx, sort_args.length, boundary,
+                  threadIdx.x, kPartThreads);
+      }
+      fill_pads(sort_args.out_keys, sort_args.out_idx, boundary, n,
+                (part - live_parts) * kPartThreads + threadIdx.x,
+                (gridDim.x - live_parts) * kPartThreads);
+    }
+    return;
+  }
   const int64_t first = part * kPartition;
-  const int valid = n - first < kPartition ? static_cast<int>(n - first) : kPartition;
+  // The partition's live rows, those below the length (at least one): only
+  // they are loaded, ranked as keys and placed; in every buffer the rows
+  // from the length on are pads.
+  const int64_t live_rows = sort_args.length - first;
+  const int valid = live_rows < kPartition ? static_cast<int>(live_rows) : kPartition;
   const Pair in = sort_buffer(sort_args, scratch, route.source);
-  // Rows below `live` are loaded; the input's rows from its length on are
-  // pads.  Where the block names no index, the input's is made.  One loop
-  // each way: a select between the made and the loaded index inside one
-  // loop compiled to branches around the loads (91 in the kernel, not 30),
-  // and the pass took about 4% longer on the H100 (PERF.md, Findings).
-  const int64_t live_rows = route.source == 0 ? sort_args.length - first : valid;
-  const int live = live_rows <= 0 ? 0 : (live_rows < valid ? static_cast<int>(live_rows) : valid);
+  // Where the block names no index, the input's is made.  One loop each
+  // way: a select between the made and the loaded index inside one loop
+  // compiled to branches around the loads (91 in the kernel, not 30), and
+  // the pass took about 4% longer on the H100 (PERF.md, Findings).
 
   uint32_t k[kPartItems], v[kPartItems];
   const int e0 = warp * 32 * kPartItems + lane;  // the lane's first element
@@ -300,15 +368,15 @@ __global__ void __launch_bounds__(kPartThreads, kPartBlocks)
 #pragma unroll
     for (int j = 0; j < kPartItems; ++j) {
       const int e = e0 + 32 * j;
-      k[j] = e < live ? grs::load_global(in.keys + first + e) : grs::kPadKey;
-      v[j] = e < live ? static_cast<uint32_t>(first + e) : grs::kPadIndex;
+      k[j] = e < valid ? grs::load_global(in.keys + first + e) : grs::kPadKey;
+      v[j] = e < valid ? static_cast<uint32_t>(first + e) : grs::kPadIndex;
     }
   } else {
 #pragma unroll
     for (int j = 0; j < kPartItems; ++j) {
       const int e = e0 + 32 * j;
-      k[j] = e < live ? grs::load_global(in.keys + first + e) : grs::kPadKey;
-      v[j] = e < live ? grs::load_global(in.idx + first + e) : grs::kPadIndex;
+      k[j] = e < valid ? grs::load_global(in.keys + first + e) : grs::kPadKey;
+      v[j] = e < valid ? grs::load_global(in.idx + first + e) : grs::kPadIndex;
     }
   }
   int slot[kPartItems];
@@ -317,7 +385,7 @@ __global__ void __launch_bounds__(kPartThreads, kPartBlocks)
   __syncthreads();
 
   int start = 0;       // warp 0, lane r: run r's start in the staging
-  uint32_t total = 0;  // warp 0, lane r: the partition's valid keys of digit r
+  uint32_t total = 0;  // warp 0, lane r: the partition's live keys of digit r
   if (warp == 0) {
     int before[kPartWarps];  // lane r: digit r's keys in the warps before w
     int run = 0;
@@ -480,7 +548,7 @@ Kernel table_kernel(bool fast, int bits) {
   }
 }
 
-using LookBackKernel = void (*)(const grs::SortArgs*, Pair, const int32_t*, int, int, int,
+using LookBackKernel = void (*)(const grs::SortArgs*, Pair, const int32_t*, int, int, int, int,
                                LookBack);
 
 LookBackKernel lookback_kernel(int bits) {
@@ -569,9 +637,14 @@ extern "C" int grs_bucketize_scatter(const void* keys, const void* idx, const vo
 // (buffer 0), its live length and the result R (buffer 1), each n uint32;
 // scratch_keys, scratch_idx: null, or the sort's scratch S (buffer 2), of
 // the same length; no two of the buffers overlap.  radix, plan and pass as
-// grs_bucketize_scatter's; without a plan the launch reads the input and
-// writes R.  n: the padded keys, 0 <= n <= INT_MAX.  bases: (num_passes,
-// radix) int32, every pass's digit bases over the input with its pads
+// grs_bucketize_scatter's, num_passes the plan's entries; without a plan
+// the launch reads the input and writes R, rows from the length on as
+// pads.  A pass writes its destination's live rows; the last that runs (or
+// an unplanned launch) also writes R's rows from the length on as pads.
+// n: the padded keys, 0 <= n <= INT_MAX.  rows: the live rows the grid
+// covers, length <= rows <= n (the host's length for an eager launch, n
+// for one that a graph replays at any length).  bases:
+// (num_passes, radix) int32, every pass's digit bases over the live keys
 // (key_bits.cu); this launch starts digit r's run at bases[pass, r].
 // lookback: lookback_words uint32, 8-byte aligned: a 64-bit status word a
 // (partition, digit), ceil(n / kPartition) x radix of them, then a ticket a
@@ -580,27 +653,32 @@ extern "C" int grs_bucketize_scatter(const void* keys, const void* idx, const vo
 // each pass index serves one launch.  Returns cudaGetLastError() after the
 // launch.
 extern "C" int grs_lookback_scatter(const void* args, void* scratch_keys, void* scratch_idx,
-                                    int64_t n, int shift, int radix, const void* plan, int pass,
-                                    const void* bases, void* lookback, int64_t lookback_words,
-                                    void* stream) {
+                                    int64_t n, int64_t rows, int shift, int radix,
+                                    const void* plan, int pass, int num_passes, const void* bases,
+                                    void* lookback, int64_t lookback_words, void* stream) {
   const int64_t parts = (n + kPartition - 1) / kPartition;
   if (args == nullptr || !aligned(args, 8) || !aligned(scratch_keys, 4) ||
       !aligned(scratch_idx, 4) || !valid_radix(radix) ||
-      (plan != nullptr && (scratch_keys == nullptr || scratch_idx == nullptr)) || n < 0 ||
-      n > INT_MAX || pass < 0 || bases == nullptr || !aligned(bases, 4) ||
-      lookback == nullptr || !aligned(lookback, 8) ||
+      (plan != nullptr &&
+       (scratch_keys == nullptr || scratch_idx == nullptr || pass >= num_passes)) ||
+      n < 0 || n > INT_MAX || rows < 0 || rows > n || pass < 0 || bases == nullptr ||
+      !aligned(bases, 4) || lookback == nullptr || !aligned(lookback, 8) ||
       lookback_words < 2 * parts * radix + pass + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaGetLastError());
+  // The live partitions of `rows`, then blocks for the pad rows: one more
+  // than the partitions past them, up to kFillBlocks.
+  const int64_t live_parts = (rows + kPartition - 1) / kPartition;
+  const int64_t grid = live_parts + std::min(parts - live_parts + 1, kFillBlocks);
   auto* status = static_cast<unsigned long long*>(lookback);
   const LookBack lb{static_cast<const int32_t*>(bases), status,
                     reinterpret_cast<uint32_t*>(status + parts * radix)};
   const int bits = __builtin_ctz(static_cast<unsigned>(radix));
-  lookback_kernel(bits)<<<static_cast<unsigned>(parts), kPartThreads, 0,
+  lookback_kernel(bits)<<<static_cast<unsigned>(grid), kPartThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const grs::SortArgs*>(args),
       Pair{static_cast<uint32_t*>(scratch_keys), static_cast<uint32_t*>(scratch_idx)},
-      static_cast<const int32_t*>(plan), pass, static_cast<int>(n), shift, lb);
+      static_cast<const int32_t*>(plan), pass, num_passes, static_cast<int>(n), shift, lb);
   return static_cast<int>(cudaGetLastError());
 }

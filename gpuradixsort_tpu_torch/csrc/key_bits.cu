@@ -53,12 +53,18 @@
 //     from the sort's argument block (warp.cuh's SortArgs), so a graph's
 //     replay reads the caller's keys where they lie, and the 16-byte
 //     aligned head is found from that address on the card.  The rows from
-//     the live length to the padded n are pads, PAD_KEY = all-ones: the
-//     last block adds them arithmetically, one to the last digit of every
-//     pass each, and sets every bit of the OR (the AND keeps its value).
-//     The JAX package re-pads the buffer with jnp.where and makes the index
-//     with jnp.arange before its sort (gpuradixsort_tpu/ops/sort.py:167-169,
-//     :193-194, :246-247); here no pass over the buffer does either.
+//     the live length to the padded n are pads, PAD_KEY = all-ones, and
+//     have no vote: the counts, the bases, the AND and the OR are the live
+//     keys' alone.  Pads start at the tail and are PAD_KEY in every digit,
+//     so a stable pass leaves them where they are; the look-back pass
+//     (bucketize_scatter.cu) walks only the live keys' partitions and
+//     writes R's pad rows once, in the last pass that runs.  So pass p is
+//     skipped where digit p is constant over the live keys, a stronger skip
+//     than the JAX package's over the padded buffer, with the same result,
+//     as a stable sort has one answer.  The JAX package re-pads the buffer
+//     with jnp.where and makes the index with jnp.arange before its sort
+//     (gpuradixsort_tpu/ops/sort.py:167-169, :193-194, :246-247); here no
+//     pass over the buffer does either.
 // The rounds are alike for every thread of the grid, so the warp sums need
 // no guard.  The counts are uint32: a buffer holds at most 2^31 - block keys
 // (core/table.py::check_padded_rows), so they cannot wrap.
@@ -70,8 +76,9 @@
 // eager or graphed, before the passes.
 //
 // The plan: one int32 a pass, -1 where the pass's digit is constant over
-// the buffer (the pass is skipped), else source | destination << 2 over the
-// sort's buffers: 0 its input, 1 its result R, 2 its scratch S (warp.cuh).
+// the keys (a fused sort's live keys; the pass is skipped), else
+// source | destination << 2 over the sort's buffers: 0 its input, 1 its
+// result R, 2 its scratch S (warp.cuh).
 // A pass cannot scatter into the buffer it reads, since one block's stores
 // would overwrite another block's keys before they are read, so the passes
 // that run ping-pong between R and S.  Destinations are assigned from the
@@ -81,10 +88,10 @@
 // and a skipped pass moves no byte.  With no varying digit (equal keys, or
 // no key) the JAX package's sort hands back its input; the port's hands
 // back a new buffer, so the plan then runs the last pass from the input
-// into R: its digit is constant, so it copies the input.  One thread
-// computes the plan after the reduction, and adds the number of skipped
-// passes (the JAX package's count, without that copy) to a counter on the
-// card, which the host reads only when asked.
+// into R: its digit is constant, so it copies the input (and, with no live
+// key, writes every row of R as a pad).  One thread computes the plan
+// after the reduction, and adds the number of skipped passes (without that
+// copy) to a counter on the card, which the host reads only when asked.
 
 #include <algorithm>
 #include <cstdint>
@@ -272,13 +279,12 @@ __host__ __device__ inline int64_t head_of(const void* keys, int64_t n) {
 // then a 128-byte line a counter (lines[c x kCounterStride]), then the sync
 // line: the OR of the keys' complements, the OR of the keys, the blocks
 // finished.  words: the AND and the OR; plan: the plan, then the bases.
-// args: the sort's argument block, whose keys and length are the live keys;
-// n: the padded length.
+// args: the sort's argument block, whose keys and length are the live keys.
 template <int kBits>
 __global__ void __launch_bounds__(kThreads)
-    sort_plan_kernel(const grs::SortArgs* __restrict__ args, int64_t n,
-                     uint32_t* __restrict__ words, uint32_t* __restrict__ zeroed, int num_passes,
-                     int32_t* __restrict__ plan, unsigned long long* __restrict__ skipped) {
+    sort_plan_kernel(const grs::SortArgs* __restrict__ args, uint32_t* __restrict__ words,
+                     uint32_t* __restrict__ zeroed, int num_passes, int32_t* __restrict__ plan,
+                     unsigned long long* __restrict__ skipped) {
   using Counters = DigitCounters<kBits>;
   constexpr int kRadix = 1 << kBits;
   __shared__ uint32_t block[Counters::kCounters];
@@ -349,13 +355,11 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!last) return;
 
-  // The last block: every other block's sums are in.  The pad rows are
-  // PAD_KEY, in the last digit of every pass.
+  // The last block: every other block's sums are in.  The pad rows count
+  // in no digit.
   __threadfence();
-  const auto pads = static_cast<uint32_t>(n - live);
   for (int c = threadIdx.x; c < counters; c += kThreads) {
-    totals[c] = grs::load_status(lines + c * kCounterStride) +
-                (c % kRadix == kRadix - 1 ? pads : 0u);
+    totals[c] = grs::load_status(lines + c * kCounterStride);
     counts[c] = totals[c];
   }
   __syncthreads();
@@ -366,7 +370,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (threadIdx.x == 0) {
     all = ~grs::load_status(sync);
-    any = grs::load_status(sync + 1) | (pads != 0u ? grs::kPadKey : 0u);
+    any = grs::load_status(sync + 1);
     words[0] = all;
     words[1] = any;
     write_plan(all, any, num_passes, kBits, plan, skipped);
@@ -381,7 +385,7 @@ void launch_plan(const grs::SortArgs* args, int64_t n, uint32_t* words, uint32_t
   const int64_t blocks = std::clamp<int64_t>((n / 4 + per_block - 1) / per_block, 1,
                                              kMaxPlanBlocks);
   sort_plan_kernel<kBits><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      args, n, words, zeroed, num_passes, plan, skipped);
+      args, words, zeroed, num_passes, plan, skipped);
 }
 
 __global__ void sort_args_kernel(grs::SortArgs* __restrict__ block, grs::SortArgs args) {
@@ -434,16 +438,17 @@ extern "C" int grs_key_bits(const void* keys, int64_t n, void* out, void* plan, 
 
 // A fused sort's plan.  args: the sort's argument block (grs_sort_args,
 // 8-byte aligned), whose keys and length are the live keys; n: the padded
-// length, 0 <= length <= n, the rows from the length on counted as PAD_KEY;
-// out, num_passes and skipped as grs_key_bits' (radix_bits 1, 2 or 4); plan:
-// num_passes int32 set to the plan, then num_passes x radix int32 set to
-// each pass's digit bases (the exclusive prefix of its counts).  zeroed:
-// the start of zeroed_bytes bytes (8-byte aligned) that this call clears on
-// the stream: first num_passes x radix uint32, set to every pass's digit
-// counts over the padded keys (counts[p x radix + r]: keys whose digit p is
-// r), then (kMaxCounters + 1) x kCounterStride uint32 in which the kernel
-// sums them (COUNT_LINES), then whatever the caller wants cleared with them
-// (a fused sort's look-back words).  One memset and one launch, whose grid
+// length, 0 <= length <= n, the rows from the length on pads, which take no
+// part; out, num_passes and skipped as grs_key_bits' (radix_bits 1, 2 or 4),
+// of the live keys; plan: num_passes int32 set to the plan, then
+// num_passes x radix int32 set to each pass's digit bases (the exclusive
+// prefix of its counts).  zeroed: the start of zeroed_bytes bytes (8-byte
+// aligned) that this call clears on the stream: first num_passes x radix
+// uint32, set to every pass's digit counts over the live keys
+// (counts[p x radix + r]: live keys whose digit p is r), then
+// (kMaxCounters + 1) x kCounterStride uint32 in which the kernel sums them
+// (COUNT_LINES), then whatever the caller wants cleared with them (a fused
+// sort's look-back words).  One memset and one launch, whose grid
 // depends on n alone; returns cudaGetLastError() after them.
 extern "C" int grs_sort_plan(const void* args, int64_t n, void* out, void* plan, int num_passes,
                              int radix_bits, void* skipped, void* zeroed, int64_t zeroed_bytes,

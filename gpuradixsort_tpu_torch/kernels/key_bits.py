@@ -35,12 +35,17 @@ A fused sort's per-call inputs, its input keys and index, its result R and
 its live length, reach its kernels through an argument block on the card
 (``SortArgs``, ``sort_args``), written once a sort before the plan, so that
 a cached graph of the sort reads the caller's keys where they lie and
-writes a result the caller owns.  ``sort_plan`` reads only the live keys
-and counts the rows from the length on as pads (PAD_KEY) without reading
-them; the look-back pass reads them as pads too and, where the block names
-no index, makes the index (``kernels/scatter.py``).  The plain versions
-re-pad the keys and make the index with torch (``live_input``), as the JAX
-package does before its sort.
+writes a result the caller owns.  The rows from the length on are pads
+(PAD_KEY, PAD_INDEX): PAD_KEY in every digit and at the tail, so a stable
+pass leaves them where they are, and they have no vote.  ``sort_plan``
+reads and counts only the live keys, and its plan skips every pass whose
+digit is constant over them: a stronger skip than the JAX package's over
+the padded buffer, with the same result, as a stable sort has one answer.
+The look-back pass walks only the partitions that hold live rows, makes
+the index where the block names none, and writes R's pad rows once, in the
+last pass that runs (``kernels/scatter.py``).  The plain versions re-pad
+with torch (``live_input``), as the JAX package does before its sort, and
+walk the same rows.
 """
 
 from __future__ import annotations
@@ -251,7 +256,7 @@ class SortPlan(NamedTuple):
     """A fused sort's plan and digit bases on its keys' device, and its look-back's scratch."""
 
     plan: torch.Tensor  # (num_passes,) int32, as pass_plan's
-    counts: torch.Tensor  # (num_passes, radix) int32: keys whose digit p is r, pads included
+    counts: torch.Tensor  # (num_passes, radix) int32: live keys whose digit p is r
     bases: torch.Tensor  # (num_passes, radix) int32: counts[p, :r].sum()
     lookback: torch.Tensor  # int32: the look-back's status words and tickets
 
@@ -262,6 +267,15 @@ LOOKBACK_PARTITION = 4096  # keys a look-back block takes (csrc/bucketize_scatte
 def lookback_partitions(padded: int) -> int:
     """Partitions of a look-back pass over ``padded`` keys; the last may be ragged."""
     return -(-padded // LOOKBACK_PARTITION)
+
+
+def lookback_rows(length: int, padded: int) -> int:
+    """Rows a look-back pass walks of ``padded`` keys of which ``length`` are live.
+
+    Its live partitions': the length rounded up to a partition, at most the
+    padded length.  The rows past them are pads, which it does not read.
+    """
+    return min(padded, lookback_partitions(length) * LOOKBACK_PARTITION)
 
 
 def lookback_words(num_tiles: int, cfg: EngineConfig) -> int:
@@ -317,9 +331,9 @@ def sort_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
 
     ``keys``: a padded buffer (a whole number of tiles), digits of 1, 2 or 4
     bits; its rows from ``length`` (all of them by default) on are pad
-    rows, counted as PAD_KEY whatever they hold.  Reads the live keys once
-    for the plan (``pass_plan``'s of the re-padded buffer, whose skipped
-    passes it adds to ``skipped`` alike) and for every pass's digit counts,
+    rows, which take no part, whatever they hold.  Reads the live keys once
+    for the plan (``pass_plan``'s of the live keys, whose skipped passes it
+    adds to ``skipped`` alike) and for every pass's digit counts over them,
     then writes each pass's bases, and clears the look-back's scratch for a
     sort's passes, each of which it serves once.  On the card one memset and
     one launch of ``csrc/key_bits.cu`` and nothing read back; the kernel
@@ -335,9 +349,9 @@ def sort_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
         raise ValueError(f"skipped must be an int64 tensor of shape (1,) on {keys.device}")
     passes, radix = cfg.num_passes, cfg.radix
     if resolve_impl(keys, impl) == "reference":
-        keys, _ = live_input(keys, None, length)
-        counts = _digit_counts_ref(keys, cfg)
-        return SortPlan(pass_plan(keys, cfg, skipped, impl="reference"), counts,
+        live = keys[:length]
+        counts = _digit_counts_ref(live, cfg)
+        return SortPlan(pass_plan(live, cfg, skipped, impl="reference"), counts,
                         _digit_bases_ref(counts),
                         torch.zeros(lookback_words(num_tiles, cfg), dtype=torch.int32,
                                     device=keys.device))

@@ -26,8 +26,9 @@ bucketize_scatter``) also take the sort's pass plan
 a pass number and the sort's two buffers, its result R and its scratch S:
 the plan says on the device whether the pass runs, which buffer it reads
 and which it writes, so the host never reads it.  ``check_plan`` and
-``planned_route`` serve both wrappers; with ``key_bits.plan_of_mask`` they
-are the only host code that knows the plan's encoding.
+``planned_route`` serve both wrappers (``last_planned`` the look-back
+pass's plain version); with ``key_bits.plan_of_mask`` they are the only
+host code that knows the plan's encoding.
 """
 
 from __future__ import annotations
@@ -130,6 +131,14 @@ def planned_route(plan: torch.Tensor | None, pass_index: int, buffers: tuple):
         return buffers[0], buffers[1]
     entry = int(plan[pass_index])
     return None if entry == PLAN_SKIP else (buffers[entry & 3], buffers[entry >> 2])
+
+
+def last_planned(plan: torch.Tensor | None, pass_index: int) -> bool:
+    """Whether no pass after ``pass_index`` runs (a launch without a plan is its own last).
+
+    Reads the plan back, as only a plain version does.
+    """
+    return plan is None or all(e == PLAN_SKIP for e in plan[pass_index + 1:].tolist())
 
 
 def data_ptr(t: torch.Tensor | None):

@@ -33,11 +33,17 @@ offsets table, stays as the counterpart of the JAX package's pass.
 
 The look-back pass reads the sort's input and writes its result R where the
 sort's argument block says (``key_bits.sort_args``), so one graph serves
-every call of a shape.  Where it reads the input, the rows from the sort's
+every call of a shape.  In every buffer it reads, the rows from the sort's
 live length on are pad rows (PAD_KEY, PAD_INDEX), and with no index given
-it makes the index: the JAX package's re-padding and index column, with no
-pass over the buffer.  The plain version builds both with torch
-(``key_bits.live_input``) and runs the pass on them.
+it makes the input's: the JAX package's re-padding and index column, with
+no pass over the buffer.  Pads stay at the tail in every pass, so a pass
+walks only the live partitions (``key_bits.lookback_rows``) and writes its
+destination's live rows; the last pass that runs also writes R's rows from
+the length on as pads, once a sort.  An eager launch's grid covers the
+host's live length (and a wave of blocks for that fill); one captured in a
+CUDA graph covers the padded length, so that its replays serve every live
+length.  The plain version builds the input with torch
+(``key_bits.live_input``), runs the pass on it and writes the same rows.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from gpuradixsort_tpu_torch.kernels.radix import (
     check_keys,
     check_plan,
     data_ptr,
+    last_planned,
     planned_route,
 )
 
@@ -279,11 +286,14 @@ def bucketize_scatter_lookback(
     of hist over the tiles: where ``state`` is the ``sort_plan`` of keys with
     the same multiset, as in a sort, that is ``global_offsets(hist)``.
 
-    Where the pass reads the input (``keys``, ``idx``), its rows from
-    ``length`` (all of them by default) on read as (PAD_KEY, PAD_INDEX), and
-    with ``idx`` None element e's index is e: the input of
-    ``key_bits.live_input(keys, idx, length)``, as ``sort_plan(keys, cfg,
-    skipped, length=length)`` counts it.
+    In whatever buffer the pass reads, the input (``keys``, ``idx``), R or
+    S, its rows from ``length`` (all of them by default) on read as
+    (PAD_KEY, PAD_INDEX), and with ``idx`` None the input's element e's
+    index is e: the input of ``key_bits.live_input(keys, idx, length)``, as
+    ``sort_plan(keys, cfg, skipped, length=length)`` counts it.  The pass
+    writes its destination's rows below ``length``; the last pass the plan
+    runs, and a call without ``buffers``, also write the rows from there on
+    as pads.
 
     ``state``'s look-back scratch serves each pass index once: a launch
     leaves that pass's tickets and status words used (``sort_plan`` clears
@@ -294,7 +304,9 @@ def bucketize_scatter_lookback(
     length and R from ``block``, the sort's argument block of them
     (``key_bits.sort_args``), which this call writes itself (one more
     launch) where it is None; a block comes with ``buffers``, whose R it
-    names.
+    names.  An eager launch's grid covers ``length``, which must be the
+    block's; one made while the stream captures a CUDA graph covers every
+    row, so that the graph serves any length the block holds.
     """
     if cfg.radix > _MAX_FUSED_RADIX:
         raise ValueError("bucketize_scatter_lookback supports radix <= 16")
@@ -313,13 +325,13 @@ def bucketize_scatter_lookback(
     if resolve_impl(keys, impl) == "reference":
         if buffers is None:
             return _lookback_pass_ref(*live_input(keys, idx, length), state, pass_index, cfg)
-        route = planned_route(state.plan, pass_index, (None, *buffers))
+        route = planned_route(state.plan, pass_index, ((keys, idx), *buffers))
         if route is not None:
             source, destination = route
-            if source is None:  # the input
-                source = live_input(keys, idx, length)
-            for dst, src in zip(destination, _lookback_pass_ref(*source, state, pass_index, cfg)):
-                dst.copy_(src)
+            rows = keys.numel() if last_planned(state.plan, pass_index) else length
+            out = _lookback_pass_ref(*live_input(*source, length), state, pass_index, cfg)
+            for dst, src in zip(destination, out):
+                dst[:rows].copy_(src[:rows])
         return None
     if buffers is None:
         out, scratch, plan = (torch.empty_like(keys), torch.empty_like(keys)), (None, None), None
@@ -328,10 +340,12 @@ def bucketize_scatter_lookback(
     if block is None:
         block = sort_args(SortArgs(keys, idx, out, length))
     check_block(block, keys)
+    rows = keys.numel() if torch.cuda.is_current_stream_capturing() else length
     launch(
         "grs_lookback_scatter", keys, block.data_ptr(), *map(data_ptr, scratch), keys.numel(),
-        pass_index * cfg.radix_bits, cfg.radix, data_ptr(plan), pass_index,
-        state.bases.data_ptr(), state.lookback.data_ptr(), state.lookback.numel(),
+        rows, pass_index * cfg.radix_bits, cfg.radix, data_ptr(plan), pass_index,
+        cfg.num_passes, state.bases.data_ptr(), state.lookback.data_ptr(),
+        state.lookback.numel(),
     )
     bucketize_scatter_lookback.launches += 1
     return None if buffers is not None else out

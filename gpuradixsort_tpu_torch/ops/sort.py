@@ -39,8 +39,11 @@ nothing in or out and serves every live length of a padded shape, the
 first pass that reads the input makes the index and reads the rows past
 the length as pads, and no torch pass over the buffer re-pads the keys or
 makes the index: the JAX package's ``jnp.where`` and ``jnp.arange``, which
-the plain versions still run.  The radix and torch methods make the index
-column and re-pad with torch, as before.
+the plain versions still run.  The pads have no vote in the plan and ride
+no pass: a pass walks only the partitions that hold live rows, and the
+last one that runs writes R's pad rows once.  The radix and torch methods
+make the index column and re-pad with torch, as before, and walk the whole
+padded buffer.
 
 On CUDA tensors every pass runs the CUDA kernels; on CPU tensors their plain
 versions.  Nothing but ``"torch"`` calls ``torch.sort``.
@@ -68,7 +71,13 @@ from gpuradixsort_tpu_torch.core.table import (
     uint32_as_int32,
 )
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
-from gpuradixsort_tpu_torch.kernels.key_bits import ARGS_WORDS, SortArgs, sort_args, sort_plan
+from gpuradixsort_tpu_torch.kernels.key_bits import (
+    ARGS_WORDS,
+    SortArgs,
+    lookback_rows,
+    sort_args,
+    sort_plan,
+)
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter_lookback
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
@@ -82,13 +91,15 @@ def _fused_passes(args: SortArgs, cfg: EngineConfig, skipped: torch.Tensor,
     """The fused sort of ``args`` with no host sync: the pass plan, then every pass as it routes.
 
     ``sort_plan`` reads the live keys once: it decides on the device which
-    passes run, as the JAX package's per-pass ``lax.cond`` does, adds the
+    passes run, those whose digit varies over the live keys (the JAX
+    package's per-pass ``lax.cond`` asks it of the padded buffer), adds the
     skipped ones to ``skipped``, counts every pass's digits and clears the
     look-back's scratch.  Each pass is one ``bucketize_scatter_lookback``
-    launch, which in a skipped pass exits at once, so the pass moves no
-    key.  A pass cannot scatter into the buffer it reads, so the passes
-    that run ping-pong between the result R (``args.result``) and a scratch
-    buffer S, as the plan names them: the first reads the input, which is
+    launch over the live partitions, which in a skipped pass exits at once,
+    so the pass moves no key; the last that runs writes R's pad rows.  A
+    pass cannot scatter into the buffer it reads, so the passes that run
+    ping-pong between the result R (``args.result``) and a scratch buffer
+    S, as the plan names them: the first reads the input, which is
     never written, and the last writes R.  On the card every launch reads
     the input, the length and R from ``block``, the argument block of
     ``args`` (``sort_args``), written here where None; the plain versions
@@ -425,10 +436,14 @@ def _sort_column(col: Column, cfg: EngineConfig, method: str):
 
     The fused sort takes the buffer and its length as they are; the radix
     and torch methods sort the re-padded buffer (``_repadded``) with the
-    index column.  Counts the sort's rows (``trace.rows``).
+    index column.  Counts the sort's live rows and the rows its passes walk
+    (``trace.rows``): the fused sort's live partitions, the others' whole
+    buffer.
     """
-    trace.rows("sort", col.length, col.padded_length)
-    if method == "fused":
+    fused = method == "fused"
+    trace.rows("sort", col.length,
+               lookback_rows(col.length, col.padded_length) if fused else col.padded_length)
+    if fused:
         return _fused_sort_live(col.data, col.length, cfg)
     col = _repadded(col)
     idx = _index_column(col)

@@ -85,7 +85,9 @@ def profiled_device_ms(fn: Callable[[], object], calls: int = 20) -> tuple[float
 
     Counts only the rows that have device time and no host time of their
     own (kernels, copies, memsets), so it leaves out the host gaps that
-    CUDA-event times include.  On the H100 the profiler drops the records of
+    CUDA-event times include, and not the spans' user annotations on the
+    device's timeline (``grs.sort``, ...), which cover kernels counted
+    already.  On the H100 the profiler drops the records of
     a profile's first device activities while it records every launch: at
     times the first one, and in a process that has sorted 2^26 keys the
     first three, however long the first one runs.  So each profile opens
@@ -105,7 +107,8 @@ def profiled_device_ms(fn: Callable[[], object], calls: int = 20) -> tuple[float
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.self_cpu_time_total == 0
-                  and e.self_device_time_total > 0 and _MARKER not in e.key]
+                  and e.self_device_time_total > 0 and _MARKER not in e.key
+                  and not e.is_user_annotation]
         if events and all(e.count % calls == 0 for e in events):
             rows = {e.key: e.self_device_time_total / calls / 1e3 for e in events}
             return sum(rows.values()), rows

@@ -1,31 +1,45 @@
 #!/usr/bin/env python3
-"""Time the fused sort's two kernels, sort_plan and the look-back pass, beside an older build.
+"""Time the fused sort's kernels, sort_plan and the look-back pass, beside an older build.
 
     python3 kernel_ab.py [--old DIR] [--ptxas] [--out FILE]
 
 A fused sort is one ``sort_plan`` (``csrc/key_bits.cu``: the key read with
 every pass's digit counts, the plan and the bases) and one look-back pass a
 pass (``csrc/bucketize_scatter.cu``, ``grs_lookback_scatter``).  On one
-CUDA card, at 1,000,000, 2^24 and 100,000,000 keys (padded as the sorts pad
-them), random and skewed (one key holding 99%): device time per call
-(torch.profiler, 20 back-to-back calls) of each kernel, beside its bound
-(``bench.stage_work``'s bytes at 3.35 TB/s) and share of that bound.
+CUDA card, device time per call (torch.profiler, 20 back-to-back calls) of
+each, beside its bound (``bench.stage_work``'s bytes at 3.35 TB/s) and
+share of that bound:
+
+- every row live, at 1,000,000, 2^24 and 100,000,000 keys (padded as the
+  sorts pad them), random and skewed (one key holding 99%): ``sort_plan``
+  and the look-back pass (pass 0 of a radix-16 sort, unplanned);
+- 2^24 and 100,000,000 padded keys, random, of which 1%, 50% and 100% are
+  live, the rows past the length stale: ``sort_plan``, the look-back pass
+  as the last pass of a sort (unplanned: it walks the live partitions and
+  writes the pad rows), the look-back pass as a pass that a later one
+  follows (pass 0 of a plan that runs all 8: the live partitions alone),
+  and the whole sort (argument block, plan and passes, every device row).
+
 ``sort_plan`` counts its memsets with its kernels, and reads its keys
 through an argument block written once before the turns, as a sort writes
-one a sort; the look-back pass is timed on pass 0 of a radix-16 sort, its
-kernel's own device time, its scratch cleared before each launch.
+one a sort; the look-back pass is timed by its kernel's own device time,
+its scratch cleared before each launch.  A case's bound counts the live
+rows (``stage_work`` of the live length).
 
-``--old DIR`` builds an older copy of ``csrc/`` (that of commit 3090bf7,
-whose ``grs_sort_plan`` and ``grs_lookback_scatter`` take the keys, the
-index and the output as launch arguments) into ``build/kernels_old/`` and
-times it on the same input in mirrored turns (new, old, old, new); every
-output is checked equal to the other side's and, at 1M and 2^24, the
-look-back pass to its plain version.  ``--ptxas`` prints nvcc's register,
-shared-memory and spill report of both kernels' sources (and the older
-ones) and the resident warps an SM that follow.  The card's name and power
-limit and one JSON line of every number end the output; ``--out`` also
-writes that JSON to a file.  The A/B of the table-reading pass at each
-block size is ``kernel_ab.py`` of commit b055d90.
+``--old DIR`` builds an older copy of ``csrc/`` whose entry points read an
+argument block (e.g. the parent commit's: ``git archive <commit>
+gpuradixsort_tpu_torch/csrc | tar -x -C chip_scratch/parent``) into
+``build/kernels_old/`` and times it on the same input in mirrored turns
+(new, old, old, new); every output is checked equal to the other side's
+(where the new build writes fewer rows, a pass that a later one follows,
+over the live rows it writes) and, up to 2^24 keys, the look-back pass to its
+plain version.  ``--ptxas`` prints nvcc's register, shared-memory and spill
+report of both kernels' sources (and the older ones) and the resident
+warps an SM that follow.  The card's name and power limit and one JSON line
+of every number end the output; ``--out`` also writes that JSON to a file.
+The A/B of the table-reading pass at each block size is ``kernel_ab.py`` of
+commit b055d90; that against the buffers-as-arguments build, of 3090bf7,
+is this script at commit 92b3e3f.
 """
 
 from __future__ import annotations
@@ -43,23 +57,28 @@ import torch
 
 from gpuradixsort_tpu_torch.bench import stage_work
 from gpuradixsort_tpu_torch.config import PAD_INDEX, EngineConfig
-from gpuradixsort_tpu_torch.core.table import int32_bits, make_key_column, pad_to_tile
+from gpuradixsort_tpu_torch.core.table import int32_bits, make_key_column, pad_to_tile, round_up
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import key_bits as kb
 from gpuradixsort_tpu_torch.kernels import scatter as scatter_kernels
+from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.utils.timing import bound_of, card_line, profiled_device_ms
 
 SEED = 20170101
 OLD_BUILD = pathlib.Path(__file__).resolve().parent / "build" / "kernels_old"
 SIZES = {"1M": 1_000_000, "2^24": 1 << 24, "100M": 100_000_000}
 KINDS = ("random", "skewed")
+LIVE_SIZES = ("2^24", "100M")
+LIVE_SHARES = (0.01, 0.5, 1.0)
 PLAIN_UP_TO = 1 << 24  # the look-back pass is also held to its plain version up to here
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# The older build's entry points (commit 3090bf7).
+# The older build's entry points (those of commit 92b3e3f).
 OLD_SIGNATURES = {
+    "grs_sort_args": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     "grs_sort_plan": [_P, _I64, _P, _P, _I, _I, _P, _P, _I64, _P],
-    "grs_lookback_scatter": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P, _I, _P, _P, _I64, _P],
+    "grs_lookback_scatter": [_P, _P, _P, _I64, _I, _I, _P, _I, _P, _P, _I64, _P],
 }
+ALL_RUN = kb.plan_of_mask((1 << 8) - 1, 8)  # every pass runs: pass 0 reads the input into S
 
 
 def log(msg: str) -> None:
@@ -76,19 +95,24 @@ def call(lib, name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
+def pair_like(keys: torch.Tensor) -> tuple:
+    return torch.empty_like(keys), torch.empty_like(keys)
+
+
 class New:
     """This build: sort_plan's state and the look-back pass, as the wrappers launch them."""
 
     label = "new"
 
-    def __init__(self, keys: torch.Tensor, cfg: EngineConfig):
-        self.keys, self.cfg = keys, cfg
+    def __init__(self, keys: torch.Tensor, cfg: EngineConfig, length: int):
+        self.keys, self.cfg, self.length = keys, cfg, length
         self.skipped = torch.zeros(1, dtype=torch.int64, device=keys.device)
-        self.block = kb.sort_args(kb.SortArgs(keys, None, (None, None), keys.numel()))
+        self.block = kb.sort_args(kb.SortArgs(keys, None, (None, None), length))
         self.plan()
 
     def plan(self):
-        self.state = kb.sort_plan(self.keys, self.cfg, self.skipped, block=self.block)
+        self.state = kb.sort_plan(self.keys, self.cfg, self.skipped, length=self.length,
+                                  block=self.block)
         return self.state
 
     def tables(self) -> list[torch.Tensor]:
@@ -98,26 +122,52 @@ class New:
         self.state.lookback.zero_()
 
     def lookback(self, idx: torch.Tensor):
-        return scatter_kernels.bucketize_scatter_lookback(self.keys, idx, self.cfg, self.state, 0)
+        """Pass 0 unplanned, a new output: a sort's last pass."""
+        return scatter_kernels.bucketize_scatter_lookback(self.keys, idx, self.cfg, self.state, 0,
+                                                          length=self.length)
+
+    def followed(self, idx: torch.Tensor, buffers: tuple, block: torch.Tensor):
+        """Pass 0 of a plan that runs every pass, into S of ``buffers`` (R, S)."""
+        state = self.state._replace(plan=torch.tensor(ALL_RUN, dtype=torch.int32,
+                                                      device=self.keys.device))
+        scatter_kernels.bucketize_scatter_lookback(self.keys, idx, self.cfg, state, 0, buffers,
+                                                   length=self.length, block=block)
+
+    def block_of(self, idx, result) -> torch.Tensor:
+        return kb.sort_args(kb.SortArgs(self.keys, idx, result, self.length))
+
+    def sort(self, idx: torch.Tensor, result: tuple):
+        """The whole fused sort, eager: argument block, plan and passes into ``result``."""
+        return sort_ops._fused_passes(kb.SortArgs(self.keys, idx, result, self.length), self.cfg,
+                                      self.skipped)
 
 
 class Old:
-    """The older build: the same state layout, the buffers passed at each launch."""
+    """The older build: the same state layout and argument block, its passes over every row."""
 
     label = "old"
 
-    def __init__(self, lib: ctypes.CDLL, keys: torch.Tensor, cfg: EngineConfig):
-        self.lib, self.keys, self.cfg = lib, keys, cfg
+    def __init__(self, lib: ctypes.CDLL, keys: torch.Tensor, cfg: EngineConfig, length: int):
+        self.lib, self.keys, self.cfg, self.length = lib, keys, cfg, length
         self.at = kb.state_layout(keys.numel() // cfg.tile, cfg)
         self.state = torch.empty(self.at["total"], dtype=torch.int32, device=keys.device)
         self.skipped = torch.zeros(1, dtype=torch.int64, device=keys.device)
+        self.block = self.block_of(None, (None, None))
         self.plan()
 
-    def plan(self):
+    def block_of(self, idx, result) -> torch.Tensor:
+        block = torch.empty(kb.ARGS_WORDS, dtype=torch.int64, device=self.keys.device)
+        ptr = [None if t is None else t.data_ptr() for t in (idx, *result)]
+        call(self.lib, "grs_sort_args", block.data_ptr(), self.keys.data_ptr(), *ptr, self.length,
+             self.keys.numel())
+        return block
+
+    def plan(self, block: torch.Tensor | None = None):
         s, cfg, zeroed = self.state, self.cfg, self.at["counts"].start
-        call(self.lib, "grs_sort_plan", self.keys.data_ptr(), self.keys.numel(), s.data_ptr(),
-             s[self.at["plan"]].data_ptr(), cfg.num_passes, cfg.radix_bits,
-             self.skipped.data_ptr(), s[zeroed:].data_ptr(), 4 * (s.numel() - zeroed))
+        call(self.lib, "grs_sort_plan", (self.block if block is None else block).data_ptr(),
+             self.keys.numel(), s.data_ptr(), s[self.at["plan"]].data_ptr(), cfg.num_passes,
+             cfg.radix_bits, self.skipped.data_ptr(), s[zeroed:].data_ptr(),
+             4 * (s.numel() - zeroed))
         return s
 
     def tables(self) -> list[torch.Tensor]:
@@ -128,14 +178,30 @@ class Old:
     def clear(self) -> None:
         self.state[self.at["lookback"]].zero_()
 
-    def lookback(self, idx: torch.Tensor):
+    def _pass(self, block, scratch, plan, p) -> None:
         cfg, s = self.cfg, self.state
-        out = (torch.empty_like(self.keys), torch.empty_like(idx))
         lookback = s[self.at["lookback"]]
-        call(self.lib, "grs_lookback_scatter", self.keys.data_ptr(), idx.data_ptr(),
-             out[0].data_ptr(), out[1].data_ptr(), None, None, self.keys.numel(), 0, cfg.radix,
-             None, 0, s[self.at["bases"]].data_ptr(), lookback.data_ptr(), lookback.numel())
+        call(self.lib, "grs_lookback_scatter", block.data_ptr(),
+             *(None if t is None else t.data_ptr() for t in scratch), self.keys.numel(),
+             p * cfg.radix_bits, cfg.radix, None if plan is None else plan.data_ptr(), p,
+             s[self.at["bases"]].data_ptr(), lookback.data_ptr(), lookback.numel())
+
+    def lookback(self, idx: torch.Tensor):
+        out = pair_like(self.keys)
+        self._pass(self.block_of(idx, out), (None, None), None, 0)
         return out
+
+    def followed(self, idx: torch.Tensor, buffers: tuple, block: torch.Tensor):
+        plan = torch.tensor(ALL_RUN, dtype=torch.int32, device=self.keys.device)
+        self._pass(block, buffers[1], plan, 0)
+
+    def sort(self, idx: torch.Tensor, result: tuple):
+        block = self.block_of(idx, result)
+        self.plan(block)
+        scratch = pair_like(self.keys)
+        for p in range(self.cfg.num_passes):
+            self._pass(block, scratch, self.state[self.at["plan"]], p)
+        return result
 
 
 def same(a, b) -> bool:
@@ -210,14 +276,39 @@ def keys_of(rng, n: int, kind: str) -> np.ndarray:
     return keys
 
 
-def measure(rng, results: dict, old: ctypes.CDLL | None) -> None:
+def turns_of(fns: dict, only: str | None) -> dict:
+    """Device µs a call of each side in mirrored turns (new, old, old, new)."""
+    turns = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        turns[name].append(device_us(fns[name], only))
+    return turns
+
+
+def record(results: dict, key: str, turns: dict, bound: float, padded: int, live: int) -> None:
+    row = {name: float(np.median([t for t in ts if t] or [0.0])) for name, ts in turns.items()}
+    results[key] = {**row, "turns": turns, "bound_us": bound, "padded": padded, "live": live}
+    log(f"{key} ({padded} keys, {live} live): device us per call, median of mirrored turns: "
+        + ", ".join(f"{k} {fmt(v)} (share of bound {fmt(bound / v if v else 0, 3)})"
+                    for k, v in row.items()) + f"; bound {bound:.2f} us")
+
+
+def stale_keys(rng, n: int, length: int, kind: str) -> torch.Tensor:
+    """``n`` keys of ``kind`` below ``length``, stale small keys past it, on the card."""
+    buf = rng.integers(0, 1 << 16, n, dtype=np.uint32)
+    buf[:length] = keys_of(rng, length, kind)
+    return torch.from_numpy(buf).cuda()
+
+
+def measure_all_live(rng, results: dict, old: ctypes.CDLL | None) -> None:
+    """sort_plan and the look-back pass with every row live (the kernel table's rows)."""
     cfg = EngineConfig()
     for label, n in SIZES.items():
         for kind in KINDS:
             keys = make_key_column(keys_of(rng, n, kind), cfg).data
             idx = pad_to_tile(torch.arange(n, dtype=torch.int32, device=keys.device)
                               .view(torch.uint32), cfg, PAD_INDEX)
-            sides = [New(keys, cfg)] + ([Old(old, keys, cfg)] if old is not None else [])
+            padded = keys.numel()
+            sides = [New(keys, cfg, padded)] + ([Old(old, keys, cfg, padded)] if old else [])
             got = [side.lookback(idx) for side in sides]
             where = f"{label} {kind}"
             if old is not None:
@@ -225,41 +316,85 @@ def measure(rng, results: dict, old: ctypes.CDLL | None) -> None:
                                                      sides[0].tables(), sides[1].tables())
                           if not torch.equal(a, b)]
                 if differ:
-                    want = kb.sort_plan(keys, cfg, torch.zeros_like(sides[0].skipped),
-                                        impl="reference")
-                    wrong = {s.label: [name for name, a, b in zip(
-                        ("plan", "counts", "bases"), s.tables(), want[:3]) if not torch.equal(a, b)]
-                        for s in sides}
-                    raise SystemExit(f"sort_plan {where}: the two builds differ in {differ}; "
-                                     f"unequal to the plain version: {wrong}")
+                    raise SystemExit(f"sort_plan {where}: the two builds differ in {differ}")
                 if not same(*got):
                     raise SystemExit(f"look-back pass {where}: the two builds differ")
-            if keys.numel() <= PLAIN_UP_TO:
+            if padded <= PLAIN_UP_TO:
                 want = scatter_kernels.bucketize_scatter_lookback(
                     keys, idx, cfg, sides[0].state, 0, impl="reference")
                 if not same(got[0], want):
                     raise SystemExit(f"look-back pass {where}: differs from the plain version")
                 del want
             del got
-            work = stage_work(keys.numel(), cfg)
+            work = stage_work(padded, cfg)
             for kernel, fns, only in (
                     ("sort_plan", {s.label: s.plan for s in sides}, None),
                     ("lookback", {s.label: (lambda s=s: (s.clear(), s.lookback(idx)))
                                   for s in sides}, "lookback_scatter")):
-                turns = {name: [] for name in fns}
-                for name in list(fns) + list(fns)[::-1]:  # mirrored turns
-                    turns[name].append(device_us(fns[name], only))
-                row = {name: float(np.median([t for t in ts if t] or [0.0]))
-                       for name, ts in turns.items()}
                 stage = "sort_plan" if kernel == "sort_plan" else "bucketize_scatter_lookback"
-                bound = bound_of(*work[stage])[0] * 1e3
-                results[f"{kernel} @ {label} {kind}"] = {
-                    **row, "turns": turns, "bound_us": bound, "padded": keys.numel()}
-                log(f"{kernel} @ {label} {kind} ({keys.numel()} keys): device us per call, "
-                    "median of mirrored turns: " + ", ".join(
-                        f"{k} {fmt(v)} (share of bound {fmt(bound / v if v else 0, 3)})"
-                        for k, v in row.items()) + f"; bound {bound:.2f} us")
+                record(results, f"{kernel} @ {where}", turns_of(fns, only),
+                       bound_of(*work[stage])[0] * 1e3, padded, padded)
             del keys, idx, sides
+            torch.cuda.empty_cache()
+
+
+def measure_live_shares(rng, results: dict, old: ctypes.CDLL | None) -> None:
+    """The fused sort's kernels on padded buffers of which a share is live, rows past it stale."""
+    cfg = EngineConfig()
+    for label in LIVE_SIZES:
+        n = round_up(SIZES[label], cfg.block)
+        for share in LIVE_SHARES:
+            length = int(n * share)
+            keys = stale_keys(rng, n, length, "random")
+            idx = torch.from_numpy(rng.permutation(n).astype(np.uint32)).cuda()
+            where = f"{label} padded, {share:.0%} live"
+            sides = [New(keys, cfg, length)] + ([Old(old, keys, cfg, length)] if old else [])
+            # Each side's outputs: the last pass, the pass a later one follows, the sort.
+            outs = []
+            for side in sides:
+                buffers = (pair_like(keys), pair_like(keys))
+                side.clear()
+                side.followed(idx, buffers, side.block_of(idx, buffers[0]))
+                side.clear()
+                outs.append((side.lookback(idx), buffers[1], side.sort(idx, pair_like(keys))))
+            live_keys, live_idx = kb.live_input(keys, idx, length)
+            order = torch.sort(int32_bits(live_keys).to(torch.int64) & 0xFFFFFFFF,
+                               stable=True).indices
+            if not same(outs[0][2], (int32_bits(live_keys)[order], int32_bits(live_idx)[order])):
+                raise SystemExit(f"fused sort {where}: not the stable sort of the live keys")
+            if old is not None:
+                (last, followed, result), (old_last, old_followed, old_result) = outs
+                if not (same(last, old_last) and same(result, old_result)
+                        and same([t[:length] for t in followed],
+                                 [t[:length] for t in old_followed])):
+                    raise SystemExit(f"{where}: the two builds differ")
+            del outs
+            work = stage_work(round_up(max(length, 1), cfg.tile), cfg)
+            lookback_bytes = work["bucketize_scatter_lookback"][0]
+            pads = 8 * (n - length)
+            result = pair_like(keys)
+
+            def sort_of(side):
+                return lambda: side.sort(idx, result)
+
+            def followed_of(side):
+                buffers = (result, pair_like(keys))
+                block = side.block_of(idx, result)
+                return lambda: (side.clear(), side.followed(idx, buffers, block))
+
+            for kernel, fns, only, nbytes in (
+                    ("sort_plan", {s.label: s.plan for s in sides}, None,
+                     work["sort_plan"][0]),
+                    ("lookback last pass", {s.label: (lambda s=s: (s.clear(), s.lookback(idx)))
+                                            for s in sides}, "lookback_scatter",
+                     lookback_bytes + pads),
+                    ("lookback followed pass", {s.label: followed_of(s) for s in sides},
+                     "lookback_scatter", lookback_bytes),
+                    ("fused sort", {s.label: sort_of(s) for s in sides}, None,
+                     12 * length + pads)):
+                record(results, f"{kernel} @ {where}", turns_of(fns, only),
+                       bound_of(nbytes, 0)[0] * 1e3, n, length)
+            del keys, idx, sides, result
             torch.cuda.empty_cache()
 
 
@@ -281,7 +416,8 @@ def main() -> int:
         results["ptxas"] = {"new": ptxas_report("new", _build._CSRC)}
         if args.old:
             results["ptxas"]["old"] = ptxas_report("old", args.old)
-    measure(np.random.default_rng(SEED), results, old)
+    measure_all_live(np.random.default_rng(SEED), results, old)
+    measure_live_shares(np.random.default_rng(SEED + 1), results, old)
     text = json.dumps(results)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

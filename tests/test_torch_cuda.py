@@ -598,20 +598,24 @@ def test_fused_sort_of_skewed_and_large_inputs(kind, card, gen):
 def test_rejected_lookback_and_count_launches_raise(card):
     # Refused arguments of the three entry points of a fused sort raise, and
     # nothing falls back: a look-back scratch off an 8-byte boundary or too
-    # short, no bases, an argument block off an 8-byte boundary or missing;
-    # counts asked of 8-bit digits; an argument block's length past the
-    # padded keys, or a block or keys off their boundaries.
+    # short, no bases, an argument block off an 8-byte boundary or missing,
+    # a grid's live rows past the padded keys; counts asked of 8-bit digits;
+    # an argument block's length past the padded keys, or a block or keys
+    # off their boundaries.
     keys = torch.zeros(CFG.block, dtype=torch.int32, device=card).view(torch.uint32)
     out = torch.empty_like(keys)
     block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (out, out.clone()), 5))
     state = torch.zeros(8192, dtype=torch.int32, device=card)
-    for args, bases, lookback, words in ((block, state, state[1:], 4096),
-                                         (block, None, state, 4096), (block, state, state, 8),
-                                         (state[1:], state, state, 4096),
-                                         (None, state, state, 4096)):
+    n = keys.numel()
+    for args, bases, lookback, words, rows in ((block, state, state[1:], 4096, n),
+                                               (block, None, state, 4096, n),
+                                               (block, state, state, 8, n),
+                                               (state[1:], state, state, 4096, n),
+                                               (None, state, state, 4096, n),
+                                               (block, state, state, 4096, n + 1)):
         with pytest.raises(RuntimeError, match="grs_lookback_scatter"):
-            _build.launch("grs_lookback_scatter", keys, tradix.data_ptr(args), None, None,
-                          keys.numel(), 0, CFG.radix, None, 0, tradix.data_ptr(bases),
+            _build.launch("grs_lookback_scatter", keys, tradix.data_ptr(args), None, None, n,
+                          rows, 0, CFG.radix, None, 0, CFG.num_passes, tradix.data_ptr(bases),
                           lookback.data_ptr(), words)
     skipped = torch.zeros(1, dtype=torch.int64, device=card)
     for args, bits in ((block, 8), (state[1:], 4)):
@@ -705,15 +709,17 @@ def test_one_graph_serves_every_varying_digit(card, gen):
 
 def test_skipped_passes_are_counted_on_the_card(card, gen):
     # The plan kernel adds each sort's skipped passes to the device counter,
-    # in the eager loop and in every replay.
+    # in the eager loop and in every replay.  The pads have no vote: keys
+    # below 2^12 skip passes 3-7 with pad rows behind them as without.
     tsort.clear_sort_graphs()
-    keys, idx = _sort_input(gen, card, 2 * CFG.block - 5, 2**12)  # with PAD_KEY every digit varies
+    length = 2 * CFG.block - 5
+    keys, idx = _sort_input(gen, card, length, 2**12)
     flat = torch.from_numpy(gen.integers(0, 2**12, 2 * CFG.block, dtype=np.uint32)).to(card)
     before = tsort.skipped_passes()
     for _ in range(3):
-        _graphed_passes(keys, idx)
+        tsort._fused_sort(keys, idx, length, CFG)
         _graphed_passes(flat, idx)  # passes 3-7 constant
-    assert tsort.skipped_passes() - before == 3 * 5
+    assert tsort.skipped_passes() - before == 3 * 10
     tsort.clear_sort_graphs()
 
 
@@ -1029,6 +1035,45 @@ def test_lookback_at_live_lengths_matches_plain(bits, card, gen):
                            for g, w in zip(got, w_pair)), (*where, p)
             live = tkey_bits.live_input(keys, idx, length)
             assert all(_same(g, w) for g, w in zip(pairs[0], _stable_sort(*live))), where
+
+
+def _sentinel_pair(keys):
+    """A result R (keys, idx) of ``keys``' shape, every row 0x5EED5EED: a sort must write each."""
+    return tuple(torch.full(keys.shape, 0x5EED5EED, dtype=torch.int32, device=keys.device)
+                 .view(torch.uint32) for _ in range(2))
+
+
+@pytest.mark.parametrize("where", ["graphed", "eager above GRAPH_MAX_PADDED"])
+def test_sorts_kernels_write_every_pad_row(where, card, gen):
+    # R filled with a sentinel before each call, so R's pad rows hold
+    # (PAD_KEY, PAD_INDEX) only where the sort's own kernels wrote them: one
+    # padded shape sorted at live lengths from none to all, its rows past
+    # each length stale, the index made and given; the eager loop against
+    # torch.sort(stable=True) of the re-padded input, and (within
+    # GRAPH_MAX_PADDED) one graph, captured once, replayed at every length
+    # against the eager result.  Above GRAPH_MAX_PADDED the eager launches'
+    # grid covers the host's live length and a wave of blocks for the pads.
+    part = tkey_bits.LOOKBACK_PARTITION
+    padded = 3 * CFG.block if where == "graphed" else tsort.GRAPH_MAX_PADDED + CFG.block
+    keys = torch.from_numpy(_stale_buffer(gen, padded)).to(card)
+    perm = torch.from_numpy(gen.permutation(padded).astype(np.uint32)).to(card)
+    held = keys.clone(), perm.clone()
+    skipped = tsort._skip_counter(card)
+    graph = None
+    for length in (0, 1, part - 1, part, part + 1, padded // 2 + 7, padded - 5, padded):
+        for idx in (None, perm):
+            want = _stable_sort(*tkey_bits.live_input(keys, idx, length))
+            args = tkey_bits.SortArgs(keys, idx, _sentinel_pair(keys), length)
+            eager = tsort._fused_passes(args, CFG, skipped)
+            assert all(_same(g, w) for g, w in zip(eager, want)), (length, idx is None)
+            if where == "graphed":
+                if graph is None:  # captured after the eager loop has run once
+                    graph = tsort._FusedGraph(args._replace(result=_sentinel_pair(keys)), CFG,
+                                              skipped)
+                got = graph(tkey_bits.SortArgs(keys, idx, _sentinel_pair(keys), length))
+                assert all(_same(g, e) for g, e in zip(got, eager)), (length, idx is None)
+    assert _same(keys, held[0]) and _same(perm, held[1])
+    torch.cuda.synchronize()
 
 
 def test_one_graph_serves_every_live_length(card, gen):

@@ -25,7 +25,7 @@ from gpuradixsort_tpu.kernels import scan as jscan
 from gpuradixsort_tpu.kernels import scatter as jscatter
 from gpuradixsort_tpu.ops import permute as jpermute
 from gpuradixsort_tpu_torch.config import LANES, EngineConfig
-from gpuradixsort_tpu_torch.core.table import make_key_column
+from gpuradixsort_tpu_torch.core.table import int32_bits, make_key_column
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
 from gpuradixsort_tpu_torch.kernels import key_bits as tkey_bits
 from gpuradixsort_tpu_torch.kernels import radix as tradix
@@ -1019,19 +1019,22 @@ def _numpy_counts(keys: np.ndarray, cfg) -> np.ndarray:
 
 @pytest.mark.parametrize("bits", [1, 2, 4])
 def test_sort_plan_counts_the_live_keys_and_the_pads(bits):
-    # sort_plan with a live length counts the rows past it as PAD_KEY,
-    # whatever they hold: its counts are numpy's of the re-padded buffer,
-    # its bases their exclusive prefix, its plan and skipped passes the
-    # re-padded buffer's.
+    # sort_plan with a live length counts the live keys and the rows past
+    # it, the pads, in no digit, whatever they hold: its counts are numpy's
+    # of the live keys, its bases their exclusive prefix (which the pads,
+    # all in the last digit, would not move), its plan and skipped passes
+    # the live keys'.
     cfg = EngineConfig(radix_bits=bits)
     for length in _live_lengths(cfg):
         buf, repadded = _stale(cfg, length, np.random.default_rng([bits, length]))
         skipped = [torch.zeros(1, dtype=torch.int64) for _ in range(2)]
         state = tkey_bits.sort_plan(torch.from_numpy(buf), cfg, skipped[0], length=length)
-        want = _numpy_counts(repadded, cfg)
+        want = _numpy_counts(buf[:length], cfg)
         _eq(state.counts, want.astype(np.int32))
         _eq(state.bases, (np.cumsum(want, axis=1) - want).astype(np.int32))
-        plan = tkey_bits.pass_plan(torch.from_numpy(repadded), cfg, skipped[1])
+        padded = _numpy_counts(repadded, cfg)
+        _eq(state.bases, (np.cumsum(padded, axis=1) - padded).astype(np.int32))
+        plan = tkey_bits.pass_plan(torch.from_numpy(buf[:length].copy()), cfg, skipped[1])
         assert torch.equal(state.plan, plan) and torch.equal(*skipped), length
 
 
@@ -1060,8 +1063,9 @@ def test_lookback_pass_reads_pads_and_makes_the_index(bits):
 
 
 def test_lookback_pass_at_a_live_length_routes_as_planned():
-    # A planned pass from the input with a live length writes the named
-    # buffer as its unplanned call does; passes from R or S ignore the length.
+    # A planned pass with a live length writes the named buffer as its
+    # unplanned call does; passes from R or S read their rows past the
+    # length as pads too.
     cfg = EngineConfig()
     gen = np.random.default_rng(7)
     keys = torch.from_numpy(gen.integers(0, 2**32, 2 * cfg.tile, dtype=np.uint32))
@@ -1074,10 +1078,43 @@ def test_lookback_pass_at_a_live_length_routes_as_planned():
         before = [tuple(t.clone() for t in pair) for pair in pairs]
         tscatter.bucketize_scatter_lookback(keys, None, cfg, routed, 0, tuple(pairs), length=100)
         src = (keys, None) if source == tradix.INPUT else before[1]
-        want = tscatter.bucketize_scatter_lookback(*src, cfg, routed, 0,
-                                                   length=100 if source == tradix.INPUT else None)
+        want = tscatter.bucketize_scatter_lookback(*src, cfg, routed, 0, length=100)
         assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(pairs[destination - 1], want)), (source, destination)
+
+
+@pytest.mark.parametrize("length", [0, 1, 4095, 4096, 4097, 4 * 4096 - 1])
+def test_lookback_passes_write_pads_only_in_the_last(length):
+    # The plain passes write what the card's do: a pass that a later one
+    # follows writes its destination's live rows and no row past them; the
+    # last that runs also writes every row of R from the length on as a
+    # pad.  Rows past the length of R and S read as pads whatever they
+    # hold.  The passes walk the live partitions, the length rounded up to
+    # 4,096 rows.
+    cfg = EngineConfig()
+    n = 4 * tkey_bits.LOOKBACK_PARTITION
+    assert tkey_bits.lookback_rows(length, n) == min(n, -(-length // 4096) * 4096)
+    gen = np.random.default_rng(length)
+    # Digits 0 and 2 vary, so the two passes below sort the keys.
+    keys = torch.from_numpy(gen.integers(0, 2**32, n, dtype=np.uint32) & np.uint32(0xF0F))
+    sentinel = 0x5EED5EED
+    pairs = tuple(tuple(torch.full((n,), sentinel, dtype=torch.int32).view(torch.uint32)
+                        for _ in range(2)) for _ in range(2))
+    state = tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=length)
+    e = tradix.plan_entry
+    plan = [e(tradix.INPUT, tradix.SCRATCH), -1, e(tradix.SCRATCH, tradix.RESULT)] + [-1] * 5
+    state = state._replace(plan=torch.tensor(plan, dtype=torch.int32))
+    (rk, ri), (sk, si) = pairs
+    tscatter.bucketize_scatter_lookback(keys, None, cfg, state, 0, pairs, length=length)
+    for t in (sk, si):
+        assert (int32_bits(t[length:]) == sentinel).all()
+    assert (int32_bits(rk) == sentinel).all() and (int32_bits(ri) == sentinel).all()
+    int32_bits(sk)[length:] = 0  # stale: read as pads
+    tscatter.bucketize_scatter_lookback(keys, None, cfg, state, 2, pairs, length=length)
+    live_keys, live_idx = tkey_bits.live_input(keys, None, length)
+    order = torch.sort(int32_bits(live_keys).to(torch.int64) & 0xFFFFFFFF, stable=True).indices
+    assert torch.equal(int32_bits(rk), int32_bits(live_keys)[order])
+    assert torch.equal(int32_bits(ri), int32_bits(live_idx)[order])
 
 
 def test_sort_args_plain_words():

@@ -297,10 +297,27 @@ def test_pass_mask_matches_jax_criterion(name, bits):
     assert pass_mask(padded, cfg) == _jax_pass_mask(padded.numpy(), cfg)
 
 
+def _live_pass_mask(live: np.ndarray, cfg) -> int:
+    """The fused sort's criterion: pass p runs where digit p varies over the live keys."""
+    mask = 0
+    for p in range(cfg.num_passes):
+        digits = (live >> np.uint32(p * cfg.radix_bits)) & np.uint32(cfg.radix - 1)
+        if digits.size and (digits != digits[0]).any():
+            mask |= 1 << p
+    return mask
+
+
 @pytest.mark.parametrize("name", SKIP_SETS)
 def test_skip_sets_match_jax_fused(name):
+    # The buffers equal the JAX package's; the skipped passes are those whose
+    # digit is constant over the live keys.  The pads have no vote, so where
+    # the buffer has pad rows the plan skips passes that the JAX package's
+    # padded criterion runs ("pad rows": 5 of 8, where it skips none).
     keys = _skip_keys(name)
-    want = _jax_pass_mask(ttable.make_key_column(keys, CFG, device="cpu").data.numpy(), CFG)
+    padded = ttable.make_key_column(keys, CFG, device="cpu").data.numpy()
+    want = _live_pass_mask(keys, CFG)
+    if padded.size == keys.size:
+        assert want == _jax_pass_mask(padded, CFG)
     before = tsort.skipped_passes()
     _check_pairs(keys, CFG, JCFG)
     skipped = tsort.skipped_passes() - before
@@ -532,3 +549,61 @@ def test_made_index_matches_the_explicit_index(length):
     for a, b in zip(made, explicit[:2]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert tsort._repadded(ttable.Column(col.data, 2 * BLOCK)).data is col.data
+
+
+# Live lengths of a four-partition buffer: none, one, a partition less one,
+# a partition, one past it, all but one, all.
+PART = 4096  # key_bits.LOOKBACK_PARTITION
+WALK_LENGTHS = [0, 1, PART - 1, PART, PART + 1, 4 * PART - 1, 4 * PART]
+WALK_KINDS = ["low keys", "high keys and PAD_KEY"]
+
+
+@pytest.mark.parametrize("index", ["made", "given"])
+@pytest.mark.parametrize("length", WALK_LENGTHS)
+@pytest.mark.parametrize("kind", WALK_KINDS)
+def test_padded_fused_sort_walks_its_live_keys(kind, length, index):
+    # A fused sort of a padded key column whose rows past the length hold
+    # stale non-PAD keys (and, with a given index, stale index rows): its
+    # sorted keys and permutation, pad rows included, equal the JAX
+    # package's _fused_sort_padded of the re-padded buffers (what its
+    # sort_pairs runs, with the arange index where it is made), buffer for
+    # buffer; live keys equal to PAD_KEY stay ahead of the pads; and the
+    # passes skipped are exactly those whose digit is constant over the live
+    # keys ("low keys": below 2^12, the high five; "high keys": the top 20
+    # bits set, so the high five digits are PAD_KEY's, some live keys
+    # PAD_KEY itself).
+    n = 4 * PART
+    gen = np.random.default_rng([WALK_KINDS.index(kind), length, index == "given"])
+    live = gen.integers(0, 1 << 12, n, dtype=np.uint32)
+    if kind != "low keys":
+        live |= np.uint32(0xFFFFF000)
+        live[gen.random(n) < 0.2] = np.uint32(tconfig.PAD_KEY)
+    buf = gen.integers(0, 1 << 16, n, dtype=np.uint32)  # stale rows: small, never PAD_KEY
+    buf[:length] = live[:length]
+    idx = np.arange(n, dtype=np.uint32)
+    if index == "given":
+        idx = gen.integers(0, 1 << 16, n, dtype=np.uint32)  # stale rows past the length
+        idx[:length] = gen.permutation(n)[:length].astype(np.uint32)
+    held = buf.copy(), idx.copy()
+    before = tsort.skipped_passes()
+    if index == "made":
+        s, p = tsort.sort_pairs(ttable.Column(torch.from_numpy(buf), length), CFG, method="fused")
+        got = (s.data.numpy(), p.data.numpy())
+    else:
+        out = tsort._fused_sort(torch.from_numpy(buf), torch.from_numpy(idx), length, CFG)
+        got = tuple(t.numpy() for t in out)
+    skipped = tsort.skipped_passes() - before
+    pos = np.arange(n)
+    jk, ji, _ = jsort._fused_sort_padded(
+        jnp.asarray(np.where(pos < length, buf, np.uint32(tconfig.PAD_KEY))),
+        jnp.asarray(np.where(pos < length, idx, np.uint32(tconfig.PAD_INDEX))), JCFG)
+    np.testing.assert_array_equal(got[0], np.asarray(jk))
+    np.testing.assert_array_equal(got[1], np.asarray(ji))
+    order = np.argsort(buf[:length], kind="stable")
+    np.testing.assert_array_equal(got[0][:length], buf[:length][order])
+    np.testing.assert_array_equal(got[1][:length], idx[:length][order])  # live PAD_KEY first
+    assert (got[0][length:] == tconfig.PAD_KEY).all()
+    assert (got[1][length:] == tconfig.PAD_INDEX).all()
+    assert skipped == CFG.num_passes - bin(_live_pass_mask(buf[:length], CFG)).count("1")
+    np.testing.assert_array_equal(buf, held[0])  # the input is never written
+    np.testing.assert_array_equal(idx, held[1])

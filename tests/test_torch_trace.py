@@ -153,26 +153,28 @@ def _live(n: int, padded: int) -> Table:
                   "v": Column(torch.arange(padded, dtype=torch.int32), n)})
 
 
+# The fused sort walks its live partitions of 4,096 rows (key_bits.lookback_rows),
+# the radix method the whole padded buffer.
 ROWS = {
     "filter": (lambda: filter_table(_live(1000, 8192), lambda t: t["v"].data % 2 == 0),
                {"compact": (1000, 8192)}),
-    "sort_pairs": (lambda: tsort.sort_pairs(_live(1000, 8192)["k"]), {"sort": (1000, 8192)}),
+    "sort_pairs": (lambda: tsort.sort_pairs(_live(1000, 8192)["k"]), {"sort": (1000, 4096)}),
     "sort_keys_radix": (lambda: tsort.sort_keys(_live(1000, 8192)["k"], method="radix"),
                         {"sort": (1000, 8192)}),
     "sort_table": (lambda: tsort.sort_table(_live(1000, 8192), "k"),
-                   {"sort": (1000, 8192), "gather": (1000, 8192)}),
+                   {"sort": (1000, 4096), "gather": (1000, 8192)}),
     "sort_table_keys_only": (lambda: tsort.sort_table(Table({"k": _live(10, 8192)["k"]}), "k"),
-                             {"sort": (10, 8192)}),
+                             {"sort": (10, 4096)}),
     "join_inner": (lambda: join(_live(1000, 8192), _live(300, 16384), "k"),
-                   {"sort": (300, 16384), "gather": (300 + 1000, 16384 + 8192),
+                   {"sort": (300, 4096), "gather": (300 + 1000, 16384 + 8192),
                     "probe": (1000, 8192), "compact": (1000, 8192)}),
     "join_semi": (lambda: join(_live(1000, 8192), _live(300, 16384), "k", how="semi"),
-                  {"sort": (300, 16384), "gather": (300, 16384), "probe": (1000, 8192),
+                  {"sort": (300, 4096), "gather": (300, 16384), "probe": (1000, 8192),
                    "compact": (1000, 8192)}),
     "join_expand": (lambda: join_expand(_live(1000, 8192), _live(300, 8192), "k"),
-                    {"sort": (300, 8192), "gather": (300, 8192), "probe": (2000, 16384)}),
+                    {"sort": (300, 4096), "gather": (300, 8192), "probe": (2000, 16384)}),
     "group_by": (lambda: group_by_aggregate(_live(1000, 8192), "k", {"s": ("v", "sum")}),
-                 {"sort": (1000, 8192), "aggregate": (1000, 8192)}),
+                 {"sort": (1000, 4096), "aggregate": (1000, 8192)}),
     "aggregate_device_count": (lambda: aggregate_sorted_flat(
         _live(1000, 8192)["k"].data, torch.tensor(1000), [("c", None, "count")]), {}),
 }
