@@ -73,7 +73,12 @@ in eight phases:
    with its columns in key order and read through a permutation whose pad
    rows are -1 (after phase 4 also on the group-by's sorted 100M buffer,
    its column read through the group-by's own permutation and gathered by
-   sort_table);
+   sort_table); gather_rows (the payload gather: a column of an index a
+   launch) against its plain version and the index_select route it
+   replaced, through a sort's padded permutation read below its length and
+   through int64 indices out of range, live lengths 0, 1, 1%, half and
+   all, 9 columns of 1- to 16-byte rows (a launch each), at 1,000,000 rows
+   and a ragged last 128-row run;
 3. the main path through the public entry points on CUDA tensors:
    ``sort_pairs`` of 1,000,000 shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
@@ -88,10 +93,11 @@ in eight phases:
    are followed by stale keys, which the fused sort reads as pads; each
    method's sorts one window, with every launch count set to 0 before and
    read after it: the fused sorts must launch sort_args and sort_plan once
-   a sort and bucketize_scatter_lookback once a pass, and K1, K5,
-   bucketize_scatter, key_bits, bucketize and scatter_runs never; the
-   radix sorts K1, K5 and dest_scatter once a pass each, and K4 and none of
-   the fused sort's never;
+   a sort and bucketize_scatter_lookback once a pass, sort_table's gather
+   once a payload, and K1, K5, bucketize_scatter, key_bits,
+   bucketize and scatter_runs never; the radix sorts K1, K5 and
+   dest_scatter once a pass each, and K4, the gather and none of the fused
+   sort's never;
 4. the operator path, counts again set to 0 before and read after, every
    result checked exactly against numpy (float means within rtol 1e-5 of a
    float64 oracle): ``filter_table`` of 100,000,000 keys keeping about half,
@@ -122,10 +128,12 @@ in eight phases:
    each kernel of one pass at 1M and 16M beside its plain version (device
    time from the profiler, and CUDA-event time per call), its bound (the
    bytes it must move at 3.35 TB/s) and its share of that bound, and
-   exclusive_scan and global_offsets beside ``torch.cumsum``; the 1M x 64
-   B table sort; at radix 2, 16 and 256 on (key, index) pairs, dest_scatter
-   beside K4 then scatter_by_destination (the stores it replaces), K4 alone
-   and K1, in alternating turns, each dest_scatter line with its partition
+   exclusive_scan and global_offsets beside ``torch.cumsum``, gather_rows
+   (a 64-byte row through a random int32 index) beside ``index_select`` of
+   the clipped int64 index; the 1M x 64 B table sort; at radix 2, 16 and
+   256 on (key, index) pairs, dest_scatter beside K4 then
+   scatter_by_destination (the stores it replaces), K4 alone and K1, in
+   alternating turns, each dest_scatter line with its partition
    (tiles, threads) and its registers (``cuobjdump -res-usage`` of the
    build); key_bits, sort_plan
    (random, skewed and equal keys), exclusive_scan beside ``torch.cumsum``
@@ -212,6 +220,7 @@ from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.aggregate import PARTITION as AGG_PARTITION
 from gpuradixsort_tpu_torch.kernels.aggregate import segment_aggregate
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
+from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.kernels.key_bits import (
     ARGS_WORDS,
     LOOKBACK_PARTITION,
@@ -309,15 +318,22 @@ KERNELS = {
     # and the plan made from it, without the digit counts.
     "key_bits": (key_bits, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
                  "gpuradixsort_tpu/ops/sort.py:83", ("key_bits_kernel", "pass_plan_kernel")),
+    # No Pallas kernel either: the payload gathers, jnp.take in the JAX
+    # package's sort_table and join, a column of an index a launch.
+    "gather_rows": (gather_columns, "gpuradixsort_tpu_torch/csrc/gather_rows.cu",
+                    "none: jnp.take at gpuradixsort_tpu/ops/sort.py:230 (permute.gather_rows) "
+                    "and gpuradixsort_tpu/ops/join.py:79, 178 and 186", ("gather_rows_kernel",)),
 }
 # The kernels each sort method runs.  A fused sort writes its argument block,
 # reads its keys once in sort_plan and runs the look-back pass in every pass;
 # K1, K5, the table pass, the plain key_bits, K2 and K3 run on none of its
 # path.  A radix pass runs K1, K5 and dest_scatter; K4 runs on no path.
+# sort_table gathers its payloads after its sort, once a payload.
 FUSED_PATH = ("sort_args", "sort_plan", "bucketize_scatter_lookback")
 RADIX_PATH = ("radix_hist", "dest_scatter", "exclusive_scan")
 AGG_PATH = ("segment_aggregate",)  # the group-by's, after its sort
-OFF_FUSED = tuple(name for name in KERNELS if name not in FUSED_PATH)
+GATHER_PATH = ("gather_rows",)
+OFF_FUSED = tuple(name for name in KERNELS if name not in FUSED_PATH + GATHER_PATH)
 OFF_PATH = ("bucketize", "scatter_runs", "bucketize_scatter", "key_bits", "radix_dest")
 
 
@@ -421,6 +437,7 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     check_plan_routing(dev, errs)
     check_live_route(dev, rng, errs)
     check_segment_aggregate_shapes(dev, rng, errs)
+    check_gather_columns(dev, rng, errs)
     torch.cuda.synchronize()
 
 
@@ -858,6 +875,49 @@ def moved_columns(rng, n: int, count: int, dev) -> list:
         lambda: rng.standard_normal((n, 2)).astype(np.float32),
     )
     return [torch.from_numpy(makers[i % len(makers)]()).to(dev) for i in range(count)]
+
+
+def check_gather_columns(dev, rng, errs: dict) -> None:
+    """gather_columns against its plain version and the route it replaced.
+
+    Through a sort's permutation R of a padded buffer (a random order of
+    the live rows, PAD_INDEX past them, read as int32) and through int64
+    indices with rows below 0 and past the columns' ends; 1,000,000 and
+    3 blocks and 11 rows, so that the last 128-row run is ragged; live
+    lengths 0, 1, 1% and half (off the run) and all; 9 columns of every
+    layout ``moved_columns`` makes (a launch each).  Whole output buffers
+    compared, bytes as words or bytes.
+    """
+    cases = 0
+    for n in (N_HEADLINE, 3 * EngineConfig().block + 11):
+        columns = moved_columns(rng, n, 9, dev)
+        for live in (0, 1, n // 100 + 3, n // 2 + 7, n):
+            perm = torch.full((n,), -1, dtype=torch.int32, device=dev)
+            perm[:live] = torch.from_numpy(rng.permutation(live).astype(np.int32)).to(dev)
+            far = torch.from_numpy(rng.integers(-(2**40), 2**40, n)).to(dev)
+            near = torch.from_numpy(rng.integers(-5, n + 5, n)).to(dev)
+            wide = torch.where(torch.rand(n, device=dev) < 0.05, far, near)
+            for src, read in ((perm, live), (wide, live), (wide, None)):
+                before = gather_columns.launches
+                got = gather_columns(columns, src, read)
+                launched = gather_columns.launches - before
+                want = gather_columns(columns, src, read, impl="reference")
+                route = torch.where(torch.arange(n, device=dev) < (n if read is None else read),
+                                    src, 0).to(torch.int64)
+                parent = [int32_bits(v).index_select(0, route.clamp(0, v.shape[0] - 1))
+                          .view(v.dtype) for v in columns]
+                err = launched != len(columns)
+                for g, w, r in zip(got, want, parent):
+                    as_bits = torch.int32 if g.element_size() == 4 else torch.uint8
+                    for other in (w, r):
+                        err = max(err, max_abs_err(g.reshape(-1).view(as_bits),
+                                                   other.reshape(-1).view(as_bits)))
+                errs["gather_rows"] = max(errs["gather_rows"], err)
+                cases += 1
+    check(errs["gather_rows"] == 0,
+          f"gather_rows == plain == index_select of the clipped index in {cases} cases: R of "
+          "a padded buffer read below its length, int64 indices out of range, 9 columns of "
+          "1- to 16-byte rows in 9 launches, ragged last run")
 
 
 def check_dest_scatter_geometry(dev, rng, errs: dict) -> None:
@@ -1358,14 +1418,18 @@ def phase_main_path(dev, rng, cfg) -> dict:
           f"bucketize_scatter_lookback {fused['bucketize_scatter_lookback']} times, once a pass "
           "(a skipped pass's launch exits at once), and "
           + ", ".join(f"{name} {fused[name]}" for name in OFF_FUSED) + " times")
+    gathers = len(CALLS) * PAYLOAD_COLS
+    check(fused["gather_rows"] == gathers, f"the {len(CALLS)} fused sort_tables gathered their "
+          f"{PAYLOAD_COLS} payloads in {fused['gather_rows']} gather_rows launches, one a "
+          "payload")
     for name in RADIX_PATH:
         check(radix[name] > 0, f"{name} launched {radix[name]} times by the radix sorts")
     check(radix["dest_scatter"] == radix["radix_hist"] == radix["exclusive_scan"],
           f"the radix sorts launched K1, K5 and dest_scatter once a pass each "
           f"({radix['radix_hist']} passes)")
-    check(all(radix[name] == 0 for name in FUSED_PATH + OFF_PATH + AGG_PATH),
-          "the radix sorts launched no kernel of the fused sort's, nor segment_aggregate, "
-          "and none off the paths "
+    check(all(radix[name] == 0 for name in FUSED_PATH + OFF_PATH + AGG_PATH + GATHER_PATH),
+          "the radix sorts launched no kernel of the fused sort's, nor segment_aggregate nor "
+          "gather_rows, and none off the paths "
           f"(radix_dest {radix['radix_dest']} times)")
     return {name: fused[name] + radix[name] for name in KERNELS}
 
@@ -1979,6 +2043,9 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         ginputs = agg_path_inputs(make_column(rng.integers(0, 100, n, dtype=np.int32), cfg,
                                               device=dev).data)
         grows = agg_rows(rng, gkeys.numel(), n, dev)
+        gather_src = int32_bits(idx)[torch.randperm(padded, device=dev)]
+        gather_payload = torch.randint(-(2**31), 2**31 - 1, (padded, PAYLOAD_COLS),
+                                       dtype=torch.int32, device=dev)
 
         def lookback(impl: str):
             def run():  # a pass index serves one launch: clear its scratch first
@@ -2017,6 +2084,13 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                                lambda: torch.cumsum(counts, 0, dtype=torch.int32)),
             "key_bits": (lambda: key_bits(keys, impl="cuda"),
                          lambda: key_bits(keys, impl="reference"), None),
+            # A row of PAYLOAD_COLS int32 through the sort's index, every row
+            # live; the library call is the route the kernel replaced.
+            "gather_rows": (lambda: gather_columns([gather_payload], gather_src),
+                            lambda: gather_columns([gather_payload], gather_src,
+                                                   impl="reference"),
+                            lambda: gather_payload.index_select(
+                                0, gather_src.to(torch.int64).clamp(0, padded - 1))),
             # No one PyTorch call computes a group-by's aggregates.
             "segment_aggregate": (
                 lambda: segment_aggregate(gkeys, n, ginputs, grows, impl="cuda"),

@@ -63,6 +63,7 @@ from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig, defa
 from gpuradixsort_tpu_torch.core.table import int32_bits, pad_to_tile
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
+from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.kernels.key_bits import (
     ARGS_WORDS,
     COUNT_LINES,
@@ -78,7 +79,6 @@ from gpuradixsort_tpu_torch.kernels.scatter import (
     scatter_runs,
 )
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
-from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.utils.timing import (
     HBM_PEAK_TBS,
     bound_of,
@@ -177,7 +177,7 @@ def table_sort(keys: torch.Tensor, idx: torch.Tensor, payload: torch.Tensor, cfg
     PAD_INDEX gathers row 0.
     """
     _, perm, _ = sort_ops._fused_sort_padded(keys, idx, cfg)
-    return gather_rows(payload, int32_bits(perm))
+    return gather_columns([payload], int32_bits(perm))[0]
 
 
 def rows_match(rows_out: torch.Tensor, payload_np: np.ndarray, order: np.ndarray) -> bool:
@@ -304,7 +304,7 @@ def stage_table(keys: torch.Tensor, cfg: EngineConfig, timed: bool) -> list[dict
         "bucketize": lambda: bucketize_tiles(keys, idx, 0, cfg),
         "scatter_runs": lambda: scatter_runs(bk, bi, hist, offsets, cfg),
         "bucketize_scatter": lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg),
-        "gather_rows": lambda: gather_rows(payload, src),
+        "gather_rows": lambda: gather_columns([payload], src)[0],
     }
     work = stage_work(padded, cfg)
     rows = []

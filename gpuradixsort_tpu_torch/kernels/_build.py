@@ -50,7 +50,14 @@ _SIGNATURES = {
     "grs_sort_plan": [_P, _I64, _P, _P, _I, _I, _P, _P, _I64, _P],
     "grs_sort_args": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     "grs_segment_aggregate": [_P, _I64, _P, _I64, _P, _P, _I, _P, _P, _P, _I64, _P],
+    "grs_gather_rows": [_P, _I, _I64, _I64, _P, _I64, _I64, _I64, _P, _P],
 }
+
+
+def unit_bytes(*tensors: torch.Tensor, row_bytes: int) -> int:
+    """The widest unit, 16 bytes down to 1, that divides a row and every tensor's address."""
+    return next(u for u in (16, 8, 4, 2, 1)
+                if row_bytes % u == 0 and all(t.data_ptr() % u == 0 for t in tensors))
 
 
 def sources(csrc: pathlib.Path = _CSRC) -> list[pathlib.Path]:

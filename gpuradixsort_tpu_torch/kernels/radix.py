@@ -39,7 +39,7 @@ import torch
 
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import check_padded_rows, int32_bits
-from gpuradixsort_tpu_torch.kernels._build import launch
+from gpuradixsort_tpu_torch.kernels._build import launch, unit_bytes
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.ops.permute import scatter_by_destination
 
@@ -329,12 +329,6 @@ def tile_destinations(
 tile_destinations.launches = 0
 
 
-def _unit_bytes(*tensors: torch.Tensor, row_bytes: int) -> int:
-    """The widest unit, 16 bytes down to 1, that divides a row and every tensor's address."""
-    return next(u for u in (16, 8, 4, 2, 1)
-                if row_bytes % u == 0 and all(t.data_ptr() % u == 0 for t in tensors))
-
-
 def dest_scatter(
     rank_keys: torch.Tensor,
     hist: torch.Tensor,
@@ -379,7 +373,7 @@ def dest_scatter(
     for v, o in zip(values, out):
         row_bytes = v[:1].nbytes if v.numel() else 0
         if row_bytes:
-            unit = _unit_bytes(v, o, row_bytes=row_bytes)
+            unit = unit_bytes(v, o, row_bytes=row_bytes)
             moved.append((v.data_ptr(), o.data_ptr(), row_bytes // unit, unit))
     for first in range(0, len(moved), MAX_MOVED_COLUMNS):
         group = moved[first:first + MAX_MOVED_COLUMNS]

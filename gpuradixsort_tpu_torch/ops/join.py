@@ -15,9 +15,11 @@ uint32, so both sides are widened to int64.
 Only ``validate_unique`` and ``to_table`` read a value back to the host,
 each inside the span ``grs.join.sync``.  A call is the span ``grs.join``,
 its phases ``grs.join.build`` (the build side's sort) and ``grs.join.probe``
-(the searches and the gathers).  The probe's searches and ``join``'s gather
-of the build payloads count their rows (``trace.rows``); ``join_expand``'s
-gathers do not, since their live count stays on the device.
+(the searches and the gathers).  Each gather moves all its payload columns
+through one index in one ``gather_columns``.  The probe's searches and
+``join``'s gather of the build payloads count their rows (``trace.rows``);
+``join_expand``'s gathers do not, since their live count stays on the
+device.
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ import torch
 
 from gpuradixsort_tpu_torch.config import EngineConfig
 from gpuradixsort_tpu_torch.core.table import Column, Table, int32_bits, round_up
+from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.ops.filter import Selection, filter_table
-from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.ops.sort import sort_table
 from gpuradixsort_tpu_torch.utils import trace
 
@@ -109,9 +111,10 @@ def join(
                 payloads = [name for name in build_sorted.names() if name != key]
                 if payloads:
                     trace.rows("gather", probe.length, safe_pos.numel())
-                for name in payloads:
-                    gathered = gather_rows(build_sorted[name].data, safe_pos)
-                    cols[build_prefix + name] = Column(gathered, probe.length)
+                    gathered = gather_columns([build_sorted[name].data for name in payloads],
+                                              safe_pos)
+                    cols.update((build_prefix + name, Column(g, probe.length))
+                                for name, g in zip(payloads, gathered))
                 joined = Table(cols)
                 keep = matched
             else:
@@ -194,12 +197,11 @@ def join_expand(
             valid = slots < total.clamp(max=capacity)
             safe_brow = brow.clamp(0, max(nb - 1, 0))
 
-            cols: dict[str, Column] = {}
-            for name in probe.names():
-                g = gather_rows(probe[name].data, prow)
-                cols[name] = Column(_zero_invalid(g, valid), capacity)
-            for name in build_sorted.names():
-                if name != key:
-                    g = gather_rows(build_sorted[name].data, safe_brow)
-                    cols[build_prefix + name] = Column(_zero_invalid(g, valid), capacity)
+            payloads = [name for name in build_sorted.names() if name != key]
+            gathered = (gather_columns([probe[name].data for name in probe.names()], prow)
+                        + gather_columns([build_sorted[name].data for name in payloads],
+                                         safe_brow))
+            names = probe.names() + [build_prefix + name for name in payloads]
+            cols = {name: Column(_zero_invalid(g, valid), capacity)
+                    for name, g in zip(names, gathered)}
         return ExpandedJoin(Table(cols), total, overflow)

@@ -10,7 +10,11 @@ the port has one way and takes no strategy.
 On the card no operator path runs ``scatter_by_destination``: a radix pass
 and a compaction store their rows at their destinations inside one kernel,
 ``kernels/radix.py::dest_scatter``, whose plain version, the CPU's route,
-is ``tile_destinations`` then this function.  ``gather_rows`` runs on both.
+is ``tile_destinations`` then this function.  Nor does any operator path
+run ``gather_rows`` there: the operators gather through
+``kernels/gather.py::gather_columns``, whose plain version builds on this
+function.  ``gather_rows`` stays the plain gather of the references and of
+the library baseline, on both.
 """
 
 from __future__ import annotations

@@ -71,6 +71,7 @@ from gpuradixsort_tpu_torch.core.table import (
     uint32_as_int32,
 )
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
+from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.kernels.key_bits import (
     ARGS_WORDS,
     SortArgs,
@@ -502,20 +503,22 @@ def sort_table(
     """Sort a whole table by one uint32 key column, stably.
 
     Sorts (key, index) pairs, then gathers every payload column through the
-    sorted index.  As in the JAX package, the index is read as int32, so a
-    pad row's PAD_INDEX becomes -1 and is clipped to row 0; pad rows lie past
-    ``length``.
+    sorted index, all in one ``gather_columns``.  As in the JAX package, the
+    index is read as int32, so a pad row's PAD_INDEX becomes -1 and is
+    clipped to row 0.  Every method's pad rows lie past ``length`` and are
+    PAD_INDEX, so the gather reads the index only below ``length`` and
+    writes the rows past it from row 0.
     """
     with trace.span("grs.sort"):
         sorted_keys, perm = _sort_pairs(table[key], cfg or EngineConfig(), method)
-        src = int32_bits(perm.data)
-        out = {key: sorted_keys}
         payloads = [name for name in table.names() if name != key]
+        out = {key: sorted_keys}
         if payloads:
             trace.rows("gather", perm.length, perm.padded_length)
-        for name in payloads:
-            col = table[name]
-            out[name] = Column(gather_rows(col.data, src), col.length)
+            trace.gather_filled(perm.padded_length - perm.length)
+            cols = [table[name] for name in payloads]
+            gathered = gather_columns([c.data for c in cols], int32_bits(perm.data), perm.length)
+            out.update((name, Column(g, c.length)) for name, c, g in zip(payloads, cols, gathered))
         return Table(out)
 
 

@@ -20,11 +20,11 @@ import torch
 
 from gpuradixsort_tpu_torch.config import PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import int32_bits, round_up, uint32_as_int32
+from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.ops.aggregate import SUPPORTED, aggregate_sorted_flat
 from gpuradixsort_tpu_torch.ops.filter import _compact_by_mask
 from gpuradixsort_tpu_torch.ops.join import matches_exceed
-from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.parallel import mesh as M
 from gpuradixsort_tpu_torch.parallel.dist_sort import (
     _capacity,
@@ -168,7 +168,7 @@ def _join_shard_fn(keys, side, live, payload, cfg, mesh, capacity, join_cap, buc
     valid = slots < n_out
 
     def pick(col, rows, fill):
-        bits = int32_bits(gather_rows(col, rows))
+        bits = int32_bits(gather_columns([col], rows)[0])
         return torch.where(valid, bits, fill).view(col.dtype)
 
     out = (pick(pk, prow, uint32_as_int32(PAD_KEY)), pick(pv, prow, 0), pick(bv, brow, 0))

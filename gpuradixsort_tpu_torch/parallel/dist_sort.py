@@ -45,8 +45,8 @@ import torch
 
 from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import int32_bits, round_up, uint32_as_int32, wrap_int32
+from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.ops.filter import _compact_by_mask
-from gpuradixsort_tpu_torch.ops.permute import gather_rows
 from gpuradixsort_tpu_torch.ops.sort import _sort_padded
 from gpuradixsort_tpu_torch.parallel import mesh as M
 from gpuradixsort_tpu_torch.utils.timing import StageClock
@@ -151,7 +151,8 @@ def _local_sort(keys, carried: tuple, cfg: EngineConfig, method: str):
     if method == "radix":
         return _sort_padded(keys, carried, cfg)
     order = torch.sort(_wide(keys), stable=True).indices
-    return gather_rows(keys, order), tuple(gather_rows(c, order) for c in carried)
+    keys, *carried = gather_columns([keys, *carried], order)
+    return keys, tuple(carried)
 
 
 def _ring_merge_exchange(mesh, send_keys, send_payloads: tuple, send_counts, capacity: int):

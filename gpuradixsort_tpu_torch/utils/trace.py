@@ -28,9 +28,12 @@ sites: ``sort`` (each sort of a key column), ``compact`` (a filter's
 compaction), ``probe`` (each search of a join's probe keys), ``gather``
 (each index through which an operator gathers payload columns, once an
 index) and ``aggregate`` (the group-by's kernel, where its live length is
-a host integer).  ``counters()`` reads them with the counts the port
-already keeps: every kernel wrapper's ``.launches``, the sort graphs made
-and replayed, and the passes the fused sorts skipped.
+a host integer).  ``gather_filled(rows)`` counts, of the ``gather`` site's
+walked rows, those written from each column's row 0 with no read of the
+index (``sort_table``'s pad rows), once an index.  ``counters()`` reads
+them with the counts the port already keeps: every kernel wrapper's
+``.launches``, the sort graphs made and replayed, and the passes the
+fused sorts skipped.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ SITES = ("sort", "compact", "probe", "gather", "aggregate")
 _NO_SPAN = contextlib.nullcontext()
 _rows = {site: [0, 0] for site in SITES}
 _graphs_captured = 0
+_gather_filled = 0
 
 
 def span(name: str):
@@ -64,6 +68,12 @@ def rows(site: str, live: int, walked: int) -> None:
     count[1] += walked
 
 
+def gather_filled(rows: int) -> None:
+    """Count ``rows`` pad rows of a gather written from each column's row 0, the index unread."""
+    global _gather_filled
+    _gather_filled += rows
+
+
 def graph_captured() -> None:
     """Count one CUDA graph made by the sorts' cache (``ops/sort.py::_graph_of``)."""
     global _graphs_captured
@@ -72,7 +82,15 @@ def graph_captured() -> None:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each keeps its own ``.launches``."""
-    from gpuradixsort_tpu_torch.kernels import aggregate, bucketize, key_bits, radix, scan, scatter
+    from gpuradixsort_tpu_torch.kernels import (
+        aggregate,
+        bucketize,
+        gather,
+        key_bits,
+        radix,
+        scan,
+        scatter,
+    )
 
     return {
         "radix_hist": radix.tile_histograms,
@@ -86,6 +104,7 @@ def kernel_wrappers() -> dict:
         "dest_scatter": radix.dest_scatter,
         "exclusive_scan": scan.exclusive_scan,
         "segment_aggregate": aggregate.segment_aggregate,
+        "gather_rows": gather.gather_columns,
     }
 
 
@@ -93,6 +112,8 @@ def counters() -> dict:
     """One snapshot of the port's counts.
 
     - ``rows``: {site: [live, walked]} since the last ``reset()``;
+    - ``gather_filled``: the pad rows the gathers wrote from row 0 since
+      the last ``reset()``;
     - ``launches``: {wrapper: launches}, each wrapper's own count;
     - ``graphs``: ``captured``, the sort graphs made since the last
       ``reset()``, and ``replayed``, the replays of the graphs the cache
@@ -105,6 +126,7 @@ def counters() -> dict:
 
     return {
         "rows": {site: list(count) for site, count in _rows.items()},
+        "gather_filled": _gather_filled,
         "launches": {name: fn.launches for name, fn in kernel_wrappers().items()},
         "graphs": {"captured": _graphs_captured,
                    "replayed": sum(g.replays for g in sort._SORT_GRAPHS.values())},
@@ -113,8 +135,8 @@ def counters() -> dict:
 
 
 def reset() -> None:
-    """Zero the row counts and the graphs captured; the other counts are their owners'."""
-    global _graphs_captured
+    """Zero the row counts, the filled pad rows and the graphs made; the rest are their owners'."""
+    global _gather_filled, _graphs_captured
     for count in _rows.values():
         count[0] = count[1] = 0
-    _graphs_captured = 0
+    _gather_filled = _graphs_captured = 0

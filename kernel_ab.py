@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the fused sort's kernels, sort_plan and the look-back pass, beside an older build.
 
-    python3 kernel_ab.py [--old DIR] [--ptxas] [--out FILE]
+    python3 kernel_ab.py [--old DIR] [--ptxas] [--gather] [--out FILE]
 
 A fused sort is one ``sort_plan`` (``csrc/key_bits.cu``: the key read with
 every pass's digit counts, the plan and the bases) and one look-back pass a
@@ -37,6 +37,15 @@ plain version.  ``--ptxas`` prints nvcc's register, shared-memory and spill
 report of both kernels' sources (and the older ones) and the resident
 warps an SM that follow.  The card's name and power limit and one JSON line
 of every number end the output; ``--out`` also writes that JSON to a file.
+``--gather`` times the payload gather instead (``kernels/gather.py``,
+``csrc/gather_rows.cu``): ``gather_columns`` of 1, 4 and 8 int32 columns
+through a sort's int32 permutation R (a random order of the live rows,
+PAD_INDEX past them) at 1,000,000, 2^24 and 100,000,000 rows of which 1%,
+50% and 100% are live, reading R below the live length, beside the route
+it replaced (per column an int64 copy of R, ``clamp`` and
+``index_select``, over every row), in mirrored turns, every output checked
+equal, with the kernel's launches a call (one a column); its bound is
+``gather_bytes``.
 The A/B of the table-reading pass at each block size is ``kernel_ab.py`` of
 commit b055d90; that against the buffers-as-arguments build, of 3090bf7,
 is this script at commit 92b3e3f.
@@ -61,6 +70,7 @@ from gpuradixsort_tpu_torch.core.table import int32_bits, make_key_column, pad_t
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import key_bits as kb
 from gpuradixsort_tpu_torch.kernels import scatter as scatter_kernels
+from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.utils.timing import bound_of, card_line, profiled_device_ms
 
@@ -71,6 +81,7 @@ KINDS = ("random", "skewed")
 LIVE_SIZES = ("2^24", "100M")
 LIVE_SHARES = (0.01, 0.5, 1.0)
 PLAIN_UP_TO = 1 << 24  # the look-back pass is also held to its plain version up to here
+GATHER_COLUMNS = (1, 4, 8)
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The older build's entry points (those of commit 92b3e3f).
 OLD_SIGNATURES = {
@@ -229,7 +240,7 @@ def resident_warps(regs: int, smem: int, threads: int) -> int:
 def ptxas_report(label: str, csrc: pathlib.Path) -> dict:
     """Registers, spills and shared bytes of each kernel of the two sources, by ptxas."""
     report = {}
-    for source in ("bucketize_scatter.cu", "key_bits.cu"):
+    for source in ("bucketize_scatter.cu", "key_bits.cu", "gather_rows.cu"):
         done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                                "/dev/null", str(csrc / source)],
                               capture_output=True, text=True, timeout=300)
@@ -398,10 +409,52 @@ def measure_live_shares(rng, results: dict, old: ctypes.CDLL | None) -> None:
             torch.cuda.empty_cache()
 
 
+def gather_bytes(n: int, live: int, row_bytes: int, index_bytes: int = 4) -> int:
+    """The gather's HBM bytes: the live rows' index, rows read and written; the rest written."""
+    return live * (index_bytes + 2 * row_bytes) + (n - live) * row_bytes
+
+
+def parent_gather(cols: list, src: torch.Tensor) -> list:
+    """The route the kernel replaced, a column at a time: an int64 copy, clamp, index_select."""
+    return [int32_bits(v).index_select(0, src.to(torch.int64).clamp(0, v.shape[0] - 1))
+            .view(v.dtype) for v in cols]
+
+
+def measure_gather(rng, results: dict) -> None:
+    """gather_columns against the route it replaced, through a sort's padded permutation."""
+    for label, n in SIZES.items():
+        for share in LIVE_SHARES:
+            live = int(n * share)
+            src = torch.full((n,), -1, dtype=torch.int32, device="cuda")  # PAD_INDEX as int32
+            src[:live] = torch.from_numpy(rng.permutation(live).astype(np.int32)).cuda()
+            for count in GATHER_COLUMNS:
+                cols = [torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32))
+                        .cuda() for _ in range(count)]
+                before = gather_columns.launches
+                got = gather_columns(cols, src, live)
+                launches = gather_columns.launches - before
+                if not same(got, parent_gather(cols, src)):
+                    raise SystemExit(f"gather {label} {share:.0%} live {count} columns: the "
+                                     "kernel differs from the route it replaced")
+                del got
+                fns = {"kernel": lambda: gather_columns(cols, src, live),
+                       "parent": lambda: parent_gather(cols, src)}
+                key = f"gather {count} int32 columns @ {label}, {share:.0%} live"
+                record(results, key, turns_of(fns, None),
+                       bound_of(gather_bytes(n, live, 4 * count), 0)[0] * 1e3, n, live)
+                results[key]["launches"] = launches
+                log(f"  {key}: {launches} launch(es) a call")
+                del cols
+                torch.cuda.empty_cache()
+            del src
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=pathlib.Path, help="an older copy of csrc/ to time beside")
     parser.add_argument("--ptxas", action="store_true", help="print nvcc's register report")
+    parser.add_argument("--gather", action="store_true",
+                        help="time the payload gather instead of the fused sort's kernels")
     parser.add_argument("--out", type=pathlib.Path, help="also write the JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -416,8 +469,11 @@ def main() -> int:
         results["ptxas"] = {"new": ptxas_report("new", _build._CSRC)}
         if args.old:
             results["ptxas"]["old"] = ptxas_report("old", args.old)
-    measure_all_live(np.random.default_rng(SEED), results, old)
-    measure_live_shares(np.random.default_rng(SEED + 1), results, old)
+    if args.gather:
+        measure_gather(np.random.default_rng(SEED + 2), results)
+    else:
+        measure_all_live(np.random.default_rng(SEED), results, old)
+        measure_live_shares(np.random.default_rng(SEED + 1), results, old)
     text = json.dumps(results)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

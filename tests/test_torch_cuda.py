@@ -31,6 +31,7 @@ from gpuradixsort_tpu_torch.core.table import (
 from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import aggregate as tkagg
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
+from gpuradixsort_tpu_torch.kernels import gather as tgather
 from gpuradixsort_tpu_torch.kernels import key_bits as tkey_bits
 from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels import scan as tscan
@@ -330,6 +331,130 @@ def test_dest_scatter_matches_plain_at_every_geometry(tile_rows, card, gen, monk
                     assert tradix.dest_scatter.launches - before == -(-count // 8), where
                     assert len(got) == count and all(map(_same_bytes, got, want)), where
     torch.cuda.synchronize()
+
+
+def _gathered_columns(gen, n: int, device) -> list:
+    """Nine columns of n rows: ``_moved_columns``' first seven (1-, 2-, 4- and 8-byte elements, rows of 12 and 16 bytes), text rows
+    of 25 bytes, and rows of 4 bytes at an odd address (moved a byte a unit)."""
+    text = torch.from_numpy(gen.integers(0, 256, (n, 25), dtype=np.uint8)).to(device)
+    odd = torch.from_numpy(gen.integers(0, 256, 4 * n + 1, dtype=np.uint8)).to(device)
+    return _moved_columns(gen, n, 7, device) + [text, odd[1:].view(n, 4)]
+
+
+def _parent_gather(v: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The route the kernel replaced: index_select of the clipped int64 index."""
+    index = src.to(torch.int64).clamp(0, v.shape[0] - 1)
+    return int32_bits(v).index_select(0, index).view(v.dtype)
+
+
+@pytest.mark.parametrize("method", ["fused", "radix", "torch"])
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.5, 1.0])
+def test_gather_columns_through_a_sorts_permutation(method, share, card, gen):
+    # R of each method over a padded buffer of 3 blocks whose live length
+    # lies off the block and off the kernel's 128-row run (all of it at
+    # 100%): the kernel, which reads R only below the length and writes the
+    # rows past it from row 0, equals its plain version and the parent's
+    # route over whole output buffers, also where it reads every row; a
+    # launch a column.
+    padded = 3 * CFG.block
+    length = padded if share == 1.0 else int(padded * share) + (3 if share else 0)
+    keys = gen.integers(0, 1 << 20, padded, dtype=np.uint32)
+    col = Column(torch.from_numpy(keys).to(card), length)
+    _, perm = tsort.sort_pairs(col, CFG, method=method)
+    assert perm.length == length
+    src = int32_bits(perm.data)
+    cols = _gathered_columns(gen, padded, card)
+    want = [_parent_gather(v, src) for v in cols]
+    for live in (length, None):
+        before = tgather.gather_columns.launches
+        got = tgather.gather_columns(cols, src, live)
+        assert tgather.gather_columns.launches - before == len(cols)
+        plain = tgather.gather_columns(cols, src, live, impl="reference")
+        assert all(map(_same_bytes, got, plain)), live
+        assert all(map(_same_bytes, got, want)), live
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [1, 127, 129, 4097, 70_001])
+def test_gather_columns_clips_any_index(index_dtype, n, card, gen):
+    # Indices below 0 and past each column's rows (int64 ones past 2^32 too),
+    # columns shorter and longer than the index, the index 4 bytes off its
+    # 16-byte alignment (read element by element) and aligned, live lengths
+    # at and around the run's edges: the kernel against its plain version,
+    # and against the parent's route with the rows past live read as row 0.
+    wide = index_dtype == torch.int64
+    lo, hi = (-(2**40), 2**40) if wide else (-(2**31), 2**31)
+    raw = gen.integers(0, 2 * n + 200, n + 1) - 100
+    far = gen.random(n + 1) < 0.05
+    raw[far] = gen.integers(lo, hi, int(far.sum()))
+    buf = torch.from_numpy(raw).to(index_dtype).to(card)
+    for src in (buf[:n], buf[1:]):
+        for rows in (50, n + 77):
+            cols = [torch.from_numpy(gen.integers(-(2**31), 2**31, rows).astype(np.int32))
+                    .to(card),
+                    torch.from_numpy(gen.integers(0, 256, (rows, 3), dtype=np.uint8)).to(card)]
+            for live in sorted({0, 1, min(n, 127), min(n, 128), min(n, 129), n // 2, n}):
+                got = tgather.gather_columns(cols, src, live)
+                plain = tgather.gather_columns(cols, src, live, impl="reference")
+                read = torch.where(torch.arange(n, device=card) < live, src, 0)
+                where = f"n={n} rows={rows} live={live} offset={src.data_ptr() % 16}"
+                assert all(map(_same_bytes, got, plain)), where
+                assert all(_same_bytes(g, _parent_gather(v, read))
+                           for g, v in zip(got, cols)), where
+    torch.cuda.synchronize()
+
+
+def test_gather_columns_refuses_what_it_cannot_read(card):
+    src = torch.zeros(8, dtype=torch.int32, device=card)
+    col = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="live must lie"):
+        tgather.gather_columns([col], src, 9)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        tgather.gather_columns([col], src.view(torch.uint32))
+    with pytest.raises(ValueError, match="has none"):
+        tgather.gather_columns([col[:0]], src)
+    with pytest.raises(RuntimeError, match="grs_gather_rows"):  # the output not 16-byte aligned
+        _build.launch("grs_gather_rows", src, src.data_ptr(), 4, 8, 8, col.data_ptr(), 8, 1, 4,
+                      col.data_ptr() + 4)
+
+
+@pytest.mark.parametrize("payloads", [1, 8, 9])
+@pytest.mark.parametrize("method", ["fused", "radix", "torch"])
+def test_sort_table_gathers_by_one_kernel(payloads, method, card, gen, monkeypatch):
+    # sort_table of a padded table (a selection's buffer: 700 live rows of 3
+    # blocks, stale rows past them) on the card: one gather launch a
+    # payload and no index_select (but the torch method's one of its index,
+    # the library baseline's), its whole buffers equal to the CPU's.
+    padded, length = 3 * CFG.block, 700
+    keys = gen.integers(0, 1 << 16, padded, dtype=np.uint32)
+    cols = {f"p{i}": c for i, c in enumerate(_gathered_columns(gen, padded, "cpu")[:payloads])}
+
+    def table(device):
+        t = {name: Column(c.to(device), length) for name, c in cols.items()}
+        return Table({"k": Column(torch.from_numpy(keys).to(device), length), **t})
+
+    want = tsort.sort_table(table("cpu"), "k", CFG, method)
+    on_card = table(card)
+
+    selects = []
+    index_select = torch.Tensor.index_select
+
+    def counted_index_select(*args, **kwargs):
+        selects.append(args[0].shape)
+        return index_select(*args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "index_select", counted_index_select)
+    monkeypatch.setattr(torch, "index_select", counted_index_select)
+    before = tgather.gather_columns.launches
+    got = tsort.sort_table(on_card, "k", CFG, method)
+    assert tgather.gather_columns.launches - before == payloads
+    assert len(selects) == (method == "torch"), selects
+    monkeypatch.undo()
+    assert got.names() == want.names()
+    for name in want.names():
+        assert got[name].length == want[name].length, name
+        assert _same_bytes(got[name].data.cpu(), want[name].data), name
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
@@ -1496,6 +1621,7 @@ def test_group_by_on_card_launches_one_kernel_and_gathers_nothing(card, gen, mon
 
     monkeypatch.setattr(tkagg, "gather_rows", no_gather)
     monkeypatch.setattr(tsort, "gather_rows", no_gather)
+    monkeypatch.setattr(tsort, "gather_columns", no_gather)
     for method in ("fused", "radix"):
         launched = tkagg.segment_aggregate.launches
         got = tagg.group_by_aggregate(dev, "k", aggs, CFG, method)

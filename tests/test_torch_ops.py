@@ -120,6 +120,20 @@ def test_filter_then_sort(rng):
     np.testing.assert_array_equal(got["key"].to_numpy(), np.sort(keys[keys % 2 == 0]))
 
 
+@pytest.mark.parametrize("method", ["fused", "radix"])
+@pytest.mark.parametrize("n", [0, 700])
+def test_sort_table_with_a_2d_payload_matches_jax(method, n, rng):
+    # n live rows of a padded buffer (none at 0) and a 2-D payload: the
+    # port's gather reads the permutation's live rows and writes the rest
+    # from row 0; the JAX package takes through the whole padded
+    # permutation.  Whole padded buffers equal.
+    keys = rng.integers(0, 1000, n, dtype=np.uint32)
+    jt, tt = _tables("key", keys, wide=rng.integers(-(2**31), 2**31, (n, 3)).astype(np.int32),
+                     val=rng.standard_normal(n).astype(np.float32))
+    _same_table(tsort.sort_table(tt, "key", CFG, method=method),
+                jsort.sort_table(jt, "key", JCFG, method=method))
+
+
 def test_filter_mask_forms(rng):
     # A 0/1 integer mask selects as the boolean one does; a mask of another
     # shape than the padded rows is refused.
@@ -347,6 +361,21 @@ def test_join_matches_jax(how, rng):
     hit = np.isin(probe_keys, build_keys)
     expect = probe_keys[~hit] if how == "anti" else probe_keys[hit]
     np.testing.assert_array_equal(got.to_table()["key"].to_numpy(), expect)
+
+
+@pytest.mark.parametrize("n_probe", [0, 3000])
+def test_join_with_a_2d_build_payload_matches_jax(n_probe, rng):
+    # An inner join whose build side carries a 2-D payload, its probe of
+    # n_probe live rows (none at 0): the payloads gathered through the
+    # clipped positions in one call, whole padded buffers equal.
+    build_keys = rng.permutation(10_000)[:500].astype(np.uint32)
+    jb, tb = _tables("key", build_keys,
+                     wide=rng.integers(-(2**31), 2**31, (500, 4)).astype(np.int32),
+                     val=rng.standard_normal(500).astype(np.float32))
+    jp, tp = _tables("key", rng.integers(0, 10_000, n_probe, dtype=np.uint32),
+                     pval=rng.integers(0, 1 << 30, n_probe).astype(np.int32))
+    _same_selection(tjoin.join(tp, tb, "key", "inner", CFG),
+                    jjoin.join(jp, jb, "key", "inner", JCFG))
 
 
 def test_join_rejects_duplicates_and_unknown_types():

@@ -18,6 +18,7 @@ from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch import config as tconfig
 from gpuradixsort_tpu_torch.core import table as ttable
 from gpuradixsort_tpu_torch.kernels import radix as tradix
+from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.kernels.key_bits import (
     SortArgs,
     key_bits,
@@ -426,6 +427,22 @@ def test_gather_rows_clips(rng):
     src = torch.tensor([-1, 0, 9, 12], dtype=torch.int32)
     out = gather_rows(values, src)
     np.testing.assert_array_equal(out.numpy(), values.numpy()[[0, 0, 9, 9]])
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("live", [None, 0, 3])
+def test_gather_columns_reads_the_live_rows(index_dtype, live, rng):
+    # Rows below live read through the clipped index, the rest are row 0:
+    # what a pad row's PAD_INDEX (-1 as int32) gathers.
+    values = torch.from_numpy(rng.integers(0, 2**32, size=(10, 3), dtype=np.uint32))
+    flags = torch.from_numpy(rng.integers(0, 2, size=10).astype(bool))
+    far = 2 if index_dtype == torch.int32 else 2**40
+    src = torch.tensor([4, -1, 12, 9, far], dtype=index_dtype)
+    got = gather_columns([values, flags], src, live)
+    read = np.clip(src.numpy(), 0, 9)
+    read[5 if live is None else live:] = 0
+    np.testing.assert_array_equal(got[0].numpy(), values.numpy()[read])
+    np.testing.assert_array_equal(got[1].numpy(), flags.numpy()[read])
 
 
 def test_verify_helpers():

@@ -206,5 +206,5 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     assert all(src.suffix == ".cu" for src in _build.sources())
     assert {src.name for src in _build.sources()} == {
         "radix_hist.cu", "bucketize.cu", "scatter_runs.cu", "bucketize_scatter.cu",
-        "radix_dest.cu", "scan.cu", "key_bits.cu", "segment_agg.cu",
+        "radix_dest.cu", "scan.cu", "key_bits.cu", "segment_agg.cu", "gather_rows.cu",
     }

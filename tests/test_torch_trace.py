@@ -186,6 +186,29 @@ def test_row_counters_are_exact(call):
     assert _rows_of(fn) == want
 
 
+# Pad rows a gather writes from row 0, once an index: sort_table's past its
+# permutation's length; join's own gathers read their whole index.
+FILLED = {
+    "sort_table": (ROWS["sort_table"][0], 8192 - 1000),
+    "sort_table_keys_only": (ROWS["sort_table_keys_only"][0], 0),
+    "sort_table_all_live": (lambda: tsort.sort_table(_live(4096, 4096), "k"), 0),
+    "sort_table_none_live": (lambda: tsort.sort_table(_live(0, 4096), "k"), 4096),
+    "join_inner": (ROWS["join_inner"][0], 16384 - 300),
+    "join_expand": (ROWS["join_expand"][0], 8192 - 300),
+    "group_by": (ROWS["group_by"][0], 0),
+}
+
+
+@pytest.mark.parametrize("call", FILLED)
+def test_gather_filled_counts_pad_rows(call):
+    fn, want = FILLED[call]
+    trace.reset()
+    fn()
+    assert trace.counters()["gather_filled"] == want
+    trace.reset()
+    assert trace.counters()["gather_filled"] == 0
+
+
 def test_reset_zeroes_rows_and_captures():
     trace.rows("probe", 3, 8)
     trace.graph_captured()
@@ -231,6 +254,38 @@ def profiled_queries(tiny_db, tmp_path_factory):
                     plan.run(tiny_db, params, probe)
         out[name] = (_spans(prof, tmp_path_factory.mktemp(name)), trace.counters()["rows"], probe)
     return out
+
+
+@pytest.mark.parametrize("query", PLANS)
+def test_queries_gather_their_top_k_without_reading_pad_rows(tiny_db, query, monkeypatch):
+    # Each query's top-k sort_tables, and its joins' build sorts, gather
+    # through permutations of few live rows.  Each such gather gives the
+    # same bytes with the permutation's pad rows scrambled, so it reads
+    # none of them; gather_filled counts exactly those pad rows, and the
+    # gather site counts them among its walked rows, since they are written.
+    plan, params, _ = PLANS[query]
+    gather = tsort.gather_columns
+    calls = []
+
+    def scrambled_pads(values, src, live=None, impl=None):
+        got = gather(values, src, live, impl)
+        other = src.clone()
+        other[live:] = torch.randint(-5, 1 << 20, (src.numel() - live,), dtype=src.dtype)
+        again = gather(values, other, live, impl)
+        assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(got, again))
+        calls.append((src.numel(), live))
+        return got
+
+    monkeypatch.setattr(tsort, "gather_columns", scrambled_pads)
+    trace.reset()
+    plan.run(tiny_db, params, Probe(None))
+    snap = trace.counters()
+    filled = sum(n - live for n, live in calls)
+    live, walked = snap["rows"]["gather"]
+    assert filled > 0
+    assert snap["gather_filled"] == filled
+    assert walked - live >= filled
 
 
 @pytest.mark.parametrize("query", PLANS)
