@@ -10,8 +10,7 @@ in eight phases:
 1. device: PyTorch version, the card's name and power limit, build time;
 2. each kernel against its plain PyTorch version on the card, exact
    equality: radix_hist and radix_dest at radix_bits 1, 2, 4, 8; bucketize
-   at 1, 2, 4; scatter_runs on the plain-bucketized input; bucketize_scatter
-   (the table pass: K2 then K3 in one kernel, reading K1's offsets table) and
+   at 1, 2, 4; scatter_runs on the plain-bucketized input;
    bucketize_scatter_lookback (the fused sort's pass: its run offsets by
    look-back from sort_plan's digit bases) at 1, 2, 4; each at shifts 0, 4
    and 28, on 4 blocks of random keys and on 1,000,000 keys padded, with
@@ -19,13 +18,12 @@ in eight phases:
    same; radix_hist and bucketize also at tile_rows 1, 3, 8 and 16, on
    tile counts that leave the last block part-filled and on keys 4 bytes
    off a 16-byte boundary, and radix_hist on 64-row tiles of equal keys;
-   bucketize_scatter at tile_rows 1, 3, 8 and 16, on 1, 8 and 29 tiles
-   (and, radix 16, more tiles than the card holds warps at once), inputs
-   also 4 bytes off, and with moved offsets whose out-of-range destinations
-   are dropped; bucketize_scatter_lookback at the same geometries and at
-   lengths that leave its last 4,096-key partition ragged, on more
-   partitions than the card holds blocks at once, on random, skewed (one
-   key holding 99%), equal and PAD_KEY keys, first and last pass; radix_dest
+   bucketize_scatter_lookback at tile_rows 1, 3, 8 and 16, on 1, 8 and 29
+   tiles (and, radix 16, more tiles than the card holds warps at once),
+   inputs also 4 bytes off, and at lengths that leave its last 4,096-key
+   partition ragged, on more partitions than the card holds blocks at once,
+   on random, skewed (one key holding 99%), equal and PAD_KEY keys, first
+   and last pass; radix_dest
    at radix 2-256 (also those EngineConfig cannot name), at tile_rows 1, 3,
    8 and 16, on 1, 8 and 29 tiles and on keys 4 bytes off; dest_scatter (K4
    and the indexed stores after it) at radix_bits 1, 2, 4 and 8 on the same
@@ -39,22 +37,20 @@ in eight phases:
    inputs also 4 bytes off, and with moved offsets; exclusive_scan at
    lengths 1, 4,095-4,097, its chunk and one either side, two chunks and
    one, 1,000,000, 2^24 and 100,000,000, each also one word off a 16-byte
-   boundary, on values whose sums wrap; key_bits (the AND and OR of the
-   keys) at lengths 0 to 2^24, aligned and one word off, also against
-   numpy; sort_plan at radix_bits 1, 2 and 4 on 0 keys to 2^24, random,
-   skewed, equal and PAD_KEY keys, aligned and one word off, its counts
-   also against numpy; the fused sort's pass plan, and radix_hist,
-   bucketize_scatter and bucketize_scatter_lookback routed by it (the last
-   by sort_plan's), pass by pass (every route: the input into R or S, R
-   into S, S into R), for every mask of 4-bit digits over 8 passes on 4
-   blocks and four masks at 1M keys (radix_hist, bucketize, scatter_runs,
-   bucketize_scatter, bucketize_scatter_lookback, radix_dest and dest_scatter
-   are also held against their plain versions at the operator path's shapes, after
-   phase 4: 2^24 keys at radix_bits 1, 4 and 8, the filter's 100,000,000
-   keys at radix_bits 1, 4 and 8, and its 1-bit compaction input; key_bits
-   and sort_plan, its counts also against numpy, on the 100M buffers the
-   fused sorts of phase 6 reduce and the 2^24 keys); and the fused sort's
-   live route: sort_args (the argument block) against its plain words,
+   boundary, on values whose sums wrap; sort_plan at radix_bits 1, 2 and 4
+   on 0 keys to 2^24, random, skewed, equal and PAD_KEY keys, aligned and
+   one word off, its counts also against numpy; sort_plan's pass plan
+   against plan_of_mask, and bucketize_scatter_lookback routed by it, pass
+   by pass (every route: the input into R or S, R into S, S into R), for
+   every mask of 4-bit digits over 8 passes on 4 blocks and four masks at
+   1M keys (radix_hist, bucketize, scatter_runs, bucketize_scatter_lookback,
+   radix_dest and dest_scatter are also held against their plain versions
+   at the operator path's shapes, after phase 4: 2^24 keys at radix_bits 1,
+   4 and 8, the filter's 100,000,000 keys at radix_bits 1, 4 and 8, and its
+   1-bit compaction input; sort_plan, its counts also against numpy, on the
+   100M buffers the fused sorts of phase 6 read and the 2^24 keys); and the
+   fused sort's live route: sort_args (the argument block) against its
+   plain words,
    sort_plan at a live length and the look-back pass from the input with
    its rows past the length read as pads and the index made or given,
    pass by pass as the plan routes them, against their plain versions, at
@@ -94,8 +90,7 @@ in eight phases:
    method's sorts one window, with every launch count set to 0 before and
    read after it: the fused sorts must launch sort_args and sort_plan once
    a sort and bucketize_scatter_lookback once a pass, sort_table's gather
-   once a payload, and K1, K5, bucketize_scatter, key_bits,
-   bucketize and scatter_runs never; the radix sorts K1, K5 and
+   once a payload, and K1, K5, bucketize and scatter_runs never; the radix sorts K1, K5 and
    dest_scatter once a pass each, and K4, the gather and none of the fused
    sort's never;
 4. the operator path, counts again set to 0 before and read after, every
@@ -115,16 +110,9 @@ in eight phases:
    the profile of a replay must name every kernel of the method, the fused
    sort's profiles must hold no device work but its kernels and memsets,
    and at 2^24 the fused sort's device time outside the port's kernels is
-   split by profiler row); the fused sort by look-back against the same
-   sort with the table pass (K1, global_offsets, bucketize_scatter, with
-   the index column and re-padding by torch and a graph that copies, as
-   the fused sort ran before its argument block) and the torch method at
-   1M, 2^24 and 2^26 random keys, each by its own graph cache, in
-   alternating rounds (CUDA events over the bench's chain of sorts, and
-   busy time split by kernel, at 2^24 and 2^26 also the look-back sort's
-   device time outside the port's kernels by row); fused sort against
-   ``torch.sort(stable=True)`` at 1M and 16M keys (CUDA events, median of
-   7 runs after warm-up, and the device's busy time from torch.profiler);
+   split by profiler row); fused sort against ``torch.sort(stable=True)``
+   at 1M and 16M keys (CUDA events, median of 7 runs after warm-up, and the
+   device's busy time from torch.profiler);
    each kernel of one pass at 1M and 16M beside its plain version (device
    time from the profiler, and CUDA-event time per call), its bound (the
    bytes it must move at 3.35 TB/s) and its share of that bound, and
@@ -135,11 +123,10 @@ in eight phases:
    scatter_by_destination (the stores it replaces), K4 alone and K1, in
    alternating turns, each dest_scatter line with its partition
    (tiles, threads) and its registers (``cuobjdump -res-usage`` of the
-   build); key_bits, sort_plan
-   (random, skewed and equal keys), exclusive_scan beside ``torch.cumsum``
-   on a vector, and the look-back pass, the table pass whole, bucketize_scatter,
-   bucketize and scatter_runs on a radix-16 pass, at 1M, 2^24 and
-   100,000,000 keys, each with its bound and share of bound;
+   build); sort_plan (random, skewed and equal keys), exclusive_scan beside
+   ``torch.cumsum`` on a vector, and the look-back pass, bucketize and
+   scatter_runs on a radix-16 pass, at 1M, 2^24 and 100,000,000 keys, each
+   with its bound and share of bound;
    segment_aggregate (the group-by's five aggregates) at 1M and 2^24 rows
    of about 100 a key, at 2^24 also on equal and on unique keys, and on the
    group-by's sorted 100M buffer, its column in key order and read through
@@ -191,7 +178,6 @@ import tempfile
 import time
 import types
 import warnings
-from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from multiprocessing import resource_tracker
 from unittest import mock
@@ -199,12 +185,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from gpuradixsort_tpu_torch.bench import (
-    DURATIONS_FILE,
-    chain_for,
-    gather_sector_bytes,
-    stage_work,
-)
+from gpuradixsort_tpu_torch.bench import DURATIONS_FILE, gather_sector_bytes, stage_work
 from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core.table import (
     Column,
@@ -221,24 +202,19 @@ from gpuradixsort_tpu_torch.kernels.aggregate import PARTITION as AGG_PARTITION
 from gpuradixsort_tpu_torch.kernels.aggregate import segment_aggregate
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
-from gpuradixsort_tpu_torch.kernels.key_bits import (
+from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
+from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
+from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter_lookback, scatter_runs
+from gpuradixsort_tpu_torch.kernels.sort_plan import (
     ARGS_WORDS,
     LOOKBACK_PARTITION,
     SortArgs,
-    key_bits,
     live_input,
     pass_mask,
-    pass_plan,
     plan_of_mask,
+    planned_route,
     sort_args,
     sort_plan,
-)
-from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
-from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
-from gpuradixsort_tpu_torch.kernels.scatter import (
-    bucketize_scatter,
-    bucketize_scatter_lookback,
-    scatter_runs,
 )
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.ops.aggregate import group_by_aggregate
@@ -272,12 +248,12 @@ PAYLOAD_COLS = 16
 KERNELS = {
     # The fused sort's argument block: its input, live length and result on
     # the card, which stand for the JAX package's index column and re-padding.
-    "sort_args": (sort_args, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
+    "sort_args": (sort_args, "gpuradixsort_tpu_torch/csrc/sort_plan.cu",
                   "gpuradixsort_tpu/ops/sort.py:193 and gpuradixsort_tpu/ops/sort.py:246",
                   ("sort_args_kernel",)),
     # The fused sort's key read: the plan and every pass's digit counts and
     # bases, which the JAX package sums from K1 in every pass.
-    "sort_plan": (sort_plan, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
+    "sort_plan": (sort_plan, "gpuradixsort_tpu_torch/csrc/sort_plan.cu",
                   "gpuradixsort_tpu/ops/sort.py:81 and gpuradixsort_tpu/ops/sort.py:83",
                   ("sort_plan_kernel",)),
     # The fused sort's pass: K1, the offsets, K2 and K3 in one kernel, its
@@ -295,11 +271,6 @@ KERNELS = {
     "scatter_runs": (scatter_runs, "gpuradixsort_tpu_torch/csrc/scatter_runs.cu",
                      "gpuradixsort_tpu/kernels/scatter.py:107",
                      ("scatter_1k_kernel", "scatter_any_kernel")),
-    # The table pass: K2 then K3 in one kernel, its run offsets from K1's table.
-    "bucketize_scatter": (bucketize_scatter, "gpuradixsort_tpu_torch/csrc/bucketize_scatter.cu",
-                          "gpuradixsort_tpu/kernels/bucketize.py:156 and "
-                          "gpuradixsort_tpu/kernels/scatter.py:107",
-                          ("bucketize_scatter_1k_kernel", "bucketize_scatter_any_kernel")),
     "radix_dest": (rk.tile_destinations, "gpuradixsort_tpu_torch/csrc/radix_dest.cu",
                    "gpuradixsort_tpu/kernels/radix.py:92", ("radix_dest_kernel",)),
     # K4 and the indexed stores after it: the radix pass and the compaction
@@ -314,11 +285,7 @@ KERNELS = {
     "segment_aggregate": (segment_aggregate, "gpuradixsort_tpu_torch/csrc/segment_agg.cu",
                           "gpuradixsort_tpu/ops/aggregate.py:73-83 and "
                           "gpuradixsort_tpu/ops/filter.py:49-66", ("segment_agg_kernel",)),
-    # Glue with no Pallas kernel: the JAX package's per-pass skip predicate,
-    # and the plan made from it, without the digit counts.
-    "key_bits": (key_bits, "gpuradixsort_tpu_torch/csrc/key_bits.cu",
-                 "gpuradixsort_tpu/ops/sort.py:83", ("key_bits_kernel", "pass_plan_kernel")),
-    # No Pallas kernel either: the payload gathers, jnp.take in the JAX
+    # No Pallas kernel: the payload gathers, jnp.take in the JAX
     # package's sort_table and join, a column of an index a launch.
     "gather_rows": (gather_columns, "gpuradixsort_tpu_torch/csrc/gather_rows.cu",
                     "none: jnp.take at gpuradixsort_tpu/ops/sort.py:230 (permute.gather_rows) "
@@ -326,15 +293,14 @@ KERNELS = {
 }
 # The kernels each sort method runs.  A fused sort writes its argument block,
 # reads its keys once in sort_plan and runs the look-back pass in every pass;
-# K1, K5, the table pass, the plain key_bits, K2 and K3 run on none of its
-# path.  A radix pass runs K1, K5 and dest_scatter; K4 runs on no path.
+# K1, K5, K2 and K3 run on none of its path.  A radix pass runs K1, K5 and dest_scatter; K4 runs on no path.
 # sort_table gathers its payloads after its sort, once a payload.
 FUSED_PATH = ("sort_args", "sort_plan", "bucketize_scatter_lookback")
 RADIX_PATH = ("radix_hist", "dest_scatter", "exclusive_scan")
 AGG_PATH = ("segment_aggregate",)  # the group-by's, after its sort
 GATHER_PATH = ("gather_rows",)
 OFF_FUSED = tuple(name for name in KERNELS if name not in FUSED_PATH + GATHER_PATH)
-OFF_PATH = ("bucketize", "scatter_runs", "bucketize_scatter", "key_bits", "radix_dest")
+OFF_PATH = ("bucketize", "scatter_runs", "radix_dest")
 
 
 def reset_launches() -> None:
@@ -417,43 +383,37 @@ def phase_kernels(dev, rng, errs: dict) -> None:
                 err = max(max_abs_err(ok, ok_ref), max_abs_err(oi, oi_ref))
                 errs["scatter_runs"] = max(errs["scatter_runs"], err)
                 check(err == 0 and not overflow, f"scatter_runs == plain, {where}")
-                got = bucketize_scatter(keys, idx, hist_ref, offsets, shift, cfg, impl="cuda")
-                err = max(max_abs_err(got[0], ok_ref), max_abs_err(got[1], oi_ref))
-                errs["bucketize_scatter"] = max(errs["bucketize_scatter"], err)
-                check(err == 0, f"bucketize_scatter == plain, {where}")
                 state = sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64, device=dev))
                 got = bucketize_scatter_lookback(keys, idx, cfg, state, shift // bits)
                 err = max(max_abs_err(got[0], ok_ref), max_abs_err(got[1], oi_ref))
                 errs["bucketize_scatter_lookback"] = max(errs["bucketize_scatter_lookback"], err)
                 check(err == 0, f"bucketize_scatter_lookback == plain, {where}")
     check_hist_bucketize_geometry(dev, rng, errs)
-    check_fused_geometry(dev, rng, errs)
     check_lookback_geometry(dev, rng, errs)
     check_dest_geometry(dev, rng, errs)
     check_dest_scatter_geometry(dev, rng, errs)
     check_scatter_geometry(dev, rng, errs)
     check_scan_lengths(dev, rng, errs)
-    check_key_bits(dev, rng, errs)
-    check_plan_routing(dev, errs)
+    check_sort_plan_lengths(dev, rng, errs)
+    check_lookback_plans(dev, errs)
     check_live_route(dev, rng, errs)
     check_segment_aggregate_shapes(dev, rng, errs)
     check_gather_columns(dev, rng, errs)
     torch.cuda.synchronize()
 
 
-def check_plan_routing(dev, errs: dict) -> None:
-    """The fused sort's pass plan, and K1 and bucketize_scatter routed by it, against their plain versions.
+def check_lookback_plans(dev, errs: dict) -> None:
+    """sort_plan's plan, and the look-back pass routed by it, against their plain versions.
 
     Every mask of 4-bit digits over the 8 passes on 4 blocks of keys whose
     digit p varies exactly where bit p is set, and the masks none, all, the
     top two constant and one pass on 1,007,616 keys (1M rounded up to a
-    block, no pad keys).  The plan (key_bits with a plan) against the plain
-    one and ``plan_of_mask``, the skip counters equal; then in each pass of
-    the kernels' sort, K1 (where the pass runs) and bucketize_scatter
-    against their plain versions on the same inputs and plan, the fused pass
-    on copies of the result R and scratch S (every route: the input into R
-    or S, R into S, S into R; a skipped pass writing nothing); the sorted
-    pairs in R against a stable ``torch.sort``, and the input unwritten.
+    block, no pad keys).  sort_plan's plan, counts and bases against the
+    plain ones, its plan against ``plan_of_mask``, the skip counters equal;
+    then each look-back pass as the plan routes it against its plain
+    version on copies of R and S (every route: the input into R or S, R into
+    S, S into R; a skipped pass writing nothing); the sorted pairs in R
+    against a stable ``torch.sort``, and the input unwritten.
     """
     cfg = EngineConfig()
     cases = [(4 * cfg.block, m) for m in range(1 << cfg.num_passes)]
@@ -465,56 +425,26 @@ def check_plan_routing(dev, errs: dict) -> None:
         held = keys.clone()
         idx = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
         counters = [torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2)]
-        plan = pass_plan(keys, cfg, counters[0], impl="cuda")
         want_plan = plan_of_mask(mask, cfg.num_passes)
-        err = max(max_abs_err(plan, pass_plan(keys, cfg, counters[1], impl="reference")),
-                  max_abs_err(plan.cpu(), torch.tensor(want_plan, dtype=torch.int32)),
-                  max_abs_err(*counters))
-        errs["key_bits"] = max(errs["key_bits"], err)
+        routes.update(planned_route(torch.tensor(want_plan), p, ("input", "R", "S"))
+                      for p in range(cfg.num_passes))
         where = f"{n} keys, pass mask {mask:#04x}"
-        if err:
-            check(False, f"pass plan == plain == plan_of_mask, {where}")
         state = sort_plan(keys, cfg, counters[0], impl="cuda")
         ref_state = sort_plan(keys, cfg, counters[1], impl="reference")
-        err = max(max(map(max_abs_err, state[:3], ref_state[:3])), max_abs_err(*counters))
+        err = max(max(map(max_abs_err, state[:3], ref_state[:3])), max_abs_err(*counters),
+                  max_abs_err(state.plan.cpu(), torch.tensor(want_plan, dtype=torch.int32)))
         errs["sort_plan"] = max(errs["sort_plan"], err)
         if err:
-            check(False, f"sort_plan == plain, {where}")
+            check(False, f"sort_plan == plain, its plan == plan_of_mask, {where}")
         check_lookback_routes(keys, idx, cfg, (state, ref_state), errs, where)
-        buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
-        for p in range(cfg.num_passes):
-            shift, route = p * cfg.radix_bits, dict(plan=plan, pass_index=p, buffers=buffers)
-            runs = want_plan[p] >= 0
-            routes.add(rk.planned_route(torch.tensor(want_plan), p, ("input", "R", "S")))
-            hist = rk.tile_histograms(keys, shift, cfg, impl="cuda", **route)
-            if runs:
-                err = max_abs_err(hist, rk.tile_histograms(keys, shift, cfg, impl="reference",
-                                                           **route))
-                errs["radix_hist"] = max(errs["radix_hist"], err)
-                if err:
-                    check(False, f"radix_hist with the plan == plain, {where}, pass {p}")
-            offsets = rk.global_offsets(hist)
-            want = tuple(tuple(t.clone() for t in pair) for pair in buffers)
-            bucketize_scatter(keys, idx, hist, offsets, shift, cfg, impl="reference", plan=plan,
-                              pass_index=p, buffers=want)
-            bucketize_scatter(keys, idx, hist, offsets, shift, cfg, impl="cuda", **route)
-            err = max(max_abs_err(g, w) for got, w_pair in zip(buffers, want)
-                      for g, w in zip(got, w_pair))
-            errs["bucketize_scatter"] = max(errs["bucketize_scatter"], err)
-            if err:
-                check(False, f"bucketize_scatter with the plan == plain, {where}, pass {p}")
-        order = torch.sort(int32_bits(keys).to(torch.int64) & 0xFFFFFFFF, stable=True).indices
-        if not (same_bits(buffers[0], (int32_bits(keys)[order], int32_bits(idx)[order]))
-                and same_bits((keys,), (held,))):
-            check(False, f"the planned passes sort stably into R and leave the input unwritten, "
-                  f"{where}")
+        if not same_bits((keys,), (held,)):
+            check(False, f"the planned passes leave the input unwritten, {where}")
     check(routes >= {None, ("input", "R"), ("input", "S"), ("R", "S"), ("S", "R")},
           f"the plans routed passes {sorted(map(str, routes))}")
-    check(True, f"pass plan, sort_plan's plan, counts and bases, and radix_hist, "
-          f"bucketize_scatter and bucketize_scatter_lookback routed by the plan == their plain "
-          f"versions pass by pass, and the sorted pairs in R == a stable torch.sort, for all "
-          f"{1 << cfg.num_passes} masks of 4-bit digits on {4 * cfg.block} keys and 4 masks on "
-          f"{round_up(N_HEADLINE, cfg.block)} keys")
+    check(True, f"sort_plan's plan, counts and bases, and bucketize_scatter_lookback routed by "
+          f"the plan == their plain versions pass by pass, and the sorted pairs in R == a "
+          f"stable torch.sort, for all {1 << cfg.num_passes} masks of 4-bit digits on "
+          f"{4 * cfg.block} keys and 4 masks on {round_up(N_HEADLINE, cfg.block)} keys")
 
 
 def check_lookback_routes(keys, idx, cfg, states, errs: dict, where: str) -> None:
@@ -585,32 +515,13 @@ def keys_of_kind(rng, n: int, kind: str) -> np.ndarray:
     return np.full(n, PAD_KEY if kind == "all PAD_KEY" else 0xDEADBEEF, dtype=np.uint32)
 
 
-def check_key_bits(dev, rng, errs: dict) -> None:
-    """key_bits against its plain version and numpy's bitwise reductions.
+def check_sort_plan_lengths(dev, rng, errs: dict) -> None:
+    """sort_plan against its plain version and numpy's counts at every length.
 
-    Lengths 0, 1, 3, 127, 4,097, 1,000,000 and 2^24, each aligned and one
-    word off a 16-byte boundary (a head and a tail of single keys); random
-    keys, and at 1M keys that share all bits but one, and all PAD_KEY.
+    Radix_bits 1, 2 and 4; 0 keys, a tile, 3 blocks, 1M rounded up to a
+    block and 2^24; random, skewed, equal and all PAD_KEY keys (at 2^24 only
+    random below 4-bit digits); aligned and one word off a 16-byte boundary.
     """
-    cases = [(n, off, "random") for n in (0, 1, 3, 127, 4097, N_HEADLINE, 1 << 24)
-             for off in (0, 1)]
-    cases += [(N_HEADLINE, 1, "one varying bit"), (N_HEADLINE, 0, "all PAD_KEY")]
-    for n, off, kind in cases:
-        if kind == "all PAD_KEY":
-            buf = np.full(n + off, PAD_KEY, dtype=np.uint32)
-        else:
-            buf = rng.integers(0, 2**32, n + off, dtype=np.uint32)
-            if kind == "one varying bit":
-                buf = np.uint32(0x5A5A0000) | (buf & np.uint32(1 << 7))
-        keys = torch.from_numpy(buf).to(dev)[off:]
-        got = key_bits(keys, impl="cuda")
-        err = max_abs_err(got, key_bits(keys, impl="reference"))
-        want = (np.bitwise_and.reduce(buf[off:]) if n else np.uint32(PAD_KEY),
-                np.bitwise_or.reduce(buf[off:]) if n else np.uint32(0))
-        err = max(err, max_abs_err(got.cpu(), torch.from_numpy(np.array(want, dtype=np.uint32))))
-        errs["key_bits"] = max(errs["key_bits"], err)
-        check(err == 0, f"key_bits == plain == numpy, length {n}, {kind}, "
-              f"{keys.data_ptr() % 16} bytes off a 16-byte boundary")
     for bits in (1, 2, 4):
         cfg = EngineConfig(radix_bits=bits)
         for n in (0, cfg.tile, 3 * cfg.block, round_up(N_HEADLINE, cfg.block), 1 << 24):
@@ -999,46 +910,6 @@ def check_hist_bucketize_geometry(dev, rng, errs: dict) -> None:
           "equal keys")
 
 
-def check_fused_geometry(dev, rng, errs: dict) -> None:
-    """bucketize_scatter against its plain version at every launch geometry.
-
-    Radix 2, 4 and 16 at tile_rows 1, 3, 8 and 16 (the register route on
-    the 1,024-key tile, the staged rows on any other); 1, 8 and 29 tiles,
-    so that the last block of 8 is part-filled, and at radix 16 MANY_TILES;
-    inputs aligned and one word off a 16-byte boundary; shifts 0 and 28;
-    and offsets moved by 7 and -5 rows, whose destinations outside the
-    buffer are dropped (the rows some slot lands on compared).
-    """
-    for tile_rows in (1, 3, 8, 16):
-        for bits in (1, 2, 4):
-            cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
-            for num_tiles in (1, 8, 29) + ((MANY_TILES,) if bits == 4 else ()):
-                n = num_tiles * cfg.tile
-                buf = torch.from_numpy(rng.integers(0, 2**32, n + 1, dtype=np.uint32)).to(dev)
-                pos = torch.from_numpy(rng.permutation(n + 1).astype(np.uint32)).to(dev)
-                for keys, idx in ((buf[:n], pos[:n]), (buf[1:], pos[1:])):
-                    for shift in (0, 28):
-                        hist = rk.tile_histograms(keys, shift, cfg, impl="reference")
-                        off = rk.global_offsets(hist)
-                        want = bucketize_scatter(keys, idx, hist, off, shift, cfg,
-                                                 impl="reference")
-                        got = bucketize_scatter(keys, idx, hist, off, shift, cfg, impl="cuda")
-                        errs["bucketize_scatter"] = max(errs["bucketize_scatter"],
-                                                        *map(max_abs_err, got, want))
-                    for moved_by in (7, -5):
-                        rows = slice(moved_by, n) if moved_by > 0 else slice(0, n + moved_by)
-                        got, want = (bucketize_scatter(keys, idx, hist, off + moved_by, shift,
-                                                       cfg, impl=impl) for impl in ("cuda",
-                                                                                    "reference"))
-                        errs["bucketize_scatter"] = max(errs["bucketize_scatter"], *(
-                            max_abs_err(g[rows], w[rows]) for g, w in zip(got, want)))
-    check(errs["bucketize_scatter"] == 0,
-          "bucketize_scatter (radix 2, 4, 16) == plain at tile_rows 1, 3, 8, 16, "
-          f"1/8/29/{MANY_TILES} tiles, aligned and unaligned inputs; out-of-range destinations "
-          "of moved offsets dropped")
-    torch.cuda.empty_cache()
-
-
 # Partitions of the look-back pass (4,096 keys a block of 256 threads):
 # more than the card holds at once, so that partitions wait on partitions
 # of an earlier wave of blocks.
@@ -1206,34 +1077,24 @@ def check_segment_aggregate_shapes(dev, rng, errs: dict) -> None:
 def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
     """The kernels against their plain versions at the path's shapes.
 
-    radix_hist, bucketize, scatter_runs, bucketize_scatter, radix_dest and
-    dest_scatter (moving the keys and their index, or, in the compaction, the
-    filter's key column):
-    the 2^24 keys of the sorts at radix_bits 1, 4 and 8 (bucketize,
-    scatter_runs on the kernel's bucketized tiles, and bucketize_scatter at
-    4), the filter's 100,000,000 keys at
-    radix_bits 4, as the sort of its survivors sees a 100M buffer, and at 1
-    and 8, and the filter's 1-bit compaction of them (digit 0 = kept), made
-    as filter_table makes it.  key_bits, also against numpy: the 100M padded
-    buffers the fused sorts of phase 6 reduce (the filter's keys, its
-    survivors' buffer at their live length, its rows past it stale, the
-    group-by's keys) and the 2^24 keys; key_bits of each re-padded buffer.
+    radix_hist, bucketize, scatter_runs, bucketize_scatter_lookback,
+    radix_dest and dest_scatter (moving the keys and their index, or, in the
+    compaction, the filter's key column): the 2^24 keys of the sorts at
+    radix_bits 1, 4 and 8 (bucketize, scatter_runs on the kernel's
+    bucketized tiles, and the look-back pass at 4), the filter's 100,000,000
+    keys at radix_bits 4, as the sort of its survivors sees a 100M buffer,
+    and at 1 and 8, and the filter's 1-bit compaction of them (digit 0 =
+    kept), made as filter_table makes it.  sort_plan, its counts also
+    against numpy: the 100M padded buffers the fused sorts of phase 6 read
+    (the filter's keys, its survivors' buffer at their live length, its rows
+    past it stale, the group-by's keys) and the 2^24 keys.
     """
     columns = {"filter keys": tables["filter"]["key"], "filter survivors": tables["kept"],
                "group-by keys": tables["group"]["key"], "2^24 keys": tables["r16m"]}
     for where, col in columns.items():
-        keys = sort_ops._repadded(col).data
-        host_keys = keys.cpu().numpy()
-        want = torch.from_numpy(np.array([np.bitwise_and.reduce(host_keys),
-                                          np.bitwise_or.reduce(host_keys)], dtype=np.uint32))
-        got = key_bits(keys, impl="cuda")
-        err = max(max_abs_err(got, key_bits(keys, impl="reference")),
-                  max_abs_err(got.cpu(), want))
-        errs["key_bits"] = max(errs["key_bits"], err)
-        check(err == 0, f"key_bits == plain == numpy, {where}, {keys.numel()} padded rows")
-        del keys
+        host_keys = col.data[:col.length].cpu().numpy()
         check_sort_plan(col.data, cfg, errs, f"{where}, {col.padded_length} padded rows, "
-                        f"{col.length} live", host=host_keys[:col.length], length=col.length)
+                        f"{col.length} live", host=host_keys, length=col.length)
         del host_keys
     del columns
     keys16m = tables["r16m"].data
@@ -1280,10 +1141,6 @@ def check_kernels_at_path_shapes(tables: dict, cfg, errs: dict) -> None:
             errs["scatter_runs"] = max(errs["scatter_runs"], err)
             check(err == 0, f"scatter_runs == plain, {where}")
             del got
-            err = max(map(max_abs_err, bucketize_scatter(keys, idx, hist, offsets, shift, kcfg,
-                                                         impl="cuda"), want))
-            errs["bucketize_scatter"] = max(errs["bucketize_scatter"], err)
-            check(err == 0, f"bucketize_scatter == plain, {where}")
             state = sort_plan(keys, kcfg, torch.zeros(1, dtype=torch.int64, device=keys.device))
             err = max(map(max_abs_err, bucketize_scatter_lookback(
                 keys, idx, kcfg, state, shift // kcfg.radix_bits, impl="cuda"), want))
@@ -1459,7 +1316,7 @@ def syncs_of(fn) -> int:
 def _kernel_name(row: str) -> str:
     """The port's kernel a profiler row names (one of its __global__ functions), or ''.
 
-    A symbol counts whole: scatter_1k_kernel is not bucketize_scatter_1k_kernel.
+    A symbol counts whole, never as the end of a longer name.
     """
     return next((name for name, (*_, symbols) in KERNELS.items()
                  if any(re.search(rf"(?<!\w){sym}[(<]", row) for sym in symbols)), "")
@@ -1813,111 +1670,6 @@ def graph_ab_method(method: str, sizes, dev, rng, cfg, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def offsets_passes(keys: torch.Tensor, idx: torch.Tensor, cfg, skipped: torch.Tensor):
-    """The fused sort's passes by the table pass: K1, the offsets scan, then bucketize_scatter.
-
-    The A/B's other side, never a fallback.  The plan comes from the AND
-    and OR alone (``pass_plan``), and every pass launches K1 and the
-    table-reading ``bucketize_scatter`` routed by it, with the offsets
-    (``global_offsets``: two transposes and K5) between them.
-    """
-    plan = pass_plan(keys, cfg, skipped)
-    buffers = tuple((torch.empty_like(keys), torch.empty_like(idx)) for _ in range(2))
-    for p in range(cfg.num_passes):
-        shift, route = p * cfg.radix_bits, dict(plan=plan, pass_index=p, buffers=buffers)
-        hist = rk.tile_histograms(keys, shift, cfg, **route)
-        bucketize_scatter(keys, idx, hist, rk.global_offsets(hist), shift, cfg, **route)
-    return buffers[0]
-
-
-def table_pass_sort(col: Column, cfg):
-    """sort_pairs of ``col`` by the table pass, as the fused sort ran before its argument block.
-
-    The re-padding and the index column by torch, then ``offsets_passes``,
-    as a graph that copies its input in and its outputs out (the radix
-    method's ``_RadixGraph``) where the shape recurs.  The A/B's other side.
-    """
-    skipped = sort_ops._skip_counter(col.device)
-
-    def run(data):
-        padded = Column(data, col.length)
-        return offsets_passes(sort_ops._repadded(padded).data, sort_ops._index_column(padded), cfg,
-                              skipped)
-
-    inputs = (col.data,)
-    graph = sort_ops._graph_of("table pass", inputs, cfg, lambda: sort_ops._RadixGraph(run, inputs))
-    return run(*inputs) if graph is None else graph(*inputs)
-
-
-PASS_AB_SIZES = (("1M", N_HEADLINE), ("2^24", 1 << 24), ("2^26", 1 << 26))
-
-
-def pass_ab(dev, rng, cfg, card: str) -> None:
-    """The fused sort by look-back against the same sort by the table pass, beside torch.
-
-    ``sort_pairs`` of random keys at 1M, 2^24 and 2^26 by the port (one
-    key read, then the look-back pass), by the fused sort with
-    ``offsets_passes`` swapped in (K1, offsets and the table-reading pass),
-    and by the ``torch`` method, each as a user runs it: a cached graph of
-    its own at up to GRAPH_MAX_PADDED keys, eager above.  The table pass
-    side (``table_pass_sort``) re-pads and makes the index with torch, as
-    the fused sort did before its argument block.  Outputs equal; CUDA
-    events ms a sort over the bench's chain of back-to-back sorts, median
-    of 16 in alternating rounds; the profiler's busy time a sort, split by
-    the port's kernels, and at 2^24 and 2^26 the look-back sort's device
-    time outside the port's kernels by profiler row.
-    """
-    log(f"fused sort_pairs, the look-back pass against the table pass (K1, offsets, "
-        f"bucketize_scatter), beside the torch method ({card})")
-    for label, n in PASS_AB_SIZES:
-        col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg, device=dev)
-        caches = {"look-back pass": ({}, OrderedDict()), "table pass": ({}, OrderedDict())}
-
-        def fused_by(name: str):
-            graphs, seen = caches[name]
-
-            def run():
-                with contextlib.ExitStack() as stack:
-                    stack.enter_context(mock.patch.object(sort_ops, "_SORT_GRAPHS", graphs))
-                    stack.enter_context(mock.patch.object(sort_ops, "_SEEN", seen))
-                    if name == "table pass":
-                        return table_pass_sort(col, cfg)
-                    return sort_pairs(col, cfg, method="fused")
-            return run
-
-        fns = {name: fused_by(name) for name in caches}
-        fns["torch"] = lambda: sort_pairs(col, cfg, method="torch")
-        outs = {name: column_data(fn()) if name != "table pass" else list(fn())
-                for name, fn in fns.items()}
-        check(same_bits(outs["look-back pass"], outs["table pass"])
-              and same_bits(outs["look-back pass"], outs["torch"]),
-              f"pass A/B {label}: both fused passes and the torch method give one result")
-        del outs
-        calls = chain_for(n)
-        ms = ab_per_call_ms(fns, calls=calls)
-        parts = []
-        for name, fn in fns.items():
-            busy, rows = profiled_device_ms(fn, calls=3)
-            how = "" if name == "torch" else ", graph" if caches[name][0] else ", eager"
-            if not busy:
-                parts.append(f"{name} {ms[name]:.4f} ms (device busy not measured{how})")
-                continue
-            ours = port_kernel_split(rows)
-            split = "".join(f", {k} {v:.4f}" for k, v in ours.items())
-            if name != "torch":
-                split += f", other {busy - sum(ours.values()):.4f}"
-            parts.append(f"{name} {ms[name]:.4f} ms (device busy {busy:.4f} ms{how}{split})")
-            if name == "look-back pass" and label != "1M":
-                log(f"  fused {label} ({how[2:]}): device ms a sort outside the port's kernels, "
-                    f"by profiler row: {glue_split(rows)}")
-        log(f"time pass A/B {label} ({col.padded_length} padded keys, {card}): CUDA events ms a "
-            f"sort over {calls} back-to-back sorts, median of 16 in alternating rounds; "
-            + "; ".join(parts))
-        torch.cuda.synchronize()
-        del col, fns, caches
-        torch.cuda.empty_cache()
-
-
 # Traffic of fused sorts for the graph cache: 12 lengths that differ, each
 # sorted once (as join build sides of different sizes are), and 4 lengths
 # that recur, each sorted 8 times in turn.
@@ -1991,7 +1743,6 @@ def add_device(st: StageTimes, name: str, ms: float) -> None:
 def phase_times(dev, rng, cfg, card: str) -> dict:
     """Phase 5: times; returns each kernel's ms, plain_ms, library_ms, bound_ms, bound_by at 1M."""
     graph_ab(dev, rng, cfg, card)
-    pass_ab(dev, rng, cfg, card)
     graph_traffic(dev, rng, cfg, card)
     for n, label in ((N_HEADLINE, "1M"), (1 << 24, "16M")):
         col = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
@@ -2068,10 +1819,6 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             "scatter_runs": (lambda: scatter_runs(bk, bi, hist, offsets, cfg, impl="cuda"),
                              lambda: scatter_runs(bk, bi, hist, offsets, cfg,
                                                   impl="reference"), None),
-            "bucketize_scatter": (
-                lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg, impl="cuda"),
-                lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg, impl="reference"),
-                None),
             "radix_dest": (lambda: rk.tile_destinations(keys, offsets, 0, cfg, impl="cuda"),
                            lambda: rk.tile_destinations(keys, offsets, 0, cfg,
                                                         impl="reference"), None),
@@ -2082,8 +1829,6 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
             "exclusive_scan": (lambda: exclusive_scan(counts, impl="cuda"),
                                lambda: exclusive_scan(counts, impl="reference"),
                                lambda: torch.cumsum(counts, 0, dtype=torch.int32)),
-            "key_bits": (lambda: key_bits(keys, impl="cuda"),
-                         lambda: key_bits(keys, impl="reference"), None),
             # A row of PAYLOAD_COLS int32 through the sort's index, every row
             # live; the library call is the route the kernel replaced.
             "gather_rows": (lambda: gather_columns([gather_payload], gather_src),
@@ -2184,7 +1929,7 @@ def median_measured(turns: list[float]) -> float:
 
 
 def phase_dest_scan_times(dev, rng, card: str) -> None:
-    """Phase 5, continued: the radix pass's kernels, key_bits, sort_plan, exclusive_scan.
+    """Phase 5, continued: the radix pass's kernels, sort_plan, exclusive_scan.
 
     At radix 2, 16 and 256 on (key, index) pairs: dest_scatter, K4 then
     ``scatter_by_destination`` (the stores it replaces, the same function),
@@ -2196,7 +1941,7 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
     the bound and the share of it; exclusive_scan of a vector of int32 0..99
     beside ``torch.cumsum`` of it, in alternating turns.
     """
-    log(f"dest_scatter, K4 + scatter_by_destination, radix_dest, radix_hist, key_bits and "
+    log(f"dest_scatter, K4 + scatter_by_destination, radix_dest, radix_hist, sort_plan and "
         f"exclusive_scan at 1M, 2^24 and 100M ({card}): device us per call (profiler, 20 calls, "
         f"median of 3 turns in alternating order), bound, share of bound")
     regs = dest_scatter_registers()
@@ -2238,13 +1983,7 @@ def phase_dest_scan_times(dev, rng, card: str) -> None:
             del hist, offsets, fns
             torch.cuda.empty_cache()
         del idx
-        us = 1e3 * median_measured([profiled_device_ms(lambda: key_bits(keys), calls=20)[0]
-                                    for _ in range(3)])
         work = stage_work(padded, EngineConfig())
-        bound_ms, by = bound_of(*work["key_bits"])
-        share = f"{bound_ms * 1e3 / us:.3f}" if us else "not measured"
-        log(f"  key_bits @ {label} ({padded} keys): {us:.2f} us; bound {bound_ms * 1e3:.2f} us "
-            f"({by}); share of bound {share}")
         skipped = torch.zeros(1, dtype=torch.int64, device=dev)
         bound_ms, by = bound_of(*work["sort_plan"])
         block = torch.empty(ARGS_WORDS, dtype=torch.int64, device=dev)
@@ -2288,15 +2027,12 @@ def phase_scatter_times(dev, rng, card: str) -> None:
 
     The look-back pass (the fused sort's: its kernel's own device time, its
     scratch cleared before each launch as a sort's sort_plan clears it once),
-    the table pass whole (K1, global_offsets, then bucketize_scatter reading
-    the table), bucketize_scatter alone, and K2 and K3 on the same input (K3
-    on K2's bucketized tiles): device time per call from the profiler (20
+    and K2 and K3 on the same input (K3 on K2's bucketized tiles): device time per call from the profiler (20
     back-to-back calls, median of 3 turns, the sides in alternating turns),
     the bound (stage_work's bytes at 3.35 TB/s) and the share of it.
     """
     cfg = EngineConfig()
-    log(f"the look-back pass, the table pass whole, bucketize_scatter, bucketize and scatter_runs at "
-        f"1M, 2^24 and 100M, radix 16 ({card}): device us per call (profiler, 20 calls, median of "
+    log(f"the look-back pass, bucketize and scatter_runs at 1M, 2^24 and 100M, radix 16 ({card}): device us per call (profiler, 20 calls, median of "
         f"3 turns), bound, share of bound")
     for label, n in (("1M", N_HEADLINE), ("2^24", N_LARGE), ("100M", N_OPS)):
         keys = make_key_column(rng.integers(0, 2**32, size=n, dtype=np.uint32), cfg,
@@ -2312,13 +2048,7 @@ def phase_scatter_times(dev, rng, card: str) -> None:
             state.lookback.zero_()  # a pass index serves one launch
             return bucketize_scatter_lookback(keys, idx, cfg, state, 0)
 
-        def table_pass_whole():
-            h = rk.tile_histograms(keys, 0, cfg)
-            return bucketize_scatter(keys, idx, h, rk.global_offsets(h), 0, cfg)
-
         fns = {"bucketize_scatter_lookback": lookback,
-               "table pass whole (K1, global_offsets, bucketize_scatter)": table_pass_whole,
-               "bucketize_scatter": lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg),
                "bucketize": lambda: bucketize_tiles(keys, idx, 0, cfg),
                "scatter_runs": lambda: scatter_runs(bk, bi, hist, offsets, cfg)}
         turns = {name: [] for name in fns}
@@ -2329,9 +2059,6 @@ def phase_scatter_times(dev, rng, card: str) -> None:
                     busy = port_kernel_split(rows).get(name, 0.0)  # not the scratch's fill
                 turns[name].append(1e3 * busy)
         work = stage_work(padded, cfg)
-        work["table pass whole (K1, global_offsets, bucketize_scatter)"] = tuple(
-            sum(work[k][i] for k in ("radix_hist", "global_offsets", "bucketize_scatter"))
-            for i in (0, 1))
         for name, t in turns.items():
             us = median_measured(t)
             bound_ms, by = bound_of(*work[name])

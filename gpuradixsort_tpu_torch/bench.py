@@ -64,7 +64,7 @@ from gpuradixsort_tpu_torch.core.table import int32_bits, pad_to_tile
 from gpuradixsort_tpu_torch.kernels import radix as rk
 from gpuradixsort_tpu_torch.kernels.bucketize import bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
-from gpuradixsort_tpu_torch.kernels.key_bits import (
+from gpuradixsort_tpu_torch.kernels.sort_plan import (
     ARGS_WORDS,
     COUNT_LINES,
     SortArgs,
@@ -73,11 +73,7 @@ from gpuradixsort_tpu_torch.kernels.key_bits import (
     sort_args,
     sort_plan,
 )
-from gpuradixsort_tpu_torch.kernels.scatter import (
-    bucketize_scatter,
-    bucketize_scatter_lookback,
-    scatter_runs,
-)
+from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter_lookback, scatter_runs
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.utils.timing import (
     HBM_PEAK_TBS,
@@ -192,10 +188,9 @@ def stage_work(padded: int, cfg, words: int = 2, agg_columns: int = 1,
     Each input is read once and each output written once; a table is one
     (tiles, radix) int32 table.  ``exclusive_scan`` is the scan of a vector
     of ``padded`` int32 values; ``global_offsets`` is one pass's scan of the
-    histogram table; ``bucketize_scatter`` counts each tile's digits itself
-    and reads only the offsets table; ``bucketize_scatter_lookback`` writes
-    and reads its pass's status words (8 bytes a partition and digit) where
-    that reads the table; ``sort_plan`` reads the keys and writes the AND
+    histogram table; ``bucketize_scatter_lookback`` counts each
+    partition's digits itself and writes and reads its pass's status words
+    (8 bytes a partition and digit); ``sort_plan`` reads the keys and writes the AND
     and OR, the plan, every pass's digit counts and bases, and the cleared
     lines it sums the counts in and look-back scratch of every pass, and
     adds a counter a pass to each key; ``sort_args`` writes the argument
@@ -226,11 +221,9 @@ def stage_work(padded: int, cfg, words: int = 2, agg_columns: int = 1,
         "global_offsets": (2 * table, table // 4),
         "bucketize": (16 * padded, 4 * padded),
         "scatter_runs": (16 * padded + 2 * table, 2 * padded),
-        "bucketize_scatter": (16 * padded + table, 6 * padded),
         "radix_dest": (8 * padded + table, 4 * padded),
         "dest_scatter": (8 * words * padded + 2 * table, 4 * padded),
         "exclusive_scan": (8 * padded + 4, padded),
-        "key_bits": (4 * padded + 8, 2 * padded),
         "gather_rows": ((4 + 2 * 4 * PAYLOAD_COLS) * padded, 0),
         "segment_aggregate": (4 * (1 + agg_columns + agg_outputs + agg_rows) * padded,
                               agg_outputs * padded),
@@ -250,10 +243,9 @@ def gather_sector_bytes(live: int, columns: int = 1) -> int:
 # The stage table's rows: its label (bench.py's, the scatter named for the
 # CUDA K3, which has no window) and the stage_work entry.  A fused sort runs
 # the key read with its digit counts once and the look-back pass in every
-# pass.  The histogram, the offsets and the bucketize+scatter rows time the
-# table pass those replaced, and the bucketize and scatter_runs rows the two
-# kernels that did its work before that; all of them still stand for the
-# JAX package's functions.
+# pass.  The histogram, the offsets, the bucketize and the scatter_runs rows
+# time the four kernels whose work the look-back pass does; all of them
+# still stand for the JAX package's functions.
 STAGES = {
     "key read with digit counts (once)": "sort_plan",
     "look-back bucketize+scatter kernel (per pass)": "bucketize_scatter_lookback",
@@ -261,7 +253,6 @@ STAGES = {
     "global offsets (per pass)": "global_offsets",
     "bucketize kernel (per pass)": "bucketize",
     "scatter_runs kernel (per pass)": "scatter_runs",
-    "bucketize+scatter kernel (per pass)": "bucketize_scatter",
     "payload gather 64B rows (once)": "gather_rows",
 }
 
@@ -303,7 +294,6 @@ def stage_table(keys: torch.Tensor, cfg: EngineConfig, timed: bool) -> list[dict
         "global_offsets": lambda: rk.global_offsets(hist),
         "bucketize": lambda: bucketize_tiles(keys, idx, 0, cfg),
         "scatter_runs": lambda: scatter_runs(bk, bi, hist, offsets, cfg),
-        "bucketize_scatter": lambda: bucketize_scatter(keys, idx, hist, offsets, 0, cfg),
         "gather_rows": lambda: gather_columns([payload], src)[0],
     }
     work = stage_work(padded, cfg)

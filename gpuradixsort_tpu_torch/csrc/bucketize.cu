@@ -32,9 +32,9 @@
 // their order.  Every other tile (bucketize_any_kernel) takes a slower route:
 // one tile a warp, counting the whole tile from device memory, then reading
 // it again to rank and place it.  Steps 3 and 4 are grs::rank_1k and
-// grs::rank_any (tile.cuh), which the fused pass (bucketize_scatter.cu)
-// shares; since that kernel runs the fused sort's passes, this one runs off
-// the main path, beside its plain version and in the bench's stage table.
+// grs::rank_any (tile.cuh).  The fused sort's pass (bucketize_scatter.cu)
+// does this kernel's work inside its own, so this one runs off the main
+// path, beside its plain version and in the bench's stage table.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -1,54 +1,28 @@
-// The fused sort's pass: bucketize and scatter (K2 then K3) as one kernel.
+// The fused sort's pass: K1, the offsets scan, K2 and K3 of a pass as one kernel.
 //
-// Replaces the pair of Pallas kernels
+// Replaces the Pallas kernels that one pass of the JAX package's fused sort
+// runs one after the other: gpuradixsort_tpu/kernels/radix.py::_hist_kernel
+// and the offsets scan (gpuradixsort_tpu/ops/sort.py:80-87), then
 // gpuradixsort_tpu/kernels/bucketize.py::_bucketize_kernel and
-// gpuradixsort_tpu/kernels/scatter.py::_window_kernel, which one fused pass
-// runs one after the other (gpuradixsort_tpu/ops/sort.py:88-92), and on the
-// fused sort's main path also the pass's K1 and offsets scan before them
-// (:80-87).  The output equals
-// scatter_runs(bucketize_tiles(keys, idx, shift), hist, offsets) for hist
-// the tiles' digit histograms (K1's): tile t's digit-r run, stably in
-// element order, goes to out[offsets[t, r] ...].  A stable partition by
-// digit has one answer, so the look-back route, which cuts the buffer into
-// partitions and not tiles, gives the same output.
+// gpuradixsort_tpu/kernels/scatter.py::_window_kernel (:88-92).  The output
+// equals scatter_runs(bucketize_tiles(keys, idx, shift), hist, offsets) for
+// hist the tiles' digit histograms (K1's) and offsets their global offsets:
+// tile t's digit-r run, stably in element order, goes to
+// out[offsets[t, r] ...].  A stable partition by digit has one answer, so
+// this kernel, which cuts the buffer into partitions and not tiles, gives
+// the same output.
 //
 // Bound on the H100: HBM bytes, 16 a key: key and index each read once and
-// written once, plus each tile's offsets row (the table route) or each
-// partition's status words, written and read once (the look-back route).
+// written once, plus each partition's status words, written and read once.
 // The TPU pair writes the bucketized tiles to HBM and reads them back,
 // because the TPU has no random store; K2 and K3 ported that boundary and
-// moved 32 bytes a key between them.  Here the bucketized tile stays in
-// shared memory.
+// moved 32 bytes a key between them.  Here the bucketized partition stays
+// in shared memory.
 //
-// The table route (bucketize_scatter_*_kernel, grs_bucketize_scatter) reads
-// its run offsets from K1's histograms through global_offsets, as the JAX
-// package's pair does; it runs on no path of the port and stands beside
-// the look-back route as its counterpart.  One warp a tile and no block
-// barrier, as K2 and K3.  For the default 1,024-key tile
-// (bucketize_scatter_1k_kernel) a warp
-//   1. loads the tile warp-striped into registers (32 keys and 32 indices a
-//      lane, all loads issued before the first is used), and lane r < radix
-//      its entry of the tile's offsets row;
-//   2. ranks it with one ballot per digit bit and stages it digit-major in
-//      shared memory (grs::rank_1k, K2's step); lane r ends with the tile's
-//      count of digit r, so hist is not read;
-//   3. reads the staging back warp-striped and stores slot p at
-//      offsets[t, r] - start[r] + p (grs::place_1k, K3's step): a store
-//      instruction covers 32 neighbouring slots, one or two runs.
-// The warps are not persistent, one tile a warp, as in K3: run r of tile t
-// and of tile t + 1 share a 32-byte sector of the output, and tiles placed
-// close in time meet in L2; persistent warps with K2's cp.async prefetch of
-// the next tile measured slower (PERF.md, Findings).  Any other tile
-// (bucketize_scatter_any_kernel) counts the tile from device memory, reads
-// it again to stage it (grs::rank_any) and places it from the staging
-// (grs::place_any).  A destination outside [0, n), possible only for an
-// inconsistent offsets table (or bases), is dropped, as in K3.
-//
-// The look-back route (lookback_scatter_kernel, grs_lookback_scatter) is
-// the fused sort's pass: the JAX package's K1, offsets scan, K2 and K3 of
-// one pass in one kernel, no offsets table (Onesweep, Adinets and Merrill,
-// "Onesweep: A Faster Least Significant Digit Radix Sort for GPUs", 2022).
-// Its run offsets start from the pass's digit bases, which key_bits.cu
+// The kernel (lookback_scatter_kernel, grs_lookback_scatter) reads no
+// offsets table (Onesweep, Adinets and Merrill, "Onesweep: A Faster Least
+// Significant Digit Radix Sort for GPUs", 2022).
+// Its run offsets start from the pass's digit bases, which sort_plan.cu
 // counts in its one read of the sort's input.  A block of kPartThreads
 // threads takes a partition of kPartition keys by the pass's ticket (the
 // last partition may be ragged and is masked), so it only ever waits on
@@ -75,12 +49,12 @@
 // 30-bit packing does not fit.  The tag is (pass + 1) << 2 | kind, kind 1
 // an aggregate and 2 an inclusive prefix, so that words a skipped or an
 // earlier pass left read as not ready; the sort clears the words and the
-// tickets once, in key_bits.cu's memset, before its first pass, so a graph's
-// replay reads none of the last sort's.
+// tickets once, in sort_plan.cu's memset, before its first pass, so a
+// graph's replay reads none of the last sort's.
 //
-// The look-back route reads the sort's input and writes its result R where
-// the sort's argument block (warp.cuh's SortArgs, written before each sort
-// by key_bits.cu's grs_sort_args) says; only the scratch S is a parameter.
+// The pass reads the sort's input and writes its result R where the sort's
+// argument block (warp.cuh's SortArgs, written before each sort by
+// sort_plan.cu's grs_sort_args) says; only the scratch S is a parameter.
 // So one graph serves every call of a shape: the caller's keys are read
 // where they lie and R is the caller's own.  In every buffer of the sort
 // the rows at or past the block's live length are pad rows, (PAD_KEY,
@@ -90,8 +64,8 @@
 // :246-247), with no pass over the buffer.  Pads are PAD_KEY in every
 // digit and start at the tail, so a stable pass leaves them where they
 // are: a pass walks only the live partitions, those that hold a row below
-// the length, reads and places only the live rows, and key_bits.cu's bases
-// count only the live keys.  R's rows from the length on are written once
+// the length, reads and places only the live rows, and sort_plan.cu's
+// bases count only the live keys.  R's rows from the length on are written once
 // a sort, as pads, by the last pass that runs, and only by the blocks whose
 // ticket lies past the live partitions (in every other pass they exit at
 // once): the first of them writes the straddling partition's tail, and all
@@ -102,12 +76,13 @@
 // length), and one block more, up to kFillBlocks more where pads follow.
 
 // Buffers: a launch reads (keys, idx) from buffer `source` and writes buffer
-// `destination` of {input, out, scratch}.  Without a plan it reads the input
-// and writes out.  In a fused sort it follows the sort's pass plan
-// (key_bits.cu): a skipped pass returns at once, and a pass that runs reads
-// the input, the result R (out) or the scratch S and writes R or S, never
-// the buffer it reads: one tile's stores would land on another tile's keys
-// before that tile had read them.
+// `destination` of {the input, R, S}.  Without a plan it reads the input
+// and writes R.  In a fused sort it follows the sort's pass plan
+// (sort_plan.cu): a skipped pass returns at once, and a pass that runs reads
+// the input, R or S and writes R or S, never the buffer it reads: one
+// partition's stores would land on another partition's keys before that
+// partition had read them.  A destination outside [0, n), possible only for
+// inconsistent bases, is dropped, as in K3.
 
 #include <algorithm>
 #include <climits>
@@ -119,17 +94,13 @@
 namespace {
 
 constexpr int kMaxRadix = 16;
-constexpr int kFastTile = grs::kFastTile;
-constexpr int kItems = grs::kFastItems;
-constexpr int kMaxWarps = 8;        // tiles a block
-constexpr int kMaxShared = 232448;  // shared memory a block may use (H100)
 
-// The look-back route's block and partition.  Three blocks an SM bound
-// ptxas to 80 registers (24 bytes spill): on an H100 80GB HBM3 (700 W)
-// that ran faster at 2^24 and 100M keys than two blocks at 127 registers,
-// and as fast at 1M; four blocks (64 registers) spilled 140-176 bytes and
-// ran slower; 12 or 8 keys a lane, 384 or 512 threads, and rounds of 4 to
-// 16 loads a lane ran slower (PERF.md, Findings).
+// The block and its partition.  Three blocks an SM bound ptxas to 80
+// registers (24 bytes spill): on an H100 80GB HBM3 (700 W) that ran faster
+// at 2^24 and 100M keys than two blocks at 127 registers, and as fast at
+// 1M; four blocks (64 registers) spilled 140-176 bytes and ran slower; 12
+// or 8 keys a lane, 384 or 512 threads, and rounds of 4 to 16 loads a lane
+// ran slower (PERF.md, Findings).
 constexpr int kPartThreads = 256;
 constexpr int kPartWarps = kPartThreads / 32;
 constexpr int kPartItems = 16;                          // keys a lane
@@ -138,34 +109,21 @@ constexpr int kPartBlocks = 3;                          // blocks an SM (launch 
 constexpr int kLookLoads = 2;                           // status loads a lane a round
 constexpr int64_t kFillBlocks = kPartBlocks * 132;     // an eager launch's pad fill: one wave
 
-// The sort's buffers: 0 the input, 1 the result (or an unplanned launch's
-// output), 2 the scratch.  The input is only read.
-struct Buffers {
-  uint32_t* keys[3];
-  uint32_t* idx[3];
-};
-
-// Buffer i's keys and indices, chosen by compares: indexing the kernel
-// parameter with a value known only at run time would copy it to the stack.
+// A buffer's keys and indices.
 struct Pair {
   uint32_t* keys;
   uint32_t* idx;
 };
 
-__device__ __forceinline__ Pair buffer(const Buffers& b, int i) {
-  return i == 0 ? Pair{b.keys[0], b.idx[0]}
-                : (i == 1 ? Pair{b.keys[1], b.idx[1]} : Pair{b.keys[2], b.idx[2]});
-}
-
-// Buffer i of a sort on the look-back route: the input and the result R
-// from its argument block (the block's copy in shared memory), the scratch
-// S from the launch.
+// Buffer i of a sort: the input and the result R from its argument block
+// (the block's copy in shared memory), the scratch S from the launch,
+// chosen by compares.
 __device__ __forceinline__ Pair sort_buffer(const grs::SortArgs& args, Pair scratch, int i) {
   return i == 0 ? Pair{const_cast<uint32_t*>(args.keys), const_cast<uint32_t*>(args.idx)}
                 : (i == 1 ? Pair{args.out_keys, args.out_idx} : scratch);
 }
 
-// The look-back route's words.  bases: every pass's digit bases
+// The look-back's words.  bases: every pass's digit bases
 // (num_passes x radix int32).  status: a 64-bit word a (partition, digit),
 // shared by every pass (a tag names its pass); tickets: one a pass, handing
 // out its partitions in the order their blocks start.
@@ -301,7 +259,7 @@ __device__ void fill_pads(uint32_t* keys, uint32_t* idx, int64_t start, int64_t 
   }
 }
 
-// One pass of the look-back route over one partition (see the header).
+// One pass over one partition (see the header).
 // Rows at or past the live length load as all-ones, so they rank last, in
 // the last digit, behind every live key of the partition; that digit's
 // published count leaves them out, and the place step stores no slot past
@@ -443,111 +401,6 @@ __global__ void __launch_bounds__(kPartThreads, kPartBlocks)
   }
 }
 
-// Words of shared memory a warp keeps: the staged tile, and off the fast
-// route also the rows of run ends and deltas.
-__host__ __device__ constexpr int warp_words(int tile, bool fast) {
-  return fast ? 2 * kFastTile : 2 * tile + 2 * kMaxRadix;
-}
-
-// Steps 2 and 3 of one 1,024-key tile held in k, v: rank, then place at
-// lane r's run offset o.  The outputs come in as __restrict__ parameters:
-// with this body written into the kernel, where they are not, the kernel
-// took 6-9% longer at 2^24 and 100M keys on the H100 (PERF.md, Findings).
-template <int kBits>
-__device__ __forceinline__ void rank_and_place(uint32_t (&k)[kItems], uint32_t (&v)[kItems],
-                                               int o, int shift, int lane, uint32_t* sk,
-                                               uint32_t* sv, uint32_t* __restrict__ out_keys,
-                                               uint32_t* __restrict__ out_idx, int n) {
-  constexpr int kRadix = 1 << kBits;
-  const int count = grs::rank_1k<kBits>(k, v, shift, lane, sk, sv);
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    k[j] = grs::load_generic(sk + 32 * j + lane);
-    v[j] = grs::load_generic(sv + 32 * j + lane);
-  }
-  grs::place_1k<kRadix>(k, v, lane < kRadix ? count : 0, o, lane, out_keys, out_idx, n);
-}
-
-// The 1,024-key tile: a warp loads it warp-striped into registers (32 keys
-// and 32 indices a lane, all loads issued before the first is used), ranks
-// and stages it, and places it at its offsets row.
-template <int kBits>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-    bucketize_scatter_1k_kernel(Buffers b, const int32_t* __restrict__ offsets,
-                                const int32_t* __restrict__ plan, int pass, int64_t num_tiles,
-                                int tile, int shift, int radix, int bits, int n) {
-  constexpr int kRadix = 1 << kBits;
-  extern __shared__ uint4 smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const grs::Route route = grs::plan_route(plan, pass);
-  if (route.source < 0) return;  // no block barrier follows
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (t >= num_tiles) return;
-  const Pair in = buffer(b, route.source), out = buffer(b, route.destination);
-
-  uint32_t* sk = reinterpret_cast<uint32_t*>(smem) +
-                 static_cast<size_t>(warp) * warp_words(kFastTile, true);
-  uint32_t* sv = sk + kFastTile;
-  uint32_t k[kItems], v[kItems];
-  const int o = lane < kRadix ? offsets[t * kRadix + lane] : 0;
-  const uint32_t* kin = in.keys + t * kFastTile + lane;
-  const uint32_t* vin = in.idx + t * kFastTile + lane;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    k[j] = grs::load_global(kin + 32 * j);
-    v[j] = grs::load_global(vin + 32 * j);
-  }
-  rank_and_place<kBits>(k, v, o, shift, lane, sk, sv, out.keys, out.idx, n);
-}
-
-// Any other tile: counted from device memory, read again to be staged
-// (grs::rank_any) and placed from the staging (grs::place_any).
-__global__ void __launch_bounds__(32 * kMaxWarps)
-    bucketize_scatter_any_kernel(Buffers b, const int32_t* __restrict__ offsets,
-                                 const int32_t* __restrict__ plan, int pass, int64_t num_tiles,
-                                 int tile, int shift, int radix, int bits, int n) {
-  extern __shared__ uint4 smem[];  // per warp: the staged tile, then run ends and deltas
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const grs::Route route = grs::plan_route(plan, pass);
-  if (route.source < 0) return;  // no block barrier follows
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (t >= num_tiles) return;
-
-  uint32_t* sk = reinterpret_cast<uint32_t*>(smem) +
-                 static_cast<size_t>(warp) * warp_words(tile, false);
-  uint32_t* sv = sk + tile;
-  int* ends = reinterpret_cast<int*>(sv + tile);
-  int* delta = ends + kMaxRadix;
-  const int64_t base = t * tile;
-  int start;
-  const Pair in = buffer(b, route.source), out = buffer(b, route.destination);
-  const int count = grs::rank_any(in.keys + base + lane, in.idx + base + lane, tile >> 5, shift,
-                                  radix, bits, lane, sk, sv, start);
-  const int o = lane < radix ? offsets[t * radix + lane] : 0;
-  if (lane < radix) {
-    ends[lane] = start + count;
-    delta[lane] = grs::run_delta(o, start, tile);
-  }
-  __syncwarp();
-  grs::place_any(sk + lane, sv + lane, tile >> 5, ends, delta, radix, lane, out.keys, out.idx, n);
-}
-
-using Kernel = void (*)(Buffers, const int32_t*, const int32_t*, int, int64_t, int, int, int,
-                        int, int);
-
-Kernel table_kernel(bool fast, int bits) {
-  if (!fast) return bucketize_scatter_any_kernel;
-  switch (bits) {
-    case 1: return bucketize_scatter_1k_kernel<1>;
-    case 2: return bucketize_scatter_1k_kernel<2>;
-    case 3: return bucketize_scatter_1k_kernel<3>;
-    default: return bucketize_scatter_1k_kernel<4>;
-  }
-}
-
 using LookBackKernel = void (*)(const grs::SortArgs*, Pair, const int32_t*, int, int, int, int,
                                LookBack);
 
@@ -568,84 +421,24 @@ bool valid_radix(int radix) {
   return radix >= 2 && radix <= kMaxRadix && (radix & (radix - 1)) == 0;
 }
 
-// The table route's checks: radix, the buffers' alignment and a plan's
-// scratch.
-bool valid_pass(const void* const (&buffers)[6], int radix, const void* plan, int pass) {
-  bool words = true;
-  for (const void* p : buffers) words = words && aligned(p, 4);
-  return valid_radix(radix) && words &&
-         (plan == nullptr || (pass >= 0 && buffers[4] != nullptr && buffers[5] != nullptr));
-}
-
-Buffers buffers_of(const void* const (&p)[6]) {
-  return {{const_cast<uint32_t*>(static_cast<const uint32_t*>(p[0])),
-           static_cast<uint32_t*>(const_cast<void*>(p[2])),
-           static_cast<uint32_t*>(const_cast<void*>(p[4]))},
-          {const_cast<uint32_t*>(static_cast<const uint32_t*>(p[1])),
-           static_cast<uint32_t*>(const_cast<void*>(p[3])),
-           static_cast<uint32_t*>(const_cast<void*>(p[5]))}};
-}
-
 }  // namespace
 
-// keys, idx: the input, num_tiles * tile uint32 (4-byte aligned); offsets:
-// (num_tiles, radix) int32 (global_offsets of the tiles' histograms).
-// out_keys, out_idx: the output, or a planned sort's result R;
-// scratch_keys, scratch_idx: null, or a planned sort's scratch S; all of
-// the input's length, and no two of the buffers overlap.  One warp per tile:
-// threads is 32 x the tiles of a block, at most 32 x 8; a warp keeps 8 x
-// tile + 128 bytes of shared memory (8 KB on the 1,024-key tile), a block at
-// most 232,448.  tile is a multiple of 128, radix a power of two from 2 to
-// 16, and num_tiles * tile at most INT_MAX - tile (int32 destinations).
-// plan: null, or a fused sort's pass plan on the device, of which entry
-// `pass` routes this launch.  Returns cudaGetLastError() after the launch.
-extern "C" int grs_bucketize_scatter(const void* keys, const void* idx, const void* offsets,
-                                     void* out_keys, void* out_idx, void* scratch_keys,
-                                     void* scratch_idx, int64_t num_tiles, int tile, int threads,
-                                     int shift, int radix, const void* plan, int pass,
-                                     void* stream) {
-  const void* const buffers[] = {keys, idx, out_keys, out_idx, scratch_keys, scratch_idx};
-  const bool fast = tile == kFastTile;
-  const size_t smem = static_cast<size_t>(threads / 32) * warp_words(tile, fast) *
-                      sizeof(uint32_t);
-  if (!valid_pass(buffers, radix, plan, pass) || (offsets == nullptr && num_tiles > 0) ||
-      threads < 32 || threads % 32 != 0 || threads > 32 * kMaxWarps || tile <= 0 ||
-      tile % 128 != 0 || num_tiles < 0 ||
-      (num_tiles > 0 && num_tiles > (INT_MAX - tile) / tile) || smem > kMaxShared) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
-  const int bits = __builtin_ctz(static_cast<unsigned>(radix));
-  const Kernel kernel = table_kernel(fast, bits);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t per_block = threads / 32;
-  kernel<<<static_cast<unsigned>((num_tiles + per_block - 1) / per_block), threads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      buffers_of(buffers), static_cast<const int32_t*>(offsets),
-      static_cast<const int32_t*>(plan), pass, num_tiles, tile, shift, radix, bits,
-      static_cast<int>(num_tiles * tile));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same pass with its run offsets by look-back (no offsets table), one
-// block of kPartThreads a partition of kPartition keys.  args: the sort's
-// argument block (key_bits.cu's grs_sort_args, 8-byte aligned): the input
-// (buffer 0), its live length and the result R (buffer 1), each n uint32;
-// scratch_keys, scratch_idx: null, or the sort's scratch S (buffer 2), of
-// the same length; no two of the buffers overlap.  radix, plan and pass as
-// grs_bucketize_scatter's, num_passes the plan's entries; without a plan
-// the launch reads the input and writes R, rows from the length on as
-// pads.  A pass writes its destination's live rows; the last that runs (or
-// an unplanned launch) also writes R's rows from the length on as pads.
+// A fused sort's pass, its run offsets by look-back (no offsets table),
+// one block of kPartThreads a partition of kPartition keys.  args: the
+// sort's argument block (sort_plan.cu's grs_sort_args, 8-byte aligned): the
+// input (buffer 0), its live length and the result R (buffer 1), each n
+// uint32; scratch_keys, scratch_idx: null, or the sort's scratch S (buffer
+// 2), of the same length; no two of the buffers overlap.  radix: a power of
+// two from 2 to 16.  plan: null, or the sort's pass plan on the device
+// (sort_plan.cu), of which entry `pass` routes this launch, num_passes its
+// entries; without a plan the launch reads the input and writes R.  A
+// pass writes its destination's live rows; the last that runs (or an
+// unplanned launch) also writes R's rows from the length on as pads.
 // n: the padded keys, 0 <= n <= INT_MAX.  rows: the live rows the grid
 // covers, length <= rows <= n (the host's length for an eager launch, n
 // for one that a graph replays at any length).  bases:
 // (num_passes, radix) int32, every pass's digit bases over the live keys
-// (key_bits.cu); this launch starts digit r's run at bases[pass, r].
+// (sort_plan.cu); this launch starts digit r's run at bases[pass, r].
 // lookback: lookback_words uint32, 8-byte aligned: a 64-bit status word a
 // (partition, digit), ceil(n / kPartition) x radix of them, then a ticket a
 // pass.  This pass's ticket must be zero and the status words must hold no

@@ -27,11 +27,6 @@
 //      ballot, never conflict and cost the same on skewed keys; at the end
 //      (or every 224 keys a lane) each lane sums and clears whole rows.
 // Integer counts make the result deterministic.
-//
-// In a fused sort the kernel follows the sort's pass plan (key_bits.cu): a
-// skipped pass returns at once and leaves hist unwritten, and a pass that
-// runs reads its keys from the sort's input, its result buffer or its
-// scratch buffer, as the plan names.  Without a plan it reads `keys`.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -92,19 +87,13 @@ __device__ __forceinline__ void drain_columns(uint32_t* table, int rows, int lan
 }
 
 __global__ void __launch_bounds__(32 * kMaxWarps)
-    radix_hist_kernel(const uint32_t* __restrict__ input,
-                      const uint32_t* __restrict__ result,
-                      const uint32_t* __restrict__ scratch,
-                      const int32_t* __restrict__ plan, int pass,
-                      int32_t* __restrict__ hist, int64_t num_tiles, int tile,
-                      int shift, int radix, bool vec) {
+    radix_hist_kernel(const uint32_t* __restrict__ keys, int32_t* __restrict__ hist,
+                      int64_t num_tiles, int tile, int shift, int radix, bool vec) {
   extern __shared__ uint32_t tables[];  // radix > 16: [warps][radix / 4][32]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  const int from = grs::plan_route(plan, pass).source;
-  if (t >= num_tiles || from < 0) return;  // no block barrier follows
-  const uint32_t* keys = from == 0 ? input : (from == 1 ? result : scratch);
+  if (t >= num_tiles) return;  // no block barrier follows
 
   const uint32_t* src = keys + t * tile + 4 * lane;
   int32_t* out = hist + t * radix;
@@ -189,23 +178,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
 // per tile: threads is 32 x the tiles of a block, at most 32 x 8.  tile is a
 // multiple of 128; radix a power of two from 2 to 256; above 16 the block
 // keeps threads / 32 x radix x 32 bytes in shared memory (64 KB at most).
-// plan: null, or a fused sort's pass plan on the device, of which entry
-// `pass` routes this launch; result and scratch are then the keys of the
-// sort's result and scratch buffers, of keys' length.  Returns
-// cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launch.
 extern "C" int grs_radix_hist(const void* keys, void* hist, int64_t num_tiles,
                               int tile, int threads, int shift, int radix,
-                              const void* plan, int pass, const void* result,
-                              const void* scratch, void* stream) {
+                              void* stream) {
   const auto aligned16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if (radix < 2 || radix > kMaxRadix || (radix & (radix - 1)) != 0 ||
       threads < 32 || threads % 32 != 0 || threads > 32 * kMaxWarps ||
-      tile <= 0 || tile % 128 != 0 ||
-      (plan != nullptr && (pass < 0 || result == nullptr || scratch == nullptr))) {
+      tile <= 0 || tile % 128 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = aligned16(keys) &&
-                   (plan == nullptr || (aligned16(result) && aligned16(scratch)));
+  const bool vec = aligned16(keys);
   const size_t smem = radix > kPackedRadix
                           ? static_cast<size_t>(threads / 32) * radix * 32
                           : 0;
@@ -219,10 +202,8 @@ extern "C" int grs_radix_hist(const void* keys, void* hist, int64_t num_tiles,
     const int64_t per_block = threads / 32;
     radix_hist_kernel<<<static_cast<unsigned>((num_tiles + per_block - 1) / per_block),
                         threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(keys), static_cast<const uint32_t*>(result),
-        static_cast<const uint32_t*>(scratch), static_cast<const int32_t*>(plan), pass,
-        static_cast<int32_t*>(hist),
-        num_tiles, tile, shift, radix, vec);
+        static_cast<const uint32_t*>(keys), static_cast<int32_t*>(hist), num_tiles, tile,
+        shift, radix, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,10 +50,10 @@
 // Nothing can overflow; a destination outside [0, n) (possible only for an
 // inconsistent hist/offsets pair) is dropped, as JAX's mode="drop" drops it.
 //
-// The place steps are grs::place_1k and grs::place_any (tile.cuh), which the
-// fused pass (bucketize_scatter.cu) shares; since that kernel runs the fused
-// sort's passes, this one runs off the main path, beside its plain version
-// and in the bench's stage table.
+// The place steps are grs::place_1k and grs::place_any (tile.cuh).  The
+// fused sort's pass (bucketize_scatter.cu) does this kernel's work inside
+// its own, so this one runs off the main path, beside its plain version and
+// in the bench's stage table.
 
 #include <climits>
 #include <cstdint>

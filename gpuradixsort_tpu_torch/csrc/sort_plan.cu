@@ -1,4 +1,4 @@
-// The AND and the OR of every key of a uint32 buffer: which key bits vary.
+// A fused sort's pass plan, its digit counts and bases, and its argument block.
 //
 // Replaces no Pallas kernel.  The JAX package decides in each pass of its
 // fused sort, on the device, whether the pass's digit takes one value over
@@ -6,20 +6,11 @@
 // gpuradixsort_tpu/ops/sort.py:83).  A pass permutes the keys and keeps
 // their multiset, so every pass's answer is known before the first: digit p
 // is constant exactly where the AND and the OR of all keys agree on its
-// bits.  The port reduces the buffer once and, for a fused sort, turns the
-// two words into the sort's pass plan on the card, which K1 and the fused
-// pass (bucketize_scatter.cu) read: nothing goes back to the host.
+// bits.  The port reduces the keys once and turns the two words into the
+// sort's pass plan on the card, which the look-back pass
+// (bucketize_scatter.cu) reads: nothing goes back to the host.
 //
 // Bound on the H100: HBM bytes, 4 a key read once.
-//
-// key_bits_kernel (key_bits and pass_plan, off the fused sort's path): a
-// grid-stride loop in which a thread issues kUnroll 16-byte loads before it
-// combines any; the warp's AND and OR by one __reduce_and_sync and one
-// __reduce_or_sync, the block's through shared memory; then one atomicAnd
-// and one atomicOr a block into out[0] and out[1], which the entry point
-// first sets to all-ones and to zero with two memsets on the stream, and
-// pass_plan_kernel after it.  At most kMaxBlocks blocks.  The grid depends
-// on n alone and the entry point queries nothing of the device.
 //
 // sort_plan_kernel (grs_sort_plan, the fused sort's plan).  A fused sort
 // also needs, in the same read, every pass's digit counts over the whole
@@ -103,8 +94,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;            // 16-byte loads a thread has in flight
-constexpr int64_t kMaxBlocks = 1024;  // about the blocks of 256 the H100 holds at once
 constexpr int kMaxCounters = 128;     // num_passes x radix at radix_bits 1, 2 and 4
 constexpr int kCountUnroll = 3;       // counting: 12 keys a lane a round, a 4-bit field holds 15
 constexpr int kWideRounds = 21;       // rounds an 8-bit field holds: 21 x 12 = 252
@@ -126,48 +115,6 @@ __device__ __forceinline__ void block_and_or(uint32_t& all, uint32_t& any) {
   if (warp == 0) {
     all = __reduce_and_sync(grs::kFullWarp, lane < kWarps ? warp_all[lane] : ~0u);
     any = __reduce_or_sync(grs::kFullWarp, lane < kWarps ? warp_any[lane] : 0u);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    key_bits_kernel(const uint32_t* __restrict__ keys, int64_t n, int64_t head,
-                    uint32_t* __restrict__ out) {
-  // keys[0, head) lie before the first 16-byte boundary, then come whole
-  // quads, then fewer than 4 keys.
-  const uint4* quads = reinterpret_cast<const uint4*>(keys + head);
-  const int64_t num_quads = (n - head) / 4;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  uint32_t all = ~0u, any = 0u;
-  int64_t i = tid;
-  for (; i + (kUnroll - 1) * stride < num_quads; i += kUnroll * stride) {
-    uint4 q[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) q[u] = __ldg(quads + i + u * stride);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      all &= q[u].x & q[u].y & q[u].z & q[u].w;
-      any |= q[u].x | q[u].y | q[u].z | q[u].w;
-    }
-  }
-  for (; i < num_quads; i += stride) {
-    const uint4 q = __ldg(quads + i);
-    all &= q.x & q.y & q.z & q.w;
-    any |= q.x | q.y | q.z | q.w;
-  }
-  const int64_t tail = head + 4 * num_quads;
-  if (tid < head) {
-    all &= keys[tid];
-    any |= keys[tid];
-  }
-  if (tid < n - tail) {
-    all &= keys[tail + tid];
-    any |= keys[tail + tid];
-  }
-  block_and_or(all, any);
-  if (threadIdx.x == 0) {
-    atomicAnd(out, all);
-    atomicOr(out + 1, any);
   }
 }
 
@@ -193,12 +140,6 @@ __device__ void write_plan(uint32_t all, uint32_t any, int num_passes, int radix
       plan[p] = -1;
     }
   }
-}
-
-__global__ void pass_plan_kernel(const uint32_t* __restrict__ words, int num_passes,
-                                 int radix_bits, int32_t* __restrict__ plan,
-                                 unsigned long long* __restrict__ skipped) {
-  write_plan(words[0], words[1], num_passes, radix_bits, plan, skipped);
 }
 
 // A lane's digit counters for every pass of kBits-bit digits: counter
@@ -270,7 +211,7 @@ struct DigitCounters {
 };
 
 // Keys before the first 16-byte boundary, read one by one.
-__host__ __device__ inline int64_t head_of(const void* keys, int64_t n) {
+__device__ inline int64_t head_of(const void* keys, int64_t n) {
   const auto head = static_cast<int64_t>((16 - reinterpret_cast<uintptr_t>(keys) % 16) % 16 / 4);
   return head < n ? head : n;
 }
@@ -395,52 +336,22 @@ __global__ void sort_args_kernel(grs::SortArgs* __restrict__ block, grs::SortArg
 bool plan_args(const void* keys, int64_t n, const void* out, const void* plan, int num_passes,
                int radix_bits, const void* skipped) {
   return n >= 0 && reinterpret_cast<uintptr_t>(keys) % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(out) % 4 == 0 &&
-         (plan == nullptr ||
-          (reinterpret_cast<uintptr_t>(plan) % 4 == 0 && skipped != nullptr &&
-           reinterpret_cast<uintptr_t>(skipped) % 8 == 0 && num_passes >= 1 &&
-           radix_bits >= 1 && radix_bits <= 8 && num_passes * radix_bits <= 32));
+         reinterpret_cast<uintptr_t>(out) % 4 == 0 && plan != nullptr &&
+         reinterpret_cast<uintptr_t>(plan) % 4 == 0 && skipped != nullptr &&
+         reinterpret_cast<uintptr_t>(skipped) % 8 == 0 && num_passes >= 1 &&
+         num_passes * radix_bits <= 32;
 }
 
 }  // namespace
 
-// keys: n uint32 (4-byte aligned, n >= 0); out: 2 uint32, set here to the
-// AND (out[0]) and the OR (out[1]) of the keys: all-ones and zero for n = 0.
-// plan: null, or num_passes int32 set here to the pass plan of a fused sort
-// of the keys by radix_bits-bit digits (num_passes x radix_bits <= 32); its
-// skipped passes are then added to *skipped, an 8-byte-aligned int64.
-// Returns cudaGetLastError() after the launches.
-extern "C" int grs_key_bits(const void* keys, int64_t n, void* out, void* plan, int num_passes,
-                            int radix_bits, void* skipped, void* stream) {
-  if (!plan_args(keys, n, out, plan, num_passes, radix_bits, skipped))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto* words = static_cast<uint32_t*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(words, 0xFF, sizeof(uint32_t), s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(words + 1, 0, sizeof(uint32_t), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    const auto* k = static_cast<const uint32_t*>(keys);
-    const int64_t head = head_of(k, n);
-    const int64_t per_block = static_cast<int64_t>(kThreads) * kUnroll;
-    const int64_t blocks =
-        std::clamp<int64_t>(((n - head) / 4 + per_block - 1) / per_block, 1, kMaxBlocks);
-    key_bits_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(k, n, head, words);
-  }
-  if (plan != nullptr) {
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    pass_plan_kernel<<<1, 1, 0, s>>>(words, num_passes, radix_bits, static_cast<int32_t*>(plan),
-                                     static_cast<unsigned long long*>(skipped));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // A fused sort's plan.  args: the sort's argument block (grs_sort_args,
 // 8-byte aligned), whose keys and length are the live keys; n: the padded
 // length, 0 <= length <= n, the rows from the length on pads, which take no
-// part; out, num_passes and skipped as grs_key_bits' (radix_bits 1, 2 or 4),
-// of the live keys; plan: num_passes int32 set to the plan, then
+// part; radix_bits 1, 2 or 4, num_passes x radix_bits <= 32; out: 2
+// uint32, set to the AND (out[0]) and the OR (out[1]) of the live keys
+// (all-ones and zero for none), 4-byte aligned; skipped: an 8-byte-aligned
+// int64 to which the passes the plan skips are added (the copy of a buffer
+// with no varying digit not counted); plan: num_passes int32 set to the plan, then
 // num_passes x radix int32 set to each pass's digit bases (the exclusive
 // prefix of its counts).  zeroed: the start of zeroed_bytes bytes (8-byte
 // aligned) that this call clears on the stream: first num_passes x radix
@@ -454,8 +365,8 @@ extern "C" int grs_sort_plan(const void* args, int64_t n, void* out, void* plan,
                              int radix_bits, void* skipped, void* zeroed, int64_t zeroed_bytes,
                              void* stream) {
   if (args == nullptr || reinterpret_cast<uintptr_t>(args) % 8 != 0 ||
-      !plan_args(args, n, out, plan, num_passes, radix_bits, skipped) || plan == nullptr ||
-      zeroed == nullptr || (radix_bits != 1 && radix_bits != 2 && radix_bits != 4) ||
+      !plan_args(args, n, out, plan, num_passes, radix_bits, skipped) || zeroed == nullptr ||
+      (radix_bits != 1 && radix_bits != 2 && radix_bits != 4) ||
       reinterpret_cast<uintptr_t>(zeroed) % 8 != 0 ||
       zeroed_bytes < 4 * (static_cast<int64_t>(num_passes) * (1 << radix_bits) +
                           (kMaxCounters + 1) * kCounterStride)) {

@@ -1,7 +1,8 @@
 // The rank step and the place step of one tile, shared by K2
-// (bucketize.cu), K3 (scatter_runs.cu) and the table-reading fused pass
-// (bucketize_scatter.cu), whose look-back route ranks with warp_ranks.  One
-// warp owns a tile; nothing here needs a block barrier.
+// (bucketize.cu) and K3 (scatter_runs.cu), and the ranks and loads of the
+// fused sort's pass (bucketize_scatter.cu: warp_ranks, load_global,
+// load_generic).  One warp owns a tile; nothing here needs a block
+// barrier.
 //
 // rank: a tile's (key, index) pairs stably sorted by digit into the warp's
 //   shared staging (K2's step): one ballot per digit bit gives each item

@@ -8,11 +8,11 @@ namespace grs {
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // The buffers of a fused sort: 0 its input, 1 its result R, 2 its scratch S.
-// Pass `pass` of a planned sort (key_bits.cu writes the plan) reads its
+// Pass `pass` of a planned sort (sort_plan.cu writes the plan) reads its
 // keys from `source` and writes them to `destination`; source -1 where the
-// plan skips the pass.  A plan entry is -1, or source | destination << 2.
-// Without a plan (K1 on its own, compaction, the radix method, an unplanned
-// bucketize_scatter) a launch reads buffer 0 and writes buffer 1.
+// plan skips the pass.  A plan entry is -1, or source | destination << 2
+// (kernels/sort_plan.py::plan_entry).  Without a plan (a look-back pass on
+// its own) a launch reads buffer 0 and writes buffer 1.
 struct Route {
   int source, destination;
 };
@@ -27,7 +27,7 @@ constexpr uint32_t kPadKey = 0xFFFFFFFFu;    // config.PAD_KEY
 constexpr uint32_t kPadIndex = 0xFFFFFFFFu;  // config.PAD_INDEX
 
 // A fused sort's per-call inputs, its argument block on the card.
-// key_bits.cu's grs_sort_args writes it before each sort, outside any
+// sort_plan.cu's grs_sort_args writes it before each sort, outside any
 // graph, and sort_plan_kernel and the look-back pass (bucketize_scatter.cu)
 // read their input and the result R from it, so a captured sort reads the
 // caller's keys where they lie and writes a result the caller owns.  Rows
@@ -41,7 +41,7 @@ struct SortArgs {
   uint32_t* out_idx;
   int64_t length;
 };
-static_assert(sizeof(SortArgs) == 40, "five 8-byte words (key_bits.py::ARGS_WORDS)");
+static_assert(sizeof(SortArgs) == 40, "five 8-byte words (sort_plan.py::ARGS_WORDS)");
 
 // The ballots of one digit per lane, one per digit bit (bits <= MaxBits), from
 // which any lane can find the lanes holding any digit: its own (the peers it
@@ -74,7 +74,8 @@ struct DigitBallots {
 // word holds a tag in its high half and a value in its low half, so that
 // one access moves both.  Nothing else is published through a word, so
 // relaxed loads and stores at gpu scope suffice.  K5 (scan.cu) looks back
-// across chunks, the fused sort's pass (bucketize_scatter.cu) across tiles.
+// across chunks, the fused sort's pass (bucketize_scatter.cu) across
+// partitions.
 __device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
   unsigned long long v;
   asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");

@@ -38,15 +38,13 @@ _I64 = ctypes.c_int64
 
 # Entry point -> argument types.  Every pointer and the stream is c_void_p.
 _SIGNATURES = {
-    "grs_radix_hist": [_P, _P, _I64, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    "grs_radix_hist": [_P, _P, _I64, _I, _I, _I, _I, _P],
     "grs_bucketize": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P],
     "grs_scatter_runs": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
-    "grs_bucketize_scatter": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _I, _P],
     "grs_radix_dest": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
     "grs_radix_dest_scatter": [_P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _I, _P],
     "grs_exclusive_scan": [_P, _P, _I64, _I, _P, _P],
     "grs_lookback_scatter": [_P, _P, _P, _I64, _I64, _I, _I, _P, _I, _I, _P, _P, _I64, _P],
-    "grs_key_bits": [_P, _I64, _P, _P, _I, _I, _P, _P],
     "grs_sort_plan": [_P, _I64, _P, _P, _I, _I, _P, _P, _I64, _P],
     "grs_sort_args": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     "grs_segment_aggregate": [_P, _I64, _P, _I64, _P, _P, _I, _P, _P, _P, _I64, _P],

@@ -6,8 +6,8 @@ it runs, every tile is digit-major, so the global scatter of
 ``csrc/bucketize.cu``, one warp per tile ranking in registers and staging
 the tile in shared memory; on a CPU tensor it runs the plain version, a
 per-tile stable argsort by digit.  The fused sort's passes run
-``kernels/scatter.py::bucketize_scatter``, which ranks a tile with this
-kernel's step and places it without the round trip through device memory;
+``kernels/scatter.py::bucketize_scatter_lookback``, which ranks a partition
+and places it without the round trip through device memory;
 ``bucketize_tiles`` stays as the counterpart of the JAX package's function.
 """
 

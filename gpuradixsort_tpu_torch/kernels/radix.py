@@ -19,16 +19,6 @@ Buffers are 1-D: a tile is a contiguous stretch of ``cfg.tile`` keys, which
 is what the JAX package's row-major ``(rows, 128)`` view makes of it.  Tables
 are ``(num_tiles, radix)`` int32; the JAX package pads them to 128 lanes, so
 they equal its tables' first ``radix`` columns.
-
-In a fused sort, K1 and the fused pass (``kernels/scatter.py::
-bucketize_scatter``) also take the sort's pass plan
-(``kernels/key_bits.py::pass_plan``, an int32 tensor on the keys' device),
-a pass number and the sort's two buffers, its result R and its scratch S:
-the plan says on the device whether the pass runs, which buffer it reads
-and which it writes, so the host never reads it.  ``check_plan`` and
-``planned_route`` serve both wrappers (``last_planned`` the look-back
-pass's plain version); with ``key_bits.plan_of_mask`` they are the only
-host code that knows the plan's encoding.
 """
 
 from __future__ import annotations
@@ -81,64 +71,6 @@ def check_table(name: str, t: torch.Tensor, keys: torch.Tensor, cfg: EngineConfi
                          f"{t.dtype} of shape {tuple(t.shape)}")
     if t.device != keys.device:
         raise ValueError(f"{name} must be on the keys' device {keys.device}, not {t.device}")
-
-
-def check_plan(plan: torch.Tensor, pass_index: int, like: torch.Tensor, buffers) -> None:
-    """Check a fused sort's pass plan, a pass number and the sort's buffers.
-
-    ``buffers``: the tensors of the sort's result and scratch buffers, each
-    shaped like ``like``, the input's, and none sharing memory with another
-    or with ``like``: a pass never writes the buffer it reads.
-    """
-    if (plan.dtype != torch.int32 or plan.dim() != 1 or plan.device != like.device
-            or not 0 <= pass_index < plan.numel()):
-        raise ValueError(
-            f"plan must be a 1-D int32 tensor on {like.device} with an entry for pass "
-            f"{pass_index}, got {plan.dtype} of shape {tuple(plan.shape)} on {plan.device}"
-        )
-    for t in buffers:
-        if (t is None or t.dtype != like.dtype or t.shape != like.shape
-                or t.device != like.device or not t.is_contiguous()):
-            raise ValueError(f"a planned pass needs the sort's result and scratch buffers, "
-                             f"contiguous {like.dtype} of shape {tuple(like.shape)} on "
-                             f"{like.device}")
-    spans = sorted((t.data_ptr(), t.data_ptr() + t.nbytes) for t in (like, *buffers))
-    if any(end > start for (_, end), (start, _) in zip(spans, spans[1:])):
-        raise ValueError("a planned pass's input, result and scratch buffers must not overlap")
-
-
-# A plan entry: -1 where the pass is skipped, else source | destination << 2
-# over the sort's buffers: 0 its input, 1 its result R, 2 its scratch S
-# (csrc/warp.cuh::plan_route).
-PLAN_SKIP = -1
-INPUT, RESULT, SCRATCH = 0, 1, 2
-
-
-def plan_entry(source: int, destination: int) -> int:
-    """The plan entry of a pass that reads buffer ``source`` and writes ``destination``."""
-    return source | destination << 2
-
-
-def planned_route(plan: torch.Tensor | None, pass_index: int, buffers: tuple):
-    """The plain versions' routing: (what the pass reads, what it writes), or None where skipped.
-
-    ``buffers``: the pass's input, then the sort's result and scratch
-    buffers (in whatever form the wrapper reads them).  Without a plan the
-    pass reads ``buffers[0]`` and writes ``buffers[1]``.  Reads the plan
-    back, as only a plain version does.
-    """
-    if plan is None:
-        return buffers[0], buffers[1]
-    entry = int(plan[pass_index])
-    return None if entry == PLAN_SKIP else (buffers[entry & 3], buffers[entry >> 2])
-
-
-def last_planned(plan: torch.Tensor | None, pass_index: int) -> bool:
-    """Whether no pass after ``pass_index`` runs (a launch without a plan is its own last).
-
-    Reads the plan back, as only a plain version does.
-    """
-    return plan is None or all(e == PLAN_SKIP for e in plan[pass_index + 1:].tolist())
 
 
 def data_ptr(t: torch.Tensor | None):
@@ -240,37 +172,21 @@ def _tile_histograms_ref(keys: torch.Tensor, shift: int, cfg: EngineConfig):
     return counts.view(num_tiles, cfg.radix).to(torch.int32)
 
 
-def tile_histograms(
-    keys: torch.Tensor, shift: int, cfg: EngineConfig, impl: str | None = None,
-    plan: torch.Tensor | None = None, pass_index: int = 0, buffers: tuple | None = None,
-) -> torch.Tensor:
+def tile_histograms(keys: torch.Tensor, shift: int, cfg: EngineConfig,
+                    impl: str | None = None) -> torch.Tensor:
     """Per-tile digit histograms.
 
     keys: (num_tiles * tile,) uint32.  Returns (num_tiles, radix) int32 with
     hist[t, r] = number of keys in tile t whose digit is r.
-
-    With ``plan`` the call is pass ``pass_index`` of a fused sort whose input
-    keys are ``keys`` and whose result and scratch buffers are ``buffers``,
-    two (keys, idx) pairs: the pass counts the keys the plan names, or,
-    where the plan skips it, leaves hist unwritten (zeros in the plain
-    version).
     """
     num_tiles = check_keys("keys", keys, cfg)
-    planned = (None, None)
-    if plan is not None:
-        planned = tuple(pair[0] for pair in buffers or ((None,), (None,)))
-        check_plan(plan, pass_index, keys, planned)
     if resolve_impl(keys, impl) == "reference":
-        route = planned_route(plan, pass_index, (keys, *planned))
-        if route is None:
-            return torch.zeros((num_tiles, cfg.radix), dtype=torch.int32, device=keys.device)
-        return _tile_histograms_ref(route[0], shift, cfg)
+        return _tile_histograms_ref(keys, shift, cfg)
     hist = torch.empty((num_tiles, cfg.radix), dtype=torch.int32, device=keys.device)
     threads, _ = hist_geometry(cfg)
     launch(
         "grs_radix_hist", keys, keys.data_ptr(), hist.data_ptr(), num_tiles,
-        cfg.tile, threads, shift, cfg.radix, data_ptr(plan), pass_index,
-        *map(data_ptr, planned),
+        cfg.tile, threads, shift, cfg.radix,
     )
     tile_histograms.launches += 1
     return hist

@@ -1,4 +1,4 @@
-"""Scatter runs, and the fused sort's pass: bucketize and scatter in one kernel.
+"""Scatter runs, and the fused sort's pass: K1, the offsets scan, K2 and K3 in one kernel.
 
 The PyTorch counterpart of ``gpuradixsort_tpu/kernels/scatter.py``.  After
 ``bucketize_tiles`` tile t holds its digit-r run at
@@ -13,37 +13,35 @@ only an inconsistent hist/offsets pair gives, is dropped, as the JAX
 package drops it; the kernel then leaves that output row unwritten, where
 the plain version leaves a zero.
 
-The JAX package's fused pass runs ``bucketize_tiles`` and then
-``scatter_runs``, the bucketized tiles going through device memory between
-them.  ``bucketize_scatter`` is that pair as one kernel
-(``csrc/bucketize_scatter.cu``), which keeps the bucketized tile in shared
-memory: it reads and writes each key once.  ``bucketize_tiles`` and
-``scatter_runs`` stay as the counterparts of the JAX package's two functions.
-
-The fused sort's passes run ``bucketize_scatter_lookback``, whose run
-offsets come from no table.  A block of the kernel
-(``csrc/bucketize_scatter.cu``) takes a partition of
-``key_bits.LOOKBACK_PARTITION`` keys; its run of digit r starts at the
-pass's digit base (``key_bits.sort_plan``) plus the counts of r in the
-partitions before it, which the kernel finds by a decoupled look-back over
-the partitions, so a pass launches no K1 and no offsets scan.  A stable
-partition by digit has one answer, so the plain version computes it tile by
-tile as the JAX package does.  ``bucketize_scatter``, which reads K1's
-offsets table, stays as the counterpart of the JAX package's pass.
+The JAX package's fused pass runs K1, the offsets scan, ``bucketize_tiles``
+and then ``scatter_runs``, the bucketized tiles going through device memory
+between the last two.  The port's fused sort runs each pass as one kernel,
+``bucketize_scatter_lookback`` (``csrc/bucketize_scatter.cu``), whose run
+offsets come from no table.  A block takes a partition of
+``sort_plan.LOOKBACK_PARTITION`` keys and keeps it in shared memory, so it
+reads and writes each key once; its run of digit r starts at the pass's
+digit base (``sort_plan.sort_plan``) plus the counts of r in the partitions
+before it, which the kernel finds by a decoupled look-back over the
+partitions.  A stable partition by digit has one answer, so the plain
+version computes it tile by tile as the JAX package does
+(``_bucketize_scatter_ref``, ``scatter_runs``' of ``bucketize_tiles``' and
+the JAX pair's oracle in the tests).  ``bucketize_tiles`` and
+``scatter_runs`` stay as the counterparts of the JAX package's two
+functions.
 
 The look-back pass reads the sort's input and writes its result R where the
-sort's argument block says (``key_bits.sort_args``), so one graph serves
+sort's argument block says (``sort_plan.sort_args``), so one graph serves
 every call of a shape.  In every buffer it reads, the rows from the sort's
 live length on are pad rows (PAD_KEY, PAD_INDEX), and with no index given
 it makes the input's: the JAX package's re-padding and index column, with
 no pass over the buffer.  Pads stay at the tail in every pass, so a pass
-walks only the live partitions (``key_bits.lookback_rows``) and writes its
+walks only the live partitions (``sort_plan.lookback_rows``) and writes its
 destination's live rows; the last pass that runs also writes R's rows from
 the length on as pads, once a sort.  An eager launch's grid covers the
 host's live length (and a wave of blocks for that fill); one captured in a
 CUDA graph covers the padded length, so that its replays serve every live
 length.  The plain version builds the input with torch
-(``key_bits.live_input``), runs the pass on it and writes the same rows.
+(``sort_plan.live_input``), runs the pass on it and writes the same rows.
 """
 
 from __future__ import annotations
@@ -53,30 +51,21 @@ import torch
 from gpuradixsort_tpu_torch.config import EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits
 from gpuradixsort_tpu_torch.kernels._build import launch
-from gpuradixsort_tpu_torch.kernels.bucketize import FAST_TILE, _bucketize_ref
-from gpuradixsort_tpu_torch.kernels.key_bits import (
+from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref
+from gpuradixsort_tpu_torch.kernels.radix import _tile_histograms_ref, check_keys, data_ptr
+from gpuradixsort_tpu_torch.kernels.sort_plan import (
     SortArgs,
     SortPlan,
     check_block,
     check_length,
+    check_plan,
+    last_planned,
     live_input,
     lookback_words,
+    planned_route,
     sort_args,
 )
-from gpuradixsort_tpu_torch.kernels.radix import (
-    MAX_SHARED_BYTES,
-    WARP,
-    _tile_histograms_ref,
-    check_keys,
-    check_plan,
-    data_ptr,
-    last_planned,
-    planned_route,
-)
 
-# Tiles a bucketize_scatter block: on an H100 (700 W) 4 ran 10% faster than
-# 8 and 2% faster than 2 at 2^24 keys (kernel_ab.py; PERF.md, Findings).
-FUSED_TILES_PER_BLOCK = 4
 _MAX_FUSED_RADIX = 16
 
 
@@ -154,88 +143,6 @@ def _bucketize_scatter_ref(keys, idx, hist, offsets, shift: int, cfg: EngineConf
     return _scatter_runs_ref(*_bucketize_ref(keys, idx, shift, cfg), hist, offsets, cfg)
 
 
-def bucketize_scatter_geometry(cfg: EngineConfig) -> tuple[int, int]:
-    """(threads, shared bytes) of a bucketize_scatter block.
-
-    One warp a tile, up to ``FUSED_TILES_PER_BLOCK`` tiles a block; each
-    stages its tile's sorted keys and indices (8 bytes a key) in shared
-    memory, and on any tile but the 1,024-key one also its rows of run ends
-    and deltas (128 bytes).
-    """
-    per_tile = 8 * cfg.tile + (0 if cfg.tile == FAST_TILE else 8 * _MAX_FUSED_RADIX)
-    tiles = min(FUSED_TILES_PER_BLOCK, MAX_SHARED_BYTES // per_tile)
-    if tiles == 0:
-        raise ValueError(
-            f"bucketize_scatter stages {per_tile} bytes a tile, more than a block's "
-            f"{MAX_SHARED_BYTES}; use tile_rows <= {(MAX_SHARED_BYTES - 128) // (8 * 128)}"
-        )
-    return WARP * tiles, tiles * per_tile
-
-
-def bucketize_scatter(
-    keys: torch.Tensor,
-    idx: torch.Tensor,
-    hist: torch.Tensor,
-    offsets: torch.Tensor,
-    shift: int,
-    cfg: EngineConfig,
-    impl: str | None = None,
-    plan: torch.Tensor | None = None,
-    pass_index: int = 0,
-    buffers: tuple | None = None,
-):
-    """One fused pass: ``scatter_runs(*bucketize_tiles(keys, idx, shift), hist, offsets)``.
-
-    keys, idx: (num_tiles * tile,) uint32; hist: the tiles' digit
-    histograms (``tile_histograms``), offsets their ``global_offsets``.
-    Returns the output (keys, idx).  The kernel counts each tile's digits
-    itself and does not read hist, so hist must be the keys' histograms, as
-    in a sort; the plain version reads it.
-
-    With ``plan`` the call is pass ``pass_index`` of a fused sort whose input
-    is (keys, idx) and whose result and scratch buffers are ``buffers``, two
-    (keys, idx) pairs: the pass reads and writes the buffers the plan names,
-    never the same, or, where the plan skips it, writes nothing; it returns
-    None.
-    """
-    if cfg.radix > _MAX_FUSED_RADIX:
-        raise ValueError("bucketize_scatter supports radix <= 16")
-    num_tiles = check_keys("keys", keys, cfg)
-    check_keys("idx", idx, cfg)
-    if idx.numel() != keys.numel() or idx.device != keys.device:
-        raise ValueError("keys and idx must have one length and one device")
-    _check_tables(hist, offsets, keys, num_tiles, cfg)
-    if plan is not None:
-        pairs = buffers or ((None, None), (None, None))
-        check_plan(plan, pass_index, keys, (idx, *pairs[0], *pairs[1]))
-    if resolve_impl(keys, impl) == "reference":
-        if plan is None:
-            return _bucketize_scatter_ref(keys, idx, hist, offsets, shift, cfg)
-        route = planned_route(plan, pass_index, ((keys, idx), *buffers))
-        if route is not None:
-            source, destination = route
-            for dst, src in zip(destination,
-                                _bucketize_scatter_ref(*source, hist, offsets, shift, cfg)):
-                dst.copy_(src)
-        return None
-    if plan is None:
-        out = torch.empty_like(keys), torch.empty_like(idx)
-        scratch = (None, None)
-    else:
-        out, scratch = buffers
-    threads, _ = bucketize_scatter_geometry(cfg)
-    launch(
-        "grs_bucketize_scatter", keys, keys.data_ptr(), idx.data_ptr(), offsets.data_ptr(),
-        *map(data_ptr, out), *map(data_ptr, scratch), num_tiles, cfg.tile, threads, shift,
-        cfg.radix, data_ptr(plan), pass_index,
-    )
-    bucketize_scatter.launches += 1
-    return None if plan is not None else out
-
-
-bucketize_scatter.launches = 0
-
-
 def _lookback_offsets_ref(hist: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     """Plain version of the look-back's run offsets: bases[r] + hist[:t, r].sum().
 
@@ -248,7 +155,7 @@ def _lookback_offsets_ref(hist: torch.Tensor, bases: torch.Tensor) -> torch.Tens
 
 
 def _lookback_pass_ref(keys, idx, state: SortPlan, pass_index: int, cfg: EngineConfig):
-    """Plain version: ``bucketize_scatter``'s of the tiles' histograms and look-back offsets."""
+    """Plain version: ``_bucketize_scatter_ref`` of the tiles' histograms and look-back offsets."""
     shift = pass_index * cfg.radix_bits
     hist = _tile_histograms_ref(keys, shift, cfg)
     offsets = _lookback_offsets_ref(hist, state.bases[pass_index])
@@ -280,16 +187,17 @@ def bucketize_scatter_lookback(
 ):
     """Fused pass ``pass_index`` of a sort, its run offsets found by look-back.
 
-    The output of ``bucketize_scatter(keys, idx, hist, offsets, shift, cfg)``
-    at ``shift = pass_index * cfg.radix_bits``, hist the keys' tile
-    histograms and offsets ``state.bases[pass_index]`` plus the exclusive sum
-    of hist over the tiles: where ``state`` is the ``sort_plan`` of keys with
-    the same multiset, as in a sort, that is ``global_offsets(hist)``.
+    The output of ``scatter_runs(*bucketize_tiles(keys, idx, shift, cfg),
+    hist, offsets, cfg)`` at ``shift = pass_index * cfg.radix_bits``, hist
+    the keys' tile histograms and offsets ``state.bases[pass_index]`` plus
+    the exclusive sum of hist over the tiles: where ``state`` is the
+    ``sort_plan`` of keys with the same multiset, as in a sort, that is
+    ``global_offsets(hist)``.
 
     In whatever buffer the pass reads, the input (``keys``, ``idx``), R or
     S, its rows from ``length`` (all of them by default) on read as
     (PAD_KEY, PAD_INDEX), and with ``idx`` None the input's element e's
-    index is e: the input of ``key_bits.live_input(keys, idx, length)``, as
+    index is e: the input of ``sort_plan.live_input(keys, idx, length)``, as
     ``sort_plan(keys, cfg, skipped, length=length)`` counts it.  The pass
     writes its destination's rows below ``length``; the last pass the plan
     runs, and a call without ``buffers``, also write the rows from there on
@@ -298,11 +206,13 @@ def bucketize_scatter_lookback(
     ``state``'s look-back scratch serves each pass index once: a launch
     leaves that pass's tickets and status words used (``sort_plan`` clears
     them for a sort).  With ``buffers``, the sort's result R and scratch S
-    as two (keys, idx) pairs, the call routes as ``bucketize_scatter``'s
-    with ``plan=state.plan`` and returns None; without, it reads the input
+    as two (keys, idx) pairs, the call is pass ``pass_index`` of the sort:
+    it reads and writes the buffers ``state.plan`` names, never the same,
+    or, where the plan skips it, writes nothing; it returns None.  Without
+    ``buffers`` it reads the input
     and returns a new output.  On the card the kernel reads the input, the
     length and R from ``block``, the sort's argument block of them
-    (``key_bits.sort_args``), which this call writes itself (one more
+    (``sort_plan.sort_args``), which this call writes itself (one more
     launch) where it is None; a block comes with ``buffers``, whose R it
     names.  An eager launch's grid covers ``length``, which must be the
     block's; one made while the stream captures a CUDA graph covers every

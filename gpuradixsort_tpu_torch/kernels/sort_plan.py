@@ -1,24 +1,27 @@
-"""The AND and the OR of every key, and the fused sort's pass plan made from them.
+"""The fused sort's pass plan, its digit counts and bases, and its argument block.
 
 The fused sort's constant-digit skip (``ops/sort.py``).  The JAX package
 decides in every pass, on the device, whether the pass's digit has one value
 over the whole padded buffer (a ``lax.cond`` in
 ``gpuradixsort_tpu/ops/sort.py::_fused_pass``); it has no Pallas kernel for
 it.  Passes only permute the keys, so the AND and the OR of the keys before
-the first pass answer it for every pass at once.  On a CUDA tensor
-``key_bits`` and ``pass_plan`` launch ``csrc/key_bits.cu``, which for a plan
-also turns the two words into the plan on the card; on a CPU tensor they run
-the plain versions, which reduce one bit plane at a time (PyTorch has no
-bitwise reduction) and build the plan on the host from ``pass_mask``.
+the first pass answer it for every pass at once.  ``sort_plan`` launches
+``csrc/sort_plan.cu`` on a CUDA tensor, which turns the two words into the
+plan on the card; on a CPU tensor it runs the plain version, which reduces
+one bit plane at a time (``key_bits``; PyTorch has no bitwise reduction)
+and builds the plan on the host (``pass_mask``, ``plan_of_mask``).
 
-The plan is one int32 a pass (``kernels/radix.py::plan_entry``): -1 where
-the pass is skipped, else the buffer it reads and the one it writes.  A
-pass cannot scatter into the buffer it reads, so the passes that run
-ping-pong between the sort's result R and its scratch S, assigned from the
-last pass that runs backwards (R, S, R, ...) so that the last one writes R;
-the first reads the sort's input, which is never written.  With no varying
-digit the last pass runs from the input into R: its digit is constant, so
-it copies the input.
+The plan is one int32 a pass (``plan_entry``): -1 where the pass is
+skipped, else the buffer it reads and the one it writes.  A pass cannot
+scatter into the buffer it reads, so the passes that run ping-pong between
+the sort's result R and its scratch S, assigned from the last pass that
+runs backwards (R, S, R, ...) so that the last one writes R; the first
+reads the sort's input, which is never written.  With no varying digit the
+last pass runs from the input into R: its digit is constant, so it copies
+the input.  The look-back pass (``kernels/scatter.py``) follows the plan on
+the device, so the host never reads it; this module is the only host code
+that knows its encoding, with ``csrc/warp.cuh::plan_route`` and
+``csrc/sort_plan.cu`` on the card.
 
 A fused sort also needs every pass's digit counts, which the JAX package
 sums from K1's tile histograms in each pass.  A pass keeps the keys'
@@ -57,16 +60,61 @@ import torch
 from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig, resolve_impl
 from gpuradixsort_tpu_torch.core.table import int32_bits, uint32_as_int32, wrap_int32
 from gpuradixsort_tpu_torch.kernels._build import launch
-from gpuradixsort_tpu_torch.kernels.radix import (
-    INPUT,
-    PLAN_SKIP,
-    RESULT,
-    SCRATCH,
-    check_keys,
-    data_ptr,
-    digits_of,
-    plan_entry,
-)
+from gpuradixsort_tpu_torch.kernels.radix import check_keys, data_ptr, digits_of
+
+# A plan entry: -1 where the pass is skipped, else source | destination << 2
+# over the sort's buffers: 0 its input, 1 its result R, 2 its scratch S
+# (csrc/warp.cuh::plan_route).
+PLAN_SKIP = -1
+INPUT, RESULT, SCRATCH = 0, 1, 2
+
+
+def plan_entry(source: int, destination: int) -> int:
+    """The plan entry of a pass that reads buffer ``source`` and writes ``destination``."""
+    return source | destination << 2
+
+
+def check_plan(plan: torch.Tensor, pass_index: int, like: torch.Tensor, buffers) -> None:
+    """Check a fused sort's pass plan, a pass number and the sort's buffers.
+
+    ``buffers``: the tensors of the sort's result and scratch buffers, each
+    shaped like ``like``, the input's, and none sharing memory with another
+    or with ``like``: a pass never writes the buffer it reads.
+    """
+    if (plan.dtype != torch.int32 or plan.dim() != 1 or plan.device != like.device
+            or not 0 <= pass_index < plan.numel()):
+        raise ValueError(
+            f"plan must be a 1-D int32 tensor on {like.device} with an entry for pass "
+            f"{pass_index}, got {plan.dtype} of shape {tuple(plan.shape)} on {plan.device}"
+        )
+    for t in buffers:
+        if (t is None or t.dtype != like.dtype or t.shape != like.shape
+                or t.device != like.device or not t.is_contiguous()):
+            raise ValueError(f"a planned pass needs the sort's result and scratch buffers, "
+                             f"contiguous {like.dtype} of shape {tuple(like.shape)} on "
+                             f"{like.device}")
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.nbytes) for t in (like, *buffers))
+    if any(end > start for (_, end), (start, _) in zip(spans, spans[1:])):
+        raise ValueError("a planned pass's input, result and scratch buffers must not overlap")
+
+
+def planned_route(plan: torch.Tensor, pass_index: int, buffers: tuple):
+    """The plain version's routing: (what the pass reads, what it writes), or None where skipped.
+
+    ``buffers``: the pass's input, then the sort's result and scratch
+    buffers (in whatever form the caller reads them).  Reads the plan back,
+    as only a plain version does.
+    """
+    entry = int(plan[pass_index])
+    return None if entry == PLAN_SKIP else (buffers[entry & 3], buffers[entry >> 2])
+
+
+def last_planned(plan: torch.Tensor, pass_index: int) -> bool:
+    """Whether no pass after ``pass_index`` runs.
+
+    Reads the plan back, as only a plain version does.
+    """
+    return all(e == PLAN_SKIP for e in plan[pass_index + 1:].tolist())
 
 
 def _check_keys(keys: torch.Tensor) -> None:
@@ -77,39 +125,20 @@ def _check_keys(keys: torch.Tensor) -> None:
         )
 
 
-def _key_bits_ref(keys: torch.Tensor) -> torch.Tensor:
-    """Plain version: each of the 32 bit planes' ``all`` and ``any``."""
+def key_bits(keys: torch.Tensor) -> torch.Tensor:
+    """(2,) uint32 on ``keys``' device: the AND and the OR of every key.
+
+    ``keys``: a contiguous 1-D uint32 tensor of any length; an empty one
+    gives all-ones and zero.  Each of the 32 bit planes' ``all`` and
+    ``any``, one plane at a time: the plain version of ``sort_plan``'s
+    reduction.
+    """
+    _check_keys(keys)
     wide = int32_bits(keys).to(torch.int64) & 0xFFFFFFFF
     planes = (((wide >> b) & 1).bool() for b in range(32))  # one bit plane at a time
     bits = torch.stack([torch.stack([p.all(), p.any()]) for p in planes])  # (32, 2)
     shifts = torch.arange(32, device=keys.device)[:, None]
     return wrap_int32((bits.to(torch.int64) << shifts).sum(dim=0)).view(torch.uint32)
-
-
-def key_bits(keys: torch.Tensor, impl: str | None = None) -> torch.Tensor:
-    """(2,) uint32 on ``keys``' device: the AND and the OR of every key.
-
-    ``keys``: a contiguous 1-D uint32 tensor of any length; an empty one
-    gives all-ones and zero.
-    """
-    _check_keys(keys)
-    if resolve_impl(keys, impl) == "reference":
-        return _key_bits_ref(keys)
-    out = torch.empty(2, dtype=torch.uint32, device=keys.device)
-    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), out.data_ptr(), None, 0, 0, None)
-    key_bits.launches += 1
-    return out
-
-
-key_bits.launches = 0
-
-
-def _mask_of(words: torch.Tensor, cfg: EngineConfig) -> int:
-    """The pass mask of the keys' AND and OR, read back to the host."""
-    all_bits, any_bits = (w & 0xFFFFFFFF for w in int32_bits(words).tolist())
-    varying = any_bits & ~all_bits  # 0 for an empty buffer, as no bucket is filled
-    return sum(1 << p for p in range(cfg.num_passes)
-               if (varying >> (p * cfg.radix_bits)) & (cfg.radix - 1))
 
 
 def pass_mask(keys: torch.Tensor, cfg: EngineConfig) -> int:
@@ -121,41 +150,20 @@ def pass_mask(keys: torch.Tensor, cfg: EngineConfig) -> int:
     the AND and the OR of every key.  The host counterpart of the plan: it
     reads the two words back, which the sort itself never does.
     """
-    return _mask_of(key_bits(keys), cfg)
+    all_bits, any_bits = (w & 0xFFFFFFFF for w in int32_bits(key_bits(keys)).tolist())
+    varying = any_bits & ~all_bits  # 0 for an empty buffer, as no bucket is filled
+    return sum(1 << p for p in range(cfg.num_passes)
+               if (varying >> (p * cfg.radix_bits)) & (cfg.radix - 1))
 
 
 def plan_of_mask(mask: int, num_passes: int) -> list[int]:
-    """The pass plan of a pass mask, as ``csrc/key_bits.cu`` builds it on the card."""
+    """The pass plan of a pass mask, as ``csrc/sort_plan.cu`` builds it on the card."""
     runs = [p for p in range(num_passes) if (mask >> p) & 1] or [num_passes - 1]  # or the copy
     plan, source = [PLAN_SKIP] * num_passes, INPUT
     for i, p in enumerate(runs):  # R for the last, S for the one before, ...
         destination = SCRATCH if (len(runs) - 1 - i) % 2 else RESULT
         plan[p] = plan_entry(source, destination)
         source = destination
-    return plan
-
-
-def pass_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
-              impl: str | None = None) -> torch.Tensor:
-    """(cfg.num_passes,) int32 on ``keys``' device: the pass plan of a fused sort of ``keys``.
-
-    Also adds the number of passes the JAX package would skip (the copy of
-    an all-constant buffer not counted as run) to ``skipped``, an int64 (1,)
-    counter on the same device.  On the card nothing is read back.
-    """
-    _check_keys(keys)
-    if skipped.dtype != torch.int64 or skipped.shape != (1,) or skipped.device != keys.device:
-        raise ValueError(f"skipped must be an int64 tensor of shape (1,) on {keys.device}")
-    if resolve_impl(keys, impl) == "reference":
-        mask = _mask_of(_key_bits_ref(keys), cfg)
-        skipped += cfg.num_passes - bin(mask).count("1")
-        return torch.tensor(plan_of_mask(mask, cfg.num_passes), dtype=torch.int32,
-                            device=keys.device)
-    words = torch.empty(2, dtype=torch.uint32, device=keys.device)
-    plan = torch.empty(cfg.num_passes, dtype=torch.int32, device=keys.device)
-    launch("grs_key_bits", keys, keys.data_ptr(), keys.numel(), words.data_ptr(),
-           plan.data_ptr(), cfg.num_passes, cfg.radix_bits, skipped.data_ptr())
-    key_bits.launches += 1
     return plan
 
 
@@ -213,7 +221,7 @@ def sort_args(args: SortArgs, block: torch.Tensor | None = None,
               impl: str | None = None) -> torch.Tensor:
     """A fused sort's argument block: (ARGS_WORDS,) int64 on the keys' device.
 
-    On the card one launch of ``csrc/key_bits.cu``'s ``grs_sort_args``, a
+    On the card one launch of ``csrc/sort_plan.cu``'s ``grs_sort_args``, a
     single thread, writes ``args`` into ``block`` (a new one if None) on the
     current stream: its arguments are copied at the launch, so nothing on
     the host is read later, as when a graph replays.  The plain version
@@ -255,7 +263,7 @@ def live_input(keys: torch.Tensor, idx: torch.Tensor | None, length: int):
 class SortPlan(NamedTuple):
     """A fused sort's plan and digit bases on its keys' device, and its look-back's scratch."""
 
-    plan: torch.Tensor  # (num_passes,) int32, as pass_plan's
+    plan: torch.Tensor  # (num_passes,) int32: plan_of_mask(pass_mask(live keys))
     counts: torch.Tensor  # (num_passes, radix) int32: live keys whose digit p is r
     bases: torch.Tensor  # (num_passes, radix) int32: counts[p, :r].sum()
     lookback: torch.Tensor  # int32: the look-back's status words and tickets
@@ -287,7 +295,7 @@ def lookback_words(num_tiles: int, cfg: EngineConfig) -> int:
     return 2 * lookback_partitions(num_tiles * cfg.tile) * cfg.radix + cfg.num_passes
 
 
-# int32 words in which csrc/key_bits.cu sums the counts: a 128-byte line a
+# int32 words in which csrc/sort_plan.cu sums the counts: a 128-byte line a
 # counter, and one for the AND, the OR and the blocks that finished.
 COUNT_LINES = (128 + 1) * 32
 
@@ -295,7 +303,7 @@ COUNT_LINES = (128 + 1) * 32
 def state_layout(num_tiles: int, cfg: EngineConfig) -> dict:
     """Where ``sort_plan``'s one int32 allocation keeps each part on the card.
 
-    The AND and OR words, the plan, the bases (which ``csrc/key_bits.cu``
+    The AND and OR words, the plan, the bases (which ``csrc/sort_plan.cu``
     writes after the plan), then, 8-byte aligned, what its memset clears:
     the counts, the lines it sums them in and the look-back's scratch.
     Slices of int32 words, and the total.
@@ -332,11 +340,13 @@ def sort_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
     ``keys``: a padded buffer (a whole number of tiles), digits of 1, 2 or 4
     bits; its rows from ``length`` (all of them by default) on are pad
     rows, which take no part, whatever they hold.  Reads the live keys once
-    for the plan (``pass_plan``'s of the live keys, whose skipped passes it
-    adds to ``skipped`` alike) and for every pass's digit counts over them,
+    for the plan (``plan_of_mask(pass_mask(...))`` of the live keys, whose
+    skipped passes, the copy of a buffer with no varying digit not counted,
+    it adds to ``skipped``, an int64 (1,) counter on the keys' device) and
+    for every pass's digit counts over them,
     then writes each pass's bases, and clears the look-back's scratch for a
     sort's passes, each of which it serves once.  On the card one memset and
-    one launch of ``csrc/key_bits.cu`` and nothing read back; the kernel
+    one launch of ``csrc/sort_plan.cu`` and nothing read back; the kernel
     reads the keys' address and the length from ``block``, the sort's
     argument block of them (``sort_args``), which this call writes itself
     (one more launch) where it is None.
@@ -350,9 +360,10 @@ def sort_plan(keys: torch.Tensor, cfg: EngineConfig, skipped: torch.Tensor,
     passes, radix = cfg.num_passes, cfg.radix
     if resolve_impl(keys, impl) == "reference":
         live = keys[:length]
-        counts = _digit_counts_ref(live, cfg)
-        return SortPlan(pass_plan(live, cfg, skipped, impl="reference"), counts,
-                        _digit_bases_ref(counts),
+        mask, counts = pass_mask(live, cfg), _digit_counts_ref(live, cfg)
+        skipped += passes - bin(mask).count("1")
+        return SortPlan(torch.tensor(plan_of_mask(mask, passes), dtype=torch.int32,
+                                     device=keys.device), counts, _digit_bases_ref(counts),
                         torch.zeros(lookback_words(num_tiles, cfg), dtype=torch.int32,
                                     device=keys.device))
     if block is None:

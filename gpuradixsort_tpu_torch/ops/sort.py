@@ -3,7 +3,7 @@
 The PyTorch counterpart of ``gpuradixsort_tpu/ops/sort.py``.  Methods:
 
 - ``"fused"``: one read of the keys for the pass plan and every pass's
-  digit counts (``kernels/key_bits.py::sort_plan``), then ``cfg.num_passes``
+  digit counts (``kernels/sort_plan.py::sort_plan``), then ``cfg.num_passes``
   passes of one kernel each, which bucketizes each partition of the keys,
   finds its run offsets by a look-back over the partitions and scatters it
   (``kernels/scatter.py::bucketize_scatter_lookback``: the JAX package's
@@ -34,7 +34,7 @@ The fused sort takes a key column's buffer and its live length as they
 are.  Its per-call inputs, the caller's keys, the index (or none, where the
 sort makes it), the result R and the length, reach its kernels through an
 argument block on the card, written by one launch before the passes
-(``key_bits.sort_args``), eager or graphed alike.  So its graph copies
+(``sort_plan.sort_args``), eager or graphed alike.  So its graph copies
 nothing in or out and serves every live length of a padded shape, the
 first pass that reads the input makes the index and reads the rows past
 the length as pads, and no torch pass over the buffer re-pads the keys or
@@ -72,7 +72,7 @@ from gpuradixsort_tpu_torch.core.table import (
 )
 from gpuradixsort_tpu_torch.kernels import radix as radix_kernels
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
-from gpuradixsort_tpu_torch.kernels.key_bits import (
+from gpuradixsort_tpu_torch.kernels.sort_plan import (
     ARGS_WORDS,
     SortArgs,
     lookback_rows,

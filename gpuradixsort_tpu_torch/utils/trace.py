@@ -86,20 +86,19 @@ def kernel_wrappers() -> dict:
         aggregate,
         bucketize,
         gather,
-        key_bits,
         radix,
         scan,
         scatter,
+        sort_plan,
     )
 
     return {
         "radix_hist": radix.tile_histograms,
         "bucketize": bucketize.bucketize_tiles,
         "scatter_runs": scatter.scatter_runs,
-        "bucketize_scatter": scatter.bucketize_scatter,
         "bucketize_scatter_lookback": scatter.bucketize_scatter_lookback,
-        "sort_plan": key_bits.sort_plan,
-        "sort_args": key_bits.sort_args,
+        "sort_plan": sort_plan.sort_plan,
+        "sort_args": sort_plan.sort_args,
         "radix_dest": radix.tile_destinations,
         "dest_scatter": radix.dest_scatter,
         "exclusive_scan": scan.exclusive_scan,

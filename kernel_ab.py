@@ -3,7 +3,7 @@
 
     python3 kernel_ab.py [--old DIR] [--ptxas] [--gather] [--out FILE]
 
-A fused sort is one ``sort_plan`` (``csrc/key_bits.cu``: the key read with
+A fused sort is one ``sort_plan`` (``csrc/sort_plan.cu``: the key read with
 every pass's digit counts, the plan and the bases) and one look-back pass a
 pass (``csrc/bucketize_scatter.cu``, ``grs_lookback_scatter``).  On one
 CUDA card, device time per call (torch.profiler, 20 back-to-back calls) of
@@ -68,8 +68,8 @@ from gpuradixsort_tpu_torch.bench import stage_work
 from gpuradixsort_tpu_torch.config import PAD_INDEX, EngineConfig
 from gpuradixsort_tpu_torch.core.table import int32_bits, make_key_column, pad_to_tile, round_up
 from gpuradixsort_tpu_torch.kernels import _build
-from gpuradixsort_tpu_torch.kernels import key_bits as kb
 from gpuradixsort_tpu_torch.kernels import scatter as scatter_kernels
+from gpuradixsort_tpu_torch.kernels import sort_plan as sp
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.utils.timing import bound_of, card_line, profiled_device_ms
@@ -89,7 +89,7 @@ OLD_SIGNATURES = {
     "grs_sort_plan": [_P, _I64, _P, _P, _I, _I, _P, _P, _I64, _P],
     "grs_lookback_scatter": [_P, _P, _P, _I64, _I, _I, _P, _I, _P, _P, _I64, _P],
 }
-ALL_RUN = kb.plan_of_mask((1 << 8) - 1, 8)  # every pass runs: pass 0 reads the input into S
+ALL_RUN = sp.plan_of_mask((1 << 8) - 1, 8)  # every pass runs: pass 0 reads the input into S
 
 
 def log(msg: str) -> None:
@@ -118,11 +118,11 @@ class New:
     def __init__(self, keys: torch.Tensor, cfg: EngineConfig, length: int):
         self.keys, self.cfg, self.length = keys, cfg, length
         self.skipped = torch.zeros(1, dtype=torch.int64, device=keys.device)
-        self.block = kb.sort_args(kb.SortArgs(keys, None, (None, None), length))
+        self.block = sp.sort_args(sp.SortArgs(keys, None, (None, None), length))
         self.plan()
 
     def plan(self):
-        self.state = kb.sort_plan(self.keys, self.cfg, self.skipped, length=self.length,
+        self.state = sp.sort_plan(self.keys, self.cfg, self.skipped, length=self.length,
                                   block=self.block)
         return self.state
 
@@ -145,11 +145,11 @@ class New:
                                                    length=self.length, block=block)
 
     def block_of(self, idx, result) -> torch.Tensor:
-        return kb.sort_args(kb.SortArgs(self.keys, idx, result, self.length))
+        return sp.sort_args(sp.SortArgs(self.keys, idx, result, self.length))
 
     def sort(self, idx: torch.Tensor, result: tuple):
         """The whole fused sort, eager: argument block, plan and passes into ``result``."""
-        return sort_ops._fused_passes(kb.SortArgs(self.keys, idx, result, self.length), self.cfg,
+        return sort_ops._fused_passes(sp.SortArgs(self.keys, idx, result, self.length), self.cfg,
                                       self.skipped)
 
 
@@ -160,14 +160,14 @@ class Old:
 
     def __init__(self, lib: ctypes.CDLL, keys: torch.Tensor, cfg: EngineConfig, length: int):
         self.lib, self.keys, self.cfg, self.length = lib, keys, cfg, length
-        self.at = kb.state_layout(keys.numel() // cfg.tile, cfg)
+        self.at = sp.state_layout(keys.numel() // cfg.tile, cfg)
         self.state = torch.empty(self.at["total"], dtype=torch.int32, device=keys.device)
         self.skipped = torch.zeros(1, dtype=torch.int64, device=keys.device)
         self.block = self.block_of(None, (None, None))
         self.plan()
 
     def block_of(self, idx, result) -> torch.Tensor:
-        block = torch.empty(kb.ARGS_WORDS, dtype=torch.int64, device=self.keys.device)
+        block = torch.empty(sp.ARGS_WORDS, dtype=torch.int64, device=self.keys.device)
         ptr = [None if t is None else t.data_ptr() for t in (idx, *result)]
         call(self.lib, "grs_sort_args", block.data_ptr(), self.keys.data_ptr(), *ptr, self.length,
              self.keys.numel())
@@ -238,9 +238,15 @@ def resident_warps(regs: int, smem: int, threads: int) -> int:
 
 
 def ptxas_report(label: str, csrc: pathlib.Path) -> dict:
-    """Registers, spills and shared bytes of each kernel of the two sources, by ptxas."""
+    """Registers, spills and shared bytes of each kernel of the sources, by ptxas.
+
+    The plan's source is ``sort_plan.cu``, ``key_bits.cu`` in a copy older
+    than its rename.
+    """
     report = {}
-    for source in ("bucketize_scatter.cu", "key_bits.cu", "gather_rows.cu"):
+    for source in ("bucketize_scatter.cu", "sort_plan.cu", "key_bits.cu", "gather_rows.cu"):
+        if not (csrc / source).exists():
+            continue
         done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                                "/dev/null", str(csrc / source)],
                               capture_output=True, text=True, timeout=300)
@@ -368,7 +374,7 @@ def measure_live_shares(rng, results: dict, old: ctypes.CDLL | None) -> None:
                 side.followed(idx, buffers, side.block_of(idx, buffers[0]))
                 side.clear()
                 outs.append((side.lookback(idx), buffers[1], side.sort(idx, pair_like(keys))))
-            live_keys, live_idx = kb.live_input(keys, idx, length)
+            live_keys, live_idx = sp.live_input(keys, idx, length)
             order = torch.sort(int32_bits(live_keys).to(torch.int64) & 0xFFFFFFFF,
                                stable=True).indices
             if not same(outs[0][2], (int32_bits(live_keys)[order], int32_bits(live_idx)[order])):

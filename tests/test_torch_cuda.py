@@ -32,10 +32,10 @@ from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import aggregate as tkagg
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
 from gpuradixsort_tpu_torch.kernels import gather as tgather
-from gpuradixsort_tpu_torch.kernels import key_bits as tkey_bits
 from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.kernels import scatter as tscatter
+from gpuradixsort_tpu_torch.kernels import sort_plan as tsort_plan
 from gpuradixsort_tpu_torch.ops import aggregate as tagg
 from gpuradixsort_tpu_torch.ops import filter as tfilter
 from gpuradixsort_tpu_torch.ops import join as tjoin
@@ -74,6 +74,12 @@ def _keysets(gen, n):
     }
 
 
+def _lookback(keys, idx, shift: int, cfg):
+    """The look-back pass at ``shift``, unplanned, from a fresh sort_plan of ``keys``."""
+    state = tsort_plan.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64, device=keys.device))
+    return tscatter.bucketize_scatter_lookback(keys, idx, cfg, state, shift // cfg.radix_bits)
+
+
 def _same(got: torch.Tensor, want: torch.Tensor) -> bool:
     return torch.equal(int32_bits(got), int32_bits(want))
 
@@ -96,7 +102,7 @@ def test_kernels_match_plain(bits, card, gen):
             ref = tscatter.scatter_runs(*ref, hist, off, cfg, impl="reference")[:2]
             got = tscatter.scatter_runs(*got, hist, off, cfg)[:2]
             assert all(_same(g, r) for g, r in zip(got, ref))
-            got = tscatter.bucketize_scatter(keys, idx, hist, off, shift, cfg)
+            got = _lookback(keys, idx, shift, cfg)
             assert all(_same(g, r) for g, r in zip(got, ref))
     torch.cuda.synchronize()
 
@@ -116,37 +122,8 @@ def test_kernels_at_other_tile_sizes(tile_rows, card, gen):
     ref = tscatter.scatter_runs(*ref, hist, off, cfg, impl="reference")[:2]
     got = tscatter.scatter_runs(*got, hist, off, cfg)[:2]
     assert all(_same(g, r) for g, r in zip(got, ref))
-    got = tscatter.bucketize_scatter(keys, idx, hist, off, 4, cfg)
+    got = _lookback(keys, idx, 4, cfg)
     assert all(_same(g, r) for g, r in zip(got, ref))
-
-
-@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
-@pytest.mark.parametrize("bits", [1, 2, 4])
-def test_bucketize_scatter_matches_plain_at_every_geometry(tile_rows, bits, card, gen):
-    # Radix 2, 4 and 16 at every tile size; 1, 8 and 29 tiles (the last
-    # block of 8 part-filled), inputs aligned and 4 bytes off, and offsets
-    # moved by 7 rows, whose destinations past the end are dropped (the rows
-    # some slot lands on compared: the kernel leaves the others unwritten).
-    cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
-    for num_tiles in (1, 8, 8 * 3 + 5):
-        n = num_tiles * cfg.tile
-        for name, keys_np in _keysets(gen, n + 1).items():
-            buf = torch.from_numpy(keys_np).to(card)
-            pos = torch.from_numpy(gen.permutation(n + 1).astype(np.uint32)).to(card)
-            for keys, idx in ((buf[:n], pos[:n]), (buf[1:], pos[1:])):
-                for shift in (0, 4, 28):
-                    where = f"{name} tiles={num_tiles} shift={shift} offset={keys.data_ptr() % 16}"
-                    hist = tradix.tile_histograms(keys, shift, cfg, impl="reference")
-                    off = tradix.global_offsets(hist)
-                    ref = tscatter.bucketize_scatter(keys, idx, hist, off, shift, cfg,
-                                                     impl="reference")
-                    got = tscatter.bucketize_scatter(keys, idx, hist, off, shift, cfg)
-                    assert all(_same(g, r) for g, r in zip(got, ref)), where
-                moved = (tscatter.bucketize_scatter(keys, idx, hist, off + 7, shift, cfg),
-                         tscatter.bucketize_scatter(keys, idx, hist, off + 7, shift, cfg,
-                                                    impl="reference"))
-                assert all(_same(g[7:], r[7:]) for g, r in zip(*moved)), name
-    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
@@ -199,10 +176,9 @@ def test_every_tile_size_launches(card, gen):
                 ref = tbucketize.bucketize_tiles(keys, keys, 0, cfg, impl="reference")
                 got = tbucketize.bucketize_tiles(keys, keys, 0, cfg)
                 assert all(_same(g, r) for g, r in zip(got, ref))
-                off = tradix.global_offsets(hist)
-                ref = tscatter.bucketize_scatter(keys, keys, hist, off, 0, cfg, impl="reference")
-                got = tscatter.bucketize_scatter(keys, keys, hist, off, 0, cfg)
-                assert all(_same(g, r) for g, r in zip(got, ref))
+                ref = tscatter.scatter_runs(*ref, hist, tradix.global_offsets(hist), cfg,
+                                            impl="reference")[:2]
+                assert all(_same(g, r) for g, r in zip(_lookback(keys, keys, 0, cfg), ref))
     torch.cuda.synchronize()
 
 
@@ -605,20 +581,6 @@ def test_scan_scratch_across_streams_and_graphs(card, gen):
         check(x, got)
 
 
-@pytest.mark.parametrize("n", [1, 127, 4097, 1_000_000, 1 << 24])
-def test_key_bits_matches_plain(n, card, gen):
-    # Aligned, and one word off a 16-byte boundary: a head and a tail of single keys.
-    buf = torch.from_numpy(gen.integers(0, 2**32, n + 1, dtype=np.uint32)).to(card)
-    for keys in (buf[:n], buf[1:]):
-        before = tkey_bits.key_bits.launches
-        assert _same(tkey_bits.key_bits(keys), tkey_bits.key_bits(keys, impl="reference"))
-        assert tkey_bits.key_bits.launches == before + 1
-    few = (int32_bits(buf[1:]) & 0x10).view(torch.uint32)  # one varying bit, then none
-    assert _same(tkey_bits.key_bits(few), tkey_bits.key_bits(few, impl="reference"))
-    none = torch.zeros_like(few)
-    assert _same(tkey_bits.key_bits(none), torch.zeros(2, dtype=torch.int32, device=card))
-
-
 def _skewed(gen, n: int) -> np.ndarray:
     """n keys of which about 99% are one key: one digit of every pass holds them."""
     return np.where(gen.random(n) < 0.99, np.uint32(0x5A5A5A5A),
@@ -639,40 +601,43 @@ def test_sort_plan_matches_plain(bits, n, card, gen):
         padded = make_key_column(keys_np, cfg, device=card).data
         for keys in (padded, _one_word_off(padded)):
             skipped = [torch.zeros(1, dtype=torch.int64, device=card) for _ in range(2)]
-            before = tkey_bits.sort_plan.launches
-            got = tkey_bits.sort_plan(keys, cfg, skipped[0])
-            want = tkey_bits.sort_plan(keys, cfg, skipped[1], impl="reference")
-            assert tkey_bits.sort_plan.launches == before + 1
+            before = tsort_plan.sort_plan.launches
+            got = tsort_plan.sort_plan(keys, cfg, skipped[0])
+            want = tsort_plan.sort_plan(keys, cfg, skipped[1], impl="reference")
+            assert tsort_plan.sort_plan.launches == before + 1
             where = (name, keys.data_ptr() % 16)
             assert all(_same(g, w) for g, w in zip(got[:3], want[:3])), where
             assert _same(*skipped) and not got.lookback.any(), where
             assert int(got.counts.sum()) == cfg.num_passes * keys.numel(), where
 
 
-@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16])
+@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16, 227])
 @pytest.mark.parametrize("bits", [1, 2, 4])
 def test_lookback_pass_matches_plain_at_every_geometry(tile_rows, bits, card, gen):
     # The look-back pass, unplanned, at radix 2, 4 and 16 and every tile
-    # size; 1, 8 and 29 tiles and a length that leaves the last 4,096-key
-    # partition ragged, and at radix 16 more tiles than the card holds warps
-    # at once and more partitions than it holds blocks at once (the last
-    # ragged), so that partitions wait on partitions of an earlier wave;
-    # inputs aligned and 4 bytes off; the first, a middle and the last pass;
+    # size, and at 227 rows (it cuts the buffer into partitions, not tiles,
+    # so the fused sort takes any tile); 1, 8 and 29 tiles and a length
+    # that leaves the last 4,096-key partition ragged, and at radix 16 more
+    # tiles than the card holds warps at once (up to 16 rows a tile) and
+    # more partitions than it holds blocks at once (the last ragged), so
+    # that partitions wait on partitions of an earlier wave; inputs aligned
+    # and 4 bytes off; the first, a middle and the last pass;
     # random, low, equal, PAD_KEY-heavy and skewed keys.  Each launch takes
     # a fresh sort_plan: a pass index serves once.
     cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
     skipped = torch.zeros(1, dtype=torch.int64, device=card)
-    part = tkey_bits.LOOKBACK_PARTITION
+    part = tsort_plan.LOOKBACK_PARTITION
     ragged = (3 * part + 5 * cfg.tile) // cfg.tile
     waves = (8 * 132 * 3 + 5) * part // cfg.tile + 1
-    for num_tiles in (1, 8, 29, ragged) + ((MANY_TILES, waves) if bits == 4 else ()):
+    many = (MANY_TILES,) if tile_rows <= 16 else ()
+    for num_tiles in (1, 8, 29, ragged) + ((*many, waves) if bits == 4 else ()):
         n = num_tiles * cfg.tile
         for name, keys_np in {**_keysets(gen, n + 1), "skewed": _skewed(gen, n + 1)}.items():
             buf = torch.from_numpy(keys_np).to(card)
             pos = torch.from_numpy(gen.permutation(n + 1).astype(np.uint32)).to(card)
             for keys, idx in ((buf[:n], pos[:n]), (buf[1:], pos[1:])):
                 for p in (0, cfg.num_passes // 2, cfg.num_passes - 1):
-                    state = tkey_bits.sort_plan(keys, cfg, skipped)
+                    state = tsort_plan.sort_plan(keys, cfg, skipped)
                     got = tscatter.bucketize_scatter_lookback(keys, idx, cfg, state, p)
                     want = tscatter.bucketize_scatter_lookback(keys, idx, cfg, state, p,
                                                                impl="reference")
@@ -691,8 +656,8 @@ def test_lookback_routes_every_mask_on_card(card, gen):
         keys = torch.from_numpy(mask_keys(mask, n, CFG, gen)).to(card)
         idx = torch.from_numpy(gen.permutation(n).astype(np.uint32)).to(card)
         held = keys.clone(), idx.clone()
-        state = tkey_bits.sort_plan(keys, CFG, torch.zeros(1, dtype=torch.int64, device=card))
-        assert state.plan.tolist() == tkey_bits.plan_of_mask(mask, CFG.num_passes), mask
+        state = tsort_plan.sort_plan(keys, CFG, torch.zeros(1, dtype=torch.int64, device=card))
+        assert state.plan.tolist() == tsort_plan.plan_of_mask(mask, CFG.num_passes), mask
         buffers = tuple((torch.zeros_like(keys), torch.zeros_like(idx)) for _ in range(2))
         for p in range(CFG.num_passes):
             want = tuple(tuple(t.clone() for t in pair) for pair in buffers)
@@ -729,7 +694,7 @@ def test_rejected_lookback_and_count_launches_raise(card):
     # off their boundaries.
     keys = torch.zeros(CFG.block, dtype=torch.int32, device=card).view(torch.uint32)
     out = torch.empty_like(keys)
-    block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (out, out.clone()), 5))
+    block = tsort_plan.sort_args(tsort_plan.SortArgs(keys, None, (out, out.clone()), 5))
     state = torch.zeros(8192, dtype=torch.int32, device=card)
     n = keys.numel()
     for args, bases, lookback, words, rows in ((block, state, state[1:], 4096, n),
@@ -770,7 +735,7 @@ def _graphed_passes(keys, idx, cfg=CFG):
 
 def _eager_passes(keys, idx, cfg=CFG, length=None):
     """The fused sort's eager loop on padded buffers, its argument block its own."""
-    args = tkey_bits.SortArgs(keys, idx, (torch.empty_like(keys), torch.empty_like(keys)),
+    args = tsort_plan.SortArgs(keys, idx, (torch.empty_like(keys), torch.empty_like(keys)),
                               keys.numel() if length is None else length)
     return tsort._fused_passes(args, cfg, tsort._skip_counter(keys.device))
 
@@ -799,7 +764,7 @@ def test_graphed_passes_match_eager(card, gen):
                            zip(got, _eager_passes(keys, idx))), (n, high, call)
                 if high == 2**32 and call == 1:
                     held = (got, [g.clone() for g in got])
-                masks.add(tkey_bits.pass_mask(keys, CFG))
+                masks.add(tsort_plan.pass_mask(keys, CFG))
             if held:
                 assert all(_same(a, b) for a, b in zip(*held)), n
     assert masks == {0xFF, 0b111}
@@ -822,7 +787,7 @@ def test_one_graph_serves_every_varying_digit(card, gen):
     for keys_np in sets + sets[:2]:
         keys = torch.from_numpy(keys_np).to(card)
         idx = torch.arange(n, dtype=torch.int32, device=card).view(torch.uint32)
-        masks.append(tkey_bits.pass_mask(keys, CFG))
+        masks.append(tsort_plan.pass_mask(keys, CFG))
         got = _graphed_passes(keys, idx)
         assert all(_same(g, w) for g, w in zip(got, _stable_sort(keys, idx))), hex(masks[-1])
         assert _same(keys.cpu(), torch.from_numpy(keys_np))  # the input is not written
@@ -864,11 +829,10 @@ def test_full_graph_cache_runs_the_eager_loop(card, gen, monkeypatch):
 
 def test_launch_counts_stay_true_under_replay(card, gen):
     # A fused sort is one argument block, one sort_plan and one look-back
-    # pass a pass: K1, K5, the offsets-reading pass, the AND/OR-only
-    # key_bits, K2 and K3 are off its path.
-    wrappers = (tradix.tile_histograms, tscatter.bucketize_scatter, tscan.exclusive_scan,
-                tkey_bits.key_bits, tbucketize.bucketize_tiles, tscatter.scatter_runs,
-                tscatter.bucketize_scatter_lookback, tkey_bits.sort_plan, tkey_bits.sort_args)
+    # pass a pass: K1, K5, K2 and K3 are off its path.
+    wrappers = (tradix.tile_histograms, tscan.exclusive_scan, tbucketize.bucketize_tiles,
+                tscatter.scatter_runs, tscatter.bucketize_scatter_lookback, tsort_plan.sort_plan,
+                tsort_plan.sort_args)
     col = make_key_column(gen.integers(0, 2**32, 4 * CFG.block, dtype=np.uint32), CFG,
                           device=card)
     tsort.clear_sort_graphs()
@@ -881,9 +845,9 @@ def test_launch_counts_stay_true_under_replay(card, gen):
 
     # The first call runs the eager loop; the second captures (which runs
     # nothing) and replays; each later call replays.
-    assert launches_of(1) == [0, 0, 0, 0, 0, 0, 8, 1, 1]
-    assert launches_of(1) == [0, 0, 0, 0, 0, 0, 8, 1, 1]
-    assert launches_of(5) == [0, 0, 0, 0, 0, 0, 40, 5, 5]
+    assert launches_of(1) == [0, 0, 0, 0, 8, 1, 1]
+    assert launches_of(1) == [0, 0, 0, 0, 8, 1, 1]
+    assert launches_of(5) == [0, 0, 0, 0, 40, 5, 5]
     tsort.clear_sort_graphs()
 
 
@@ -901,37 +865,6 @@ def test_eager_loop_and_replay_make_no_host_sync(card, gen):
         torch.cuda.set_sync_debug_mode("default")
     assert all(_same(g, e) for g, e in zip(graphed, eager))
     tsort.clear_sort_graphs()
-
-
-def test_plan_routes_every_mask_on_card(card, gen):
-    # Every mask of 4-bit digits: the plan against plan_of_mask, then in each
-    # pass K1 and bucketize_scatter routed by it (input -> R or S, R -> S,
-    # S -> R) against their plain versions on copies of the same buffers;
-    # the result R against a stable sort, the input unwritten.
-    n = 2 * CFG.block
-    for mask in range(1 << CFG.num_passes):
-        keys_np = mask_keys(mask, n, CFG, gen)
-        keys = torch.from_numpy(keys_np).to(card)
-        idx = torch.from_numpy(gen.permutation(n).astype(np.uint32)).to(card)
-        held = keys.clone(), idx.clone()
-        plan = tkey_bits.pass_plan(keys, CFG, torch.zeros(1, dtype=torch.int64, device=card))
-        assert plan.tolist() == tkey_bits.plan_of_mask(mask, CFG.num_passes), mask
-        buffers = tuple((torch.zeros_like(keys), torch.zeros_like(idx)) for _ in range(2))
-        for p in range(CFG.num_passes):
-            routed = dict(plan=plan, pass_index=p, buffers=buffers)
-            want_buffers = tuple(tuple(t.clone() for t in pair) for pair in buffers)
-            hist = tradix.tile_histograms(keys, 4 * p, CFG, **routed)
-            want_hist = tradix.tile_histograms(keys, 4 * p, CFG, impl="reference", **routed)
-            off = tradix.global_offsets(want_hist)
-            tscatter.bucketize_scatter(keys, idx, want_hist, off, 4 * p, CFG, **routed)
-            tscatter.bucketize_scatter(keys, idx, want_hist, off, 4 * p, CFG, impl="reference",
-                                       plan=plan, pass_index=p, buffers=want_buffers)
-            if plan[p] >= 0:
-                assert _same(hist, want_hist), (mask, p)
-            assert all(_same(g, w) for got, want in zip(buffers, want_buffers)
-                       for g, w in zip(got, want)), (mask, p)
-        assert all(_same(g, w) for g, w in zip(buffers[0], _stable_sort(*held))), mask
-        assert _same(keys, held[0]) and _same(idx, held[1]), mask
 
 
 def test_sort_buffers_never_alias_the_input(card, gen, monkeypatch):
@@ -1103,11 +1036,11 @@ def test_failed_capture_raises(card, gen, monkeypatch):
     tsort.clear_sort_graphs()
     _graphed_passes(keys, idx)  # first sighting: the eager loop
     monkeypatch.setattr(tsort, "bucketize_scatter_lookback", failing)
-    before = tkey_bits.sort_plan.launches
+    before = tsort_plan.sort_plan.launches
     with pytest.raises(RuntimeError, match="refused during capture"):
         _graphed_passes(keys, idx)
     assert not tsort._SORT_GRAPHS
-    assert tkey_bits.sort_plan.launches == before
+    assert tsort_plan.sort_plan.launches == before
     monkeypatch.undo()
     got = _graphed_passes(keys, idx)
     assert len(tsort._SORT_GRAPHS) == 1
@@ -1118,7 +1051,7 @@ def test_failed_capture_raises(card, gen, monkeypatch):
 def _live_lengths(padded: int) -> list:
     """Live lengths of a padded buffer: none, one, a tile less one, a partition less
     one, a partition, one in an earlier partition, one in the last, and all."""
-    part = tkey_bits.LOOKBACK_PARTITION
+    part = tsort_plan.LOOKBACK_PARTITION
     return [0, 1, CFG.tile - 1, part - 1, part, 2 * part + 17, padded - 5, padded]
 
 
@@ -1144,9 +1077,9 @@ def test_lookback_at_live_lengths_matches_plain(bits, card, gen):
         for idx in (None, torch.from_numpy(gen.permutation(padded).astype(np.uint32)).to(card)):
             skipped = [torch.zeros(1, dtype=torch.int64, device=card) for _ in range(2)]
             pairs = tuple((torch.zeros_like(keys), torch.zeros_like(keys)) for _ in range(2))
-            block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, idx, pairs[0], length))
-            state = tkey_bits.sort_plan(keys, cfg, skipped[0], length=length, block=block)
-            ref = tkey_bits.sort_plan(keys, cfg, skipped[1], impl="reference", length=length)
+            block = tsort_plan.sort_args(tsort_plan.SortArgs(keys, idx, pairs[0], length))
+            state = tsort_plan.sort_plan(keys, cfg, skipped[0], length=length, block=block)
+            ref = tsort_plan.sort_plan(keys, cfg, skipped[1], impl="reference", length=length)
             where = (length, idx is None)
             assert all(_same(g, w) for g, w in zip(state[:3], ref[:3])), where
             assert _same(*skipped), where
@@ -1158,7 +1091,7 @@ def test_lookback_at_live_lengths_matches_plain(bits, card, gen):
                                                     length=length)
                 assert all(_same(g, w) for got, w_pair in zip(pairs, want)
                            for g, w in zip(got, w_pair)), (*where, p)
-            live = tkey_bits.live_input(keys, idx, length)
+            live = tsort_plan.live_input(keys, idx, length)
             assert all(_same(g, w) for g, w in zip(pairs[0], _stable_sort(*live))), where
 
 
@@ -1178,7 +1111,7 @@ def test_sorts_kernels_write_every_pad_row(where, card, gen):
     # GRAPH_MAX_PADDED) one graph, captured once, replayed at every length
     # against the eager result.  Above GRAPH_MAX_PADDED the eager launches'
     # grid covers the host's live length and a wave of blocks for the pads.
-    part = tkey_bits.LOOKBACK_PARTITION
+    part = tsort_plan.LOOKBACK_PARTITION
     padded = 3 * CFG.block if where == "graphed" else tsort.GRAPH_MAX_PADDED + CFG.block
     keys = torch.from_numpy(_stale_buffer(gen, padded)).to(card)
     perm = torch.from_numpy(gen.permutation(padded).astype(np.uint32)).to(card)
@@ -1187,15 +1120,15 @@ def test_sorts_kernels_write_every_pad_row(where, card, gen):
     graph = None
     for length in (0, 1, part - 1, part, part + 1, padded // 2 + 7, padded - 5, padded):
         for idx in (None, perm):
-            want = _stable_sort(*tkey_bits.live_input(keys, idx, length))
-            args = tkey_bits.SortArgs(keys, idx, _sentinel_pair(keys), length)
+            want = _stable_sort(*tsort_plan.live_input(keys, idx, length))
+            args = tsort_plan.SortArgs(keys, idx, _sentinel_pair(keys), length)
             eager = tsort._fused_passes(args, CFG, skipped)
             assert all(_same(g, w) for g, w in zip(eager, want)), (length, idx is None)
             if where == "graphed":
                 if graph is None:  # captured after the eager loop has run once
                     graph = tsort._FusedGraph(args._replace(result=_sentinel_pair(keys)), CFG,
                                               skipped)
-                got = graph(tkey_bits.SortArgs(keys, idx, _sentinel_pair(keys), length))
+                got = graph(tsort_plan.SortArgs(keys, idx, _sentinel_pair(keys), length))
                 assert all(_same(g, e) for g, e in zip(got, eager)), (length, idx is None)
     assert _same(keys, held[0]) and _same(perm, held[1])
     torch.cuda.synchronize()
@@ -1254,7 +1187,7 @@ def test_fused_sort_runs_only_its_kernels(card, gen, monkeypatch):
     # index); the wrappers count 1, 1 and a launch a pass a sort.
     padded = 4 * CFG.block
     col = Column(torch.from_numpy(_stale_buffer(gen, padded)).to(card), padded - 777)
-    wrappers = (tkey_bits.sort_args, tkey_bits.sort_plan, tscatter.bucketize_scatter_lookback)
+    wrappers = (tsort_plan.sort_args, tsort_plan.sort_plan, tscatter.bucketize_scatter_lookback)
     for how in ("eager", "graphed"):
         tsort.clear_sort_graphs()
         if how == "eager":

@@ -27,10 +27,10 @@ from gpuradixsort_tpu.ops import permute as jpermute
 from gpuradixsort_tpu_torch.config import LANES, EngineConfig
 from gpuradixsort_tpu_torch.core.table import int32_bits, make_key_column
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
-from gpuradixsort_tpu_torch.kernels import key_bits as tkey_bits
 from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.kernels import scatter as tscatter
+from gpuradixsort_tpu_torch.kernels import sort_plan as tsort_plan
 
 torch.set_num_threads(1)
 
@@ -167,9 +167,9 @@ def _jax_fused_pass(keys, idx, shift, cfg, impl):
 @pytest.mark.parametrize("bits", [1, 2, 4])
 @pytest.mark.parametrize("tile_rows", [1, 8])
 def test_bucketize_scatter_matches_jax(bits, tile_rows, rng):
-    # The fused pass's plain version against the JAX package's two kernels,
-    # their jnp references, at radix 2, 4 and 16 and tiles of 128 and 1,024
-    # keys, exactly.
+    # The fused pass's plain version, the look-back pass's oracle, against
+    # the JAX package's two kernels, their jnp references, at radix 2, 4 and
+    # 16 and tiles of 128 and 1,024 keys, exactly.
     cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
     for shift in (0, 28):
         for name, keys in _keysets(rng, 3 * cfg.block).items():
@@ -177,7 +177,7 @@ def test_bucketize_scatter_matches_jax(bits, tile_rows, rng):
             hist, offsets, jok, joi = _jax_fused_pass(keys, idx, shift, cfg, "reference")
             tk, ti = torch.from_numpy(keys.copy()), torch.from_numpy(idx.copy())
             _eq(tradix.tile_histograms(tk, shift, cfg), hist)
-            tok, toi = tscatter.bucketize_scatter(tk, ti, hist, offsets, shift, cfg)
+            tok, toi = tscatter._bucketize_scatter_ref(tk, ti, hist, offsets, shift, cfg)
             _eq(tok, jok)
             _eq(toi, joi)
 
@@ -188,8 +188,8 @@ def test_bucketize_scatter_matches_pallas_interpret(rng):
     keys = rng.integers(0, 2**32, cfg.block, dtype=np.uint32)
     idx = rng.permutation(keys.size).astype(np.uint32)
     hist, offsets, jok, joi = _jax_fused_pass(keys, idx, 2, cfg, "interpret")
-    tok, toi = tscatter.bucketize_scatter(torch.from_numpy(keys), torch.from_numpy(idx), hist,
-                                          offsets, 2, cfg)
+    tok, toi = tscatter._bucketize_scatter_ref(torch.from_numpy(keys), torch.from_numpy(idx),
+                                               hist, offsets, 2, cfg)
     _eq(tok, jok)
     _eq(toi, joi)
 
@@ -623,15 +623,13 @@ def test_bucketize_geometry_limits():
 def test_plain_path_launches_no_kernel(rng):
     cfg = EngineConfig()
     wrappers = (tradix.tile_histograms, tbucketize.bucketize_tiles, tscatter.scatter_runs,
-                tscatter.bucketize_scatter, tradix.tile_destinations, tscan.exclusive_scan,
-                tradix.dest_scatter)
+                tradix.tile_destinations, tscan.exclusive_scan, tradix.dest_scatter)
     before = [w.launches for w in wrappers]
     keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
     hist = tradix.tile_histograms(keys, 0, cfg)
     offsets = tradix.global_offsets(hist)
     bk, bi = tbucketize.bucketize_tiles(keys, keys, 0, cfg)
     tscatter.scatter_runs(bk, bi, hist, offsets, cfg)
-    tscatter.bucketize_scatter(keys, keys, hist, offsets, 0, cfg)
     tradix.tile_destinations(keys, offsets, 0, cfg)
     tradix.dest_scatter(keys, hist, offsets, 0, cfg, [keys, bk])
     assert [w.launches for w in wrappers] == before
@@ -655,7 +653,6 @@ def test_check_keys_refuses_2_31_rows(rows, refused):
         lambda: tradix.tile_histograms(keys, 0, cfg),
         lambda: tbucketize.bucketize_tiles(keys, keys, 0, cfg),
         lambda: tscatter.scatter_runs(keys, keys, tables, tables, cfg),
-        lambda: tscatter.bucketize_scatter(keys, keys, tables, tables, 0, cfg),
         lambda: tradix.tile_destinations(keys, tables, 0, cfg),
         lambda: tradix.dest_scatter(keys, tables, tables, 0, cfg, [keys]),
     ):
@@ -684,102 +681,42 @@ def test_scatter_runs_drops_destinations_outside_the_buffer(shift_by, rng):
         assert not lost.any()  # never written: the plain version's zeros
 
 
-ROUTES = {"skipped": None, "from the input": (tradix.INPUT, tradix.RESULT),
-          "from R": (tradix.RESULT, tradix.SCRATCH), "from S": (tradix.SCRATCH, tradix.RESULT)}
-
-
-@pytest.mark.parametrize("route", ROUTES)
-def test_planned_pass_reads_and_writes_the_named_buffers(route, rng):
-    # Pass 1 of a plan routes K1 and the fused pass: skipped, or from the
-    # sort's input, its result R or its scratch S into another buffer.  K1
-    # counts the named keys; the fused pass writes the named destination as
-    # its unplanned call on the named source would, and no other buffer.
-    cfg = EngineConfig()
-    n = 2 * cfg.tile
-
-    def pair():
-        return (torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)),
-                torch.from_numpy(rng.permutation(n).astype(np.uint32)))
-
-    sources = (pair(), pair(), pair())  # the input, R, S
-    before = [tuple(t.clone() for t in p) for p in sources]
-    entry = tradix.PLAN_SKIP if ROUTES[route] is None else tradix.plan_entry(*ROUTES[route])
-    plan = torch.tensor([tradix.plan_entry(tradix.INPUT, tradix.RESULT), entry, -1],
-                        dtype=torch.int32)
-    routed = dict(plan=plan, pass_index=1, buffers=sources[1:])
-    keys, idx = sources[0]
-    hist = tradix.tile_histograms(keys, 4, cfg, **routed)
-    offsets = tradix.global_offsets(hist)
-    assert tscatter.bucketize_scatter(keys, idx, hist, offsets, 4, cfg, **routed) is None
-    written = None
-    if ROUTES[route] is not None:
-        src, written = ROUTES[route]
-        want_hist = tradix.tile_histograms(before[src][0], 4, cfg)
-        assert torch.equal(hist, want_hist)
-        want = tscatter.bucketize_scatter(*before[src], want_hist,
-                                          tradix.global_offsets(want_hist), 4, cfg)
-        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                   for a, b in zip(sources[written], want))
-    else:
-        assert not hist.any()
-    for i, (now, then) in enumerate(zip(sources, before)):
-        if i != written:  # every other buffer, the source included, is unwritten
-            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                       for a, b in zip(now, then)), (route, i)
+ROUTES = {"skipped": None, "from the input": (tsort_plan.INPUT, tsort_plan.RESULT),
+          "from R": (tsort_plan.RESULT, tsort_plan.SCRATCH),
+          "from S": (tsort_plan.SCRATCH, tsort_plan.RESULT)}
 
 
 def test_planned_pass_rejects_a_bad_plan(rng):
+    # check_plan's refusals, through the look-back pass that a plan routes:
+    # a plan of the wrong dtype or with no entry for the pass, missing or
+    # misshapen result and scratch buffers, and buffers that share memory.
     cfg = EngineConfig()
     keys = torch.from_numpy(rng.integers(0, 2**32, cfg.tile, dtype=np.uint32))
+    idx = keys.clone()
     buffers = tuple((torch.empty_like(keys), torch.empty_like(keys)) for _ in range(2))
-    plan = torch.zeros(8, dtype=torch.int32)
-    for bad in (dict(plan=plan.to(torch.int64), buffers=buffers),
-                dict(plan=plan, pass_index=8, buffers=buffers), dict(plan=plan),
-                dict(plan=plan, buffers=((keys[:128], keys[:128]), buffers[1]))):
-        with pytest.raises(ValueError):
-            tradix.tile_histograms(keys, 0, cfg, **bad)
-    hist = tradix.tile_histograms(keys, 0, cfg)
-    for bad in (dict(plan=plan), dict(plan=plan, buffers=(buffers[0], (None, None)))):
+    state = tsort_plan.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64))
+
+    def planned(plan, pass_index=0, routed=buffers):
+        return tscatter.bucketize_scatter_lookback(keys, idx, cfg, state._replace(plan=plan),
+                                                   pass_index, routed)
+
+    for plan, pass_index in ((state.plan.to(torch.int64), 0), (state.plan[:3], 5)):
+        with pytest.raises(ValueError, match="plan must be"):
+            planned(plan, pass_index)
+    for routed in ((buffers[0], (None, None)), ((keys[:128], keys[:128]), buffers[1])):
         with pytest.raises(ValueError, match="result and scratch"):
-            tscatter.bucketize_scatter(keys, keys.clone(), hist, hist, 0, cfg, **bad)
+            planned(state.plan, 0, routed)
     # A pass must not write the buffer it reads, nor R and S share memory.
     for overlapping in (((keys, buffers[0][1]), buffers[1]), (buffers[0], buffers[0]),
                         ((buffers[1][0], buffers[0][1]), buffers[1])):
         with pytest.raises(ValueError, match="overlap"):
-            tscatter.bucketize_scatter(keys, keys.clone(), hist, hist, 0, cfg, plan=plan,
-                                       buffers=overlapping)
-    with pytest.raises(ValueError, match="overlap"):
-        tradix.tile_histograms(keys, 0, cfg, plan=plan, buffers=((keys, keys), buffers[1]))
+            planned(state.plan, 0, overlapping)
 
 
-def test_bucketize_scatter_rejects_bad_input():
-    cfg = EngineConfig()
-    good = torch.zeros(cfg.block, dtype=torch.int32).view(torch.uint32)
-    hist = tradix.tile_histograms(good, 0, cfg)
-    with pytest.raises(ValueError, match="radix <= 16"):
-        tscatter.bucketize_scatter(good, good, hist, hist, 0, EngineConfig(radix_bits=8))
-    with pytest.raises(ValueError, match="one length"):
-        tscatter.bucketize_scatter(good, good[: cfg.tile], hist, hist, 0, cfg)
-    with pytest.raises(ValueError, match="offsets"):
-        tscatter.bucketize_scatter(good, good, hist, hist[:, :4].contiguous(), 0, cfg)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        tscatter.bucketize_scatter(good, good, hist, hist, 0, cfg, impl="cuda")
-
-
-@pytest.mark.parametrize("tile_rows", [1, 3, 8, 16, 226])
-def test_bucketize_scatter_geometry_fits_the_card(tile_rows):
-    # What grs_bucketize_scatter accepts: one warp a tile, at most 8 a block,
-    # 8 bytes a key of staging and, off the 1,024-key tile, 128 bytes of rows.
-    cfg = _geometry_cfg(16, tile_rows)
-    threads, shared = tscatter.bucketize_scatter_geometry(cfg)
-    tiles = threads // 32
-    assert 1 <= tiles <= tscatter.FUSED_TILES_PER_BLOCK
-    assert shared == tiles * (8 * cfg.tile + (0 if cfg.tile == 1024 else 128))
-    assert shared <= tradix.MAX_SHARED_BYTES
-    if tile_rows <= 28:
-        assert tiles == tscatter.FUSED_TILES_PER_BLOCK
-    with pytest.raises(ValueError, match="tile_rows <= 226"):
-        tscatter.bucketize_scatter_geometry(_geometry_cfg(16, 227))
+def _plan_of(keys, cfg):
+    """The pass plan and skipped passes of ``keys`` by the host's oracles."""
+    mask = tsort_plan.pass_mask(keys, cfg)
+    return tsort_plan.plan_of_mask(mask, cfg.num_passes), cfg.num_passes - bin(mask).count("1")
 
 
 def _count_sets(rng, cfg):
@@ -799,7 +736,7 @@ def _count_sets(rng, cfg):
 def test_digit_counts_and_bases_match_jax(bits, tile_rows, rng):
     # sort_plan's plain counts and bases against the JAX package's per-pass
     # sum of K1's tile histograms and its exclusive scan, exactly; its plan
-    # and skipped passes as pass_plan's.
+    # and skipped passes as the host's oracles give them.
     cfg = EngineConfig(radix_bits=bits, tile_rows=tile_rows)
     jcfg = JaxConfig(radix_bits=bits, tile_rows=tile_rows)
     for name, keys in _count_sets(rng, cfg).items():
@@ -807,19 +744,17 @@ def test_digit_counts_and_bases_match_jax(bits, tile_rows, rng):
         want = np.stack([
             np.asarray(jnp.sum(jradix.tile_histograms(jk, p * bits, jcfg, impl="reference"),
                                axis=0))[: cfg.radix] for p in range(cfg.num_passes)])
-        skipped = [torch.zeros(1, dtype=torch.int64) for _ in range(2)]
-        state = tkey_bits.sort_plan(torch.from_numpy(keys), cfg, skipped[0])
+        skipped = torch.zeros(1, dtype=torch.int64)
+        state = tsort_plan.sort_plan(torch.from_numpy(keys), cfg, skipped)
         _eq(state.counts, want.astype(np.int32))
         _eq(state.bases, (np.cumsum(want, axis=1) - want).astype(np.int32))
-        assert torch.equal(state.plan,
-                           tkey_bits.pass_plan(torch.from_numpy(keys), cfg, skipped[1])), name
-        assert torch.equal(*skipped), name
-        assert state.lookback.numel() == tkey_bits.lookback_words(keys.size // cfg.tile, cfg)
+        assert _plan_of(torch.from_numpy(keys), cfg) == (state.plan.tolist(), int(skipped)), name
+        assert state.lookback.numel() == tsort_plan.lookback_words(keys.size // cfg.tile, cfg)
 
 
 def test_digit_counts_of_no_keys():
     # No key fills no bucket; the plan then copies the (empty) input.
-    state = tkey_bits.sort_plan(torch.empty(0, dtype=torch.uint32), EngineConfig(),
+    state = tsort_plan.sort_plan(torch.empty(0, dtype=torch.uint32), EngineConfig(),
                                 torch.zeros(1, dtype=torch.int64))
     assert not state.counts.any() and not state.bases.any()
     assert state.counts.shape == (8, 16) and state.lookback.numel() == 8  # the tickets
@@ -835,7 +770,7 @@ def test_lookback_offsets_match_jax_global_offsets(bits, tile_rows, rng):
     jcfg = JaxConfig(radix_bits=bits, tile_rows=tile_rows)
     for name, keys in _count_sets(rng, cfg).items():
         tk = torch.from_numpy(keys.copy())
-        state = tkey_bits.sort_plan(tk, cfg, torch.zeros(1, dtype=torch.int64))
+        state = tsort_plan.sort_plan(tk, cfg, torch.zeros(1, dtype=torch.int64))
         jk = jnp.asarray(keys).reshape(-1, LANES)
         for p in range(0, cfg.num_passes, max(1, cfg.num_passes // 4)):
             jhist = jradix.tile_histograms(jk, p * bits, jcfg, impl="reference")
@@ -857,7 +792,7 @@ def test_lookback_pass_matches_pallas_interpret(rng):
     keys = rng.integers(0, 2**32, cfg.block, dtype=np.uint32)
     idx = rng.permutation(keys.size).astype(np.uint32)
     _, _, jok, joi = _jax_fused_pass(keys, idx, 2, cfg, "interpret")
-    state = tkey_bits.sort_plan(torch.from_numpy(keys), cfg, torch.zeros(1, dtype=torch.int64))
+    state = tsort_plan.sort_plan(torch.from_numpy(keys), cfg, torch.zeros(1, dtype=torch.int64))
     tok, toi = tscatter.bucketize_scatter_lookback(torch.from_numpy(keys), torch.from_numpy(idx),
                                                    cfg, state, 1)
     _eq(tok, jok)
@@ -873,14 +808,14 @@ def test_lookback_scratch_words(num_tiles, bits, words):
     # allocation keeps the counts, the lines the key read sums them in and
     # that scratch 8-byte aligned and last, where its memset clears them.
     cfg = EngineConfig(radix_bits=bits)
-    assert tkey_bits.lookback_words(num_tiles, cfg) == words
-    at = tkey_bits.state_layout(num_tiles, cfg)
+    assert tsort_plan.lookback_words(num_tiles, cfg) == words
+    at = tsort_plan.state_layout(num_tiles, cfg)
     table = cfg.num_passes * cfg.radix
     assert (at["words"], at["plan"]) == (slice(0, 2), slice(2, 2 + cfg.num_passes))
     assert at["bases"] == slice(at["plan"].stop, at["plan"].stop + table)  # beside the plan
     assert at["counts"].start % 2 == 0 and at["counts"].start - at["bases"].stop in (0, 1)
     assert at["counts"].stop - at["counts"].start == table
-    assert at["lines"] == slice(at["counts"].stop, at["counts"].stop + tkey_bits.COUNT_LINES)
+    assert at["lines"] == slice(at["counts"].stop, at["counts"].stop + tsort_plan.COUNT_LINES)
     assert at["lookback"] == slice(at["lines"].stop, at["total"])
     assert at["lookback"].start % 2 == 0 and at["total"] - at["lookback"].start == words
 
@@ -893,12 +828,12 @@ def test_lookback_partitions_at_ragged_lengths(tile_rows, num_tiles):
     # (partition, digit) and a ticket a pass.
     cfg = EngineConfig(tile_rows=tile_rows)
     padded = num_tiles * cfg.tile
-    parts = tkey_bits.lookback_partitions(padded)
-    size = tkey_bits.LOOKBACK_PARTITION
+    parts = tsort_plan.lookback_partitions(padded)
+    size = tsort_plan.LOOKBACK_PARTITION
     assert (parts - 1) * size < padded <= parts * size
-    assert tkey_bits.lookback_words(num_tiles, cfg) == 2 * parts * cfg.radix + cfg.num_passes
+    assert tsort_plan.lookback_words(num_tiles, cfg) == 2 * parts * cfg.radix + cfg.num_passes
     if num_tiles < 100:  # sort_plan allocates it so
-        state = tkey_bits.sort_plan(torch.zeros(padded, dtype=torch.uint32), cfg,
+        state = tsort_plan.sort_plan(torch.zeros(padded, dtype=torch.uint32), cfg,
                                     torch.zeros(1, dtype=torch.int64))
         assert state.lookback.numel() == 2 * parts * cfg.radix + cfg.num_passes
 
@@ -909,24 +844,25 @@ def test_lookback_partition_is_the_kernels():
     src = (pathlib.Path(tscatter.__file__).parents[1] / "csrc" / "bucketize_scatter.cu").read_text()
     consts = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
               for name in ("kPartThreads", "kPartItems")}
-    assert consts["kPartThreads"] * consts["kPartItems"] == tkey_bits.LOOKBACK_PARTITION
+    assert consts["kPartThreads"] * consts["kPartItems"] == tsort_plan.LOOKBACK_PARTITION
 
 
 def test_sort_plan_and_lookback_plain_launch_nothing(rng):
     cfg = EngineConfig()
-    wrappers = (tkey_bits.sort_plan, tscatter.bucketize_scatter_lookback, tkey_bits.key_bits)
+    wrappers = (tsort_plan.sort_plan, tscatter.bucketize_scatter_lookback)
     before = [w.launches for w in wrappers]
     keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
-    state = tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64))
+    state = tsort_plan.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64))
     tscatter.bucketize_scatter_lookback(keys, keys, cfg, state, 0)
     assert [w.launches for w in wrappers] == before
 
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_lookback_pass_reads_and_writes_the_named_buffers(route, rng):
-    # Pass 1 of a plan routes the look-back pass as it routes
-    # bucketize_scatter: it writes the named destination as its unplanned
-    # call on the named source would, and no other buffer.
+    # Pass 1 of a plan routes the look-back pass: skipped, or from the
+    # sort's input, its result R or its scratch S into another buffer.  It
+    # writes the named destination as its unplanned call on the named
+    # source would, and no other buffer.
     cfg = EngineConfig()
     n = 2 * cfg.tile
 
@@ -936,10 +872,10 @@ def test_lookback_pass_reads_and_writes_the_named_buffers(route, rng):
 
     sources = (pair(), pair(), pair())  # the input, R, S
     before = [tuple(t.clone() for t in p) for p in sources]
-    entry = tradix.PLAN_SKIP if ROUTES[route] is None else tradix.plan_entry(*ROUTES[route])
-    state = tkey_bits.sort_plan(sources[0][0], cfg, torch.zeros(1, dtype=torch.int64))
+    entry = tsort_plan.PLAN_SKIP if ROUTES[route] is None else tsort_plan.plan_entry(*ROUTES[route])
+    state = tsort_plan.sort_plan(sources[0][0], cfg, torch.zeros(1, dtype=torch.int64))
     state = state._replace(plan=torch.tensor(
-        [tradix.plan_entry(tradix.INPUT, tradix.RESULT), entry] + [-1] * 6, dtype=torch.int32))
+        [tsort_plan.plan_entry(tsort_plan.INPUT, tsort_plan.RESULT), entry] + [-1] * 6, dtype=torch.int32))
     assert tscatter.bucketize_scatter_lookback(*sources[0], cfg, state, 1,
                                                buffers=sources[1:]) is None
     written = None
@@ -959,14 +895,14 @@ def test_sort_plan_and_lookback_reject_bad_input(rng):
     keys = torch.from_numpy(rng.integers(0, 2**32, cfg.block, dtype=np.uint32))
     skipped = torch.zeros(1, dtype=torch.int64)
     with pytest.raises(ValueError, match="1, 2 or 4 bits"):
-        tkey_bits.sort_plan(keys, EngineConfig(radix_bits=8), skipped)
+        tsort_plan.sort_plan(keys, EngineConfig(radix_bits=8), skipped)
     with pytest.raises(ValueError, match="multiple of the tile"):
-        tkey_bits.sort_plan(keys[:100], cfg, skipped)
+        tsort_plan.sort_plan(keys[:100], cfg, skipped)
     with pytest.raises(ValueError, match="skipped"):
-        tkey_bits.sort_plan(keys, cfg, skipped.to(torch.int32))
+        tsort_plan.sort_plan(keys, cfg, skipped.to(torch.int32))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tkey_bits.sort_plan(keys, cfg, skipped, impl="cuda")
-    state = tkey_bits.sort_plan(keys, cfg, skipped)
+        tsort_plan.sort_plan(keys, cfg, skipped, impl="cuda")
+    state = tsort_plan.sort_plan(keys, cfg, skipped)
     for bad, match in ((dict(pass_index=8), "pass_index"),
                        (dict(state=state._replace(lookback=state.lookback[:-1])), "sort_plan"),
                        (dict(state=state._replace(bases=state.bases[:4])), "sort_plan")):
@@ -991,8 +927,8 @@ def test_sort_plan_and_lookback_refuse_2_31_rows(rows):
     cfg = EngineConfig()
     keys = torch.empty(rows, dtype=torch.uint32, device="meta")
     with pytest.raises(ValueError, match=r"2\^31.*int32"):
-        tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64, device="meta"))
-    state = tkey_bits.SortPlan(*(torch.empty(0, dtype=torch.int32, device="meta"),) * 4)
+        tsort_plan.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64, device="meta"))
+    state = tsort_plan.SortPlan(*(torch.empty(0, dtype=torch.int32, device="meta"),) * 4)
     with pytest.raises(ValueError, match=r"2\^31.*int32"):
         tscatter.bucketize_scatter_lookback(keys, keys, cfg, state, 0)
 
@@ -1027,15 +963,15 @@ def test_sort_plan_counts_the_live_keys_and_the_pads(bits):
     cfg = EngineConfig(radix_bits=bits)
     for length in _live_lengths(cfg):
         buf, repadded = _stale(cfg, length, np.random.default_rng([bits, length]))
-        skipped = [torch.zeros(1, dtype=torch.int64) for _ in range(2)]
-        state = tkey_bits.sort_plan(torch.from_numpy(buf), cfg, skipped[0], length=length)
+        skipped = torch.zeros(1, dtype=torch.int64)
+        state = tsort_plan.sort_plan(torch.from_numpy(buf), cfg, skipped, length=length)
         want = _numpy_counts(buf[:length], cfg)
         _eq(state.counts, want.astype(np.int32))
         _eq(state.bases, (np.cumsum(want, axis=1) - want).astype(np.int32))
         padded = _numpy_counts(repadded, cfg)
         _eq(state.bases, (np.cumsum(padded, axis=1) - padded).astype(np.int32))
-        plan = tkey_bits.pass_plan(torch.from_numpy(buf[:length].copy()), cfg, skipped[1])
-        assert torch.equal(state.plan, plan) and torch.equal(*skipped), length
+        want_plan = _plan_of(torch.from_numpy(buf[:length].copy()), cfg)
+        assert want_plan == (state.plan.tolist(), int(skipped)), length
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4])
@@ -1049,7 +985,7 @@ def test_lookback_pass_reads_pads_and_makes_the_index(bits):
         buf, repadded = _stale(cfg, length, np.random.default_rng([bits, length, 1]))
         idx = np.where(np.arange(buf.size) < length, np.arange(buf.size),
                        0xFFFFFFFF).astype(np.uint32)
-        state = tkey_bits.sort_plan(torch.from_numpy(buf), cfg,
+        state = tsort_plan.sort_plan(torch.from_numpy(buf), cfg,
                                     torch.zeros(1, dtype=torch.int64), length=length)
         for p in (0, cfg.num_passes - 1):
             _, _, jok, joi = _jax_fused_pass(repadded, idx, p * bits, cfg, "reference")
@@ -1071,13 +1007,13 @@ def test_lookback_pass_at_a_live_length_routes_as_planned():
     keys = torch.from_numpy(gen.integers(0, 2**32, 2 * cfg.tile, dtype=np.uint32))
     pairs = [tuple(torch.from_numpy(gen.integers(0, 2**32, 2 * cfg.tile, dtype=np.uint32))
                    for _ in range(2)) for _ in range(2)]
-    state = tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=100)
-    for source, destination in ((tradix.INPUT, tradix.SCRATCH), (tradix.SCRATCH, tradix.RESULT)):
-        plan = torch.tensor([tradix.plan_entry(source, destination)] + [-1] * 7, dtype=torch.int32)
+    state = tsort_plan.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=100)
+    for source, destination in ((tsort_plan.INPUT, tsort_plan.SCRATCH), (tsort_plan.SCRATCH, tsort_plan.RESULT)):
+        plan = torch.tensor([tsort_plan.plan_entry(source, destination)] + [-1] * 7, dtype=torch.int32)
         routed = state._replace(plan=plan, lookback=torch.zeros_like(state.lookback))
         before = [tuple(t.clone() for t in pair) for pair in pairs]
         tscatter.bucketize_scatter_lookback(keys, None, cfg, routed, 0, tuple(pairs), length=100)
-        src = (keys, None) if source == tradix.INPUT else before[1]
+        src = (keys, None) if source == tsort_plan.INPUT else before[1]
         want = tscatter.bucketize_scatter_lookback(*src, cfg, routed, 0, length=100)
         assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(pairs[destination - 1], want)), (source, destination)
@@ -1092,17 +1028,17 @@ def test_lookback_passes_write_pads_only_in_the_last(length):
     # hold.  The passes walk the live partitions, the length rounded up to
     # 4,096 rows.
     cfg = EngineConfig()
-    n = 4 * tkey_bits.LOOKBACK_PARTITION
-    assert tkey_bits.lookback_rows(length, n) == min(n, -(-length // 4096) * 4096)
+    n = 4 * tsort_plan.LOOKBACK_PARTITION
+    assert tsort_plan.lookback_rows(length, n) == min(n, -(-length // 4096) * 4096)
     gen = np.random.default_rng(length)
     # Digits 0 and 2 vary, so the two passes below sort the keys.
     keys = torch.from_numpy(gen.integers(0, 2**32, n, dtype=np.uint32) & np.uint32(0xF0F))
     sentinel = 0x5EED5EED
     pairs = tuple(tuple(torch.full((n,), sentinel, dtype=torch.int32).view(torch.uint32)
                         for _ in range(2)) for _ in range(2))
-    state = tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=length)
-    e = tradix.plan_entry
-    plan = [e(tradix.INPUT, tradix.SCRATCH), -1, e(tradix.SCRATCH, tradix.RESULT)] + [-1] * 5
+    state = tsort_plan.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=length)
+    e = tsort_plan.plan_entry
+    plan = [e(tsort_plan.INPUT, tsort_plan.SCRATCH), -1, e(tsort_plan.SCRATCH, tsort_plan.RESULT)] + [-1] * 5
     state = state._replace(plan=torch.tensor(plan, dtype=torch.int32))
     (rk, ri), (sk, si) = pairs
     tscatter.bucketize_scatter_lookback(keys, None, cfg, state, 0, pairs, length=length)
@@ -1111,7 +1047,7 @@ def test_lookback_passes_write_pads_only_in_the_last(length):
     assert (int32_bits(rk) == sentinel).all() and (int32_bits(ri) == sentinel).all()
     int32_bits(sk)[length:] = 0  # stale: read as pads
     tscatter.bucketize_scatter_lookback(keys, None, cfg, state, 2, pairs, length=length)
-    live_keys, live_idx = tkey_bits.live_input(keys, None, length)
+    live_keys, live_idx = tsort_plan.live_input(keys, None, length)
     order = torch.sort(int32_bits(live_keys).to(torch.int64) & 0xFFFFFFFF, stable=True).indices
     assert torch.equal(int32_bits(rk), int32_bits(live_keys)[order])
     assert torch.equal(int32_bits(ri), int32_bits(live_idx)[order])
@@ -1123,11 +1059,11 @@ def test_sort_args_plain_words():
     keys = torch.zeros(EngineConfig().block, dtype=torch.int32).view(torch.uint32)
     result = (torch.empty_like(keys), torch.empty_like(keys))
     for idx, length in ((None, 5), (keys.clone(), keys.numel()), (None, 0)):
-        block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, idx, result, length))
-        assert block.dtype == torch.int64 and block.shape == (tkey_bits.ARGS_WORDS,)
+        block = tsort_plan.sort_args(tsort_plan.SortArgs(keys, idx, result, length))
+        assert block.dtype == torch.int64 and block.shape == (tsort_plan.ARGS_WORDS,)
         assert block.tolist() == [keys.data_ptr(), 0 if idx is None else idx.data_ptr(),
                                   result[0].data_ptr(), result[1].data_ptr(), length]
-    assert tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (None, None), 3))[2:4].tolist() \
+    assert tsort_plan.sort_args(tsort_plan.SortArgs(keys, None, (None, None), 3))[2:4].tolist() \
         == [0, 0]
 
 
@@ -1137,27 +1073,27 @@ def test_sort_args_and_live_lengths_reject_bad_input():
     result = (torch.empty_like(keys), torch.empty_like(keys))
     for length in (-1, cfg.block + 1):
         with pytest.raises(ValueError, match="length"):
-            tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, result, length))
+            tsort_plan.sort_args(tsort_plan.SortArgs(keys, None, result, length))
         with pytest.raises(ValueError, match="length"):
-            tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=length)
+            tsort_plan.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64), length=length)
     with pytest.raises(ValueError, match="index and result"):
-        tkey_bits.sort_args(tkey_bits.SortArgs(keys, keys[:128], result, 1))
+        tsort_plan.sort_args(tsort_plan.SortArgs(keys, keys[:128], result, 1))
     with pytest.raises(ValueError, match="index and result"):
-        tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (keys.view(torch.int32), keys), 1))
+        tsort_plan.sort_args(tsort_plan.SortArgs(keys, None, (keys.view(torch.int32), keys), 1))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, result, 1), impl="cuda")
+        tsort_plan.sort_args(tsort_plan.SortArgs(keys, None, result, 1), impl="cuda")
     with pytest.raises(ValueError, match="sort_args block"):
-        tkey_bits.check_block(torch.zeros(4, dtype=torch.int64), keys)
-    state = tkey_bits.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64))
+        tsort_plan.check_block(torch.zeros(4, dtype=torch.int64), keys)
+    state = tsort_plan.sort_plan(keys, cfg, torch.zeros(1, dtype=torch.int64))
     with pytest.raises(ValueError, match="length"):
         tscatter.bucketize_scatter_lookback(keys, None, cfg, state, 0, length=cfg.block + 1)
-    block = tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, result, 1))
+    block = tsort_plan.sort_args(tsort_plan.SortArgs(keys, None, result, 1))
     with pytest.raises(ValueError, match="buffers"):  # the block's R would go unreturned
         tscatter.bucketize_scatter_lookback(keys, None, cfg, state, 0, length=1, block=block)
 
 
 def test_sort_args_plain_launches_nothing():
     keys = torch.zeros(EngineConfig().block, dtype=torch.int32).view(torch.uint32)
-    before = tkey_bits.sort_args.launches
-    tkey_bits.sort_args(tkey_bits.SortArgs(keys, None, (None, None), 1))
-    assert tkey_bits.sort_args.launches == before
+    before = tsort_plan.sort_args.launches
+    tsort_plan.sort_args(tsort_plan.SortArgs(keys, None, (None, None), 1))
+    assert tsort_plan.sort_args.launches == before

@@ -17,14 +17,14 @@ from gpuradixsort_tpu.core import table as jtable
 from gpuradixsort_tpu.ops import sort as jsort
 from gpuradixsort_tpu_torch import config as tconfig
 from gpuradixsort_tpu_torch.core import table as ttable
-from gpuradixsort_tpu_torch.kernels import radix as tradix
+from gpuradixsort_tpu_torch.kernels import sort_plan as tsort_plan
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
-from gpuradixsort_tpu_torch.kernels.key_bits import (
+from gpuradixsort_tpu_torch.kernels.sort_plan import (
     SortArgs,
     key_bits,
     pass_mask,
-    pass_plan,
     plan_of_mask,
+    sort_plan,
 )
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.ops.permute import gather_rows
@@ -333,15 +333,15 @@ def _mask_keys(mask: int, n: int) -> np.ndarray:
 
 def _routes(plan) -> list:
     """(source, destination) of each pass that runs, over (input, R, S) = (0, 1, 2)."""
-    buffers = (tradix.INPUT, tradix.RESULT, tradix.SCRATCH)
-    routes = [tradix.planned_route(torch.as_tensor(plan, dtype=torch.int32), p, buffers)
+    buffers = (tsort_plan.INPUT, tsort_plan.RESULT, tsort_plan.SCRATCH)
+    routes = [tsort_plan.planned_route(torch.as_tensor(plan, dtype=torch.int32), p, buffers)
               for p in range(len(plan))]
     return [r for r in routes if r is not None]
 
 
 def test_plan_routes_every_mask():
-    # Every mask of 4-bit digits over 8 passes on two tiles: the plan from
-    # the AND/OR words equals the plan of the JAX package's criterion; the
+    # Every mask of 4-bit digits over 8 passes on two tiles: sort_plan's plan
+    # equals the plan of the JAX package's criterion; the
     # passes that run read the input first, then each the buffer the one
     # before wrote, never the buffer they write, and the last writes R; the
     # plain versions routed by it sort the pairs stably, write nothing of
@@ -354,12 +354,12 @@ def test_plan_routes_every_mask():
         assert _jax_pass_mask(keys_np, CFG) == mask
         keys, idx = torch.from_numpy(keys_np.copy()), torch.from_numpy(idx_np.copy())
         before = int(skipped)
-        plan = pass_plan(keys, CFG, skipped)
+        plan = sort_plan(keys, CFG, skipped).plan
         assert plan.tolist() == plan_of_mask(mask, CFG.num_passes), mask
         routes = _routes(plan)
         assert len(routes) == max(1, bin(mask).count("1"))  # or the copy
-        assert routes[0][0] == tradix.INPUT and routes[-1][1] == tradix.RESULT
-        assert all(dst in (tradix.RESULT, tradix.SCRATCH) and dst != src for src, dst in routes)
+        assert routes[0][0] == tsort_plan.INPUT and routes[-1][1] == tsort_plan.RESULT
+        assert all(dst in (tsort_plan.RESULT, tsort_plan.SCRATCH) and dst != src for src, dst in routes)
         assert all(a[1] == b[0] for a, b in zip(routes, routes[1:]))
         assert int(skipped) - before == CFG.num_passes - bin(mask).count("1")
         result = (torch.empty_like(keys), torch.empty_like(idx))
@@ -376,7 +376,7 @@ def test_plan_of_mask_layout():
     # and S (2): the passes that run alternate R and S backwards from the
     # last, which writes R, and the first reads the input; with no pass, the
     # last one copies the input into R.
-    e, inp, r, s = tradix.plan_entry, tradix.INPUT, tradix.RESULT, tradix.SCRATCH
+    e, inp, r, s = tsort_plan.plan_entry, tsort_plan.INPUT, tsort_plan.RESULT, tsort_plan.SCRATCH
     assert (e(inp, r), e(inp, s), e(r, s), e(s, r)) == (4, 8, 9, 6)
     assert plan_of_mask(0xFF, 8) == [e(inp, s), e(s, r), e(r, s), e(s, r), e(r, s), e(s, r),
                                      e(r, s), e(s, r)]
@@ -570,7 +570,7 @@ def test_made_index_matches_the_explicit_index(length):
 
 # Live lengths of a four-partition buffer: none, one, a partition less one,
 # a partition, one past it, all but one, all.
-PART = 4096  # key_bits.LOOKBACK_PARTITION
+PART = 4096  # sort_plan.LOOKBACK_PARTITION
 WALK_LENGTHS = [0, 1, PART - 1, PART, PART + 1, 4 * PART - 1, 4 * PART]
 WALK_KINDS = ["low keys", "high keys and PAD_KEY"]
 

@@ -7,6 +7,8 @@ and a CUDA request on a machine with no card raises instead of falling back
 to the CPU.
 """
 
+import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -206,5 +208,36 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     assert all(src.suffix == ".cu" for src in _build.sources())
     assert {src.name for src in _build.sources()} == {
         "radix_hist.cu", "bucketize.cu", "scatter_runs.cu", "bucketize_scatter.cu",
-        "radix_dest.cu", "scan.cu", "key_bits.cu", "segment_agg.cu", "gather_rows.cu",
+        "radix_dest.cu", "scan.cu", "sort_plan.cu", "segment_agg.cu", "gather_rows.cu",
     }
+
+
+# The C declarations of the entry points, and how each argument's kind reads
+# as the ctypes type that ``_build.library()`` gives it.
+_DECLARATION = re.compile(r'extern "C" [^(]*?\b(grs_\w+)\(([^)]*)\)')
+_KINDS = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
+# Entry points that the library does not type: the error string (typed by
+# hand) and the group-by's trace, which agg_ab.py loads itself.
+_UNTYPED = {"grs_error_string", "grs_segment_aggregate_trace"}
+
+
+def _declarations() -> dict:
+    """Every ``extern "C"`` grs_* entry point of csrc/: its arguments' ctypes types."""
+    found = {}
+    for src in _build.sources():
+        for name, params in _DECLARATION.findall(src.read_text()):
+            found[name] = [ctypes.c_void_p if "*" in p else _KINDS[p.split()[0]]
+                           for p in " ".join(params.split()).split(", ")]
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_kernel_signatures_match_the_sources(name):
+    # What only library() on the card would find: each typed entry point is
+    # declared in a source, with an argument of the same kind (pointer,
+    # int64_t, int) at every place.
+    assert _declarations().get(name) == _build._SIGNATURES[name]
+
+
+def test_kernel_signatures_type_every_entry_point():
+    assert set(_declarations()) - _UNTYPED == set(_build._SIGNATURES)

@@ -153,7 +153,7 @@ def _live(n: int, padded: int) -> Table:
                   "v": Column(torch.arange(padded, dtype=torch.int32), n)})
 
 
-# The fused sort walks its live partitions of 4,096 rows (key_bits.lookback_rows),
+# The fused sort walks its live partitions of 4,096 rows (sort_plan.lookback_rows),
 # the radix method the whole padded buffer.
 ROWS = {
     "filter": (lambda: filter_table(_live(1000, 8192), lambda t: t["v"].data % 2 == 0),
