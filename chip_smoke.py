@@ -74,7 +74,14 @@ in eight phases:
    replaced, through a sort's padded permutation read below its length and
    through int64 indices out of range, live lengths 0, 1, 1%, half and
    all, 9 columns of 1- to 16-byte rows (a launch each), at 1,000,000 rows
-   and a ragged last 128-row run;
+   and a ragged last 128-row run; join_probe (the join's probe: int32
+   positions and keep mask in one launch) against its plain version and,
+   on the live rows, the route it replaced (int64 copies, searchsorted,
+   clamp, index, compare), for an inner, a semi and an anti join, on build
+   sides of 0, 1, 600, 32,769 (one past the splitter table) and 1,000,000
+   unique keys with PAD_KEY among them, random and sorted probes of
+   1,000,000 rows and of 3 blocks and 11 rows, half of them hits, at live
+   lengths 0, 1, 1%, half and all, stale rows past them;
 3. the main path through the public entry points on CUDA tensors:
    ``sort_pairs`` of 1,000,000 shuffled 0..N-1 keys (sorted keys == arange, permutation == numpy's stable
    argsort), of 2^20 shuffled keys (where the constant-digit skip fires), of
@@ -118,7 +125,9 @@ in eight phases:
    bytes it must move at 3.35 TB/s) and its share of that bound, and
    exclusive_scan and global_offsets beside ``torch.cumsum``, gather_rows
    (a 64-byte row through a random int32 index) beside ``index_select`` of
-   the clipped int64 index; the 1M x 64 B table sort; at radix 2, 16 and
+   the clipped int64 index, join_probe (every row live, random keys, a
+   build side of a sixteenth as many unique keys) beside the route it
+   replaced; the 1M x 64 B table sort; at radix 2, 16 and
    256 on (key, index) pairs, dest_scatter beside K4 then
    scatter_by_destination (the stores it replaces), K4 alone and K1, in
    alternating turns, each dest_scatter line with its partition
@@ -136,7 +145,8 @@ in eight phases:
 6. times of the operator path: each operator and the radix sort beside the
    fused sort, by CUDA events (median of 3) with the profiler's busy share;
    the group-by's profile must hold segment_aggregate and no gather by
-   index_select, index_add_, scatter_reduce_ or cumsum kernel;
+   index_select, index_add_, scatter_reduce_ or cumsum kernel, and each
+   join's join_probe and no searchsorted kernel;
 7. the distributed path, counts set to 0 before each timed op in every
    rank and read after it: 4 gloo ranks on this one card (NCCL refuses two
    ranks on one GPU), every collective staged through pinned host memory,
@@ -202,6 +212,7 @@ from gpuradixsort_tpu_torch.kernels.aggregate import PARTITION as AGG_PARTITION
 from gpuradixsort_tpu_torch.kernels.aggregate import segment_aggregate
 from gpuradixsort_tpu_torch.kernels.bucketize import _bucketize_ref, bucketize_tiles
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
+from gpuradixsort_tpu_torch.kernels.probe import join_probe, probe_bytes
 from gpuradixsort_tpu_torch.kernels import scan as scan_kernels
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.kernels.scatter import bucketize_scatter_lookback, scatter_runs
@@ -290,6 +301,11 @@ KERNELS = {
     "gather_rows": (gather_columns, "gpuradixsort_tpu_torch/csrc/gather_rows.cu",
                     "none: jnp.take at gpuradixsort_tpu/ops/sort.py:230 (permute.gather_rows) "
                     "and gpuradixsort_tpu/ops/join.py:79, 178 and 186", ("gather_rows_kernel",)),
+    # No Pallas kernel: join's probe, jnp.searchsorted and the compare after
+    # it in the JAX package's join; positions and keep mask in one launch.
+    "join_probe": (join_probe, "gpuradixsort_tpu_torch/csrc/join_probe.cu",
+                   "none: jnp.searchsorted and the match at gpuradixsort_tpu/ops/join.py:65-68",
+                   ("join_probe_kernel",)),
 }
 # The kernels each sort method runs.  A fused sort writes its argument block,
 # reads its keys once in sort_plan and runs the look-back pass in every pass;
@@ -399,6 +415,7 @@ def phase_kernels(dev, rng, errs: dict) -> None:
     check_live_route(dev, rng, errs)
     check_segment_aggregate_shapes(dev, rng, errs)
     check_gather_columns(dev, rng, errs)
+    check_join_probe(dev, rng, errs)
     torch.cuda.synchronize()
 
 
@@ -829,6 +846,62 @@ def check_gather_columns(dev, rng, errs: dict) -> None:
           f"gather_rows == plain == index_select of the clipped index in {cases} cases: R of "
           "a padded buffer read below its length, int64 indices out of range, 9 columns of "
           "1- to 16-byte rows in 9 launches, ragged last run")
+
+
+def replaced_probe(keys: torch.Tensor, build: torch.Tensor) -> tuple:
+    """The route join_probe replaced: int64 copies, searchsorted, clamp, index, compare, cast."""
+    nb = build.numel()
+    b = int32_bits(build).to(torch.int64) & 0xFFFFFFFF
+    p = int32_bits(keys).to(torch.int64) & 0xFFFFFFFF
+    pos = torch.searchsorted(b, p, side="left")
+    safe = pos.clamp(0, max(nb - 1, 0))
+    matched = (pos < nb) & (b[safe] == p) if nb else torch.zeros_like(p, dtype=torch.bool)
+    return safe, matched.to(torch.int32)
+
+
+def check_join_probe(dev, rng, errs: dict) -> None:
+    """join_probe against its plain version and, on the live rows, the route it replaced.
+
+    Build sides of 0, 1, 600, 32,769 (one past the splitter table) and
+    1,000,000 unique keys, PAD_KEY the last of them; probes of 1,000,000
+    rows and of 3 blocks and 11 rows (a ragged last tile), half of them hits,
+    random and sorted, at live lengths 0, 1, 1% and half (off the tile) and
+    all, the rows past them stale; an inner (positions), a semi and an anti
+    join's launch.  Whole outputs compared, and one launch a call.
+    """
+    cases = 0
+    for nb in (0, 1, 600, 32769, N_HEADLINE):
+        pool = np.unique(rng.integers(0, 2**32, nb + nb // 8 + 8, dtype=np.uint32))
+        build_np = np.sort(rng.permutation(pool)[:nb])
+        if nb > 1:
+            build_np[-1] = PAD_KEY
+        build = torch.from_numpy(build_np).to(dev)
+        for n in (N_HEADLINE, 3 * EngineConfig().block + 11):
+            keys_np = rng.integers(0, 2**32, n, dtype=np.uint32)
+            if nb:
+                hits = rng.random(n) < 0.5
+                keys_np[hits] = build_np[rng.integers(0, nb, int(hits.sum()))]
+            for keys_np in (keys_np, np.sort(keys_np)):
+                keys = torch.from_numpy(keys_np).to(dev)
+                for live in (0, 1, n // 100 + 3, n // 2 + 7, n):
+                    safe, matched = replaced_probe(keys[:live], build)
+                    for positions, negate in ((True, False), (False, False), (False, True)):
+                        before = join_probe.launches
+                        pos, keep = join_probe(keys, live, build, positions, negate)
+                        err = int(join_probe.launches - before != 1)
+                        want_pos, want_keep = join_probe(keys, live, build, positions, negate,
+                                                         impl="reference")
+                        err = max(err, max_abs_err(keep, want_keep),
+                                  max_abs_err(keep[:live], matched ^ int(negate)))
+                        if positions:
+                            err = max(err, max_abs_err(pos, want_pos),
+                                      max_abs_err(pos[:live], safe.to(torch.int32)))
+                        errs["join_probe"] = max(errs["join_probe"], err)
+                        cases += 1
+    check(errs["join_probe"] == 0,
+          f"join_probe == plain (whole outputs) == the replaced route (live rows) in {cases} "
+          "cases: builds of 0 to 1,000,000 keys, random and sorted probes, stale rows past "
+          "live lengths 0 to all, inner, semi and anti, one launch each")
 
 
 def check_dest_scatter_geometry(dev, rng, errs: dict) -> None:
@@ -1795,6 +1868,8 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                                               device=dev).data)
         grows = agg_rows(rng, gkeys.numel(), n, dev)
         gather_src = int32_bits(idx)[torch.randperm(padded, device=dev)]
+        probe_build = torch.from_numpy(np.unique(rng.integers(0, 2**32, padded // 16,
+                                                              dtype=np.uint32))).to(dev)
         gather_payload = torch.randint(-(2**31), 2**31 - 1, (padded, PAYLOAD_COLS),
                                        dtype=torch.int32, device=dev)
 
@@ -1836,6 +1911,11 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
                                                    impl="reference"),
                             lambda: gather_payload.index_select(
                                 0, gather_src.to(torch.int64).clamp(0, padded - 1))),
+            # Every probe row live, random keys; the library call is the route
+            # the kernel replaced.
+            "join_probe": (lambda: join_probe(keys, padded, probe_build),
+                           lambda: join_probe(keys, padded, probe_build, impl="reference"),
+                           lambda: replaced_probe(keys, probe_build)),
             # No one PyTorch call computes a group-by's aggregates.
             "segment_aggregate": (
                 lambda: segment_aggregate(gkeys, n, ginputs, grows, impl="cuda"),
@@ -1844,6 +1924,7 @@ def phase_times(dev, rng, cfg, card: str) -> dict:
         work = stage_work(padded, cfg)
         work["segment_aggregate"] = stage_work(gkeys.numel(), cfg, agg_rows=True)[
             "segment_aggregate"]
+        work["join_probe"] = (probe_bytes(padded, padded, probe_build.numel()), 0)
         st = StageTimes()
         log(f"one pass at {label} keys, shift 0, radix 16 ({card}): device time "
             f"(profiler) and per-call time of 20 back-to-back calls (CUDA events); "
@@ -2223,6 +2304,11 @@ def phase_operator_times(tables: dict, cfg, card: str) -> None:
                   f"the group-by's profile holds segment_aggregate ({ours.get('segment_aggregate')}"
                   f" ms) and no index_select gather, index_add_, scatter_reduce_ or cumsum kernel"
                   + (f": {'; '.join(old)}" if old else ""))
+        if label.startswith("join "):
+            searches = [row for row in rows if "searchsorted" in row]
+            check("join_probe" in ours and not searches,
+                  f"{label}: the profile holds join_probe ({ours.get('join_probe')} ms) and no "
+                  "searchsorted kernel" + (f": {'; '.join(searches)}" if searches else ""))
     sorts = sort_plan.launches - sorts
     graphs = {f"{key[3]} {key[1]}": g.replays for key, g in sort_ops._SORT_GRAPHS.items()}
     torch.cuda.empty_cache()

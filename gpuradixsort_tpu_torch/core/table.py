@@ -59,6 +59,11 @@ def int32_bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.uint32 else t
 
 
+def wide_keys(keys: torch.Tensor) -> torch.Tensor:
+    """uint32 keys as int64 values, which ``torch.searchsorted``, compares and arithmetic take."""
+    return int32_bits(keys).to(torch.int64) & 0xFFFFFFFF
+
+
 def uint32_as_int32(value: int) -> int:
     """The int32 with the same bits as a uint32 value."""
     return value - (1 << 32) if value >= (1 << 31) else value

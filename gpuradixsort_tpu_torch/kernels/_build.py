@@ -49,6 +49,7 @@ _SIGNATURES = {
     "grs_sort_args": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     "grs_segment_aggregate": [_P, _I64, _P, _I64, _P, _P, _I, _P, _P, _P, _I64, _P],
     "grs_gather_rows": [_P, _I, _I64, _I64, _P, _I64, _I64, _I64, _P, _P],
+    "grs_join_probe": [_P, _I64, _I64, _P, _I64, _P, _P, _I, _P],
 }
 
 

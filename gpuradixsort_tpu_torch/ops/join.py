@@ -2,15 +2,23 @@
 
 The PyTorch counterpart of ``gpuradixsort_tpu/ops/join.py``.  The build side
 is sorted by key once (the engine's stable radix sort); every probe row
-finds its match with a binary search (``torch.searchsorted``), and the
-result is compacted by ``ops/filter.py``.  ``torch.searchsorted`` takes no
-uint32, so both sides are widened to int64.
+finds its match by a search of the sorted build keys, and the result is
+compacted by ``ops/filter.py``.
 
-- ``join``: inner / semi / anti, build keys unique.
+- ``join``: inner / semi / anti, build keys unique.  The probe is one
+  ``join_probe`` (``kernels/probe.py``; on the card ``csrc/join_probe.cu``,
+  one launch): the uint32 keys read as they lie, int32 positions (inner
+  joins only) and the int32 keep mask written together.  Only the rows
+  below the probe's length are searched: the rows past it are searched as
+  PAD_KEY, where the JAX package searches whatever lies there, which is
+  PAD_KEY in every probe ``make_key_column`` builds.  They are pads: their
+  keep is 0, and their position that of PAD_KEY.
 - ``join_expand``: inner join with duplicate build keys.  Each probe row
-  matches a run of the sorted build keys; the exclusive scan of the run
-  lengths (K5 on a CUDA tensor) gives each probe row its first output slot,
-  and the rows land in a buffer of fixed ``capacity`` with a live count.
+  matches a run of the sorted build keys (``torch.searchsorted`` of both
+  sides widened to int64, which takes no uint32); the exclusive scan of
+  the run lengths (K5 on a CUDA tensor) gives each probe row its first
+  output slot, and the rows land in a buffer of fixed ``capacity`` with a
+  live count.
 
 Only ``validate_unique`` and ``to_table`` read a value back to the host,
 each inside the span ``grs.join.sync``.  A call is the span ``grs.join``,
@@ -18,8 +26,10 @@ its phases ``grs.join.build`` (the build side's sort) and ``grs.join.probe``
 (the searches and the gathers).  Each gather moves all its payload columns
 through one index in one ``gather_columns``.  The probe's searches and
 ``join``'s gather of the build payloads count their rows (``trace.rows``);
-``join_expand``'s gathers do not, since their live count stays on the
-device.
+``join``'s probe counts the rows it searches (the live rows rounded up to
+the kernel's tile) and, as ``trace.probe_filled``, the pad rows it writes
+unsearched.  ``join_expand``'s gathers do not count, since their live
+count stays on the device.
 """
 
 from __future__ import annotations
@@ -29,8 +39,9 @@ import dataclasses
 import torch
 
 from gpuradixsort_tpu_torch.config import EngineConfig
-from gpuradixsort_tpu_torch.core.table import Column, Table, int32_bits, round_up
+from gpuradixsort_tpu_torch.core.table import Column, Table, int32_bits, round_up, wide_keys
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
+from gpuradixsort_tpu_torch.kernels.probe import join_probe, walked_rows
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.ops.filter import Selection, filter_table
 from gpuradixsort_tpu_torch.ops.sort import sort_table
@@ -50,11 +61,6 @@ def matches_exceed(cnt: torch.Tensor, capacity: int) -> torch.Tensor:
     matches than that cannot be laid out, and are reported as a cut.
     """
     return cnt.sum(dtype=torch.int64) > min(capacity, MAX_SLOTS)
-
-
-def _wide(keys: torch.Tensor) -> torch.Tensor:
-    """uint32 keys as int64 values, for searchsorted and compares."""
-    return int32_bits(keys).to(torch.int64) & 0xFFFFFFFF
 
 
 def _zero_invalid(g: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -91,35 +97,36 @@ def join(
             build_sorted = sort_table(build, key, cfg)
         nb = build.length
         with trace.span("grs.join.probe"):
-            bkeys = _wide(build_sorted[key].data)  # padded; the live prefix is sorted
+            bkeys = build_sorted[key].valid()  # sorted, uint32
             if validate_unique and nb > 1:
+                bits = int32_bits(bkeys)
                 with trace.span("grs.join.sync"):
-                    duplicate = bool((bkeys[1:nb] == bkeys[: nb - 1]).any())
+                    duplicate = bool((bits[1:] == bits[:-1]).any())
                 if duplicate:
                     raise ValueError(
                         "build side has duplicate keys; use join_expand for one-to-many joins"
                     )
 
-            pkeys = _wide(probe[key].data)  # padded; pad rows are dropped by the filter
-            trace.rows("probe", probe.length, pkeys.numel())
-            pos = torch.searchsorted(bkeys[:nb], pkeys, side="left")
-            safe_pos = pos.clamp(0, max(nb - 1, 0))
-            matched = (pos < nb) & (bkeys[safe_pos] == pkeys)
+            pcol = probe[key]
+            walked = walked_rows(probe.length, pcol.padded_length)
+            trace.rows("probe", probe.length, walked)
+            trace.probe_filled(pcol.padded_length - walked)
+            pos, keep = join_probe(pcol.data, probe.length, bkeys, positions=how == "inner",
+                                   negate=how == "anti")
 
             if how == "inner":
                 cols = dict(probe.columns)
                 payloads = [name for name in build_sorted.names() if name != key]
                 if payloads:
-                    trace.rows("gather", probe.length, safe_pos.numel())
+                    trace.rows("gather", probe.length, pos.numel())
                     gathered = gather_columns([build_sorted[name].data for name in payloads],
-                                              safe_pos)
+                                              pos)
                     cols.update((build_prefix + name, Column(g, probe.length))
                                 for name, g in zip(payloads, gathered))
                 joined = Table(cols)
-                keep = matched
             else:
                 joined = probe
-                keep = matched if how == "semi" else ~matched
+            del pos, bkeys, build_sorted  # not held through the compaction
         selection = filter_table(joined, lambda _t: keep, cfg)
         return dataclasses.replace(selection, op="grs.join")
 
@@ -172,9 +179,9 @@ def join_expand(
             build_sorted = sort_table(build, key, cfg)
         nb = build.length
         with trace.span("grs.join.probe"):
-            bkeys = _wide(build_sorted[key].valid())
+            bkeys = wide_keys(build_sorted[key].valid())
 
-            pkeys = _wide(probe[key].data)
+            pkeys = wide_keys(probe[key].data)
             padded = probe[key].padded_length
             dev = pkeys.device
             live = torch.arange(padded, device=dev) < probe.length

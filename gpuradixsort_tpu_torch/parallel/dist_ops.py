@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from gpuradixsort_tpu_torch.config import PAD_KEY, EngineConfig
-from gpuradixsort_tpu_torch.core.table import int32_bits, round_up, uint32_as_int32
+from gpuradixsort_tpu_torch.core.table import int32_bits, round_up, uint32_as_int32, wide_keys
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.kernels.scan import exclusive_scan
 from gpuradixsort_tpu_torch.ops.aggregate import SUPPORTED, aggregate_sorted_flat
@@ -32,7 +32,6 @@ from gpuradixsort_tpu_torch.parallel.dist_sort import (
     _live_mask,
     _resolve,
     _shard_exchange_sorted,
-    _wide,
     all_counts,
 )
 from gpuradixsort_tpu_torch.utils.timing import StageClock
@@ -150,8 +149,8 @@ def _join_shard_fn(keys, side, live, payload, cfg, mesh, capacity, join_cap, buc
     dev = pk.device
     pos = torch.arange(total_rows, device=dev)
     # Tails past the live counts are compaction leftovers: the pad key there.
-    wpk = torch.where(pos < count_p, _wide(pk), PAD_KEY)
-    wbk = torch.where(pos < count_b, _wide(bk), PAD_KEY)
+    wpk = torch.where(pos < count_p, wide_keys(pk), PAD_KEY)
+    wbk = torch.where(pos < count_b, wide_keys(bk), PAD_KEY)
     lo = torch.minimum(torch.searchsorted(wbk, wpk, side="left"), count_b)
     hi = torch.minimum(torch.searchsorted(wbk, wpk, side="right"), count_b)
     cnt = torch.where(pos < count_p, hi - lo, 0).to(torch.int32)

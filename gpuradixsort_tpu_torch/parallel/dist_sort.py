@@ -44,7 +44,13 @@ import numpy as np
 import torch
 
 from gpuradixsort_tpu_torch.config import PAD_INDEX, PAD_KEY, EngineConfig
-from gpuradixsort_tpu_torch.core.table import int32_bits, round_up, uint32_as_int32, wrap_int32
+from gpuradixsort_tpu_torch.core.table import (
+    int32_bits,
+    round_up,
+    uint32_as_int32,
+    wide_keys,
+    wrap_int32,
+)
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
 from gpuradixsort_tpu_torch.ops.filter import _compact_by_mask
 from gpuradixsort_tpu_torch.ops.sort import _sort_padded
@@ -61,11 +67,6 @@ class ShardedSort(NamedTuple):
     index: torch.Tensor  # (num_shards * capacity,) uint32 original row ids
     counts: torch.Tensor  # (num_shards,) int32 live rows of every shard
     overflow: torch.Tensor  # 0-d bool, the same on every shard: retry with more slack
-
-
-def _wide(keys: torch.Tensor) -> torch.Tensor:
-    """uint32 keys as int64 values, for searchsorted and arithmetic."""
-    return int32_bits(keys).to(torch.int64) & 0xFFFFFFFF
 
 
 def _full_u32(shape, value: int, device) -> torch.Tensor:
@@ -99,7 +100,7 @@ def _merge_pair(ak, bk, a_payloads, b_payloads):
     Takes runs of any lengths, and leading batch dims.  Returns (keys,
     payloads) as the JAX package's ``_merge_pair`` does.
     """
-    out = _merge_on(_wide(ak), _wide(bk), (ak, *a_payloads), (bk, *b_payloads))
+    out = _merge_on(wide_keys(ak), wide_keys(bk), (ak, *a_payloads), (bk, *b_payloads))
     return out[0], tuple(out[1:])
 
 
@@ -116,7 +117,7 @@ def _merge_runs(keys2d: torch.Tensor, payloads2d: tuple):
     cols = [keys2d, *payloads2d]
     while p > 1:
         pairs = [c.reshape(p // 2, 2, -1) for c in cols]
-        cols = _merge_on(_wide(pairs[0][:, 0]), _wide(pairs[0][:, 1]),
+        cols = _merge_on(wide_keys(pairs[0][:, 0]), wide_keys(pairs[0][:, 1]),
                          [c[:, 0] for c in pairs], [c[:, 1] for c in pairs])
         p //= 2
     return cols[0].reshape(-1), tuple(c.reshape(-1) for c in cols[1:])
@@ -143,14 +144,14 @@ def _composite(keys: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
     Pads (PAD_KEY, PAD_INDEX) are the largest value, so they sort last.
     """
     hi = (int32_bits(keys) ^ torch.iinfo(torch.int32).min).to(torch.int64)
-    return hi * (1 << 32) + _wide(gidx)
+    return hi * (1 << 32) + wide_keys(gidx)
 
 
 def _local_sort(keys, carried: tuple, cfg: EngineConfig, method: str):
     """Stable local sort of keys, carrying columns: the radix method or torch.sort."""
     if method == "radix":
         return _sort_padded(keys, carried, cfg)
-    order = torch.sort(_wide(keys), stable=True).indices
+    order = torch.sort(wide_keys(keys), stable=True).indices
     keys, *carried = gather_columns([keys, *carried], order)
     return keys, tuple(carried)
 
@@ -219,7 +220,7 @@ def _shard_exchange_sorted(keys, extras: tuple, n_live: int, cfg: EngineConfig, 
 
     # 2. Global bucket histogram over the observed live key range.
     num_buckets = 1 << bucket_bits
-    wkeys = _wide(skeys)
+    wkeys = wide_keys(skeys)
     has_live = live_local > 0
     last = (live_local - 1).clamp(min=0)
     kmin_kmax = torch.stack([torch.where(has_live, wkeys[0], PAD_KEY),

@@ -25,12 +25,15 @@ Counters.  ``rows(site, live, walked)`` adds the live rows of a buffer
 and the rows the port's kernels or torch calls walk over it, always on:
 host integers, read from the columns' host lengths, never a sync.  The
 sites: ``sort`` (each sort of a key column), ``compact`` (a filter's
-compaction), ``probe`` (each search of a join's probe keys), ``gather``
+compaction), ``probe`` (each search of a join's probe keys: ``join``'s
+walks the live rows rounded up to its kernel's tile), ``gather``
 (each index through which an operator gathers payload columns, once an
 index) and ``aggregate`` (the group-by's kernel, where its live length is
 a host integer).  ``gather_filled(rows)`` counts, of the ``gather`` site's
 walked rows, those written from each column's row 0 with no read of the
-index (``sort_table``'s pad rows), once an index.  ``counters()`` reads
+index (``sort_table``'s pad rows), once an index; ``probe_filled(rows)``
+the pad rows ``join``'s probe writes past the rows it searches, with no
+read of their keys.  ``counters()`` reads
 them with the counts the port already keeps: every kernel wrapper's
 ``.launches``, the sort graphs made and replayed, and the passes the
 fused sorts skipped.
@@ -48,6 +51,7 @@ _NO_SPAN = contextlib.nullcontext()
 _rows = {site: [0, 0] for site in SITES}
 _graphs_captured = 0
 _gather_filled = 0
+_probe_filled = 0
 
 
 def span(name: str):
@@ -74,6 +78,12 @@ def gather_filled(rows: int) -> None:
     _gather_filled += rows
 
 
+def probe_filled(rows: int) -> None:
+    """Count ``rows`` pad rows of a join's probe written without a search, their keys unread."""
+    global _probe_filled
+    _probe_filled += rows
+
+
 def graph_captured() -> None:
     """Count one CUDA graph made by the sorts' cache (``ops/sort.py::_graph_of``)."""
     global _graphs_captured
@@ -86,6 +96,7 @@ def kernel_wrappers() -> dict:
         aggregate,
         bucketize,
         gather,
+        probe,
         radix,
         scan,
         scatter,
@@ -104,6 +115,7 @@ def kernel_wrappers() -> dict:
         "exclusive_scan": scan.exclusive_scan,
         "segment_aggregate": aggregate.segment_aggregate,
         "gather_rows": gather.gather_columns,
+        "join_probe": probe.join_probe,
     }
 
 
@@ -113,6 +125,10 @@ def counters() -> dict:
     - ``rows``: {site: [live, walked]} since the last ``reset()``;
     - ``gather_filled``: the pad rows the gathers wrote from row 0 since
       the last ``reset()``;
+    - ``probe_filled``: the pad rows ``join``'s probes wrote without a
+      search since the last ``reset()``.  With the ``probe`` site's walked
+      rows it says how much of the probes' padded rows the search skipped;
+      no metric reads it;
     - ``launches``: {wrapper: launches}, each wrapper's own count;
     - ``graphs``: ``captured``, the sort graphs made since the last
       ``reset()``, and ``replayed``, the replays of the graphs the cache
@@ -126,6 +142,7 @@ def counters() -> dict:
     return {
         "rows": {site: list(count) for site, count in _rows.items()},
         "gather_filled": _gather_filled,
+        "probe_filled": _probe_filled,
         "launches": {name: fn.launches for name, fn in kernel_wrappers().items()},
         "graphs": {"captured": _graphs_captured,
                    "replayed": sum(g.replays for g in sort._SORT_GRAPHS.values())},
@@ -135,7 +152,7 @@ def counters() -> dict:
 
 def reset() -> None:
     """Zero the row counts, the filled pad rows and the graphs made; the rest are their owners'."""
-    global _gather_filled, _graphs_captured
+    global _gather_filled, _probe_filled, _graphs_captured
     for count in _rows.values():
         count[0] = count[1] = 0
-    _gather_filled = _graphs_captured = 0
+    _gather_filled = _probe_filled = _graphs_captured = 0

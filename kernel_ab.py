@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the fused sort's kernels, sort_plan and the look-back pass, beside an older build.
 
-    python3 kernel_ab.py [--old DIR] [--ptxas] [--gather] [--out FILE]
+    python3 kernel_ab.py [--old DIR] [--ptxas] [--gather | --probe] [--out FILE]
 
 A fused sort is one ``sort_plan`` (``csrc/sort_plan.cu``: the key read with
 every pass's digit counts, the plan and the bases) and one look-back pass a
@@ -46,6 +46,21 @@ it replaced (per column an int64 copy of R, ``clamp`` and
 ``index_select``, over every row), in mirrored turns, every output checked
 equal, with the kernel's launches a call (one a column); its bound is
 ``gather_bytes``.
+``--probe`` times the join's probe instead (``kernels/probe.py``,
+``csrc/join_probe.cu``): ``join_probe`` with positions (an inner join's)
+of 1,000,000, 2^24 and 100,000,000 probe rows, 50% and all of them live,
+sorted and random keys (half hits), against build sides of 600, 900,000
+and 4,400,000 unique keys, beside the route it replaced over the whole
+padded probe (int64 copies of both sides, ``torch.searchsorted``,
+``clamp``, an index of the build keys, the compare and the int32 cast), in
+mirrored turns, the live rows checked equal; its bound is
+``probe.probe_bytes``.  Then the tuning A/B: builds of
+``join_probe.cu`` with one constant changed each (``PROBE_VARIANTS``:
+searches a thread, threads a block, splitters staged) beside the port's
+build at the cells' probes (q3's lineitem and orders probes, q18's first
+join), each launched through its own entry point on the same buffers, the
+outputs checked equal, in mirrored turns, with ptxas's registers and
+spills of each.
 The A/B of the table-reading pass at each block size is ``kernel_ab.py`` of
 commit b055d90; that against the buffers-as-arguments build, of 3090bf7,
 is this script at commit 92b3e3f.
@@ -71,6 +86,7 @@ from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import scatter as scatter_kernels
 from gpuradixsort_tpu_torch.kernels import sort_plan as sp
 from gpuradixsort_tpu_torch.kernels.gather import gather_columns
+from gpuradixsort_tpu_torch.kernels.probe import join_probe, probe_bytes
 from gpuradixsort_tpu_torch.ops import sort as sort_ops
 from gpuradixsort_tpu_torch.utils.timing import bound_of, card_line, profiled_device_ms
 
@@ -82,6 +98,27 @@ LIVE_SIZES = ("2^24", "100M")
 LIVE_SHARES = (0.01, 0.5, 1.0)
 PLAIN_UP_TO = 1 << 24  # the look-back pass is also held to its plain version up to here
 GATHER_COLUMNS = (1, 4, 8)
+PROBE_BUILDS = {"600": 600, "900K": 900_000, "4.4M": 4_400_000}
+PROBE_SHARES = (0.5, 1.0)
+# A variant of csrc/join_probe.cu: its label and the (line of the source, line in its place)
+# pairs that make it.
+THREADS = "constexpr int kThreads = 512;"
+SEARCHES = "constexpr int kSearches = 4;"
+TABLE = "constexpr int kMaxTable = 32768;"
+PROBE_VARIANTS = {
+    "256 threads": ((THREADS, "constexpr int kThreads = 256;"),),
+    "768 threads": ((THREADS, "constexpr int kThreads = 768;"),),
+    "1024 threads": ((THREADS, "constexpr int kThreads = 1024;"),),
+    "8 searches": ((SEARCHES, "constexpr int kSearches = 8;"),),
+    "16384 splitters": ((TABLE, "constexpr int kMaxTable = 16384;"),),
+    "24576 splitters": ((TABLE, "constexpr int kMaxTable = 24576;"),),
+}
+# (label, probe rows, live rows, build keys, order): the cells' probes.
+PROBE_CELLS = (("q3 lineitem", 180_000_000, 97_000_000, 4_400_000, "random"),
+               ("q3 orders", 45_000_000, 22_000_000, 900_000, "random"),
+               ("q18 orders", 45_000_000, 45_000_000, 600, "random"))
+VARIANT_BUILD = pathlib.Path(__file__).resolve().parent / "build" / "kernels_ab"
+
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # The older build's entry points (those of commit 92b3e3f).
 OLD_SIGNATURES = {
@@ -244,7 +281,8 @@ def ptxas_report(label: str, csrc: pathlib.Path) -> dict:
     than its rename.
     """
     report = {}
-    for source in ("bucketize_scatter.cu", "sort_plan.cu", "key_bits.cu", "gather_rows.cu"):
+    for source in ("bucketize_scatter.cu", "sort_plan.cu", "key_bits.cu", "gather_rows.cu",
+                   "join_probe.cu"):
         if not (csrc / source).exists():
             continue
         done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
@@ -455,12 +493,112 @@ def measure_gather(rng, results: dict) -> None:
             del src
 
 
+def probe_build(rng, nb: int) -> torch.Tensor:
+    """``nb`` unique uint32 keys, sorted, on the card."""
+    pool = np.unique(rng.integers(0, 2**32, nb + nb // 8 + 8, dtype=np.uint32))
+    return torch.from_numpy(np.sort(rng.permutation(pool)[:nb])).cuda()
+
+
+def probe_keys(rng, n: int, live: int, build: torch.Tensor, order: str) -> torch.Tensor:
+    """``n`` probe keys, half of the ``live`` ones hits, sorted or random; stale past ``live``."""
+    keys = rng.integers(0, 2**32, n, dtype=np.uint32)
+    hits = rng.random(live) < 0.5
+    keys[:live][hits] = build.cpu().numpy()[rng.integers(0, build.numel(), int(hits.sum()))]
+    if order == "sorted":
+        keys[:live].sort()
+    return torch.from_numpy(keys).cuda()
+
+
+def replaced_probe(keys: torch.Tensor, build: torch.Tensor) -> tuple:
+    """The route join_probe replaced, over every padded row: int64 copies, search, clamp, index."""
+    nb = build.numel()
+    b = int32_bits(build).to(torch.int64) & 0xFFFFFFFF
+    p = int32_bits(keys).to(torch.int64) & 0xFFFFFFFF
+    pos = torch.searchsorted(b, p, side="left")
+    safe = pos.clamp(0, max(nb - 1, 0))
+    return safe, ((pos < nb) & (b[safe] == p)).to(torch.int32)
+
+
+def measure_probe(rng, results: dict) -> None:
+    """join_probe against the route it replaced, each timing beside its bound."""
+    for nb_label, nb in PROBE_BUILDS.items():
+        build = probe_build(rng, nb)
+        for label, n in SIZES.items():
+            for share in PROBE_SHARES:
+                live = int(n * share)
+                for order in ("sorted", "random"):
+                    keys = probe_keys(rng, n, live, build, order)
+                    pos, keep = join_probe(keys, live, build)
+                    safe, matched = replaced_probe(keys, build)
+                    if not (torch.equal(pos[:live], safe[:live].to(torch.int32))
+                            and torch.equal(keep[:live], matched[:live])):
+                        raise SystemExit(f"probe {label} {share:.0%} {order} into {nb_label}: "
+                                         "the kernel differs from the route it replaced")
+                    del pos, keep, safe, matched
+                    fns = {"kernel": lambda: join_probe(keys, live, build),
+                           "parent": lambda: replaced_probe(keys, build)}
+                    key = f"probe @ {label}, {share:.0%} live, {order}, into {nb_label}"
+                    record(results, key, turns_of(fns, None),
+                           bound_of(probe_bytes(n, live, nb), 0)[0] * 1e3, n, live)
+                    del keys
+                    torch.cuda.empty_cache()
+        del build
+
+
+def probe_variant(label: str, lines: tuple) -> ctypes.CDLL:
+    """``csrc/join_probe.cu`` with the lines changed, built alone into ``build/kernels_ab/``."""
+    text = (_build._CSRC / "join_probe.cu").read_text()
+    for old, new in lines:
+        if old not in text:
+            raise SystemExit(f"variant {label}: {old!r} is not in join_probe.cu")
+        text = text.replace(old, new)
+    csrc = VARIANT_BUILD / "probe_src" / re.sub(r"\W+", "_", label)
+    csrc.mkdir(parents=True, exist_ok=True)
+    (csrc / "join_probe.cu").write_text(text)
+    ptxas_report(f"variant {label}", csrc)
+    lib = ctypes.CDLL(str(_build.build(csrc, VARIANT_BUILD)))
+    lib.grs_join_probe.argtypes = _build._SIGNATURES["grs_join_probe"]
+    lib.grs_join_probe.restype = ctypes.c_int
+    return lib
+
+
+def measure_probe_variants(rng, results: dict) -> None:
+    """The port's join_probe beside builds with one constant changed, at the cells' probes."""
+    libs = {label: probe_variant(label, lines) for label, lines in PROBE_VARIANTS.items()}
+    for cell, n, live, nb, order in PROBE_CELLS:
+        build = probe_build(rng, nb)
+        keys = probe_keys(rng, n, live, build, order)
+        want = join_probe(keys, live, build)
+        pos, keep = torch.empty_like(want[0]), torch.empty_like(want[1])
+
+        def variant(lib):
+            def run():
+                call(lib, "grs_join_probe", keys.data_ptr(), n, live, build.data_ptr(), nb,
+                     pos.data_ptr(), keep.data_ptr(), 0)
+            return run
+
+        fns = {"port": lambda: join_probe(keys, live, build)}
+        for label, lib in libs.items():
+            pos.fill_(-7)
+            keep.fill_(-7)
+            variant(lib)()
+            if not (torch.equal(pos, want[0]) and torch.equal(keep, want[1])):
+                raise SystemExit(f"variant {label} at {cell}: differs from the port's kernel")
+            fns[label] = variant(lib)
+        record(results, f"probe variants @ {cell}", turns_of(fns, "join_probe_kernel"),
+               bound_of(probe_bytes(n, live, nb), 0)[0] * 1e3, n, live)
+        del build, keys, want, pos, keep
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=pathlib.Path, help="an older copy of csrc/ to time beside")
     parser.add_argument("--ptxas", action="store_true", help="print nvcc's register report")
     parser.add_argument("--gather", action="store_true",
                         help="time the payload gather instead of the fused sort's kernels")
+    parser.add_argument("--probe", action="store_true",
+                        help="time the join's probe and its tuning variants instead")
     parser.add_argument("--out", type=pathlib.Path, help="also write the JSON here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -477,6 +615,9 @@ def main() -> int:
             results["ptxas"]["old"] = ptxas_report("old", args.old)
     if args.gather:
         measure_gather(np.random.default_rng(SEED + 2), results)
+    elif args.probe:
+        measure_probe_variants(np.random.default_rng(SEED + 4), results)
+        measure_probe(np.random.default_rng(SEED + 3), results)
     else:
         measure_all_live(np.random.default_rng(SEED), results, old)
         measure_live_shares(np.random.default_rng(SEED + 1), results, old)

@@ -32,6 +32,7 @@ from gpuradixsort_tpu_torch.kernels import _build
 from gpuradixsort_tpu_torch.kernels import aggregate as tkagg
 from gpuradixsort_tpu_torch.kernels import bucketize as tbucketize
 from gpuradixsort_tpu_torch.kernels import gather as tgather
+from gpuradixsort_tpu_torch.kernels import probe as tprobe
 from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.kernels import scatter as tscatter
@@ -1205,6 +1206,165 @@ def test_fused_sort_runs_only_its_kernels(card, gen, monkeypatch):
             other = [row for row in rows if not any(name in row.lower() for name in FUSED_ROWS)]
             assert not other, (how, entry.__name__, other)
     tsort.clear_sort_graphs()
+
+
+# join_probe's build sides: none, one key, a build held whole in the splitter
+# table (about q18's first join; exactly the table's 32,768), one key past its
+# capacity (a stride of 8), and q3's lineitem join's 4.4M keys.
+PROBE_BUILDS = (0, 1, 600, 32768, 32769, 4_400_000)
+# (positions, negate) of an inner, a semi and an anti join.
+PROBE_KINDS = {"inner": (True, False), "semi": (False, False), "anti": (False, True)}
+
+
+def _probe_build(gen, nb: int) -> np.ndarray:
+    """``nb`` unique sorted uint32 keys, half at or above 2^31, PAD_KEY among them."""
+    keys = np.unique(gen.integers(0, 2**32, nb + nb // 8 + 8, dtype=np.uint32))
+    keys = gen.permutation(keys)[:nb]
+    if nb > 1:
+        keys[0] = PAD_KEY
+    return np.sort(keys)
+
+
+def _probe_keys(gen, n: int, build: np.ndarray, order: str) -> np.ndarray:
+    """``n`` probe keys: half hits, misses across all 32 bits, PAD_KEY now and then."""
+    keys = gen.integers(0, 2**32, n, dtype=np.uint32)
+    if build.size:
+        hits = gen.random(n) < 0.5
+        keys[hits] = build[gen.integers(0, build.size, int(hits.sum()))]
+    keys[gen.random(n) < 0.01] = PAD_KEY
+    return np.sort(keys) if order == "sorted" else keys
+
+
+def _probe_both(keys, live, build, kind):
+    positions, negate = PROBE_KINDS[kind]
+    before = tprobe.join_probe.launches
+    got = tprobe.join_probe(keys, live, build, positions, negate)
+    assert tprobe.join_probe.launches - before == (keys.numel() > 0)
+    want = tprobe.join_probe(keys, live, build, positions, negate, impl="reference")
+    assert (got[0] is None) == (want[0] is None) == (not positions)
+    return got, want
+
+
+@pytest.mark.parametrize("nb", PROBE_BUILDS)
+@pytest.mark.parametrize("order", ["sorted", "random"])
+@pytest.mark.parametrize("share", [0.01, 0.5, 1.0])
+def test_join_probe_matches_its_plain_version(nb, order, share, card, gen):
+    # The kernel against its plain version on the card, whole outputs, for an
+    # inner, a semi and an anti join: a probe of 2^20 + 77 rows (a ragged
+    # last tile), 1%, 50% or all of it live (off the tile), sorted or random
+    # keys, stale rows past the length (a selection's dropped rows).
+    n = (1 << 20) + 77
+    live = n if share == 1.0 else int(n * share) + 13
+    build = torch.from_numpy(_probe_build(gen, nb)).to(card)
+    keys = _probe_keys(gen, n, build.cpu().numpy(), order)
+    keys[live:] = gen.permutation(keys[live:])  # stale, not PAD_KEY
+    keys = torch.from_numpy(keys).to(card)
+    off = torch.empty(nb + 1, dtype=torch.int32, device=card)[1:]  # 4 bytes off: key by key
+    off.copy_(int32_bits(build))
+    for kind in PROBE_KINDS:
+        for side in (build, off):
+            (pos, keep), (want_pos, want_keep) = _probe_both(keys, live, side, kind)
+            assert torch.equal(keep, want_keep), (kind, side.data_ptr() % 32)
+            assert pos is None or torch.equal(pos, want_pos), (kind, side.data_ptr() % 32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [1, 3, tprobe.TILE_ROWS - 1, tprobe.TILE_ROWS,
+                               tprobe.TILE_ROWS + 1, 4 * tprobe.TILE_ROWS + 3])
+@pytest.mark.parametrize("nb", [0, 1, 2, 600, 40003])
+def test_join_probe_at_the_tiles_edges(n, nb, card, gen):
+    # Probes shorter than a tile, a tile and a row either side, each live
+    # length from 0 to n at the edges; the build side's keys given as the
+    # int32 view and as uint32, the probe's keys 4 bytes off their 16-byte
+    # alignment; a build side past the splitter table whose last 8-key
+    # sector is ragged; and build sides that end in a run of PAD_KEYs (a semi
+    # join's build may repeat keys), where a pad row's position is the run's
+    # first.
+    build = _probe_build(gen, nb)
+    runs = [build, np.append(build, [PAD_KEY] * 3).astype(np.uint32)]
+    buf = torch.from_numpy(_probe_keys(gen, n + 1, build, "random")).to(card)
+    for b in runs:
+        bt = torch.from_numpy(b).to(card)
+        for keys in (buf[:n], buf[1:]):
+            for live in sorted({0, 1, n // 2, max(n - 1, 0), n}):
+                for side in (bt, int32_bits(bt)):
+                    for kind in PROBE_KINDS:
+                        (pos, keep), (want_pos, want_keep) = _probe_both(keys, live, side, kind)
+                        where = f"n={n} nb={b.size} live={live} {kind}"
+                        assert torch.equal(keep, want_keep), where
+                        assert pos is None or torch.equal(pos, want_pos), where
+    torch.cuda.synchronize()
+
+
+def test_join_probe_refuses_what_it_cannot_read(card):
+    keys = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="live must lie"):
+        tprobe.join_probe(keys, 9, keys)
+    with pytest.raises(ValueError, match="uint32"):
+        tprobe.join_probe(keys.to(torch.int64), 8, keys)
+    out = torch.zeros(16, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="grs_join_probe"):  # keep not 16-byte aligned
+        _build.launch("grs_join_probe", keys, keys.data_ptr(), 8, 8, keys.data_ptr(), 8, None,
+                      out.data_ptr() + 4, 0)
+
+
+def test_join_probe_does_not_spill(card):
+    # ptxas's report of the kernel, built as the library builds it: no spill.
+    src = REPO / "gpuradixsort_tpu_torch" / "csrc" / "join_probe.cu"
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                           "/dev/null", str(src)], capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr
+    report = done.stdout + done.stderr
+    assert "join_probe_kernel" in report
+    spills = [line for line in report.splitlines() if "spill" in line]
+    assert spills and all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                          for line in spills), report
+
+
+@pytest.mark.parametrize("how", ["inner", "semi", "anti"])
+def test_join_on_card_probes_by_one_kernel(how, card, gen, monkeypatch):
+    # join of a chained selection (its rows past the length stale) on the
+    # card against the same on the CPU, whole output buffers: one join_probe
+    # launch, no torch.searchsorted, and the inner join's payloads gathered
+    # through int32 positions.
+    n = 3 * CFG.block + 11
+    keys = gen.integers(0, 6000, n, dtype=np.uint32)
+    keys[gen.random(n) < 0.01] = PAD_KEY
+    vals = gen.integers(-(2**31), 2**31, n).astype(np.int32)
+    cpu, dev = _table_pair(card, "k", keys, v=vals)
+    bkeys = gen.permutation(6000)[:1500].astype(np.uint32)
+    bkeys[0] = PAD_KEY
+    bcpu, bdev = _table_pair(card, "k", bkeys, bv=gen.integers(0, 99, 1500).astype(np.int32),
+                             bw=gen.integers(-9, 9, (1500, 3)).astype(np.int32))
+
+    def chained(t):
+        odd = tfilter.filter_table(t, lambda u: u["v"].data % 2 != 0, CFG).to_table()
+        return tfilter.filter_table(odd, lambda u: int32_bits(u["k"].data) % 5 != 0,
+                                    CFG).to_table()
+
+    probe_cpu, probe_dev = chained(cpu), chained(dev)
+    assert 0 < probe_dev.length < probe_dev["k"].padded_length
+    want = tjoin.join(probe_cpu, bcpu, "k", how, CFG, validate_unique=True)
+
+    def no_search(*args, **kwargs):
+        raise AssertionError("join searched with torch.searchsorted")
+
+    indices = []
+    gather = tjoin.gather_columns
+
+    def seen_gather(values, src, live=None, impl=None):
+        indices.append(src.dtype)
+        return gather(values, src, live, impl)
+
+    monkeypatch.setattr(torch, "searchsorted", no_search)
+    monkeypatch.setattr(tjoin, "gather_columns", seen_gather)
+    before = tprobe.join_probe.launches
+    got = tjoin.join(probe_dev, bdev, "k", how, CFG, validate_unique=True)
+    assert tprobe.join_probe.launches - before == 1
+    assert indices == ([torch.int32] if how == "inner" else [])
+    monkeypatch.undo()
+    assert int(got.count) == int(want.count)
+    _same_tables(want.table, got.table)
 
 
 def _table_pair(card, key, keys, **cols):

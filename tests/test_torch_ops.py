@@ -22,9 +22,10 @@ from gpuradixsort_tpu.ops import aggregate as jagg
 from gpuradixsort_tpu.ops import filter as jfilter
 from gpuradixsort_tpu.ops import join as jjoin
 from gpuradixsort_tpu.ops import sort as jsort
-from gpuradixsort_tpu_torch.config import EngineConfig
+from gpuradixsort_tpu_torch.config import PAD_KEY, EngineConfig
 from gpuradixsort_tpu_torch.core import table as ttable
 from gpuradixsort_tpu_torch.core.table import int32_bits
+from gpuradixsort_tpu_torch.kernels import probe as tprobe
 from gpuradixsort_tpu_torch.kernels import radix as tradix
 from gpuradixsort_tpu_torch.kernels import scan as tscan
 from gpuradixsort_tpu_torch.ops import aggregate as tagg
@@ -376,6 +377,90 @@ def test_join_with_a_2d_build_payload_matches_jax(n_probe, rng):
                      pval=rng.integers(0, 1 << 30, n_probe).astype(np.int32))
     _same_selection(tjoin.join(tp, tb, "key", "inner", CFG),
                     jjoin.join(jp, jb, "key", "inner", JCFG))
+
+
+@pytest.mark.parametrize("how", tjoin.JOIN_TYPES)
+def test_join_of_a_stale_probe_matches_jax(how, rng):
+    # A chained selection's table: its rows past the length hold the rows the
+    # filters dropped, not PAD_KEY.  The port searches them as PAD_KEY; the
+    # JAX join, fed the same probe with PAD_KEY past the length, agrees on
+    # every column's live prefix, and on the build payloads' whole buffers.
+    jb, tb, _, tp = _join_tables(rng)
+    odd = tfilter.filter_table(tp, lambda t: t["pval"].data % 2 == 1, CFG).to_table()
+    probe = tfilter.filter_table(odd, lambda t: _wide(t["key"].data) < 7_000, CFG).to_table()
+    n = probe.length
+    assert 0 < n < odd.length
+    assert bool((_wide(probe["key"].data[n:]) != PAD_KEY).any())
+    keys = int32_bits(probe["key"].data).clone()
+    keys[n:] = -1  # PAD_KEY
+    jp = jtable.Table({
+        "pval": jtable.Column(jnp.asarray(probe["pval"].data.numpy()), n),
+        "key": jtable.Column(jnp.asarray(keys.view(torch.uint32).numpy()), n),
+    })
+    want = jjoin.join(jp, jb, "key", how, JCFG)
+    got = tjoin.join(probe, tb, "key", how, CFG)
+    assert int(got.count) == int(want.count)
+    assert got.table.names() == want.table.names()
+    count = int(got.count)
+    for name in want.table.names():
+        g, w = got.table[name].data.numpy(), np.asarray(want.table[name].data)
+        assert got.table[name].length == want.table[name].length, name
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        whole = name.startswith("build_")
+        np.testing.assert_array_equal(g if whole else g[:count], w if whole else w[:count],
+                                      err_msg=name)
+    assert (how == "inner") == any(name.startswith("build_") for name in want.table.names())
+
+
+def _probe_oracle(keys, live, build, negate):
+    """The probe's rule by numpy: (pos, keep) of every row, PAD_KEY searched past ``live``."""
+    nb = build.size
+    found = np.searchsorted(build, np.append(keys[:live], np.uint32(PAD_KEY)), side="left")
+    safe = np.clip(found, 0, max(nb - 1, 0))
+    matched = (found[:live] < nb) & (build[safe[:live]] == keys[:live]) if nb else False
+    pos = np.full(keys.size, safe[-1], dtype=np.int32)
+    pos[:live] = safe[:live]
+    keep = np.zeros(keys.size, dtype=np.int32)
+    keep[:live] = matched != negate
+    return pos, keep
+
+
+@pytest.mark.parametrize("build_kind", ["none", "one", "unique", "pad_run"])
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.5, 1.0])
+def test_join_probe_plain_version(build_kind, share, rng):
+    # join_probe's plain version (what join runs on the CPU) against numpy:
+    # build sides of 0, 1 and 600 keys (keys at and above 2^31, PAD_KEY a
+    # live key) and one ending in a run of three PAD_KEYs (a semi join's
+    # build may repeat keys), probes of 0-100% live with stale rows past the
+    # length, hits, misses and PAD_KEY among the live keys; with and without
+    # positions, negated and not.
+    nb = {"none": 0, "one": 1, "unique": 600, "pad_run": 603}[build_kind]
+    build = np.unique(rng.integers(0, 2**32, 4 * nb + 8, dtype=np.uint32))
+    build = rng.permutation(build)[: min(nb, 600)]
+    if build_kind == "unique":
+        build[0] = PAD_KEY
+    build = np.sort(np.append(build, [PAD_KEY] * (nb - build.size)).astype(np.uint32))
+    n = 3 * CFG.block + 11
+    live = n if share == 1.0 else int(n * share) + (5 if share else 0)
+    keys = rng.integers(0, 2**32, n, dtype=np.uint32)  # misses, half of them >= 2^31
+    if nb:
+        hits = rng.random(n) < 0.5
+        keys[hits] = build[rng.integers(0, nb, int(hits.sum()))]
+    keys[rng.random(n) < 0.02] = PAD_KEY
+    for positions in (True, False):
+        for negate in (False, True):
+            pos, keep = tprobe.join_probe(torch.from_numpy(keys), live, torch.from_numpy(build),
+                                          positions, negate)
+            want_pos, want_keep = _probe_oracle(keys, live, build, negate)
+            assert keep.dtype == torch.int32
+            np.testing.assert_array_equal(keep.numpy(), want_keep)
+            if positions:
+                assert pos.dtype == torch.int32
+                np.testing.assert_array_equal(pos.numpy(), want_pos)
+            else:
+                assert pos is None
+    if build_kind == "pad_run" and live < n:
+        assert want_pos[-1] == nb - 3  # the pad rows' position: the first of the PAD_KEY run
 
 
 def test_join_rejects_duplicates_and_unknown_types():

@@ -209,6 +209,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     assert {src.name for src in _build.sources()} == {
         "radix_hist.cu", "bucketize.cu", "scatter_runs.cu", "bucketize_scatter.cu",
         "radix_dest.cu", "scan.cu", "sort_plan.cu", "segment_agg.cu", "gather_rows.cu",
+        "join_probe.cu",
     }
 
 

@@ -24,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 import gpuradixsort_tpu_torch.utils
 from gpuradixsort_tpu_torch.core.table import Column, Table, make_column, make_key_column
+from gpuradixsort_tpu_torch.kernels import probe as probe_kernels
 from gpuradixsort_tpu_torch.ops import sort as tsort
 from gpuradixsort_tpu_torch.ops.aggregate import aggregate_sorted_flat, group_by_aggregate
 from gpuradixsort_tpu_torch.ops.filter import filter_table
@@ -154,7 +155,9 @@ def _live(n: int, padded: int) -> Table:
 
 
 # The fused sort walks its live partitions of 4,096 rows (sort_plan.lookback_rows),
-# the radix method the whole padded buffer.
+# the radix method the whole padded buffer; join's probe its live rows rounded up
+# to its kernel's tile (TILE), join_expand's searches the whole padded probe.
+TILE = probe_kernels.TILE_ROWS
 ROWS = {
     "filter": (lambda: filter_table(_live(1000, 8192), lambda t: t["v"].data % 2 == 0),
                {"compact": (1000, 8192)}),
@@ -167,9 +170,9 @@ ROWS = {
                              {"sort": (10, 4096)}),
     "join_inner": (lambda: join(_live(1000, 8192), _live(300, 16384), "k"),
                    {"sort": (300, 4096), "gather": (300 + 1000, 16384 + 8192),
-                    "probe": (1000, 8192), "compact": (1000, 8192)}),
+                    "probe": (1000, TILE), "compact": (1000, 8192)}),
     "join_semi": (lambda: join(_live(1000, 8192), _live(300, 16384), "k", how="semi"),
-                  {"sort": (300, 4096), "gather": (300, 16384), "probe": (1000, 8192),
+                  {"sort": (300, 4096), "gather": (300, 16384), "probe": (1000, TILE),
                    "compact": (1000, 8192)}),
     "join_expand": (lambda: join_expand(_live(1000, 8192), _live(300, 8192), "k"),
                     {"sort": (300, 4096), "gather": (300, 8192), "probe": (2000, 16384)}),
@@ -207,6 +210,36 @@ def test_gather_filled_counts_pad_rows(call):
     assert trace.counters()["gather_filled"] == want
     trace.reset()
     assert trace.counters()["gather_filled"] == 0
+
+
+# Pad rows join's probe writes without a search, its keys unread: the padded
+# probe past the live rows rounded up to a tile.
+PROBE_FILLED = {
+    "join_inner": (ROWS["join_inner"][0], 8192 - TILE),
+    "join_semi": (ROWS["join_semi"][0], 8192 - TILE),
+    "join_anti_none_live": (lambda: join(_live(0, 8192), _live(300, 16384), "k", how="anti"),
+                            8192),
+    "join_all_live": (lambda: join(_live(8192, 8192), _live(300, 16384), "k"), 0),
+    "join_off_tile": (lambda: join(_live(TILE + 1, 4 * TILE), _live(300, 16384), "k"),
+                      2 * TILE),
+    "join_expand": (ROWS["join_expand"][0], 0),
+    "sort_table": (ROWS["sort_table"][0], 0),
+}
+
+
+@pytest.mark.parametrize("call", PROBE_FILLED)
+def test_probe_filled_counts_unsearched_pad_rows(call):
+    fn, want = PROBE_FILLED[call]
+    trace.reset()
+    fn()
+    snap = trace.counters()
+    assert snap["probe_filled"] == want
+    if call.startswith("join_") and call != "join_expand":  # with the walked rows, the probe
+        live, walked = snap["rows"]["probe"]
+        assert walked + want == (4 * TILE if call == "join_off_tile" else 8192)
+        assert 0 <= walked - live < TILE
+    trace.reset()
+    assert trace.counters()["probe_filled"] == 0
 
 
 def test_reset_zeroes_rows_and_captures():
